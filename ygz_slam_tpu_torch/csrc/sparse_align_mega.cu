@@ -1,0 +1,228 @@
+// K3: coarse-to-fine sparse-direct alignment, every pyramid level's
+// Gauss-Newton loop in one kernel.
+//
+// Replaces ygz_slam_tpu/ops/pallas/sparse_align_mega.py::sparse_align_mega
+// (_mega_kernel).  The math is the TPU kernel's: windows fetched once at
+// the frame-init pose (K1, SLACK 5 px per level), 4x4 patches bilinearly
+// sampled inside them, points whose support leaves the window masked,
+// per level a 6x6 Hessian frozen at the level-init pose and factored
+// once, then up to n_iter substitution-only iterations with rollback on
+// a chi2 increase, a stop at max|dx| < eps and the right retraction
+// T <- T * exp(dx) by the Taylor series.  The TPU layout (lane-packed
+// windows, bit-masked roll chains, [1,1] splat scalars) is gone: a thread
+// reads its point's 5x5 support with ordinary indexed loads.
+//
+// Bound: neither bytes nor operations.  One frame reads ~0.6 MB of
+// windows, patches and Jacobians (well under a microsecond at 3.35 TB/s)
+// and does a few MFLOP; the time is the serial chain of dependent
+// iterations, each one residual pass and one block-wide reduction.  So
+// the whole chain runs in one CTA (no grid-wide synchronisation, no
+// host round trip): threads own points, every iteration ends in a block
+// sum that all threads receive, and each thread then solves the 6x6
+// system redundantly in registers, so the pose never leaves registers.
+#include "common.cuh"
+
+using namespace ygz;
+
+namespace {
+
+constexpr int kCwin = 16;           // window side
+constexpr int kPatch = 4;           // 4x4 patch
+constexpr int kNpix = kPatch * kPatch;
+constexpr float kMaxPos = kCwin - (kPatch + 1);  // 11: support must fit
+constexpr float kHalf = 1.5f;       // patch grid arange(4) - 1.5
+constexpr float kMargin = 4.f;      // in_bounds margin PATCH_HALF + 2
+
+struct Cam {
+  float fx, fy, cx, cy, k1, k2, p1, p2;
+};
+
+struct Level {
+  const float* wins;  // [N, 16, 16]
+  const float* refp;  // [N, 16]
+  const float* jac;   // [N, 16, 6]
+  const float* vis;   // [N]
+  const int* ox;      // [N]
+  const int* oy;      // [N]
+  float scale, Hl, Wl;
+};
+
+// Pixel of point i at pose (R, t) on the level, and whether it is usable
+// there (visible, in front, inside the image margins).
+__device__ __forceinline__ bool project(const float R[9], const float t[3],
+                                        const float* __restrict__ pref, int i,
+                                        const Cam& c, const Level& lv, float& u,
+                                        float& v) {
+  const float px = pref[3 * i], py = pref[3 * i + 1], pz = pref[3 * i + 2];
+  const float x = R[0] * px + R[1] * py + R[2] * pz + t[0];
+  const float y = R[3] * px + R[4] * py + R[5] * pz + t[1];
+  const float z = R[6] * px + R[7] * py + R[8] * pz + t[2];
+  const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
+  const float xn = x / zs, yn = y / zs;
+  const float r2 = xn * xn + yn * yn;
+  const float radial = 1.f + c.k1 * r2 + c.k2 * r2 * r2;
+  const float xd = xn * radial + 2.f * c.p1 * xn * yn + c.p2 * (r2 + 2.f * xn * xn);
+  const float yd = yn * radial + c.p1 * (r2 + 2.f * yn * yn) + 2.f * c.p2 * xn * yn;
+  u = (c.fx * lv.scale) * xd + c.cx * lv.scale;
+  v = (c.fy * lv.scale) * yd + c.cy * lv.scale;
+  return lv.vis[i] > 0.5f && z > 1e-3f && u >= kMargin && u < lv.Wl - 1.f - kMargin &&
+         v >= kMargin && v < lv.Hl - 1.f - kMargin;
+}
+
+// Window-relative support origin of point i; false when the support
+// leaves the window (the point is masked, not clamped).
+__device__ __forceinline__ bool in_window(const Level& lv, int i, float u, float v,
+                                          float& fx, float& fy) {
+  fx = u - kHalf - (float)lv.ox[i];
+  fy = v - kHalf - (float)lv.oy[i];
+  return fx >= 0.f && fx <= kMaxPos && fy >= 0.f && fy <= kMaxPos;
+}
+
+// Frozen Hessian (21 upper-triangular sums) at pose (R, t).
+__device__ void hessian(const float R[9], const float t[3], const float* pref, int N,
+                        const Cam& c, const Level& lv, float (&h)[21], float* smem) {
+#pragma unroll
+  for (int k = 0; k < 21; ++k) h[k] = 0.f;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    float u, v, fx, fy;
+    if (!project(R, t, pref, i, c, lv, u, v) || !in_window(lv, i, u, v, fx, fy)) continue;
+    const float* J = lv.jac + (size_t)i * kNpix * 6;
+    for (int p = 0; p < kNpix; ++p) {
+      int k = 0;
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int b = a; b < 6; ++b) h[k++] += J[6 * p + a] * J[6 * p + b];
+    }
+  }
+  block_sum<21>(h, smem);
+}
+
+// Gradient b = -sum J r and chi2 = sum r^2 / max(#pixels used, 1) at
+// pose (R, t).
+__device__ void residual_pass(const float R[9], const float t[3], const float* pref,
+                              int N, const Cam& c, const Level& lv, float bv[6],
+                              float& chi2, float* smem) {
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    float u, v, fx, fy;
+    if (!project(R, t, pref, i, c, lv, u, v) || !in_window(lv, i, u, v, fx, fy)) continue;
+    const float x0 = floorf(fx), y0 = floorf(fy);
+    const float ax = fx - x0, ay = fy - y0;
+    const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
+    const float w10 = (1.f - ax) * ay, w11 = ax * ay;
+    const float* w = lv.wins + (size_t)i * kCwin * kCwin + (int)y0 * kCwin + (int)x0;
+    const float* rp = lv.refp + (size_t)i * kNpix;
+    const float* J = lv.jac + (size_t)i * kNpix * 6;
+#pragma unroll
+    for (int r = 0; r < kPatch; ++r)
+#pragma unroll
+      for (int q = 0; q < kPatch; ++q) {
+        const float* s = w + r * kCwin + q;
+        const float cur = w00 * s[0] + w01 * s[1] + w10 * s[kCwin] + w11 * s[kCwin + 1];
+        const float res = cur - rp[r * kPatch + q];
+        const int p = r * kPatch + q;
+#pragma unroll
+        for (int a = 0; a < 6; ++a) acc[a] -= J[6 * p + a] * res;
+        acc[6] += res * res;
+      }
+    acc[7] += (float)kNpix;
+  }
+  block_sum<8>(acc, smem);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) bv[a] = acc[a];
+  chi2 = acc[6] / fmaxf(acc[7], 1.f);
+}
+
+__global__ void __launch_bounds__(1024)
+sparse_align_mega_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
+                         const float* __restrict__ jac, const float* __restrict__ pref,
+                         const float* __restrict__ lvis, const int* __restrict__ ox,
+                         const int* __restrict__ oy, const float* __restrict__ pose0,
+                         float* __restrict__ out, int N, int L, int H0, int W0, Cam cam,
+                         int n_iter, float eps) {
+  __shared__ float smem[kMaxWarps * 21];
+  float R[9], t[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[k] = pose0[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
+  float chi2 = 0.f;
+  for (int li = L - 1; li >= 0; --li) {
+    int Hl = H0, Wl = W0;
+    for (int k = 0; k < li; ++k) { Hl = (Hl + 1) / 2; Wl = (Wl + 1) / 2; }
+    Level lv;
+    lv.wins = wins + (size_t)li * N * kCwin * kCwin;
+    lv.refp = refp + (size_t)li * N * kNpix;
+    lv.jac = jac + (size_t)li * N * kNpix * 6;
+    lv.vis = lvis + (size_t)li * N;
+    lv.ox = ox + (size_t)li * N;
+    lv.oy = oy + (size_t)li * N;
+    lv.scale = 1.f / (float)(1 << li);
+    lv.Hl = (float)Hl;
+    lv.Wl = (float)Wl;
+
+    float h[21], Lc[6][6];
+    hessian(R, t, pref, N, cam, lv, h, smem);
+    chol6(h, Lc);
+    float bv[6];
+    residual_pass(R, t, pref, N, cam, lv, bv, chi2, smem);
+    bool stop = false;
+    for (int it = 0; !stop && it < n_iter; ++it) {
+      float dx[6];
+      subst6(Lc, bv, dx);
+      float amax = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) amax = fmaxf(amax, fabsf(dx[k]));
+      const bool conv = amax < eps;
+      float Re[9], te[3], Rn[9], tn[3];
+      exp_se3_taylor(dx, Re, te);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          Rn[3 * i + j] = R[3 * i] * Re[j] + R[3 * i + 1] * Re[3 + j] + R[3 * i + 2] * Re[6 + j];
+        tn[i] = R[3 * i] * te[0] + R[3 * i + 1] * te[1] + R[3 * i + 2] * te[2] + t[i];
+      }
+      float bn[6], chi2n;
+      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, smem);
+      const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
+      if (!worse) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) t[k] = tn[k];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) bv[k] = bn[k];
+        chi2 = chi2n;
+      }
+      stop = worse || conv;
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) out[k] = R[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[9 + k] = t[k];
+    out[12] = chi2;
+  }
+}
+
+}  // namespace
+
+extern "C" int sparse_align_mega_launch(const float* wins, const float* refp,
+                                        const float* jac, const float* pref,
+                                        const float* lvis, const int* ox, const int* oy,
+                                        const float* pose0, float* out, int N, int L,
+                                        int H0, int W0, float fx, float fy, float cx,
+                                        float cy, float k1, float k2, float p1, float p2,
+                                        int n_iter, float eps, int threads,
+                                        cudaStream_t stream) {
+  const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
+  sparse_align_mega_kernel<<<1, threads, 0, stream>>>(wins, refp, jac, pref, lvis, ox, oy,
+                                                      pose0, out, N, L, H0, W0, cam,
+                                                      n_iter, eps);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,107 @@
+"""SO(3) operations on rotation matrices, batched over leading dims.
+
+Counterpart of ygz_slam_tpu/geometry/so3.py: the same formulas and
+small-angle guards, in float32 tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> skew-symmetric [..., 3, 3]."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([z, -wz, wy], dim=-1),
+        torch.stack([wz, z, -wx], dim=-1),
+        torch.stack([-wy, wx, z], dim=-1),
+    ], dim=-2)
+
+
+def _eye_like(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: tangent [..., 3] -> rotation [..., 3, 3]."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _EPS
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2_safe)
+    W = hat(w)
+    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation [..., 3, 3] -> tangent [..., 3] (trace formula with a
+    small-angle guard and the near-pi axis extraction)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    theta2 = theta * theta
+    sin_t = torch.sin(theta)
+    small = theta < 1e-4
+    factor = torch.where(small, 0.5 + theta2 / 12.0,
+                         theta / (2.0 * torch.clamp(sin_t, min=_EPS)))
+    w_skew = torch.stack([
+        R[..., 2, 1] - R[..., 1, 2],
+        R[..., 0, 2] - R[..., 2, 0],
+        R[..., 1, 0] - R[..., 0, 1],
+    ], dim=-1)
+    w = factor[..., None] * w_skew
+    near_pi = theta > math.pi - 1e-3
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis2 = torch.clamp((diag + 1.0) * 0.5, min=0.0)
+    RpI = R + _eye_like(R)
+    major = torch.argmax(axis2, dim=-1)
+    idx = major[..., None, None].expand(R.shape[:-2] + (3, 1))
+    col = torch.gather(RpI, -1, idx)[..., 0]
+    norm = torch.linalg.norm(col, dim=-1, keepdim=True)
+    w_pi = col / torch.clamp(norm, min=_EPS) * theta[..., None]
+    return torch.where(near_pi[..., None], w_pi, w)
+
+
+def to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """Rotation [..., 3, 3] -> unit quaternion [..., 4] (w, x, y, z), w >= 0
+    (Shepperd's method, branch-free)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    cands = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+    ], dim=-2)
+    idx = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(
+        idx.shape + (1, 4)))[..., 0, :]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def from_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [..., 4] (w, x, y, z) -> rotation [..., 3, 3]."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

@@ -1,0 +1,55 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.  Every kernel wrapper launches its kernel for CUDA tensors, runs
+the plain version for CPU tensors and raises for any other device; it
+counts its launches in a `launches` attribute."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+            device: torch.device) -> None:
+    """Raise unless `t` is a contiguous tensor of this dtype, shape and
+    device (the checks every launch makes before passing a pointer)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def launch(lib_name: str, fn_name: str, argtypes: list, *args) -> None:
+    """Call the C launch function `fn_name` of csrc/<lib_name>.cu (typed
+    with `argtypes`); raise if it returns a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    fn = getattr(_build.library(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{fn_name}: CUDA error {err}")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+Fl = ctypes.c_float
