@@ -7,21 +7,31 @@ Phases, each raising (and so exiting non-zero) on failure:
 
 1. Header: the card's name and power limit, torch and CUDA versions, and
    the nvcc build of every kernel in ygz_slam_tpu_torch/csrc.
-2. Kernel versus plain version: each kernel of the tracking step (K1
-   gather_windows, K3 sparse_align_mega, K4 align2d_fused, K5
-   pose_ba_fused) is called on the inputs the main path gives it on
-   frame 1 of the workload and held against its plain PyTorch version on
-   the same inputs, at the stated tolerance; K3-K5 again at 512
-   landmarks.  Kernel times are medians of per-launch CUDA-event
-   intervals with the host's enqueue hidden behind a sleep kernel.
-3. Main path: the 640x480 / 200-landmark tracking workload, rendered on
-   the card, through `track_frames`, every frame held to the accuracy
-   gate; the launch counters must show K3, K4 and K5 once per frame and
-   K1 four times per frame.
-4. A short torch.profiler window over the main path: device busy share
+2. Kernel versus plain version, at the stated tolerances.  Kernel times
+   are medians of per-launch CUDA-event intervals with the host's enqueue
+   hidden behind a sleep kernel.
+   a. The single-sequence tracking step's kernels (K1 gather_windows, K3
+      sparse_align_mega, K4 align2d_fused, K5 pose_ba_fused) on the inputs
+      that path gives them on frame 1 of its workload; K3-K5 again at 512
+      landmarks; K1 with origins off the image.
+   b. The batch path's kernels (K6 gather_windows_grouped, K3 on K6's
+      windows, K2 gather_windows_multi, K4 over all S*N rows, K8
+      pose_ba_fused_batch) on that path's frame-1 inputs at S=8; K2, K6
+      and K8 again at S=16; K2 and K6 with origins off the image, K6 with
+      a request list that names one image twice.
+3. Main path 1: the 640x480 / 200-landmark tracking workload, rendered on
+   the card, through `tracking.track_frames`, every frame held to the
+   accuracy gate; the launch counters must show K3, K4 and K5 once per
+   frame, K1 four times per frame and the batch kernels never.
+4. Main path 2: bench_batch.py's workload, S=8 sequences x 60 frames,
+   through `batch.track_batch_frames`, every sequence's every frame held
+   to the gate; the counters must show K6 and K3 S times per frame, K2,
+   K4 and K8 once per frame, K1 and K5 never.  Aggregate frames/s is the
+   median of 3 further runs.
+5. A short torch.profiler window over each main path: device busy share
    and the kernels that take the most device time.
-5. One JSON line {"kernels": [...]}, then the last line
-   {"ok": true, "device": {...}}.
+6. One JSON line {"kernels": [...]} (launches summed over both main
+   paths), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -36,6 +46,9 @@ import sys
 import time
 
 N_FRAMES = 240
+S_BATCH = 8              # bench_batch.py's defaults: 8 sequences x 60 frames
+F_BATCH = 60
+S_BIG = 16               # BASELINE.json config 5: 16 concurrent sequences
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -44,14 +57,15 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # Tolerances, kernel versus plain version on the same inputs.  The two
 # sum in different orders (warp shuffles versus PyTorch reductions) and
 # the kernels contract multiply-adds, so results differ in float32
-# rounding only: ~1e-6 relative in each normal equation.
-TOL_POSE = 1e-4         # K3/K5 pose distance: rounding can move a pose by
-                        # a fraction of the 1e-4 stopping step
+# rounding only: ~1e-6 relative in each normal equation.  The gathers
+# (K1, K2, K6) copy and must be exact.
+TOL_POSE = 1e-4         # K3/K5/K8 pose distance: rounding can move a pose
+                        # by a fraction of the 1e-4 stopping step
 TOL_XY = 1e-3           # K4, px, on >= 98% of the points both accept;
 TOL_XY_ALL = 0.05       # all of them within 0.05 px: a 0.03 px freeze
                         # decision may flip on rounding and skip one step
 MIN_MASK_AGREE = 0.98   # K4 acceptance masks
-MIN_INLIER_AGREE = 0.99  # K5 inlier sets
+MIN_INLIER_AGREE = 0.99  # K5/K8 inlier sets
 
 
 def _run(cmd):
@@ -92,7 +106,36 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _profile(torch, fn, n, label):
+    """Device busy share and top kernels of fn() (n frames) under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue                     # device-side events only: no double count
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt, e.key, e.count))
+    busy_us = sum(r[0] for r in rows)
+    print(f"profile {label}: {n} frames, wall {wall * 1e3 / n:.3f} ms/frame, "
+          f"device busy {busy_us / n / 1e3:.3f} ms/frame ({busy_us / (wall * 1e6):.3f} of wall), "
+          f"{sum(r[2] for r in rows) / n:.1f} device kernels/frame")
+    for dt, key, count in sorted(rows, reverse=True)[:10]:
+        print(f"  {dt / n:9.2f} us/frame  {count / n:6.1f}/frame  {key[:90]}")
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -108,26 +151,30 @@ def main() -> int:
     from ygz_slam_tpu_torch import _build
     from ygz_slam_tpu_torch.geometry import se3
     from ygz_slam_tpu_torch.geometry.se3 import SE3
+    from ygz_slam_tpu_torch.models import batch as bm
     from ygz_slam_tpu_torch.models import tracking as tr
-    from ygz_slam_tpu_torch.ops import pyramid
+    from ygz_slam_tpu_torch.ops import pyramid, sparse_align
     from ygz_slam_tpu_torch.ops.kernels import align2d_fused as k4
     from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k1
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as k5
+    from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as k8
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as k3
     from ygz_slam_tpu_torch.ops.align import accepted, align2d, substitute_inits
+    from ygz_slam_tpu_torch.parallel import batch_tracking as bt
 
     # -- 1. header ------------------------------------------------------
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(card.splitlines()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.sources())} sources "
+    print(f"build: {time.perf_counter() - t_start:.2f} s for {len(_build.sources())} sources "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
     dev = torch.device("cuda")
+    L = tr.N_LEVELS
 
-    # -- 2. kernel versus plain version ---------------------------------
+    # -- 2a. single-sequence kernels versus plain versions -------------------
     t0 = time.perf_counter()
     cam, px, depth, mask, pts_w, patches, ref_pyr, frames, T_gt7 = tr.make_workload(
         N_FRAMES, dev)
@@ -138,10 +185,10 @@ def main() -> int:
 
     def frame_inputs(st, img, T_init):
         """Each kernel's inputs on one frame of the main path."""
-        cur_pyr = pyramid.build_pyramid(img, tr.N_LEVELS)
-        a3, _, _ = k3.mega_args(cur_pyr, st.ref_prep.levels, st.ref_prep.p_ref, T_init.R,
-                                T_init.t, st.cam, False, tr.N_LEVELS,
-                                st.ref_prep.mega_refp, st.ref_prep.mega_jl)
+        cur_pyr = pyramid.build_pyramid(img, L)
+        a3, _ = k3.mega_args(cur_pyr, st.ref_prep.levels, st.ref_prep.p_ref, T_init.R,
+                             T_init.t, st.cam, False, L, st.ref_prep.mega_refp,
+                             st.ref_prep.mega_jl)
         T_sa = SE3(*_pose_of(k3.mega_gn(*a3)))
         proj = st.cam.world_to_pixel(st.pts_w, T_sa, distorted=False)
         ares = align2d(cur_pyr[0], st.patches, proj, prep=st.a2d_prep)
@@ -149,7 +196,7 @@ def main() -> int:
         xy0s, inb0 = substitute_inits(proj, H, W)
         a4 = k4.a2d_args(cur_pyr[0], st.a2d_prep, xy0s)
         a5 = k5.pose_ba_args(T_sa, st.pts_w, ares.xy, ares.converged & st.mask, st.cam)
-        g1 = [(cur_pyr[li], a3[5][li], a3[6][li], k3.CWIN) for li in range(tr.N_LEVELS)]
+        g1 = [(cur_pyr[li], a3[5][li], a3[6][li], k3.CWIN) for li in range(L)]
         g1.append((cur_pyr[0], a4[5], a4[6], k1.CACHE_WIN))
         return g1, a3, (a4, proj, inb0, H, W), a5
 
@@ -157,14 +204,29 @@ def main() -> int:
         return out[:9].reshape(3, 3), out[9:12]
 
     report = {}
+    rng = np.random.default_rng(7)
 
-    def check_k1(g1, tag):
+    def off_image(xi, yi, H, W, win):
+        """Copies of int32 origins [N] with a third of them drawn from
+        [-40, W+10] x [-40, H+10], corners beyond W - win / H - win planted."""
+        xo, yo = xi.clone(), yi.clone()
+        n = xi.shape[0] // 3
+        xs = rng.integers(-40, W + 11, n)
+        ys = rng.integers(-40, H + 11, n)
+        xs[:4], ys[:4] = [-3, W - win + 3, -win - 2, 5], [H - win + 2, -2, 5, H + 4]
+        xo[:n] = torch.tensor(xs, dtype=torch.int32, device=xi.device)
+        yo[:n] = torch.tensor(ys, dtype=torch.int32, device=yi.device)
+        return xo, yo
+
+    def check_k1(g1, tag, with_library=True):
         err = 0.0
         for img, ox, oy, win in g1:
             a = k1.gather_windows(img, ox, oy, win)
             b = k1.gather_windows_plain(img, ox, oy, win)
-            lib = img.unfold(0, win, 1).unfold(1, win, 1)[oy.long(), ox.long()]
-            err = max(err, float((a - b).abs().max()), float((a - lib).abs().max()))
+            err = max(err, float((a - b).abs().max()))
+            if with_library:
+                lib = img.unfold(0, win, 1).unfold(1, win, 1)[oy.long(), ox.long()]
+                err = max(err, float((a - lib).abs().max()))
         print(f"K1 gather_windows {tag}: max |kernel - plain| = {err} (tolerance 0, exact copy)")
         if err != 0.0:
             raise AssertionError("K1 disagrees with its plain version")
@@ -226,7 +288,6 @@ def main() -> int:
 
     # Times and bounds at the main path's shapes.
     N = px.shape[0]
-    L = tr.N_LEVELS
     k1_ms = sum(_time_kernel(torch, lambda g=g: k1.gather_windows(*g)) for g in g1)
     k1_plain = sum(_time_host(torch, lambda g=g: k1.gather_windows_plain(*g)) for g in g1)
     # Yardstick: one advanced-indexing gather on int64 origins made beforehand.
@@ -271,28 +332,179 @@ def main() -> int:
     check_k3(a3_5, "N=512")
     check_k4(a4_5, "N=512")
     check_k5(a5_5, "N=512")
+    # K1 off the image: the zero-padded window at the requested origin.
+    check_k1([(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g1],
+             "origins off the image", with_library=False)
 
-    # -- 3. main path -----------------------------------------------------
-    counters = (k1.gather_windows, k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn)
-    T0 = SE3.identity(device=dev).params7()
-    for c in counters:
-        c.launches = 0
+    # -- 2b. batch kernels versus plain versions -----------------------------
+    def batch_frame_inputs(bst, imgs, T7):
+        """Each batch kernel's inputs on one frame of the batch path, from
+        that path's own stages: (K6 request lists per sequence, K3 args per
+        sequence, K2 args, K4 inputs, K8 args)."""
+        cur_pyrs = pyramid.build_pyramid(imgs, L)
+        H, W = imgs.shape[1:]
+        g6, a3s = [], []
+        for s, prep in enumerate(bst.ref_preps):
+            cp = tuple(c[s] for c in cur_pyrs)
+            T0 = SE3.from_params7(T7[s])
+            g6.append(k3.mega_window_requests(cp, prep.p_ref, T0.R, T0.t, bst.cam, bt.DISTORTED,
+                                              L)[2])
+            fw = sparse_align.gather_frame_windows(cp, bst.cam, prep, T0, distorted=bt.DISTORTED)
+            a3s.append(k3.mega_args(cp, prep.levels, prep.p_ref, T0.R, T0.t, bst.cam,
+                                    bt.DISTORTED, L, prep.mega_refp, prep.mega_jl,
+                                    pregathered=fw.mega_wins)[0])
+        T = bt.batched_sparse_align(bst.ref_pyrs, cur_pyrs, bst.cam, bst.px, bst.depth,
+                                    bst.mask, SE3.from_params7(T7), bst.ref_preps)
+        proj = bt.project_landmarks(bst.cam, bst.pts_w, T)
+        a2, xy0, xy0s, inb0 = bt.batched_align2d_inputs(cur_pyrs[0], proj)
+        a4b = k4.a2d_args(cur_pyrs[0][0], bst.a2d_prep, xy0s,
+                          pregathered=k4.A2DWindows(k1.gather_windows_multi(*a2), a2[2], a2[3]))
+        xy, conv, _ = bt.batched_align2d(cur_pyrs[0], proj, bst.a2d_prep)
+        a8 = k8.pose_ba_batch_args(*bt.batched_pose_ba_inputs(T, bst.pts_w, xy, conv, bst.mask,
+                                                              bst.cam))
+        return g6, a3s, a2, (a4b, xy0, inb0, H, W), a8
+
+    def check_exact(name, out, ref, tag):
+        err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(out, ref))
+        print(f"{name} {tag}: max |kernel - plain| = {err} (tolerance 0, exact copy)")
+        if err != 0.0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return err
+
+    def check_k2(a2, tag):
+        imgs, idx, ox, oy, win = a2
+        H, W = imgs.shape[1:]
+        e = check_exact("K2 gather_windows_multi", [k1.gather_windows_multi(*a2)],
+                        [k1.gather_windows_multi_plain(*a2)], tag)
+        off = (imgs, idx, *off_image(ox, oy, H, W, win), win)
+        check_exact("K2 gather_windows_multi", [k1.gather_windows_multi(*off)],
+                    [k1.gather_windows_multi_plain(*off)], tag + ", origins off the image")
+        return e
+
+    def check_k6(g6, a2, tag):
+        e = check_exact("K6 gather_windows_grouped", k1.gather_windows_grouped(g6[0]),
+                        k1.gather_windows_grouped_plain(g6[0]), tag)
+        # Level 0 named twice (its 16^2 windows and the a2d 32^2 cache of
+        # the same frame), every origin list partly off the image.
+        img0 = g6[0][0][0]
+        twice = [(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g6[0]]
+        twice.append((img0, *off_image(a2[2][:200], a2[3][:200], *img0.shape, k1.CACHE_WIN),
+                      k1.CACHE_WIN))
+        check_exact("K6 gather_windows_grouped", k1.gather_windows_grouped(twice),
+                    k1.gather_windows_grouped_plain(twice),
+                    tag + ", level 0 named twice, origins off the image")
+        return e
+
+    def check_k8(a8, tag):
+        out, inl = k8.pose_ba_batch_gn(*a8)
+        stats = {}
+        ref, inl_ref = k8.pose_ba_batch_gn_plain(*a8, stats=stats)
+        S = out.shape[0]
+        d = max(float(se3.distance(SE3(*_pose_of(out[s])), SE3(*_pose_of(ref[s]))))
+                for s in range(S))
+        err = float((out[:, :12] - ref[:, :12]).abs().max())
+        agree = float(((inl > 0.5) == (inl_ref > 0.5)).float().mean(dim=1).min())
+        print(f"K8 pose_ba_fused_batch {tag}: max pose distance {d:.3e} (tolerance {TOL_POSE}), "
+              f"max |R,t diff| {err:.3e}, inliers per sequence "
+              f"{(inl > 0.5).sum(dim=1).tolist()} vs {(inl_ref > 0.5).sum(dim=1).tolist()}, "
+              f"least set agreement {agree:.4f} (need {MIN_INLIER_AGREE}), "
+              f"normal equations {stats['normal_eqs']}")
+        if not (d <= TOL_POSE and agree >= MIN_INLIER_AGREE):
+            raise AssertionError("K8 disagrees with its plain version")
+        return err, stats
+
+    t0 = time.perf_counter()
+    wl_b = bm.make_batch_workload(S_BATCH, F_BATCH, dev)
     torch.cuda.synchronize()
+    print(f"batch workload: {S_BATCH} sequences x {F_BATCH} frames 640x480, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cam_b, px_b, depth_b, mask_b, ptsw_b, patches_b, ref_pyrs_b, frames_b, T_gt7_b = wl_b
+    bstate = bm.make_batch_state(cam_b, ref_pyrs_b, px_b, depth_b, mask_b, ptsw_b, patches_b)
+    T7_1 = T_gt7_b[0][None].repeat(S_BATCH, 1)
+    g6, a3s, a2, a4b, a8 = batch_frame_inputs(bstate, frames_b[1], T7_1)
+    tag = f"S={S_BATCH}"
+    e6 = check_k6(g6, a2, tag)
+    for s, a in enumerate(a3s):
+        check_k3(a, f"{tag} sequence {s}, K6's windows")
+    e2 = check_k2(a2, tag)
+    check_k4(a4b, f"{tag}, {S_BATCH * N} rows on K2's windows")
+    e8, st8 = check_k8(a8, tag)
+
+    Nb = S_BATCH * N
+    k2_ms = _time_kernel(torch, lambda: k1.gather_windows_multi(*a2))
+    k2_plain = _time_host(torch, lambda: k1.gather_windows_multi_plain(*a2))
+    lib2 = (a2[0], a2[1].long(), a2[3].long(), a2[2].long(), a2[4])
+    k2_lib = _time_kernel(torch, lambda: lib2[0].unfold(1, lib2[4], 1).unfold(2, lib2[4], 1)
+                          [lib2[1], lib2[2], lib2[3]])
+    report["K2"] = dict(ms=k2_ms, plain=k2_plain, lib=k2_lib, err=e2,
+                        bound=_bound(Nb * (2 * 32 * 32 * 4 + 12), 0.0))
+    k6_ms = _time_kernel(torch, lambda: k1.gather_windows_grouped(g6[0]))
+    k6_plain = _time_host(torch, lambda: k1.gather_windows_grouped_plain(g6[0]))
+    g6_lib = [(img, oy.long(), ox.long(), win) for img, ox, oy, win in g6[0]]
+    k6_lib = sum(_time_kernel(torch, lambda g=g: g[0].unfold(0, g[3], 1).unfold(1, g[3], 1)
+                              [g[1], g[2]]) for g in g6_lib)
+    report["K6"] = dict(ms=k6_ms, plain=k6_plain, lib=k6_lib, err=e6,
+                        bound=_bound(sum(N * (2 * g[3] * g[3] * 4 + 8) for g in g6[0]), 0.0))
+    k8_ms = _time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8))
+    k8_plain = _time_host(torch, lambda: k8.pose_ba_batch_gn_plain(*a8))
+    k8_bytes = S_BATCH * (N * (12 + 8 + 4) + 48 + N * 4 + 52)
+    k8_flops = sum(N * (180 * ne + 27 * 25 + 4 * 30) for ne in st8["normal_eqs"])
+    report["K8"] = dict(ms=k8_ms, plain=k8_plain, lib=None, err=e8,
+                        bound=_bound(k8_bytes, k8_flops))
+    k4b_ms = _time_kernel(torch, lambda: k4.a2d_gn(*a4b[0]))
+    k3b_ms = statistics.median(_time_kernel(torch, lambda a=a: k3.mega_gn(*a)) for a in a3s)
+    for k in ("K2", "K6", "K8"):
+        r = report[k]
+        lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
+        print(f"{k} ({tag}): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, library {lib} "
+              f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+    print(f"K8 is bound by its chain of ~40 dependent block reductions per sequence, not by "
+          f"bytes or operations; K4 over {Nb} rows {k4b_ms:.4f} ms; K3 on K6's windows "
+          f"{k3b_ms:.4f} ms (median over the {S_BATCH} sequences)", flush=True)
+
+    # The same kernels at 16 sequences.
+    cam16, px16, depth16, mask16, ptsw16, patches16, ref_pyrs16, frames16, T_gt16 = \
+        bm.make_batch_workload(S_BIG, 2, dev)
+    bst16 = bm.make_batch_state(cam16, ref_pyrs16, px16, depth16, mask16, ptsw16, patches16)
+    g6_16, _, a2_16, _, a8_16 = batch_frame_inputs(bst16, frames16[1],
+                                                   T_gt16[0][None].repeat(S_BIG, 1))
+    tag16 = f"S={S_BIG}"
+    check_k6(g6_16, a2_16, tag16)
+    check_k2(a2_16, tag16)
+    check_k8(a8_16, tag16)
+    print(f"S={S_BIG}: K2 {_time_kernel(torch, lambda: k1.gather_windows_multi(*a2_16)):.4f} ms "
+          f"over {S_BIG * N} windows, K8 {_time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8_16)):.4f} "
+          f"ms", flush=True)
+    del frames16, bst16, g6_16, a2_16, a8_16
+
+    # -- 3. main path 1: single-sequence tracking ----------------------------
+    counters = (k1.gather_windows, k1.gather_windows_grouped, k1.gather_windows_multi,
+                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+
+    T0 = SE3.identity(device=dev).params7()
+    reset()
     t0 = time.perf_counter()
     T7, inl = tr.track_frames(state, frames, T0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    launches1 = {c.__name__: c.launches for c in counters}
     max_err, min_inl, ok = tr.gate(T7, inl, T_gt7)
-    print(f"main path: {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.1f} frames/s; "
-          f"gate max pose error {max_err:.3e} (< 2e-2), min inliers {min_inl} (> 150): "
-          f"{'pass' if ok else 'FAIL'}; launches {launches}", flush=True)
+    print(f"main path 1 (track_frames): {N_FRAMES} frames in {wall:.3f} s = "
+          f"{N_FRAMES / wall:.1f} frames/s; gate max pose error {max_err:.3e} (< 2e-2), "
+          f"min inliers {min_inl} (> 150): {'pass' if ok else 'FAIL'}; launches {launches1}",
+          flush=True)
     if not ok:
-        raise AssertionError("main path failed the per-frame accuracy gate")
-    want = {"gather_windows": 4 * N_FRAMES, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
-            "pose_ba_gn": N_FRAMES}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+        raise AssertionError("main path 1 failed the per-frame accuracy gate")
+    want1 = {"gather_windows": 4 * N_FRAMES, "gather_windows_grouped": 0,
+             "gather_windows_multi": 0, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
+             "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0}
+    if launches1 != want1:
+        raise AssertionError(f"launch counts {launches1}, expected {want1}")
     reps = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -300,44 +512,95 @@ def main() -> int:
         tr.track_frames(state, frames, T0)
         torch.cuda.synchronize()
         reps.append(N_FRAMES / (time.perf_counter() - t0))
-    print(f"main path repeats: {[round(r, 1) for r in reps]} frames/s", flush=True)
+    print(f"main path 1 repeats: {[round(r, 1) for r in reps]} frames/s", flush=True)
 
-    # -- 4. profile window ---------------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 30
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # -- 4. main path 2: multi-sequence batch tracking -----------------------
+    T0b = SE3.identity((S_BATCH,), device=dev).params7()
+    reset()
+    t0 = time.perf_counter()
+    T7b, inl_b = bm.track_batch_frames(bstate, frames_b, T0b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches2 = {c.__name__: c.launches for c in counters}
+    max_err, min_inl, ok = bm.batch_gate(T7b, inl_b, T_gt7_b)
+    n_agg = S_BATCH * F_BATCH
+    print(f"main path 2 (track_batch_frames): {S_BATCH} sequences x {F_BATCH} frames in "
+          f"{wall:.3f} s = {n_agg / wall:.1f} aggregate frames/s; gate max pose error "
+          f"{max_err:.3e} (< 2e-2), min inliers {min_inl} (> 150): {'pass' if ok else 'FAIL'}; "
+          f"launches {launches2}", flush=True)
+    if not ok:
+        raise AssertionError("main path 2 failed the per-frame accuracy gate")
+    want2 = {"gather_windows": 0, "gather_windows_grouped": S_BATCH * F_BATCH,
+             "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
+             "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH}
+    if launches2 != want2:
+        raise AssertionError(f"launch counts {launches2}, expected {want2}")
+    reps = []
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.track_frames(state, frames[:n_prof], T0)
+        bm.track_batch_frames(bstate, frames_b, T0b)
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue                     # device-side events only: no double count
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt, e.key, e.count))
-    busy_us = sum(r[0] for r in rows)
-    print(f"profile: {n_prof} frames, wall {wall_prof * 1e3 / n_prof:.3f} ms/frame, "
-          f"device busy {busy_us / n_prof / 1e3:.3f} ms/frame "
-          f"({busy_us / (wall_prof * 1e6):.3f} of wall)")
-    for dt, key, count in sorted(rows, reverse=True)[:10]:
-        print(f"  {dt / n_prof:9.2f} us/frame  {count // n_prof:3d}/frame  {key[:90]}")
+        reps.append(n_agg / (time.perf_counter() - t0))
+    print(f"main path 2: aggregate {statistics.median(reps):.1f} frames/s (median of 3 runs: "
+          f"{[round(r, 1) for r in reps]}), {1e3 * S_BATCH / statistics.median(reps):.3f} ms "
+          f"per batched frame", flush=True)
 
-    # -- 5. result lines ------------------------------------------------------
+    # Time split of the batched step over 10 frames, each stage ended by a
+    # synchronize, so a stage's host time and the device time it waits
+    # for are both inside it.
+    split = dict(pyramid=0.0, sparse_align=0.0, align2d=0.0, pose_ba=0.0)
+    T7s = T0b
+    n_split = min(10, F_BATCH)
+    for imgs in frames_b[:n_split]:
+        t = [time.perf_counter()]
+        cur_pyrs = pyramid.build_pyramid(imgs, L)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        T = bt.batched_sparse_align(bstate.ref_pyrs, cur_pyrs, cam_b, bstate.px, bstate.depth,
+                                    bstate.mask, SE3.from_params7(T7s), bstate.ref_preps)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        xy, conv, _ = bt.batched_align2d(cur_pyrs[0], bt.project_landmarks(cam_b, bstate.pts_w, T),
+                                         bstate.a2d_prep)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        T_out, _, _ = k8.pose_only_ba_fused_batch(*bt.batched_pose_ba_inputs(
+            T, bstate.pts_w, xy, conv, bstate.mask, cam_b))
+        T7s = T_out.params7()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, b in zip(split, t[:-1], t[1:]):
+            split[k] += (b - a) * 1e3 / n_split
+    print(f"main path 2 time split, ms per batched frame (stages synchronised): "
+          f"{ {k: round(v, 3) for k, v in split.items()} }, sum {sum(split.values()):.3f}",
+          flush=True)
+
+    # -- 5. profile windows ----------------------------------------------------
+    _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30, "main path 1")
+    _profile(torch, lambda: bm.track_batch_frames(bstate, frames_b[:10], T0b), 10,
+             f"main path 2 (per batched frame of {S_BATCH} sequences)")
+
+    # -- 6. result lines ------------------------------------------------------
+    def launches(name):
+        return launches1[name] + launches2[name]
+
+    gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
+    pk = "ygz_slam_tpu/ops/pallas/"
     meta = {
-        "K1": ("gather_windows", "ygz_slam_tpu_torch/csrc/gather_windows.cu",
-               "ygz_slam_tpu/ops/pallas/align2d_kernel.py:77", launches["gather_windows"]),
+        "K1": ("gather_windows", gw, pk + "align2d_kernel.py:77", launches("gather_windows")),
+        "K2": ("gather_windows_multi", gw, pk + "align2d_kernel.py:298",
+               launches("gather_windows_multi")),
         "K3": ("sparse_align_mega", "ygz_slam_tpu_torch/csrc/sparse_align_mega.cu",
-               "ygz_slam_tpu/ops/pallas/sparse_align_mega.py:338", launches["mega_gn"]),
+               pk + "sparse_align_mega.py:338", launches("mega_gn")),
         "K4": ("align2d_fused", "ygz_slam_tpu_torch/csrc/align2d_fused.cu",
-               "ygz_slam_tpu/ops/pallas/align2d_fused.py:317", launches["a2d_gn"]),
+               pk + "align2d_fused.py:317", launches("a2d_gn")),
         "K5": ("pose_ba_fused", "ygz_slam_tpu_torch/csrc/pose_ba_fused.cu",
-               "ygz_slam_tpu/ops/pallas/pose_ba_fused.py:326", launches["pose_ba_gn"]),
+               pk + "pose_ba_fused.py:326", launches("pose_ba_gn")),
+        "K6": ("gather_windows_grouped", gw, pk + "align2d_kernel.py:219",
+               launches("gather_windows_grouped")),
+        "K8": ("pose_ba_fused_batch", "ygz_slam_tpu_torch/csrc/pose_ba_fused_batch.cu",
+               pk + "pose_ba_fused_batch.py:194", launches("pose_ba_batch_gn")),
     }
     kernels = []
     for k, (name, src, replaces, n_launch) in meta.items():
@@ -346,6 +609,7 @@ def main() -> int:
                         "launches": n_launch, "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1], "library_ms": r["lib"]})
+    print(f"total {time.perf_counter() - t_start:.1f} s after the header")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

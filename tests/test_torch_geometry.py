@@ -196,12 +196,14 @@ class TestImageOps:
                                       np.asarray(jsyn.make_texture(256, seed=3)))
 
 
+WINDOW_CASES = [((480, 640), 16), ((240, 320), 16), ((120, 160), 16), ((480, 640), 32),
+                ((480, 640), 7)]
+
+
 class TestWindows:
     """K1 against the JAX gather_windows kernel run in interpret mode."""
 
-    @pytest.mark.parametrize("shape,win", [((480, 640), 16), ((240, 320), 16),
-                                           ((120, 160), 16), ((480, 640), 32),
-                                           ((480, 640), 7)])
+    @pytest.mark.parametrize("shape,win", WINDOW_CASES)
     def test_gather_windows_exact(self, shape, win):
         H, W = shape
         rng = _rng(12)
@@ -215,6 +217,24 @@ class TestWindows:
         out = tak.gather_windows(torch.tensor(img), torch.tensor(xi),
                                  torch.tensor(yi), win)
         np.testing.assert_array_equal(out.numpy(), ref)
+
+    @pytest.mark.parametrize("shape,win", WINDOW_CASES + [((60, 80), 32)])
+    def test_gather_windows_off_image_exact(self, shape, win):
+        """Origins off the image, negative and beyond W - win / H - win: the
+        JAX kernel returns the window of the zero-padded image, and so does
+        K1."""
+        H, W = shape
+        rng = _rng(15)
+        img = rng.uniform(0, 255, shape).astype(np.float32)
+        xi = rng.integers(-40, W + 11, 40).astype(np.int32)
+        yi = rng.integers(-40, H + 11, 40).astype(np.int32)
+        xi[:4], yi[:4] = [-3, W - win + 3, -win - 2, 5], [H - win + 2, -2, 5, H + 4]
+        with jax_kernels_interpreted():
+            ref = np.asarray(jak.gather_windows(jnp.asarray(img), jnp.asarray(xi),
+                                                jnp.asarray(yi), win))
+        out = tak.gather_windows(torch.tensor(img), torch.tensor(xi), torch.tensor(yi), win)
+        np.testing.assert_array_equal(out.numpy(), ref)
+        assert (ref[:4] == 0).any() and (ref[:4] != 0).any()
 
     def test_bilinear_patches(self):
         rng = _rng(13)

@@ -13,6 +13,7 @@ import torch
 
 from . import resolve_device
 from .geometry.camera import PinholeCamera
+from .models.batch import BatchState
 from .models.tracking import KeyframeState
 from .ops.kernels.align2d_fused import Align2DPrep
 from .ops.kernels.align2d_kernel import CACHE_WIN, PATCH
@@ -60,3 +61,16 @@ def keyframe_state_from_numpy(cam: PinholeCamera, ref_pyr, px, depth, mask, pts_
         depth=_t(depth, device), mask=_t(mask, device, torch.bool),
         pts_w=_t(pts_w, device), patches=_t(patches, device),
         ref_prep=ref_prep, a2d_prep=a2d_prep)
+
+
+def batch_state_from_numpy(cam: PinholeCamera, ref_pyrs, px, depth, mask, pts_w, patches,
+                           ref_preps, a2d_prep: Align2DPrep, device) -> BatchState:
+    """BatchState of the multi-sequence path from numpy arrays (ref_pyrs
+    per level [S, h, w]; px [S, N, 2] and so on) plus converted preps: one
+    ReferencePrep per sequence (`reference_prep_from_numpy`) and one
+    Align2DPrep of the S*N flattened patches (`align2d_prep_from_numpy`)."""
+    return BatchState(
+        cam=cam, ref_pyrs=tuple(_t(lv, device) for lv in ref_pyrs), px=_t(px, device),
+        depth=_t(depth, device), mask=_t(mask, device, torch.bool),
+        pts_w=_t(pts_w, device), patches=_t(patches, device),
+        ref_preps=tuple(ref_preps), a2d_prep=a2d_prep)

@@ -20,6 +20,15 @@ _HALF = (PATCH - 1) / 2.0                 # 3.5
 _LIM = float(CACHE_WIN - PATCH - 1)       # 23: lattice clamp inside the cache
 
 
+class A2DWindows(NamedTuple):
+    """Cache windows fetched beforehand (K2 on the batch path, K6 through
+    `sparse_align.gather_frame_windows`), with the origins they were
+    fetched at."""
+    wins: torch.Tensor    # [N, 32, 32]
+    ox: torch.Tensor      # [N] int32 window origins
+    oy: torch.Tensor      # [N] int32
+
+
 class Align2DPrep(NamedTuple):
     """Pose-independent side of align2d; computed once per keyframe."""
     ref: torch.Tensor    # [N, 8, 8] reference patch
@@ -128,20 +137,26 @@ def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
 a2d_gn.launches = 0
 
 
-def a2d_args(cur_img: torch.Tensor, prep: Align2DPrep, xy_init: torch.Tensor) -> tuple:
+def a2d_args(cur_img: torch.Tensor, prep: Align2DPrep, xy_init: torch.Tensor,
+             pregathered: A2DWindows | None = None) -> tuple:
     """K4's inputs: one 32x32 window per point gathered (K1) around
-    `xy_init`, plus the keyframe prep.  Returns the args of `a2d_gn`."""
-    H, W = cur_img.shape
+    `xy_init`, or the `pregathered` ones, plus the keyframe prep.  Returns
+    the args of `a2d_gn`."""
     xy_init = xy_init.to(torch.float32).contiguous()
-    ox, oy = a2d_window_origins(xy_init, H, W)
-    wins = gather_windows(cur_img, ox, oy, CACHE_WIN)
+    if pregathered is None:
+        ox, oy = a2d_window_origins(xy_init, *cur_img.shape)
+        wins = gather_windows(cur_img, ox, oy, CACHE_WIN)
+    else:
+        wins, ox, oy = pregathered.wins, pregathered.ox, pregathered.oy
     return wins, prep.ref, prep.jx, prep.jy, prep.hinv, ox, oy, xy_init
 
 
 def align2d_fused(cur_img: torch.Tensor, prep: Align2DPrep, xy_init: torch.Tensor,
-                  n_iter: int = 10, conv_eps: float = 0.03):
+                  n_iter: int = 10, conv_eps: float = 0.03,
+                  pregathered: A2DWindows | None = None):
     """Cached-window align2d: one 32x32 window per point (K1) centered on
-    `xy_init`, then the GN loop (K4).  Returns (xy [N, 2], mean [N],
-    err [N]); the caller rejects drift beyond CACHE_SLACK."""
-    out = a2d_gn(*a2d_args(cur_img, prep, xy_init), n_iter, conv_eps)
+    `xy_init`, or the `pregathered` ones, then the GN loop (K4).  Returns
+    (xy [N, 2], mean [N], err [N]); the caller rejects drift beyond
+    CACHE_SLACK."""
+    out = a2d_gn(*a2d_args(cur_img, prep, xy_init, pregathered), n_iter, conv_eps)
     return out[:, :2], out[:, 2], out[:, 3]

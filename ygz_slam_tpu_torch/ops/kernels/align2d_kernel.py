@@ -1,10 +1,17 @@
-"""K1: integer-origin window gather, and bilinear patches built on it.
+"""K1, K2, K6: integer-origin window gathers, and bilinear patches built
+on them.
 
 Counterpart of ygz_slam_tpu/ops/pallas/align2d_kernel.py.  The CUDA
-kernel (csrc/gather_windows.cu) replaces `gather_windows` there; the
-TPU's aligned super-windows and shift matmuls are not carried over.
+kernels (csrc/gather_windows.cu) replace `gather_windows` (K1),
+`gather_windows_multi` (K2) and `gather_windows_grouped` (K6) there; the
+TPU's aligned super-windows, shift matmuls and image de-duplication are
+not carried over.  Every gather returns the window of the zero-padded
+image at the requested origin, as the JAX kernels do: pixels outside the
+image are 0.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -16,27 +23,41 @@ PATCH = 8
 # clamps (the caller rejects such points).
 CACHE_WIN = 32
 CACHE_SLACK = (CACHE_WIN - PATCH - 1) // 2  # 11 px
+MAX_GROUPS = 8          # K6 requests per launch (csrc/gather_windows.cu)
+
+
+def _check_window(win: int, H: int, W: int) -> None:
+    if win > H or win > W:
+        raise ValueError(f"window {win} larger than image {H}x{W}")
+
+
+def _window_index(H: int, W: int, xi: torch.Tensor, yi: torch.Tensor, win: int):
+    """Row and column indices [N, win, 1] / [N, 1, win] of each window,
+    clamped into the image, and the mask [N, win, win] of the pixels that
+    lie inside it."""
+    ar = torch.arange(win, device=xi.device)
+    rows = yi.long()[:, None] + ar
+    cols = xi.long()[:, None] + ar
+    inside = (((rows >= 0) & (rows < H))[:, :, None]
+              & ((cols >= 0) & (cols < W))[:, None, :])
+    return rows.clamp(0, H - 1)[:, :, None], cols.clamp(0, W - 1)[:, None, :], inside
 
 
 def gather_windows_plain(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
                          win: int) -> torch.Tensor:
     """Plain version of K1: [H, W] image + int origins [N] -> [N, win, win],
-    origins clamped to [0, W-win] x [0, H-win]."""
+    the windows of the zero-padded image."""
     H, W = img.shape
-    x0 = torch.clamp(xi.long(), 0, W - win)
-    y0 = torch.clamp(yi.long(), 0, H - win)
-    ar = torch.arange(win, device=img.device)
-    return img[(y0[:, None] + ar)[:, :, None], (x0[:, None] + ar)[:, None, :]]
+    r, c, inside = _window_index(H, W, xi, yi, win)
+    return torch.where(inside, img[r, c], 0.0)
 
 
 def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
                    win: int) -> torch.Tensor:
-    """[H, W] float32 image + int32 origins [N] -> [N, win, win] windows,
-    origins clamped to the image.  K1 on the card, the plain version on
-    the CPU."""
+    """[H, W] float32 image + int32 origins [N] -> [N, win, win] windows of
+    the zero-padded image.  K1 on the card, the plain version on the CPU."""
     H, W = img.shape
-    if win > H or win > W:
-        raise ValueError(f"window {win} larger than image {H}x{W}")
+    _check_window(win, H, W)
     if not on_card(img):
         return gather_windows_plain(img, xi, yi, win)
     N = xi.shape[0]
@@ -54,22 +75,130 @@ def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
 gather_windows.launches = 0
 
 
-def bilinear_patches(img: torch.Tensor, centers: torch.Tensor, size: int) -> torch.Tensor:
-    """Bilinear [N, size, size] patches at sub-pixel `centers [N, 2]` on the
-    symmetric grid, from one (size+1)-window per point (K1).  Wild centers
-    (NaN, +-1e12 from behind-camera projections of masked points) are
-    clamped into the image first, so the mix weights stay finite."""
-    H, W = img.shape
+def gather_windows_multi_plain(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Tensor,
+                               yi: torch.Tensor, win: int) -> torch.Tensor:
+    """Plain version of K2: [S, H, W] stack + image index and int origins
+    [N] -> [N, win, win] windows of the zero-padded images.  Raises
+    IndexError for an image index outside [0, S)."""
+    S, H, W = imgs.shape
+    if img_idx.numel() and not bool(((img_idx >= 0) & (img_idx < S)).all()):
+        raise IndexError(f"gather_windows_multi: an image index lies outside [0, {S})")
+    r, c, inside = _window_index(H, W, xi, yi, win)
+    return torch.where(inside, imgs[img_idx.long()[:, None, None], r, c], 0.0)
+
+
+def gather_windows_multi(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Tensor,
+                         yi: torch.Tensor, win: int) -> torch.Tensor:
+    """Like `gather_windows` over an image stack [S, H, W] float32 with an
+    int32 image index per window.  K2 on the card, the plain version on the
+    CPU.  An index outside [0, S) raises: IndexError on the CPU; on the
+    card the kernel stops on a device-side assert, which the next
+    synchronisation raises (and which leaves the CUDA context unusable)."""
+    S, H, W = imgs.shape
+    _check_window(win, H, W)
+    if not on_card(imgs):
+        return gather_windows_multi_plain(imgs, img_idx, xi, yi, win)
+    N = xi.shape[0]
+    dev = imgs.device
+    require(imgs, "imgs", torch.float32, (S, H, W), dev)
+    require(img_idx, "img_idx", torch.int32, (N,), dev)
+    require(xi, "xi", torch.int32, (N,), dev)
+    require(yi, "yi", torch.int32, (N,), dev)
+    out = torch.empty((N, win, win), dtype=torch.float32, device=dev)
+    launch("gather_windows", "gather_windows_multi_launch", [P, I, I, I, P, P, P, I, I, P, P],
+           imgs.data_ptr(), S, H, W, img_idx.data_ptr(), xi.data_ptr(), yi.data_ptr(), N, win,
+           out.data_ptr(), stream(dev))
+    gather_windows_multi.launches += 1
+    return out
+
+
+gather_windows_multi.launches = 0
+
+
+class _GatherGroup(ctypes.Structure):
+    """One K6 request, laid out as `GatherGroup` in csrc/gather_windows.cu."""
+    _fields_ = [("img", ctypes.c_void_p), ("ox", ctypes.c_void_p), ("oy", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("N", ctypes.c_int), ("win", ctypes.c_int)]
+
+
+def gather_windows_grouped_plain(groups) -> list:
+    """Plain version of K6: K1's plain version for each (img, xi, yi, win)
+    request."""
+    return [gather_windows_plain(*g) for g in groups]
+
+
+def gather_windows_grouped(groups) -> list:
+    """Window stacks for up to MAX_GROUPS (img [H, W], xi [N], yi [N], win)
+    requests, each with `gather_windows` semantics, in one launch (K6 on
+    the card, the plain version on the CPU).  Requests may name different
+    images, sizes and windows, and the same image more than once."""
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"K6 takes 1..{MAX_GROUPS} requests, got {len(groups)}")
+    for img, _, _, win in groups:
+        _check_window(win, *img.shape)
+    if not on_card(groups[0][0]):
+        return gather_windows_grouped_plain(groups)
+    dev = groups[0][0].device
+    descs = (_GatherGroup * len(groups))()
+    outs = []
+    for k, (img, xi, yi, win) in enumerate(groups):
+        H, W = img.shape
+        N = xi.shape[0]
+        require(img, f"groups[{k}].img", torch.float32, (H, W), dev)
+        require(xi, f"groups[{k}].xi", torch.int32, (N,), dev)
+        require(yi, f"groups[{k}].yi", torch.int32, (N,), dev)
+        out = torch.empty((N, win, win), dtype=torch.float32, device=dev)
+        descs[k] = _GatherGroup(img.data_ptr(), xi.data_ptr(), yi.data_ptr(), out.data_ptr(),
+                                H, W, N, win)
+        outs.append(out)
+    launch("gather_windows", "gather_windows_grouped_launch", [P, I, P],
+           ctypes.addressof(descs), len(groups), stream(dev))
+    gather_windows_grouped.launches += 1
+    return outs
+
+
+gather_windows_grouped.launches = 0
+
+
+def _bilinear_origins(centers: torch.Tensor, H: int, W: int, size: int):
+    """Clamped centers, window origins (float) and the half-width of
+    `size`-patches on the symmetric grid.  Wild centers (NaN, +-1e12 from
+    behind-camera projections of masked points) are clamped into the image
+    first, so the mix weights stay finite."""
     half = (size - 1) / 2.0
     win = size + 1
     cx = torch.clamp(torch.nan_to_num(centers[:, 0]), 0.0, W - 1.0)
     cy = torch.clamp(torch.nan_to_num(centers[:, 1]), 0.0, H - 1.0)
     x0f = torch.clamp(torch.floor(cx - half), 0, W - win)
     y0f = torch.clamp(torch.floor(cy - half), 0, H - win)
-    w = gather_windows(img, x0f.to(torch.int32), y0f.to(torch.int32), win)
+    return cx, cy, x0f, y0f, half
+
+
+def _bilinear_mix(w, cx, cy, x0f, y0f, half, size):
     fx = (cx - half - x0f)[:, None, None]
     fy = (cy - half - y0f)[:, None, None]
     return (w[:, :size, :size] * (1 - fx) * (1 - fy)
             + w[:, :size, 1:] * fx * (1 - fy)
             + w[:, 1:, :size] * (1 - fx) * fy
             + w[:, 1:, 1:] * fx * fy)
+
+
+def bilinear_patches(img: torch.Tensor, centers: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear [N, size, size] patches at sub-pixel `centers [N, 2]` on the
+    symmetric grid, from one (size+1)-window per point (K1)."""
+    H, W = img.shape
+    cx, cy, x0f, y0f, half = _bilinear_origins(centers, H, W, size)
+    w = gather_windows(img, x0f.to(torch.int32), y0f.to(torch.int32), size + 1)
+    return _bilinear_mix(w, cx, cy, x0f, y0f, half, size)
+
+
+def bilinear_patches_multi(imgs: torch.Tensor, img_idx: torch.Tensor, centers: torch.Tensor,
+                           size: int) -> torch.Tensor:
+    """`bilinear_patches` over an image stack [S, H, W] with an int32 image
+    index per point (K2)."""
+    _, H, W = imgs.shape
+    cx, cy, x0f, y0f, half = _bilinear_origins(centers, H, W, size)
+    w = gather_windows_multi(imgs, img_idx, x0f.to(torch.int32), y0f.to(torch.int32),
+                             size + 1)
+    return _bilinear_mix(w, cx, cy, x0f, y0f, half, size)

@@ -3,9 +3,12 @@
 Counterpart of ygz_slam_tpu/ops/pallas/sparse_align_mega.py.  The CUDA
 kernel (csrc/sparse_align_mega.cu) replaces `_mega_kernel`; `mega_gn` is
 its wrapper and `mega_gn_plain` its plain version.  Windows are gathered
-by K1 at the frame-init pose, SLACK px at each level's own scale.
+at the frame-init pose, SLACK px at each level's own scale: by K1 here, or
+beforehand by the caller (K6 through `sparse_align.gather_frame_windows`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -30,15 +33,23 @@ def level_dims(H0: int, W0: int, li: int) -> tuple[int, int]:
     return H0, W0
 
 
-def mega_init_projection(p_ref, R0, t0, cam, distorted):
-    """Level-0 pixels of the reference points at the frame-init pose."""
+class MegaWindows(NamedTuple):
+    """K3's windows of every level, gathered at the frame-init pose, with
+    the origins they start at and that pose's projection."""
+    wins: torch.Tensor     # [L, N, CWIN, CWIN]
+    ox: torch.Tensor       # [L, N] int32 window origins
+    oy: torch.Tensor       # [L, N] int32
+    pc0: torch.Tensor      # [N, 3] reference points in the init camera
+    px0_l0: torch.Tensor   # [N, 2] their level-0 pixels
+
+
+def mega_window_requests(cur_pyr, p_ref, R0, t0, cam, distorted: bool, n_levels: int):
+    """The reference points projected at the frame-init pose, and each
+    level's (img, ox, oy, CWIN) gather request around them.  Returns (pc0,
+    px0_l0, requests)."""
     pc0 = p_ref @ R0.T + t0
-    return pc0, torch.nan_to_num(cam.camera_to_pixel(pc0, distorted=distorted))
-
-
-def mega_window_requests(cur_pyr, px0_l0, n_levels):
-    """Per-level (img, ox, oy, CWIN) gather requests and origins."""
-    reqs, oxs, oys = [], [], []
+    px0_l0 = torch.nan_to_num(cam.camera_to_pixel(pc0, distorted=distorted))
+    reqs = []
     for li in range(n_levels):
         img = cur_pyr[li]
         Hl, Wl = img.shape
@@ -46,9 +57,14 @@ def mega_window_requests(cur_pyr, px0_l0, n_levels):
         ox = torch.clamp(torch.floor(px0[:, 0] - _HALF) - SLACK, 0, Wl - CWIN).to(torch.int32)
         oy = torch.clamp(torch.floor(px0[:, 1] - _HALF) - SLACK, 0, Hl - CWIN).to(torch.int32)
         reqs.append((img, ox, oy, CWIN))
-        oxs.append(ox)
-        oys.append(oy)
-    return reqs, oxs, oys
+    return pc0, px0_l0, reqs
+
+
+def mega_windows(pc0, px0_l0, reqs, wins) -> MegaWindows:
+    """The MegaWindows of `mega_window_requests`' output and the windows
+    fetched for its requests (per level [N, CWIN, CWIN])."""
+    return MegaWindows(torch.stack(tuple(wins)), torch.stack([r[1] for r in reqs]),
+                       torch.stack([r[2] for r in reqs]), pc0, px0_l0)
 
 
 def _distortion(cam, distorted: bool) -> tuple[float, float, float, float]:
@@ -177,31 +193,37 @@ mega_gn.launches = 0
 
 
 def mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool, n_levels: int,
-              mega_refp, mega_jl):
+              mega_refp, mega_jl, pregathered: MegaWindows | None = None):
     """K3's inputs for one frame: the windows of every level gathered (K1)
-    at the frame-init pose, plus the keyframe constants (`mega_refp` /
+    at the frame-init pose, or `pregathered` (fetched at that pose
+    beforehand, by K6), plus the keyframe constants (`mega_refp` /
     `mega_jl`: every level's patches and Jacobians stacked, as
-    ReferencePrep holds them).  Returns (args of `mega_gn`, pc0, px0_l0)."""
-    pc0, px0_l0 = mega_init_projection(p_ref, R0, t0, cam, distorted)
-    reqs, oxs, oys = mega_window_requests(cur_pyr, px0_l0, n_levels)
-    wins = torch.stack([gather_windows(img, ox, oy, CWIN) for img, ox, oy, _ in reqs])
+    ReferencePrep holds them).  Returns (args of `mega_gn`, the
+    MegaWindows)."""
+    mw = pregathered
+    if mw is None:
+        pc0, px0_l0, reqs = mega_window_requests(cur_pyr, p_ref, R0, t0, cam, distorted,
+                                                 n_levels)
+        mw = mega_windows(pc0, px0_l0, reqs, [gather_windows(*r) for r in reqs])
     lvis = torch.stack([level_refs[li].vis for li in range(n_levels)]).to(torch.float32)
     pose0 = torch.cat([R0.reshape(9), t0.reshape(3)]).to(torch.float32).contiguous()
     H0, W0 = cur_pyr[0].shape
-    args = (wins, mega_refp, mega_jl, p_ref.contiguous(), lvis, torch.stack(oxs),
-            torch.stack(oys), pose0, cam, distorted, H0, W0)
-    return args, pc0, px0_l0
+    args = (mw.wins, mega_refp, mega_jl, p_ref.contiguous(), lvis, mw.ox, mw.oy, pose0, cam,
+            distorted, H0, W0)
+    return args, mw
 
 
 def sparse_align_mega(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool,
-                      max_level: int, mega_refp, mega_jl):
+                      max_level: int, mega_refp, mega_jl, pregathered=None):
     """All levels max_level..0 of sparse-direct alignment in one kernel.
 
-    Windows for every level are gathered (K1) at the frame-init pose.
-    Returns (R, t, chi2, H) with H the finest level's frozen Hessian
-    (Fisher information for AlignStats, a plain product here)."""
-    args, pc0, px0_l0 = mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted,
-                                  max_level + 1, mega_refp, mega_jl)
+    Windows for every level are gathered (K1) at the frame-init pose,
+    unless `pregathered` (a MegaWindows) holds them.  Returns (R, t, chi2,
+    H) with H the finest level's frozen Hessian (Fisher information for
+    AlignStats, a plain product here)."""
+    args, mw = mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted, max_level + 1,
+                         mega_refp, mega_jl, pregathered)
+    pc0, px0_l0 = mw.pc0, mw.px0_l0
     out = mega_gn(*args)
     H0, W0 = cur_pyr[0].shape
     R, t, chi2 = out[:9].reshape(3, 3), out[9:12], out[12]

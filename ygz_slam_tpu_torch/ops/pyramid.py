@@ -32,15 +32,17 @@ def _decim_tensor(n: int, device: torch.device) -> torch.Tensor:
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """One pyramid step: blur + 2x decimation as two banded products."""
-    H, W = img.shape
+    """One pyramid step: blur + 2x decimation as two banded products, of an
+    image [H, W] or a stack [S, H, W]."""
+    H, W = img.shape[-2:]
     Ar = _decim_tensor(H, img.device)
     Ac = _decim_tensor(W, img.device)
     return (Ar @ img) @ Ac.T
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int) -> tuple[torch.Tensor, ...]:
-    """Gray image [H, W] -> tuple of n_levels images, level 0 full res."""
+    """Gray image [H, W] (or a stack [S, H, W]) -> tuple of n_levels images
+    (stacks), level 0 full res."""
     levels = [img]
     for _ in range(n_levels - 1):
         levels.append(pyr_down(levels[-1]))
