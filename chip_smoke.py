@@ -19,6 +19,14 @@ Phases, each raising (and so exiting non-zero) on failure:
       pose_ba_fused_batch) on that path's frame-1 inputs at S=8; K2, K6
       and K8 again at S=16; K2 and K6 with origins off the image, K6 with
       a request list that names one image twice.
+   c. K10 (Hamming distance matrix) against its plain version, exactly, at
+      the keyframe cycle's two shapes (128 x 256 and 256 x 3072, on frame-0
+      descriptors of the VO workload), at 2560 x 3072, at a ragged
+      130 x 77 and with all-ones and sign-bit-only words; `match_nn` and
+      the tie-breaking argmins on the card against the CPU, exactly.
+   d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
+      that frame 8 of the VO path gives them (N=256 with masked rows for
+      K3, 512 rows on the three-level pyramid stack for K2, K4 and K5).
 3. Main path 1: the 640x480 / 200-landmark tracking workload, rendered on
    the card, through `tracking.track_frames`, every frame held to the
    accuracy gate; the launch counters must show K3, K4 and K5 once per
@@ -28,9 +36,18 @@ Phases, each raising (and so exiting non-zero) on failure:
    to the gate; the counters must show K6 and K3 S times per frame, K2,
    K4 and K8 once per frame, K1 and K5 never.  Aggregate frames/s is the
    median of 3 further runs.
-5. A short torch.profiler window over each main path: device busy share
+5. Main path 3: the VO's map-tracking step and keyframe cycle, 240 frames
+   640x480 on a map of K=10 keyframes x F=256 features and L=3072 landmark
+   rows bootstrapped on frame 0, through `vo_workload.track_vo_frames`: a
+   keyframe every 10 frames, so slots are evicted from the 10th insertion
+   on; every frame held to `vo_gate`.  The counters must show, per frame,
+   K3, K2, K4 and K5 once and K1 six times (three reference-patch levels
+   and three window levels: the reference is the previous frame, prepared
+   anew each frame); per keyframe K10 three times (two triangulation
+   neighbours and the fusion with the map); K6 and K8 never.
+6. A short torch.profiler window over each main path: device busy share
    and the kernels that take the most device time.
-6. One JSON line {"kernels": [...]} (launches summed over both main
+7. One JSON line {"kernels": [...]} (launches summed over the three main
    paths), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -48,11 +65,14 @@ import time
 N_FRAMES = 240
 S_BATCH = 8              # bench_batch.py's defaults: 8 sequences x 60 frames
 F_BATCH = 60
+N_VO = 240               # main path 3: frame 0 bootstraps the map, 239 are tracked
 S_BIG = 16               # BASELINE.json config 5: 16 concurrent sequences
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores (K10's
+                              # integer XOR/popcount/add are counted at this rate:
+                              # the data sheet gives none for int32)
 
 # Tolerances, kernel versus plain version on the same inputs.  The two
 # sum in different orders (warp shuffles versus PyTorch reductions) and
@@ -152,10 +172,14 @@ def main() -> int:
     from ygz_slam_tpu_torch.geometry import se3
     from ygz_slam_tpu_torch.geometry.se3 import SE3
     from ygz_slam_tpu_torch.models import batch as bm
+    from ygz_slam_tpu_torch.models import frontend as fe
     from ygz_slam_tpu_torch.models import tracking as tr
+    from ygz_slam_tpu_torch.models import vo_workload as vw
+    from ygz_slam_tpu_torch.ops import hamming, kernels
     from ygz_slam_tpu_torch.ops import pyramid, sparse_align
     from ygz_slam_tpu_torch.ops.kernels import align2d_fused as k4
     from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k1
+    from ygz_slam_tpu_torch.ops.kernels import hamming_kernel as k10
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as k5
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as k8
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as k3
@@ -477,9 +501,146 @@ def main() -> int:
           f"ms", flush=True)
     del frames16, bst16, g6_16, a2_16, a8_16
 
+    # -- 2c. K10 versus its plain version ------------------------------------
+    t0 = time.perf_counter()
+    vstate, vframes, vT_gt7 = vw.make_vo_workload(N_VO, dev)
+    torch.cuda.synchronize()
+    vo_opts = vstate.opts
+    m0 = vstate.mstate
+    print(f"VO workload: {N_VO} frames 640x480, map K={vo_opts.map_K} F={vo_opts.map_F} "
+          f"L={vo_opts.map_L}, {int(m0.pt_valid.sum())} landmarks bootstrapped on frame 0, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def words(n):
+        r = torch.randint(0, 2 ** 32, (n, 8), generator=gen, device=dev)
+        return (r - 2 ** 31).to(torch.int32)
+
+    Fn_vo = vo_opts.map_F - vo_opts.map_F // 2
+    feat0 = m0.feat_desc[0].contiguous()
+    all_feat = torch.where(m0.feat_valid.reshape(-1, 1), m0.feat_desc.reshape(-1, 8),
+                           words(vo_opts.map_K * vo_opts.map_F)).contiguous()
+    all_pt = torch.where(m0.pt_valid[:, None], m0.pt_desc, words(vo_opts.map_L)).contiguous()
+    edge_a, edge_b = words(130), words(77)
+    for t in (edge_a, edge_b):
+        t[0], t[1], t[2] = -1, -2 ** 31, 0            # all ones, sign bits only, zero
+    k10_cases = [
+        (f"{Fn_vo} x {vo_opts.map_F} (triangulation, frame-0 descriptors)", feat0[:Fn_vo], feat0),
+        (f"{vo_opts.map_F} x {vo_opts.map_L} (fusion, frame-0 map)", feat0, m0.pt_desc),
+        (f"{all_feat.shape[0]} x {vo_opts.map_L} (all map features x all landmark rows)",
+         all_feat, all_pt),
+        ("130 x 77 (ragged)", words(130), words(77)),
+        ("130 x 77 with all-ones, sign-bit-only and zero words", edge_a, edge_b),
+    ]
+    e10 = 0
+    for tag, a, b in k10_cases:
+        out, ref = k10.distance_matrix(a, b), k10.distance_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        err = int((out - ref).abs().max())
+        print(f"K10 hamming distance_matrix {tag}: max |kernel - plain| = {err} (tolerance 0, "
+              f"integers), distances {int(out.min())}..{int(out.max())}")
+        if err != 0 or out.shape != (a.shape[0], b.shape[0]) or out.dtype != torch.int32:
+            raise AssertionError("K10 disagrees with its plain version")
+        e10 = max(e10, err)
+    # Ties: argmin and match_nn on the card must choose as on the CPU.
+    valid0 = m0.feat_valid[0]
+    low = words(256) & 3                                # 16-bit-wide words: ties everywhere
+    for tag, a, b, ma, mb in (
+            ("frame-0 descriptors", feat0[:Fn_vo], feat0, valid0[:Fn_vo], valid0),
+            ("low-entropy words", low[:128].contiguous(), low, None, None)):
+        ma = torch.ones(a.shape[0], dtype=torch.bool, device=dev) if ma is None else ma
+        mb = torch.ones(b.shape[0], dtype=torch.bool, device=dev) if mb is None else mb
+        d = hamming.distance_matrix(a, b)
+        on_card_ = hamming.match_nn(a, b, ma, mb) + hamming.best_two(d) + (torch.argmin(d, dim=0),)
+        d_cpu = hamming.distance_matrix(a.cpu(), b.cpu())
+        on_cpu = (hamming.match_nn(a.cpu(), b.cpu(), ma.cpu(), mb.cpu()) + hamming.best_two(d_cpu)
+                  + (torch.argmin(d_cpu, dim=0),))
+        same = all(torch.equal(x.cpu(), y) for x, y in zip(on_card_, on_cpu))
+        print(f"match_nn / argmin ties, card versus CPU, {tag}: "
+              f"{int(on_card_[1].sum())} matches, {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("match_nn or an argmin chooses differently on the card")
+    # Time and bound per launch at the path's two shapes, and per keyframe:
+    # two triangulation matrices and one fusion matrix.  The `kernels` line
+    # carries the per-keyframe sums (as K1's row carries a frame's launches).
+    def k10_bound(a, b):
+        n, m = a.shape[0], b.shape[0]
+        return _bound((n + m) * 32 + n * m * 4, n * m * 8 * 3)      # xor, popc, add per word
+
+    per_launch = []
+    for tag, a, b in k10_cases[:3]:
+        ms = _time_kernel(torch, lambda: k10.distance_matrix(a, b))
+        plain = _time_host(torch, lambda: k10.distance_matrix_plain(a, b))
+        per_launch.append((ms, plain, k10_bound(a, b)))
+        print(f"K10 one launch, {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library null "
+              f"(PyTorch has no single call for it), bound {per_launch[-1][2][0]:.6f} ms "
+              f"({per_launch[-1][2][1]})", flush=True)
+    tri, fus = per_launch[0], per_launch[1]
+    report["K10"] = dict(ms=2 * tri[0] + fus[0], plain=2 * tri[1] + fus[1], lib=None, err=e10,
+                         bound=(2 * tri[2][0] + fus[2][0], fus[2][1]))
+    r = report["K10"]
+    print(f"K10 per keyframe (2 x {Fn_vo}x{vo_opts.map_F} + {vo_opts.map_F}x{vo_opts.map_L}, the "
+          f"sums of the launches above): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
+          f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+
+    # -- 2d. the VO path's kernels on the inputs that path gives them ---------
+    # Frame 10 through the entry point (`track`, then the keyframe cycle) with
+    # every launch recorded: each kernel and its plain version then get the
+    # arguments the step itself passed.  By then the NS selection is padded
+    # with unused landmark rows whose depth in the previous camera is ~0
+    # (masked rows holding huge Jacobians, which neither K3 nor its plain
+    # version may read).
+    st9 = vw.track_vo_frames(vstate, vframes[1:10])[0]
+    with kernels.record_launches() as rec:
+        vw.track_vo_frames(st9, vframes[10:11])
+    ref_win = sparse_align.PATCH + 3                  # a 6x6 bilinear patch needs 7x7 pixels
+    want_rec = (["gather_windows"] * 6 + ["mega_gn", "gather_windows_multi", "a2d_gn",
+                                          "pose_ba_gn"] + ["distance_matrix"] * 3)
+    if [fn.__name__ for fn, _ in rec] != want_rec:
+        raise AssertionError(f"VO frame 10 launched {[fn.__name__ for fn, _ in rec]}, "
+                             f"expected {want_rec}")
+
+    def recorded(fn):
+        return [args for f, args in rec if f is fn]
+
+    g1v, (a3v,), (a2v,) = recorded(k1.gather_windows), recorded(k3.mega_gn), \
+        recorded(k1.gather_windows_multi)
+    (a4v,), (a5v,), d10v = recorded(k4.a2d_gn), recorded(k5.pose_ba_gn), \
+        recorded(k10.distance_matrix)
+    if [g[3] for g in g1v] != [ref_win] * L + [k3.CWIN] * L:
+        raise AssertionError(f"VO frame 10: K1 windows {[g[3] for g in g1v]}")
+    n_sel = g1v[0][1].shape[0]
+    tagv = (f"VO frame 10, N={n_sel} ({int((a3v[4][0] < 0.5).sum())} masked, max |J| "
+            f"{float(a3v[2].abs().max()):.1e})")
+    check_k1(g1v, tagv + f", {L} levels x {ref_win}^2 on the previous frame and {L} x "
+             f"{k3.CWIN}^2 on this one")
+    check_k3(a3v, tagv)
+    tagv = f"VO frame 10, N={a2v[1].shape[0]} ({int(a5v[2].sum())} matched)"
+    check_k2(a2v, tagv + f", {a2v[0].shape[0]}-level stack")
+    # Substituted inits (PATCH + 2, PATCH + 2) are the out-of-bounds ones,
+    # which `align2d` never accepts; every other init is the path's center.
+    xy0v = a4v[7]
+    check_k4((a4v, xy0v, (xy0v != k1.PATCH + 2.0).any(dim=1), *vframes.shape[1:]), tagv)
+    check_k5(a5v, tagv)
+    for a, b in d10v:
+        check_exact("K10 hamming distance_matrix", [k10.distance_matrix(a, b)],
+                    [k10.distance_matrix_plain(a, b)],
+                    f"VO frame 10 keyframe cycle, {a.shape[0]} x {b.shape[0]}")
+    k1v_ms = sum(_time_kernel(torch, lambda g=g: k1.gather_windows(*g)) for g in g1v)
+    k1v_plain = sum(_time_host(torch, lambda g=g: k1.gather_windows_plain(*g)) for g in g1v)
+    k1v_bound = _bound(sum(n_sel * (2 * g[3] * g[3] * 4 + 8) for g in g1v), 0.0)
+    print(f"VO frame 10: K1 per frame (sum over its 6 launches: {L} x {ref_win}^2, {L} x "
+          f"{k3.CWIN}^2, {n_sel} windows each) kernel {k1v_ms:.4f} ms, plain {k1v_plain:.4f} ms, "
+          f"bound {k1v_bound[0]:.6f} ms ({k1v_bound[1]}); K3 "
+          f"{_time_kernel(torch, lambda: k3.mega_gn(*a3v)):.4f} ms, K2 "
+          f"{_time_kernel(torch, lambda: k1.gather_windows_multi(*a2v)):.4f} ms, K4 "
+          f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 "
+          f"{_time_kernel(torch, lambda: k5.pose_ba_gn(*a5v)):.4f} ms", flush=True)
+    del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
+
     # -- 3. main path 1: single-sequence tracking ----------------------------
     counters = (k1.gather_windows, k1.gather_windows_grouped, k1.gather_windows_multi,
-                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn)
+                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn, k10.distance_matrix)
 
     def reset():
         for c in counters:
@@ -502,7 +663,7 @@ def main() -> int:
         raise AssertionError("main path 1 failed the per-frame accuracy gate")
     want1 = {"gather_windows": 4 * N_FRAMES, "gather_windows_grouped": 0,
              "gather_windows_multi": 0, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
-             "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0}
+             "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0, "distance_matrix": 0}
     if launches1 != want1:
         raise AssertionError(f"launch counts {launches1}, expected {want1}")
     reps = []
@@ -532,7 +693,8 @@ def main() -> int:
         raise AssertionError("main path 2 failed the per-frame accuracy gate")
     want2 = {"gather_windows": 0, "gather_windows_grouped": S_BATCH * F_BATCH,
              "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
-             "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH}
+             "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH,
+             "distance_matrix": 0}
     if launches2 != want2:
         raise AssertionError(f"launch counts {launches2}, expected {want2}")
     reps = []
@@ -576,14 +738,85 @@ def main() -> int:
           f"{ {k: round(v, 3) for k, v in split.items()} }, sum {sum(split.values()):.3f}",
           flush=True)
 
-    # -- 5. profile windows ----------------------------------------------------
+    # -- 5. main path 3: the VO's map tracking and keyframe cycle -------------
+    n_f = N_VO - 1
+    reset()
+    t0 = time.perf_counter()
+    vend, T7v, inl_v, kf_log = vw.track_vo_frames(vstate, vframes[1:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches3 = {c.__name__: c.launches for c in counters}
+    max_err, min_inl, ok = vw.vo_gate(T7v, inl_v, vT_gt7[1:], vo_opts)
+    n_kf = len(kf_log)
+    print(f"main path 3 (track_vo_frames): {n_f} frames, {n_kf} keyframes "
+          f"({sum(c['evicted'] for c in kf_log)} into evicted slots) in {wall:.3f} s = "
+          f"{n_f / wall:.1f} frames/s; gate max pose error {max_err:.3e} (< 2e-2), min inliers "
+          f"{min_inl} (>= {vo_opts.min_track_inliers}): {'pass' if ok else 'FAIL'}; "
+          f"launches {launches3}", flush=True)
+    print(f"main path 3 keyframes (frame: slot, triangulated + fused): "
+          + ", ".join(f"{c['frame']}: {c['slot']}{'e' if c['evicted'] else ''}, "
+                      f"{c['triangulated']}+{c['fused']}" for c in kf_log)
+          + f"; valid landmarks at the end {int(vend.mstate.pt_valid.sum())}", flush=True)
+    if not ok:
+        raise AssertionError("main path 3 failed the per-frame gate")
+    if n_kf != n_f // vo_opts.kf_min_frames or not any(c["evicted"] for c in kf_log):
+        raise AssertionError(f"main path 3 inserted {n_kf} keyframes, none into an evicted slot?")
+    want3 = {"gather_windows": 6 * n_f, "gather_windows_grouped": 0,
+             "gather_windows_multi": n_f, "mega_gn": n_f, "a2d_gn": n_f, "pose_ba_gn": n_f,
+             "pose_ba_batch_gn": 0, "distance_matrix": 3 * n_kf}
+    if launches3 != want3:
+        raise AssertionError(f"launch counts {launches3}, expected {want3}")
+    # Synchronised times of the two steps over 60 frames (6 keyframes), twice
+    # from the same state: first each step as a whole, then `track` with a
+    # synchronisation at the end of each of its stages (`on_stage`), so the
+    # stage times are read off the step itself.  Detection is the keyframe
+    # cycle's first stage, timed alone without the tracked features' exclusion.
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t_track, t_kf, t_detect, t_stage = [], [], [], []
+    for staged in (False, True):
+        st_v = vstate
+        for img in vframes[1:61]:
+            marks = [("start", now())]
+            st_v, pyr_v, tm_v = vw.track_vo_frame(
+                st_v, img, on_stage=(lambda name: marks.append((name, now()))) if staged else None)
+            marks.append(("rest", now()))
+            if staged:
+                t_stage.append({n: (t1 - t0) * 1e3
+                                for (_, t0), (n, t1) in zip(marks[:-1], marks[1:])})
+            else:
+                t_track.append((marks[-1][1] - marks[0][1]) * 1e3)
+            if st_v.frame_id % vo_opts.kf_min_frames == 0:
+                t0 = now()
+                if not staged:
+                    fe.detect_multilevel(pyr_v, vo_opts.detect_threshold, vo_opts.grid_cell,
+                                         vo_opts.feat_budgets)
+                    t_detect.append((now() - t0) * 1e3)
+                t0 = now()
+                st_v, _ = vw.insert_vo_keyframe(st_v, pyr_v, tm_v)
+                if not staged:
+                    t_kf.append((now() - t0) * 1e3)
+    split3 = {k: round(statistics.median(r[k] for r in t_stage), 3) for k in t_stage[0]}
+    if list(split3) != ["pyramid", "sparse_align", "visible_patches", "local_map", "rest"]:
+        raise AssertionError(f"track reported the stages {list(split3)}")
+    print(f"main path 3 step times (synchronised, medians over {len(t_track)} frames and "
+          f"{len(t_kf)} keyframes): track {statistics.median(t_track):.3f} ms, keyframe cycle "
+          f"{statistics.median(t_kf):.3f} ms (detection alone "
+          f"{statistics.median(t_detect):.3f} ms); track's stages, each ended by a "
+          f"synchronisation inside the step, {split3}, sum {sum(split3.values()):.3f}", flush=True)
+
+    # -- 6. profile windows ----------------------------------------------------
     _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30, "main path 1")
     _profile(torch, lambda: bm.track_batch_frames(bstate, frames_b[:10], T0b), 10,
              f"main path 2 (per batched frame of {S_BATCH} sequences)")
+    _profile(torch, lambda: vw.track_vo_frames(vstate, vframes[1:31]), 30,
+             "main path 3 (30 frames with 3 keyframe cycles)")
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 7. result lines ------------------------------------------------------
     def launches(name):
-        return launches1[name] + launches2[name]
+        return launches1[name] + launches2[name] + launches3[name]
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"
@@ -601,6 +834,8 @@ def main() -> int:
                launches("gather_windows_grouped")),
         "K8": ("pose_ba_fused_batch", "ygz_slam_tpu_torch/csrc/pose_ba_fused_batch.cu",
                pk + "pose_ba_fused_batch.py:194", launches("pose_ba_batch_gn")),
+        "K10": ("hamming_distance_matrix", "ygz_slam_tpu_torch/csrc/hamming.cu",
+                pk + "hamming_kernel.py:48", launches("distance_matrix")),
     }
     kernels = []
     for k, (name, src, replaces, n_launch) in meta.items():

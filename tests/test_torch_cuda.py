@@ -2,10 +2,11 @@
 inputs the main paths do not give them: K1 with origins outside the
 image, K2 with an image index past its stack, K5 with planted outliers
 and masked points, K6 with eight requests, K8 with one sequence fully
-masked beside normal ones; and five frames of
-the single-sequence step and three of the batch step on the card against
-the CPU.  chip_smoke.py holds every kernel against its plain version on
-the main paths' own inputs.
+masked beside normal ones, K10 with an empty side and with one row; and
+five frames of the single-sequence step, three of the batch step and twelve
+of the VO slice (with one keyframe cycle) on the card against the CPU.
+chip_smoke.py holds every kernel against its plain version on the main
+paths' own inputs.
 
 Every test here needs a CUDA device and skips without one; the file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -29,8 +30,12 @@ from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
 from ygz_slam_tpu_torch.models import batch as bm
 from ygz_slam_tpu_torch.models import tracking as tr
+from ygz_slam_tpu_torch.models import vo_workload as vw
+from ygz_slam_tpu_torch.ops import hamming as tham
+from ygz_slam_tpu_torch.ops import kernels
 from ygz_slam_tpu_torch.ops.kernels import align2d_fused as tk4
 from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as tk1
+from ygz_slam_tpu_torch.ops.kernels import hamming_kernel as tk10
 from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as tk5
 from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as tk8
 from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as tk3
@@ -201,3 +206,112 @@ def test_batch_step_card_matches_cpu(cuda_device):
     d = tse3.distance(TSE3.from_params7(T7.cpu()), TSE3.from_params7(T7c))
     assert float(d.max()) <= TOL_SLICE
     assert int((inl.cpu() - inl_c).abs().max()) <= 2
+
+
+def _words(n, seed, device):
+    r = np.random.default_rng(seed).integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    return torch.from_numpy(r.view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("n,m", [(0, 5), (5, 0), (0, 0), (1, 1), (1, 300), (300, 1), (33, 129)])
+def test_hamming_edge_shapes(cuda_device, n, m):
+    """K10 with an empty side (no launch), one row, and sizes one past a
+    tile edge: equal to the plain version, integers."""
+    a, b = _words(n, 0, cuda_device), _words(m, 1, cuda_device)
+    before = tk10.distance_matrix.launches
+    out = tham.distance_matrix(a, b)
+    assert tk10.distance_matrix.launches - before == (1 if n and m else 0)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (n, m)
+    assert torch.equal(out.cpu(), tk10.distance_matrix_plain(a.cpu(), b.cpu()))
+
+
+def test_hamming_refuses_what_the_kernel_does_not_take(cuda_device):
+    a = _words(8, 2, cuda_device)
+    for bad in (a.long(), a[:, :7].contiguous(), a[::2], a.cpu()):
+        with pytest.raises(ValueError):
+            tham.distance_matrix(a, bad)
+
+
+def _to(x, device):
+    """A VOState (nested tuples of tensors and plain values) on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple) and hasattr(x, "_fields") and not isinstance(x[0], float):
+        return type(x)(*(_to(v, device) for v in x))
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(_to(v, device) for v in x)
+    return x
+
+
+def test_vo_slice_card_matches_cpu(cuda_device):
+    """Twelve frames of the VO slice with the keyframe cycle at frame 10, on
+    the card (kernels) against the CPU (plain versions) from the same
+    bootstrapped state, each kernel launched as often as the steps call it.
+    The detector's float32 integral image is summed in another order on the
+    card, so a few corners of the new keyframe may differ."""
+    state, frames, T_gt7 = vw.make_vo_workload(13, cuda_device)
+    counters = (tk1.gather_windows, tk1.gather_windows_multi, tk3.mega_gn, tk4.a2d_gn,
+                tk5.pose_ba_gn, tk10.distance_matrix)
+    before = [c.launches for c in counters]
+    st, T7, inl, log = vw.track_vo_frames(state, frames[1:])
+    assert [c.launches - b for c, b in zip(counters, before)] == [72, 12, 12, 12, 12, 3]
+    assert vw.vo_gate(T7, inl, T_gt7[1:])[2]
+    # The CPU run, frame by frame, keeping the state each frame started from.
+    st_c, starts, T7c, inl_c, log_c = _to(state, "cpu"), [], [], [], []
+    for img in frames[1:].cpu():
+        starts.append(st_c)
+        st_c, pyr_c, tm_c = vw.track_vo_frame(st_c, img)
+        T7c.append(st_c.prev_T_cw7)
+        inl_c.append(tm_c.n_inliers)
+        if st_c.frame_id % st_c.opts.kf_min_frames == 0:
+            st_c, counts = vw.insert_vo_keyframe(st_c, pyr_c, tm_c)
+            log_c.append(counts)
+    T7c, inl_c = torch.stack(T7c), torch.stack(inl_c)
+    # One step from the same state: the kernels against their plain versions
+    # through the whole `track`, the frame after the keyframe cycle included.
+    # From frame 7 on the NS selection hands K3 masked landmark rows at depth
+    # ~0, whose Jacobians' squares overflow float32: rows that neither the
+    # kernel nor its plain version may read.
+    for i, start in enumerate(starts):
+        one, _, tm1 = vw.track_vo_frame(_to(start, cuda_device), frames[1 + i])
+        d1 = float(tse3.distance(TSE3.from_params7(one.prev_T_cw7.cpu()),
+                                 TSE3.from_params7(T7c[i])))
+        assert d1 <= TOL_POSE, (i, d1)
+        assert abs(int(tm1.n_inliers) - int(inl_c[i])) <= 1, i
+    # Chained, each run feeds its own found set and pose forward.
+    d = tse3.distance(TSE3.from_params7(T7.cpu()), TSE3.from_params7(T7c))
+    print(f"card versus CPU over 12 chained VO frames: max pose distance {float(d.max()):.3e}, "
+          f"inliers {inl.tolist()} vs {inl_c.tolist()}")
+    assert float(d.max()) <= TOL_SLICE
+    assert int((inl.cpu() - inl_c).abs().max()) <= 3
+    assert len(log) == len(log_c) == 1
+    assert (log[0]["slot"], log[0]["evicted"]) == (log_c[0]["slot"], log_c[0]["evicted"]) == (1, False)
+    assert abs(log[0]["landmarks"] - log_c[0]["landmarks"]) <= 3
+    m, mc = st.mstate, st_c.mstate
+    assert float((m.feat_valid[1].cpu() == mc.feat_valid[1]).float().mean()) >= 0.95
+    assert torch.equal(m.kf_valid.cpu(), mc.kf_valid) and torch.equal(m.kf_id.cpu(), mc.kf_id)
+
+
+def test_recorded_launches_are_the_steps_own(cuda_device):
+    """One VO frame and a keyframe cycle under `record_launches`: the
+    kernels in the order the steps launch them, each entry holding the
+    arguments its wrapper was given (replayed, the gathers and K10 equal
+    their plain versions)."""
+    state, frames, _ = vw.make_vo_workload(2, cuda_device)
+    with kernels.record_launches() as rec:
+        vw.track_vo_frames(state, frames[1:], kf_every=1)
+    names = [fn.__name__ for fn, _ in rec]
+    assert names == (["gather_windows"] * 6 + ["mega_gn", "gather_windows_multi", "a2d_gn",
+                                               "pose_ba_gn"] + ["distance_matrix"] * 3)
+    assert [a[3] for fn, a in rec[:6]] == [7, 7, 7, 16, 16, 16]
+    assert [tuple(a[0].shape) + tuple(a[1].shape) for fn, a in rec[10:]] == \
+        [(128, 8, 256, 8), (128, 8, 256, 8), (256, 8, 3072, 8)]
+    plain = {tk1.gather_windows: tk1.gather_windows_plain,
+             tk1.gather_windows_multi: tk1.gather_windows_multi_plain,
+             tk10.distance_matrix: tk10.distance_matrix_plain}
+    for fn, args in rec:
+        if fn in plain:
+            assert torch.equal(fn(*args), plain[fn](*args))
+    with kernels.record_launches() as rec2:
+        pass
+    assert rec2 == []

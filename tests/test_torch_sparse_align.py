@@ -109,3 +109,31 @@ def test_distorted_camera_matches_jax_kernel():
     d = float(tse3.distance(tst.T_cur_ref, TSE3(torch.tensor(Rj), torch.tensor(tj))))
     assert d <= TOL_POSE, d
     assert float(tse3.distance(tst.T_cur_ref, T_gt)) < 1e-2
+
+
+@pytest.mark.parametrize("junk", [1e19, float("inf"), float("nan")])
+def test_masked_rows_are_never_read(case, junk):
+    """A masked row may hold anything: the VO hands over landmark rows at
+    depth ~0, whose Jacobians' squares overflow float32.  The kernel skips
+    such rows, and so must the plain version: a 0 weight would not do
+    (inf * 0 is NaN, and the guarded solve then takes no step at all)."""
+    prep, mask = case["prep"], case["mask"].clone()
+    mask[::5] = False
+    T0 = TSE3.from_params7(torch.tensor(case["T_init7"]))
+
+    def run(fill):
+        keep = mask[None, :, None]
+        p = prep._replace(
+            mega_refp=torch.where(keep, prep.mega_refp, fill),
+            mega_jl=torch.where(keep[..., None], prep.mega_jl, fill),
+            levels=tuple(lr._replace(vis=lr.vis & mask, J=torch.where(mask[:, None, None], lr.J, fill))
+                         for lr in prep.levels))
+        return tsa.sparse_image_align(case["ref_pyr"], case["cur_pyr"], case["cam"], case["px"],
+                                      case["depth"], mask, T0, distorted=False, ref_prep=p)
+
+    clean, dirty = run(0.0), run(junk)
+    assert int(clean.n_visible) == int(mask.sum())
+    assert float(tse3.distance(clean.T_cur_ref, TSE3.from_params7(case["T_gt7"][1]))) < 2e-2
+    assert torch.equal(dirty.T_cur_ref.R, clean.T_cur_ref.R)
+    assert torch.equal(dirty.T_cur_ref.t, clean.T_cur_ref.t)
+    assert torch.equal(dirty.chi2, clean.chi2) and torch.equal(dirty.H, clean.H)

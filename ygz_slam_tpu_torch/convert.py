@@ -13,7 +13,9 @@ import torch
 
 from . import resolve_device
 from .geometry.camera import PinholeCamera
+from .map.state import MapState
 from .models.batch import BatchState
+from .models.frontend import Features
 from .models.tracking import KeyframeState
 from .ops.kernels.align2d_fused import Align2DPrep
 from .ops.kernels.align2d_kernel import CACHE_WIN, PATCH
@@ -22,6 +24,17 @@ from .ops.sparse_align import LevelRef, ReferencePrep
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=resolve_device(device))
+
+
+def _like(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the port's type for it: uint32 words
+    become int32 with the same bits, other integers int32, floats float32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    dtype = (torch.bool if a.dtype == np.bool_ else
+             torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32)
+    return _t(a, device, dtype)
 
 
 def camera_from_numpy(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0) -> PinholeCamera:
@@ -74,3 +87,23 @@ def batch_state_from_numpy(cam: PinholeCamera, ref_pyrs, px, depth, mask, pts_w,
         depth=_t(depth, device), mask=_t(mask, device, torch.bool),
         pts_w=_t(pts_w, device), patches=_t(patches, device),
         ref_preps=tuple(ref_preps), a2d_prep=a2d_prep)
+
+
+def map_state_from_numpy(fields: dict, device=None) -> MapState:
+    """MapState from a dict of numpy arrays named after its fields (the JAX
+    MapState's `_asdict()`, say); descriptors may be uint32 or int32 words."""
+    return MapState(**{name: _like(fields[name], device) for name in MapState._fields})
+
+
+def map_state_to_numpy(m: MapState) -> dict:
+    """The fields of a MapState as numpy arrays, descriptors as the uint32
+    words the JAX package holds."""
+    out = {name: t.detach().cpu().numpy() for name, t in m._asdict().items()}
+    for name in ("feat_desc", "pt_desc"):
+        out[name] = out[name].view(np.uint32)
+    return out
+
+
+def features_from_numpy(px, level, score, angle, desc, depth, valid, device=None) -> Features:
+    """Features from the JAX Features' fields as numpy arrays."""
+    return Features(*(_like(a, device) for a in (px, level, score, angle, desc, depth, valid)))

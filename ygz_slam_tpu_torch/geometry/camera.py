@@ -94,6 +94,11 @@ class PinholeCamera(NamedTuple):
         return torch.cat([xn * depth[..., None],
                           depth[..., None].expand(xn[..., :1].shape)], dim=-1)
 
+    def pixel_to_bearing(self, px: torch.Tensor, distorted: bool = True) -> torch.Tensor:
+        """Pixel [..., 2] -> unit bearing vector [..., 3]."""
+        pc = self.pixel_to_camera(px, 1.0, distorted)
+        return pc / torch.linalg.norm(pc, dim=-1, keepdim=True)
+
     # -- world <-> pixel -------------------------------------------------
     def world_to_pixel(self, pw: torch.Tensor, T_cw: SE3,
                        distorted: bool = True) -> torch.Tensor:

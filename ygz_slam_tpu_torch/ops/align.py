@@ -11,7 +11,7 @@ from typing import NamedTuple
 import torch
 
 from .interp import in_bounds
-from .kernels.align2d_fused import Align2DPrep, align2d_fused, align2d_prepare
+from .kernels.align2d_fused import A2DWindows, Align2DPrep, align2d_fused, align2d_prepare
 from .kernels.align2d_kernel import CACHE_SLACK, PATCH
 
 
@@ -31,7 +31,8 @@ def substitute_inits(xy_init: torch.Tensor, H: int, W: int):
 def align2d(cur_img: torch.Tensor, ref_patch_border: torch.Tensor,
             xy_init: torch.Tensor, n_iter: int = 10,
             conv_eps: float = 0.03, max_error: float = 30.0,
-            prep: Align2DPrep | None = None) -> AlignResult:
+            prep: Align2DPrep | None = None,
+            pregathered: A2DWindows | None = None) -> AlignResult:
     """Refine N positions in `cur_img` so each 8x8 patch matches its
     reference (with a 1-px border for gradients, [N, 10, 10]), estimating
     (du, dv, mean offset).
@@ -40,12 +41,15 @@ def align2d(cur_img: torch.Tensor, ref_patch_border: torch.Tensor,
     6 px margin are replaced by (10, 10) and never accepted; a result is
     accepted when it lies inside a 5 px margin, its final mean |r| is
     below `max_error`, and it drifted less than min(16, CACHE_SLACK) px
-    (beyond that the cached window clamps the sampling)."""
+    (beyond that the cached window clamps the sampling).  `pregathered`
+    hands over cache windows fetched beforehand around `xy_init` (from a
+    pyramid stack, say) with their origins; K4 then samples those."""
     H, W = cur_img.shape
     xy0s, inb0 = substitute_inits(xy_init.to(cur_img.dtype), H, W)
     if prep is None:
         prep = align2d_prepare(ref_patch_border)
-    xy, _, err = align2d_fused(cur_img, prep, xy0s, n_iter=n_iter, conv_eps=conv_eps)
+    xy, _, err = align2d_fused(cur_img, prep, xy0s, n_iter=n_iter, conv_eps=conv_eps,
+                               pregathered=pregathered)
     converged = accepted(xy, err, xy_init, inb0, H, W, max_error)
     return AlignResult(xy=xy, converged=converged, error=err)
 

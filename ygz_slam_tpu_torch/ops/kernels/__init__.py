@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.  Every kernel wrapper launches its kernel for CUDA tensors, runs
 the plain version for CPU tensors and raises for any other device; it
-counts its launches in a `launches` attribute."""
+counts its launches in a `launches` attribute, and inside
+`record_launches()` every launch is kept with the arguments its wrapper
+was given."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -48,6 +51,34 @@ def launch(lib_name: str, fn_name: str, argtypes: list, *args) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_recording = None       # the open `record_launches` list, if any
+
+
+def launched(wrapper, *args) -> None:
+    """A wrapper calls this where it has launched its kernel, with the
+    arguments it was given: one more in `wrapper.launches`, and a
+    (wrapper, args) entry in the open recording."""
+    wrapper.launches += 1
+    if _recording is not None:
+        _recording.append((wrapper, args))
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, every kernel launch is appended to the list this
+    yields as (wrapper, the wrapper's arguments), in launch order: a caller
+    can drive an entry point and then hand each kernel and its plain
+    version the very inputs that path gave it."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("record_launches is already open")
+    _recording = rec = []
+    try:
+        yield rec
+    finally:
+        _recording = None
 
 
 P = ctypes.c_void_p

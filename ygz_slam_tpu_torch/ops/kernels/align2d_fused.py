@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import Fl, I, P, launch, on_card, require, stream
+from . import Fl, I, P, launch, launched, on_card, require, stream
 from .align2d_kernel import CACHE_SLACK, CACHE_WIN, PATCH, gather_windows
 
 _HALF = (PATCH - 1) / 2.0                 # 3.5
@@ -53,11 +53,16 @@ def align2d_prepare(ref_patch_border: torch.Tensor) -> Align2DPrep:
                        hinv.contiguous())
 
 
-def a2d_window_origins(center_xy: torch.Tensor, H: int, W: int):
-    """Cache-window origins (int32) for patch centers [N, 2]."""
-    ox = torch.clamp(torch.floor(center_xy[:, 0] - _HALF) - CACHE_SLACK, 0, W - CACHE_WIN)
-    oy = torch.clamp(torch.floor(center_xy[:, 1] - _HALF) - CACHE_SLACK, 0, H - CACHE_WIN)
-    return ox.to(torch.int32), oy.to(torch.int32)
+def a2d_window_origins(center_xy: torch.Tensor, H, W):
+    """Cache-window origins (int32) for patch centers [N, 2] in images of
+    H x W pixels: ints, or [N] tensors where each point has an image size
+    of its own (the levels of a pyramid stack)."""
+    def origin(c, size):
+        o = torch.clamp(torch.floor(c - _HALF) - CACHE_SLACK, min=0)
+        return torch.clamp(o, max=size - CACHE_WIN)      # a number or a tensor bound
+
+    return (origin(center_xy[:, 0], W).to(torch.int32),
+            origin(center_xy[:, 1], H).to(torch.int32))
 
 
 def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
@@ -130,7 +135,7 @@ def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
            wins.data_ptr(), ref.data_ptr(), jx.data_ptr(), jy.data_ptr(), hinv.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), xy0.data_ptr(), out.data_ptr(), N, n_iter,
            conv_eps * conv_eps, stream(dev))
-    a2d_gn.launches += 1
+    launched(a2d_gn, wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     return out
 
 

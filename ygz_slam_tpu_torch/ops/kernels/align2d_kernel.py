@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import I, P, launch, on_card, require, stream
+from . import I, P, launch, launched, on_card, require, stream
 
 PATCH = 8
 # Cached-window aligner geometry: one CACHE_WIN window per point, fetched
@@ -68,7 +68,7 @@ def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
     launch("gather_windows", "gather_windows_launch", [P, I, I, P, P, I, I, P, P],
            img.data_ptr(), H, W, xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
            stream(img.device))
-    gather_windows.launches += 1
+    launched(gather_windows, img, xi, yi, win)
     return out
 
 
@@ -108,7 +108,7 @@ def gather_windows_multi(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Te
     launch("gather_windows", "gather_windows_multi_launch", [P, I, I, I, P, P, P, I, I, P, P],
            imgs.data_ptr(), S, H, W, img_idx.data_ptr(), xi.data_ptr(), yi.data_ptr(), N, win,
            out.data_ptr(), stream(dev))
-    gather_windows_multi.launches += 1
+    launched(gather_windows_multi, imgs, img_idx, xi, yi, win)
     return out
 
 
@@ -154,7 +154,7 @@ def gather_windows_grouped(groups) -> list:
         outs.append(out)
     launch("gather_windows", "gather_windows_grouped_launch", [P, I, P],
            ctypes.addressof(descs), len(groups), stream(dev))
-    gather_windows_grouped.launches += 1
+    launched(gather_windows_grouped, groups)
     return outs
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import Fl, I, P, _gn6, launch, on_card, require, stream
+from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
 from ...geometry.se3 import SE3
 from ...solvers import robust
 
@@ -141,7 +141,7 @@ def pose_ba_gn(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=10, ep
            pts.data_ptr(), px.data_ptr(), msk.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            inl.data_ptr(), scratch.data_ptr(), N, cam.fx, cam.fy, cam.cx, cam.cy, chi2_th,
            rounds, iters, eps, threads, stream(dev))
-    pose_ba_gn.launches += 1
+    launched(pose_ba_gn, pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     return out, inl
 
 

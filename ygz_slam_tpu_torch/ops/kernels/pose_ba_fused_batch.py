@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from . import Fl, I, P, launch, on_card, require, stream
+from . import Fl, I, P, launch, launched, on_card, require, stream
 from .pose_ba_fused import CHI2_2D, pose_ba_gn_plain
 from ...geometry.se3 import SE3
 
@@ -58,7 +58,7 @@ def pose_ba_batch_gn(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=
            pts.data_ptr(), px.data_ptr(), msk.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            inl.data_ptr(), scratch.data_ptr(), S, N, cam.fx, cam.fy, cam.cx, cam.cy, chi2_th,
            rounds, iters, eps, threads, stream(dev))
-    pose_ba_batch_gn.launches += 1
+    launched(pose_ba_batch_gn, pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     return out, inl
 
 

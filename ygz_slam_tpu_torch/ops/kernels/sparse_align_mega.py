@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import Fl, I, P, _gn6, launch, on_card, require, stream
+from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
 from .align2d_kernel import gather_windows
 
 # Geometry of the TPU kernel (ops/pallas/sparse_align_fused.py), kept here.
@@ -69,6 +69,14 @@ def mega_windows(pc0, px0_l0, reqs, wins) -> MegaWindows:
 
 def _distortion(cam, distorted: bool) -> tuple[float, float, float, float]:
     return (cam.k1, cam.k2, cam.p1, cam.p2) if distorted else (0.0, 0.0, 0.0, 0.0)
+
+
+def used_rows(J: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """J [N, 16, 6] with the rows outside `m [N]` set to 0.  The kernel never
+    reads a masked row; a product with a 0 weight would, and a masked row
+    may hold anything (a landmark row at depth ~0 has Jacobians whose
+    squares overflow, and inf * 0 is NaN)."""
+    return torch.where(m[:, None, None], J, 0.0)
 
 
 def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
@@ -133,14 +141,14 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
             cur = ((1 - ax) * (1 - ay) * sub[:, :4, :4] + ax * (1 - ay) * sub[:, :4, 1:]
                    + (1 - ax) * ay * sub[:, 1:, :4] + ax * ay * sub[:, 1:, 1:])
             r = torch.where(m[:, None], cur.reshape(N, PATCH * PATCH) - rp_l, 0.0)
-            bv = -torch.einsum("npa,np->a", J_l, r)
+            bv = -torch.einsum("npa,np->a", used_rows(J_l, m), r)
             num = torch.sum(r * r)
             den = torch.clamp(torch.sum(m).to(torch.float32) * (PATCH * PATCH), min=1.0)
             return [_gn6.F(v) for v in bv.cpu().numpy()], _gn6.F((num / den).item())
 
         # Hessian frozen at the level-init pose and visibility.
-        m0 = usable(R, t)[0].to(torch.float32)
-        Hm = torch.einsum("npa,n,npb->ab", J_l, m0, J_l)
+        J0 = used_rows(J_l, usable(R, t)[0])
+        Hm = torch.einsum("npa,npb->ab", J0, J0)
         Lc = _gn6.chol6(_gn6.upper21(Hm))
         bv, chi2 = residual_pass(R, t)
         passes.append(1)
@@ -185,7 +193,7 @@ def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
            lvis.data_ptr(), ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, MAX_ITER, STOP_STEP,
            threads, stream(dev))
-    mega_gn.launches += 1
+    launched(mega_gn, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
     return out
 
 
@@ -231,6 +239,7 @@ def sparse_align_mega(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool,
     margin = PATCH // 2 + 2
     w0 = ((lr0.vis) & (pc0[:, 2] > 1e-3)
           & (px0_l0[:, 0] >= margin) & (px0_l0[:, 0] < W0 - 1 - margin)
-          & (px0_l0[:, 1] >= margin) & (px0_l0[:, 1] < H0 - 1 - margin)).to(torch.float32)
-    H = torch.einsum("npa,n,npb->ab", lr0.J, w0, lr0.J)
+          & (px0_l0[:, 1] >= margin) & (px0_l0[:, 1] < H0 - 1 - margin))
+    J0 = used_rows(lr0.J, w0)
+    H = torch.einsum("npa,npb->ab", J0, J0)
     return R, t, chi2, H

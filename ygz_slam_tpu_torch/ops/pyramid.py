@@ -13,6 +13,19 @@ import numpy as np
 import torch
 
 
+def _conv1d(img: torch.Tensor, axis: int) -> torch.Tensor:
+    """Edge-replicated 5-tap [1, 4, 6, 4, 1]/16 filter along one axis of an
+    [H, W] image, as five shifted adds in tap order."""
+    n = img.shape[axis]
+    idx = torch.clamp(torch.arange(-2, n + 2, device=img.device), 0, n - 1)
+    x = img.index_select(axis, idx)
+    out = None
+    for t, k in enumerate((1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)):
+        term = x.narrow(axis, t, n) * k
+        out = term if out is None else out + term
+    return out
+
+
 @lru_cache(maxsize=None)
 def _decim_matrix(n: int) -> np.ndarray:
     """[ceil(n/2), n]: out[j] = sum_t k[t] * in[clamp(2j + t - 2, 0, n-1)]."""
