@@ -25,8 +25,17 @@ Phases, each raising (and so exiting non-zero) on failure:
       130 x 77 and with all-ones and sign-bit-only words; `match_nn` and
       the tie-breaking argmins on the card against the CPU, exactly.
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
-      that frame 8 of the VO path gives them (N=256 with masked rows for
-      K3, 512 rows on the three-level pyramid stack for K2, K4 and K5).
+      that frame 10 of the VO path gives them (N=256 with masked rows for
+      K3, 512 rows on the three-level pyramid stack for K2, K4 and K5),
+      recorded from the step itself.
+   e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2) against
+      their plain versions on the three per-level launches that frame 12
+      of main path 4 makes under FUSED_VARIANT 1 and 2 (recorded from
+      `System.track_monocular`), on level 0 with no usable point (the
+      pose must not move) and with an init pose shifted so that windows
+      clamp at the border; per-launch times, bounds and plain times.
+   K10 is also timed against `torch.cdist(p=0)` on descriptors unpacked to
+   256 float bits beforehand (the unpacking left out of its time).
 3. Main path 1: the 640x480 / 200-landmark tracking workload, rendered on
    the card, through `tracking.track_frames`, every frame held to the
    accuracy gate; the launch counters must show K3, K4 and K5 once per
@@ -45,9 +54,22 @@ Phases, each raising (and so exiting non-zero) on failure:
    and three window levels: the reference is the previous frame, prepared
    anew each frame); per keyframe K10 three times (two triangulation
    neighbours and the fusion with the map); K6 and K8 never.
-6. A short torch.profiler window over each main path: device busy share
+5b. Main path 4: the monocular System from raw frames
+   (`models/mono_workload.py`: 160 frames 640x480, 3 levels, map K=10 x
+   F=256 x L=3072, NS=256, NSV=512) through `System.track_monocular`,
+   under FUSED_VARIANT 3, 2 and 1, each run held to `mono_gate` (GOOD
+   within 30 frames, no LOST frame after, Sim(3)-aligned ATE < 0.05 m)
+   with at least 12 keyframes and keyframe culling at work.  Per frame
+   through `track`: K2, K4, K5 once and K1 six times (three 7x7 reference
+   levels, three 16x16 window levels, for K3 or for each K9 launch); K3
+   once under 3, the variant's K9 entry three times under 1 or 2; K10
+   three times per keyframe; K6 and K8 never.  Then, from a fresh System,
+   synchronised times of the init step, `track`, the keyframe cycle and
+   the mapping pass.
+6. A short torch.profiler window over each main path (path 4 under
+   variant 2, frames 30-49, keyframes in the window): device busy share
    and the kernels that take the most device time.
-7. One JSON line {"kernels": [...]} (launches summed over the three main
+7. One JSON line {"kernels": [...]} (launches summed over the four main
    paths), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -67,6 +89,8 @@ S_BATCH = 8              # bench_batch.py's defaults: 8 sequences x 60 frames
 F_BATCH = 60
 N_VO = 240               # main path 3: frame 0 bootstraps the map, 239 are tracked
 S_BIG = 16               # BASELINE.json config 5: 16 concurrent sequences
+E2_FRAME = 12            # main path 4's frame whose K9 launches phase 2e replays
+P4_PROFILE = (30, 50)    # main path 4's profiled frames (keyframes fall every ~7)
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -86,6 +110,7 @@ TOL_XY_ALL = 0.05       # all of them within 0.05 px: a 0.03 px freeze
                         # decision may flip on rounding and skip one step
 MIN_MASK_AGREE = 0.98   # K4 acceptance masks
 MIN_INLIER_AGREE = 0.99  # K5/K8 inlier sets
+TOL_REL = 1e-4          # K9 chi2 and H, relative
 
 
 def _run(cmd):
@@ -182,7 +207,11 @@ def main() -> int:
     from ygz_slam_tpu_torch.ops.kernels import hamming_kernel as k10
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as k5
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as k8
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as k9
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as k3
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import visual_odometry as vo_mod
+    from ygz_slam_tpu_torch.system.system import System
     from ygz_slam_tpu_torch.ops.align import accepted, align2d, substitute_inits
     from ygz_slam_tpu_torch.parallel import batch_tracking as bt
 
@@ -567,21 +596,36 @@ def main() -> int:
         n, m = a.shape[0], b.shape[0]
         return _bound((n + m) * 32 + n * m * 4, n * m * 8 * 3)      # xor, popc, add per word
 
+    # Library yardstick: torch.cdist(p=0) counts the differing entries of two
+    # rows, the Hamming distance of descriptors unpacked to 256 float bits.
+    # The unpacking is done beforehand and left out of its time.
+    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+
+    def unpack_bits(w):
+        return ((w[:, :, None] >> shifts) & 1).reshape(w.shape[0], 256).to(torch.float32)
+
     per_launch = []
     for tag, a, b in k10_cases[:3]:
         ms = _time_kernel(torch, lambda: k10.distance_matrix(a, b))
         plain = _time_host(torch, lambda: k10.distance_matrix_plain(a, b))
-        per_launch.append((ms, plain, k10_bound(a, b)))
-        print(f"K10 one launch, {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library null "
-              f"(PyTorch has no single call for it), bound {per_launch[-1][2][0]:.6f} ms "
-              f"({per_launch[-1][2][1]})", flush=True)
+        ab, bb = unpack_bits(a), unpack_bits(b)
+        lib_out = torch.cdist(ab, bb, p=0)
+        if not torch.equal(lib_out.to(torch.int32), k10.distance_matrix(a, b)):
+            raise AssertionError("torch.cdist(p=0) on the unpacked bits is not K10's distance")
+        lib = _time_kernel(torch, lambda: torch.cdist(ab, bb, p=0))
+        per_launch.append((ms, plain, k10_bound(a, b), lib))
+        print(f"K10 one launch, {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms (torch.cdist p=0 on the bits unpacked beforehand, equal), bound "
+              f"{per_launch[-1][2][0]:.6f} ms ({per_launch[-1][2][1]})", flush=True)
     tri, fus = per_launch[0], per_launch[1]
-    report["K10"] = dict(ms=2 * tri[0] + fus[0], plain=2 * tri[1] + fus[1], lib=None, err=e10,
+    report["K10"] = dict(ms=2 * tri[0] + fus[0], plain=2 * tri[1] + fus[1],
+                         lib=2 * tri[3] + fus[3], err=e10,
                          bound=(2 * tri[2][0] + fus[2][0], fus[2][1]))
     r = report["K10"]
     print(f"K10 per keyframe (2 x {Fn_vo}x{vo_opts.map_F} + {vo_opts.map_F}x{vo_opts.map_L}, the "
           f"sums of the launches above): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
-          f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+          f"library {r['lib']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})",
+          flush=True)
 
     # -- 2d. the VO path's kernels on the inputs that path gives them ---------
     # Frame 10 through the entry point (`track`, then the keyframe cycle) with
@@ -637,6 +681,121 @@ def main() -> int:
           f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 "
           f"{_time_kernel(torch, lambda: k5.pose_ba_gn(*a5v)):.4f} ms", flush=True)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
+
+    # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
+    # The monocular System from raw frames, initialised and tracked to frame
+    # E2_FRAME under each per-level variant; that frame's `track` is recorded
+    # and each K9 launch (one per level, coarse to fine) replayed against its
+    # plain version.  Two edge cases from level 0's recorded arguments: no
+    # usable point (H0 = 0: b = 0, so neither variant may move the pose) and
+    # the init pose shifted sideways so that windows clamp at the border.
+    t0 = time.perf_counter()
+    cam_m, frames_m, T_gt_m = mw.make_mono_workload(mw.N_FRAMES, dev)
+    torch.cuda.synchronize()
+    print(f"mono workload: {mw.N_FRAMES} frames {mw.W}x{mw.H}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def check_k9(args, lfac, tag):
+        """K9 v1 (lfac None) or v2 against its plain version; returns
+        (max |R,t diff|, plain passes, kernel output)."""
+        stats = {}
+        if lfac is None:
+            out, ref = k9.level_gn(*args), k9.level_gn_plain(*args, stats=stats)
+            name = "K9 level_align_fused (v1)"
+            h_err = float((out[13:] - ref[13:]).abs().max() / ref[13:].abs().max().clamp(min=1e-30))
+        else:
+            v2 = args[:8] + (lfac,) + args[8:]
+            out, ref = k9.level_gn_v2(*v2), k9.level_gn_v2_plain(*v2, stats=stats)
+            name = "K9 level_align_fused_v2"
+            h_err = 0.0
+        d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
+        err = float((out[:12] - ref[:12]).abs().max())
+        c_err = abs(float(out[12]) - float(ref[12])) / max(abs(float(ref[12])), 1e-6)
+        print(f"{name} {tag}: pose distance {d:.3e} (tolerance {TOL_POSE}), max |R,t diff| "
+              f"{err:.3e}, chi2 {float(out[12]):.4f} vs {float(ref[12]):.4f} (relative "
+              f"{c_err:.1e}, tolerance {TOL_REL}), H relative {h_err:.1e}, passes "
+              f"{stats['passes']}")
+        if not (d <= TOL_POSE and c_err <= TOL_REL and h_err <= TOL_REL):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return err, stats["passes"], out
+
+    def k9_bound(args, passes, v1):
+        """Bytes: windows, patches, Jacobians, points, masks, origins, pose
+        read once, the output written once; operations: per point and
+        residual pass the projection (~40) and 16 pixels of bilinear sample,
+        residual, gradient and chi2 (~22), plus v1's 21 Hessian products."""
+        n = args[0].shape[0]
+        nbytes = n * (16 * 16 + 16 + 96 + 3 + 1 + 2) * 4 + 12 * 4 + (34 if v1 else 13) * 4
+        per_pass = 40 + 16 * (22 + (42 if v1 else 0))
+        return _bound(nbytes, n * per_pass * passes)
+
+    e2_report = {}
+    for variant, fn in ((1, k9.level_gn), (2, k9.level_gn_v2)):
+        sparse_align.FUSED_VARIANT = variant
+        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        for k in range(E2_FRAME):
+            sysm.track_monocular(frames_m[k], float(k))
+        if sysm.status is not vo_mod.Status.GOOD:
+            raise AssertionError(f"variant {variant}: not GOOD by frame {E2_FRAME}")
+        with kernels.record_launches() as rec:
+            sysm.track_monocular(frames_m[E2_FRAME], float(E2_FRAME))
+        names = [f.__name__ for f, _ in rec]
+        want_rec = (["gather_windows"] * 3 + ["gather_windows", fn.__name__] * L
+                    + ["gather_windows_multi", "a2d_gn", "pose_ba_gn"])
+        if names != want_rec:
+            raise AssertionError(f"variant {variant}, frame {E2_FRAME} launched {names}, "
+                                 f"expected {want_rec}")
+        k9_calls = [a for f, a in rec if f is fn]
+        level_imgs = [a[0] for f, a in rec[3:3 + 2 * L:2]]
+        if [a[-1] for a in k9_calls] != list(range(L - 1, -1, -1)):
+            raise AssertionError(f"K9 levels {[a[-1] for a in k9_calls]}")
+        errs, times, plains, bounds, passes = [], [], [], [], []
+        for a in k9_calls:
+            lfac = a[8] if variant == 2 else None
+            args = a if variant == 1 else a[:8] + a[9:]
+            tag = (f"variant {variant}, frame {E2_FRAME}, level {args[12]}, N={args[0].shape[0]} "
+                   f"({int((args[4] < 0.5).sum())} invisible)")
+            e, p, _ = check_k9(args, lfac, tag)
+            errs.append(e)
+            passes.append(p)
+            times.append(_time_kernel(torch, lambda a=a: fn(*a)))
+            plains.append(_time_host(torch, lambda a=a: (k9.level_gn_plain(*a) if variant == 1
+                                                         else k9.level_gn_v2_plain(*a))))
+            bounds.append(k9_bound(args, p, variant == 1))
+        # Edge cases on level 0's arguments.
+        a0 = k9_calls[-1] if variant == 1 else k9_calls[-1][:8] + k9_calls[-1][9:]
+        zero_vis = a0[:4] + (torch.zeros_like(a0[4]),) + a0[5:]
+        lfac0 = k9.frozen_factor(torch.zeros((6, 6), device=dev)) if variant == 2 else None
+        _, _, out = check_k9(zero_vis, lfac0, f"variant {variant}, level 0, no usable point")
+        if not (torch.equal(out[:12], a0[7]) and float(out[12]) == 0.0):
+            raise AssertionError("K9 moved the pose on a level with no usable point")
+        lr0 = sparse_align.LevelRef(vis=a0[4] > 0.5, ref_patch=a0[1], J=a0[2])
+        R0, t0_ = a0[7][:9].reshape(3, 3), a0[7][9:]
+        side = torch.tensor([0.2, 0.15, 0.0], device=dev)
+        bargs, pc0, px0 = k9.level_args(level_imgs[-1], lr0, a0[3], R0, t0_ + side, a0[8], 0,
+                                        a0[9])
+        Hl, Wl = level_imgs[-1].shape
+        clamped = ((bargs[5] == 0) | (bargs[5] == Wl - k9.CWIN) | (bargs[6] == 0)
+                   | (bargs[6] == Hl - k9.CWIN)) & lr0.vis
+        if int(clamped.sum()) == 0:
+            raise AssertionError("the shifted pose clamps no window")
+        lfacb = (k9.frozen_factor(k3.frozen_h0(lr0.J, lr0.vis, pc0, px0, Hl, Wl))
+                 if variant == 2 else None)
+        check_k9(bargs, lfacb, f"variant {variant}, level 0, init pose shifted by "
+                 f"{side.tolist()}: {int(clamped.sum())} visible points' windows clamped")
+        key = "K9v1" if variant == 1 else "K9v2"
+        b_ms = sum(b[0] for b in bounds)
+        report[key] = dict(ms=sum(times), plain=sum(plains), lib=None, err=max(errs),
+                           bound=(b_ms, bounds[-1][1]))
+        e2_report[key] = dict(times=times, plains=plains, bounds=bounds, passes=passes)
+        print(f"{key} per launch (levels 2, 1, 0): kernel "
+              f"{[round(t, 4) for t in times]} ms, plain {[round(t, 3) for t in plains]} ms, "
+              f"bound {[f'{b[0]:.6f} ({b[1]})' for b in bounds]} ms, passes {passes}; per "
+              f"frame (3 launches) kernel {sum(times):.4f} ms, plain {sum(plains):.3f} ms, "
+              f"bound {b_ms:.6f} ms; library null (PyTorch has no single call for it)",
+              flush=True)
+        del sysm, rec, k9_calls
+    sparse_align.FUSED_VARIANT = 3
 
     # -- 3. main path 1: single-sequence tracking ----------------------------
     counters = (k1.gather_windows, k1.gather_windows_grouped, k1.gather_windows_multi,
@@ -807,16 +966,111 @@ def main() -> int:
           f"{statistics.median(t_detect):.3f} ms); track's stages, each ended by a "
           f"synchronisation inside the step, {split3}, sum {sum(split3.values()):.3f}", flush=True)
 
+    # -- 5b. main path 4: the monocular System from raw frames ----------------
+    # Under each FUSED_VARIANT: one run for the gate, the launch counts and
+    # frames/s, then a second from a fresh System with the init step,
+    # `track`, the keyframe cycle and the mapping pass each wrapped in
+    # synchronisations (the VO looks these up by name when it calls them).
+    counters4 = counters + (k9.level_gn, k9.level_gn_v2)
+    launches4 = {}
+
+    def timed_run(variant):
+        times = {"init": [], "track": [], "kf_cycle": [], "mapping_pass": []}
+
+        def wrap(name, fn):
+            def timed(*a, **kw):
+                t0 = now()
+                out = fn(*a, **kw)
+                times[name].append((now() - t0) * 1e3)
+                return out
+            return timed
+
+        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        sysm.vo._try_init = wrap("init", sysm.vo._try_init)
+        saved = {n: getattr(vo_mod, n) for n in ("track", "kf_cycle", "mapping_pass")}
+        try:
+            for n, fn in saved.items():
+                setattr(vo_mod, n, wrap(n, fn))
+            mw.run_mono(sysm, frames_m)
+        finally:
+            for n, fn in saved.items():
+                setattr(vo_mod, n, fn)
+        return times
+
+    for variant in (3, 2, 1):
+        sparse_align.FUSED_VARIANT = variant
+        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        for c in counters4:
+            c.launches = 0
+        st_m, T7_m, wall = mw.run_mono(sysm, frames_m)
+        torch.cuda.synchronize()
+        got = {c.__name__: c.launches for c in counters4}
+        launches4[variant] = got
+        k0, ate, ok = mw.mono_gate(st_m, T7_m, T_gt_m)
+        vo_m = sysm.vo
+        n_track = len(st_m) - k0 - 1                   # frames through `track`
+        n_kf = vo_m.stats["keyframes"]
+        print(f"main path 4 (System.track_monocular), FUSED_VARIANT {variant}: {len(st_m)} "
+              f"frames in {wall:.3f} s = {len(st_m) / wall:.1f} frames/s; init at frame {k0} "
+              f"(model {'H' if vo_m.init_used_h else 'F'}), {n_track} tracked frames, "
+              f"{n_kf} keyframes, {vo_m.stats['evictions']} evictions, "
+              f"{vo_m.stats['keyframes_culled']} culled keyframes, "
+              f"{sum(s is vo_mod.Status.LOST for s in st_m)} LOST frames, final valid landmarks "
+              f"{int(vo_m.server.state.pt_valid.sum())}; ATE {ate!r} m (bound "
+              f"{mw.ATE_FLOOR}): gate {'pass' if ok else 'FAIL'}; launches {got}", flush=True)
+        if not ok:
+            raise AssertionError(f"main path 4, variant {variant}, failed mono_gate")
+        if n_kf < 12 or vo_m.stats["keyframes_culled"] == 0:
+            raise AssertionError(f"main path 4 inserted {n_kf} keyframes, culled "
+                                 f"{vo_m.stats['keyframes_culled']}")
+        want4 = {"gather_windows": 6 * n_track, "gather_windows_grouped": 0,
+                 "gather_windows_multi": n_track, "mega_gn": n_track if variant == 3 else 0,
+                 "a2d_gn": n_track, "pose_ba_gn": n_track, "pose_ba_batch_gn": 0,
+                 "distance_matrix": 3 * n_kf,
+                 "level_gn": 3 * n_track if variant == 1 else 0,
+                 "level_gn_v2": 3 * n_track if variant == 2 else 0}
+        if got != want4:
+            raise AssertionError(f"launch counts {got}, expected {want4}")
+        times = timed_run(variant)
+        med = {k: statistics.median(v) for k, v in times.items() if k != "init"}
+        klt_only = statistics.median(times["init"][:-1] or [float("nan")])
+        print(f"main path 4, FUSED_VARIANT {variant}, synchronised ms: init step (KLT, "
+              f"RANSAC H/F, two-view BA, first local BA) {times['init'][-1]:.3f} (the "
+              f"{len(times['init']) - 1} KLT-only init frames before it, median "
+              f"{klt_only:.3f}); medians of `track` "
+              f"{med['track']:.3f} over {len(times['track'])} frames, keyframe cycle "
+              f"{med['kf_cycle']:.3f} and mapping pass {med['mapping_pass']:.3f} over "
+              f"{len(times['kf_cycle'])} keyframes", flush=True)
+        del sysm
+    sparse_align.FUSED_VARIANT = 3
+
     # -- 6. profile windows ----------------------------------------------------
     _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30, "main path 1")
     _profile(torch, lambda: bm.track_batch_frames(bstate, frames_b[:10], T0b), 10,
              f"main path 2 (per batched frame of {S_BATCH} sequences)")
     _profile(torch, lambda: vw.track_vo_frames(vstate, vframes[1:31]), 30,
              "main path 3 (30 frames with 3 keyframe cycles)")
+    # Path 4 under variant 2, past init, over a window with keyframes in it.
+    sparse_align.FUSED_VARIANT = 2
+    sysm = System(cam_m, options=mw.mono_options(), device=dev)
+    for k in range(P4_PROFILE[0]):
+        sysm.track_monocular(frames_m[k], float(k))
+    n_kf0 = sysm.vo.stats["keyframes"]
+    _profile(torch, lambda: [sysm.track_monocular(frames_m[k], float(k))
+                             for k in range(*P4_PROFILE)],
+             P4_PROFILE[1] - P4_PROFILE[0], f"main path 4, FUSED_VARIANT 2 (frames "
+             f"{P4_PROFILE[0]}-{P4_PROFILE[1] - 1})")
+    n_kf_win = sysm.vo.stats["keyframes"] - n_kf0
+    print(f"main path 4 profile window: {n_kf_win} keyframes in it")
+    if n_kf_win < 1:
+        raise AssertionError("main path 4's profile window holds no keyframe")
+    sparse_align.FUSED_VARIANT = 3
+    del sysm
 
     # -- 7. result lines ------------------------------------------------------
     def launches(name):
-        return launches1[name] + launches2[name] + launches3[name]
+        return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
+                + sum(v[name] for v in launches4.values()))
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"
@@ -836,6 +1090,10 @@ def main() -> int:
                pk + "pose_ba_fused_batch.py:194", launches("pose_ba_batch_gn")),
         "K10": ("hamming_distance_matrix", "ygz_slam_tpu_torch/csrc/hamming.cu",
                 pk + "hamming_kernel.py:48", launches("distance_matrix")),
+        "K9v1": ("level_align_fused", "ygz_slam_tpu_torch/csrc/sparse_align_fused.cu",
+                 pk + "sparse_align_fused.py:519", launches("level_gn")),
+        "K9v2": ("level_align_fused_v2", "ygz_slam_tpu_torch/csrc/sparse_align_fused.cu",
+                 pk + "sparse_align_fused.py:597", launches("level_gn_v2")),
     }
     kernels = []
     for k, (name, src, replaces, n_launch) in meta.items():

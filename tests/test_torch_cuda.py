@@ -2,9 +2,12 @@
 inputs the main paths do not give them: K1 with origins outside the
 image, K2 with an image index past its stack, K5 with planted outliers
 and masked points, K6 with eight requests, K8 with one sequence fully
-masked beside normal ones, K10 with an empty side and with one row; and
-five frames of the single-sequence step, three of the batch step and twelve
-of the VO slice (with one keyframe cycle) on the card against the CPU.
+masked beside normal ones, K10 with an empty side and with one row, K9 v1
+and v2 at every level of a frame pair, on a level with no usable point and
+on windows clamped at the border; and five frames of the single-sequence
+step, three of the batch step, twelve of the VO slice (with one keyframe
+cycle) and forty of the monocular System from raw frames on the card
+against the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -48,6 +51,7 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL_POSE = 1e-4
 TOL_SLICE = 1e-3        # whole step, card versus CPU, three solvers in a row
+TOL_MAPPED = 5e-3       # the monocular System after a mapping pass (see its test)
 
 
 @pytest.fixture(scope="module")
@@ -315,3 +319,151 @@ def test_recorded_launches_are_the_steps_own(cuda_device):
     with kernels.record_launches() as rec2:
         pass
     assert rec2 == []
+
+
+def _level_case(dev, motion, n_max=256):
+    """One 640x480 frame pair of the plane (FAST corners of the reference,
+    at most n_max): (camera, reference prep, current pyramid) on `dev`."""
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.ops import fast, pyramid, sparse_align
+    from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
+
+    cam = PinholeCamera.create(640.0, 640.0, 320.0, 240.0)
+    scene = PlaneScene(cam, plane_z=3.0, seed=3, device=dev)
+    ident = TSE3.identity(device=dev)
+    ref = scene.render(ident, (480, 640))
+    cur = scene.render(tse3.exp(torch.tensor(motion, dtype=torch.float32, device=dev)),
+                       (480, 640))
+    c = fast.detect(ref, 20.0, 16, n_max)
+    prep = sparse_align.prepare_reference(pyramid.build_pyramid(ref, 3), cam, c.xy,
+                                          scene.depth(c.xy, ident), c.mask, distorted=False)
+    return cam, prep, pyramid.build_pyramid(cur, 3)
+
+
+def _k9_agree(args, lfac=None):
+    """K9 v1 (lfac None) or v2 against its plain version on `args`."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    if lfac is None:
+        n0 = tk9.level_gn.launches
+        out, ref = tk9.level_gn(*args), tk9.level_gn_plain(*args)
+        assert tk9.level_gn.launches == n0 + 1
+        torch.testing.assert_close(out[13:], ref[13:], rtol=1e-4, atol=1e-4 * float(
+            ref[13:].abs().max()))
+    else:
+        v2 = args[:8] + (lfac,) + args[8:]
+        n0 = tk9.level_gn_v2.launches
+        out, ref = tk9.level_gn_v2(*v2), tk9.level_gn_v2_plain(*v2)
+        assert tk9.level_gn_v2.launches == n0 + 1
+    assert float(tse3.distance(_pose(out), _pose(ref))) <= TOL_POSE
+    assert abs(float(out[12]) - float(ref[12])) <= 1e-4 * max(abs(float(ref[12])), 1e-6)
+    return out
+
+
+@pytest.mark.parametrize("motion", [[0.03, -0.02, 0.01, 0.002, -0.004, 0.002],
+                                    [0.06, 0.04, -0.02, -0.004, 0.006, 0.004]],
+                         ids=["small", "large"])
+def test_level_align_kernels_match_plain(cuda_device, motion):
+    """K9 v1 and v2 at every level of a 640x480 frame pair from the
+    identity (the large motion makes the coarse level roll back), on one
+    level where no point is usable (the pose must not move), and with the
+    windows of a shifted init pose clamped at the image border."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    cam, prep, cur = _level_case(cuda_device, motion)
+    R0 = torch.eye(3, device=cuda_device)
+    t0 = torch.zeros(3, device=cuda_device)
+    for level in range(3):
+        lr = prep.levels[level]
+        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t0, cam, level, False)
+        _k9_agree(args)
+        H0 = tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[level].shape)
+        _k9_agree(args, tk9.frozen_factor(H0))
+    lr = prep.levels[0]._replace(vis=torch.zeros_like(prep.levels[0].vis))
+    args, pc0, px0 = tk9.level_args(cur[0], lr, prep.p_ref, R0, t0, cam, 0, False)
+    H0 = tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[0].shape)
+    assert float(H0.abs().max()) == 0.0
+    for lfac in (None, tk9.frozen_factor(H0)):
+        out = _k9_agree(args, lfac)
+        torch.testing.assert_close(out[:12], args[7], rtol=0, atol=0)
+        assert float(out[12]) == 0.0
+    # A 0.5 m sideways shift of the init pose: a third of the projections
+    # leave the image, and the windows of those near its edge are clamped.
+    t_side = torch.tensor([0.5, 0.3, 0.0], device=cuda_device)
+    for level in range(3):
+        lr = prep.levels[level]
+        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t_side, cam, level,
+                                        False)
+        Hl, Wl = cur[level].shape
+        ox, oy = args[5], args[6]
+        clamped = (ox == 0) | (ox == Wl - tk9.CWIN) | (oy == 0) | (oy == Hl - tk9.CWIN)
+        assert int((clamped & lr.vis).sum()) > 0
+        _k9_agree(args)
+        _k9_agree(args, tk9.frozen_factor(tk3.frozen_h0(lr.J, lr.vis, pc0, px0, Hl, Wl)))
+
+
+def test_mono_system_card_matches_cpu(cuda_device, monkeypatch):
+    """The monocular System from raw frames (640x480, 40 frames of the
+    workload) on the card against the CPU: the same init frame and model,
+    equal statuses, keyframes on the same frames, poses within 1e-3 of the
+    map's unit up to the first keyframe and within 5e-3 after its mapping
+    pass.  A CUDA and a CPU generator of one seed draw other RANSAC
+    samples, so the CPU runs are handed the card run's draws.
+
+    The looser bound after the first mapping pass is the system's own
+    sensitivity to summation order: local BA's LM accept/reject and the
+    keyframe's detections amplify rounding.  A second CPU run with another
+    thread count (another order of the CPU's own sums) parts from the
+    first by the same order of magnitude, printed beside the card's gap."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.solvers import initializer as tin
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, T_gt7 = mw.make_mono_workload(40, device=cuda_device)
+    draws = {}
+    real_sample = tin.sample_hypotheses
+
+    def card_sample(mask, n, gen):
+        draws[gen.initial_seed()] = idx = real_sample(mask, n, gen)
+        return idx
+
+    def cpu_sample(mask, n, gen):
+        return draws[gen.initial_seed()].cpu()
+
+    def run(dev, imgs, sample):
+        monkeypatch.setattr(tin, "sample_hypotheses", sample)
+        s = System(cam, options=mw.mono_options(), device=dev)
+        kf = []
+
+        def on_frame(k, r):
+            if s.vo.stats["keyframes"] > len(kf):
+                kf.append(k)
+
+        st, T7, _ = mw.run_mono(s, imgs, on_frame)
+        return st, torch.tensor(T7), kf, s.vo.init_used_h
+
+    card = run(cuda_device, frames, card_sample)
+    cpu = run("cpu", frames.cpu(), cpu_sample)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        cpu4 = run("cpu", frames.cpu(), cpu_sample)
+    finally:
+        torch.set_num_threads(threads)
+    assert draws
+    k0 = mw.init_frame(card[0])
+    assert k0 == mw.init_frame(cpu[0]) >= 0 and card[3] == cpu[3]
+    assert card[0] == cpu[0] and card[2] == cpu[2] and len(card[2]) >= 2
+
+    def gap(a, b):
+        return tse3.distance(TSE3.from_params7(a[1]), TSE3.from_params7(b[1]))
+
+    d, d_cpu = gap(card, cpu), gap(cpu4, cpu)
+    first_kf = card[2][0]
+    print(f"mono System over 40 frames, init frame {k0}, keyframes {card[2]}: card versus "
+          f"CPU max pose distance {float(d[:first_kf + 1].max()):.3e} up to the first keyframe, "
+          f"{float(d.max()):.3e} overall; CPU 4 threads versus 1 thread "
+          f"{float(d_cpu[:first_kf + 1].max()):.3e} and {float(d_cpu.max()):.3e}")
+    assert float(d[:first_kf + 1].max()) <= TOL_SLICE
+    assert float(d.max()) <= TOL_MAPPED
+    assert mw.mono_gate(card[0], card[1].numpy(), T_gt7.cpu())[2]

@@ -11,6 +11,7 @@ import torch
 from ygz_slam_tpu.geometry import SE3 as JSE3
 from ygz_slam_tpu.geometry import se3 as jse3
 from ygz_slam_tpu.geometry import triangulation as jtri
+from ygz_slam_tpu.map import memory as jmem
 from ygz_slam_tpu.map import state as jms
 from ygz_slam_tpu.models import local_mapping as jlm
 from ygz_slam_tpu.ops import warp as jwarp
@@ -20,6 +21,7 @@ from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry import triangulation as ttri
 from ygz_slam_tpu_torch.geometry.camera import PinholeCamera as TCam
 from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
+from ygz_slam_tpu_torch.map import memory as tmem
 from ygz_slam_tpu_torch.map import state as tms
 from ygz_slam_tpu_torch.models import local_mapping as tlm
 from ygz_slam_tpu_torch.models import visual_odometry as tvo
@@ -369,3 +371,41 @@ class TestWarpAndTriangulation:
         np.testing.assert_allclose(np32(e_t), np.asarray(e_j), atol=1e-3)
         np.testing.assert_allclose(np32(CAM.pixel_to_bearing(tt(obs))),
                                    np.asarray(JCAM.pixel_to_bearing(jnp.asarray(obs))), atol=1e-6)
+
+
+class TestMapServer:
+    """The host MapServer against the JAX one: slots in order while free,
+    then the used slot least covisible with the newest evicted (its
+    features unlinked), and free landmark rows ascending."""
+
+    def _pair(self, K=4, F=8, L=32):
+        return tmem.MapServer(K, F, L, device="cpu"), jmem.MapServer(K, F, L)
+
+    def test_slots_and_eviction(self):
+        t, j = self._pair()
+        rng = np.random.default_rng(11)
+        cov = rng.integers(0, 50, (4, 4)).astype(np.int32)
+        cov = cov + cov.T
+        picked = []
+        for _ in range(7):
+            for srv, tensor in ((t, tt), (j, jnp.asarray)):
+                srv.state = srv.state._replace(cov_weight=tensor(cov),
+                                               feat_point=tensor(np.zeros((4, 8), np.int32)))
+            st, sj = t.alloc_kf_slot(), j.alloc_kf_slot()
+            assert st == sj and t.kf_used == j.kf_used
+            picked.append(st)
+            for srv in (t, j):
+                srv.kf_used.append(st)
+            assert np.array_equal(np32(t.state.feat_point), np32(j.state.feat_point))
+            assert np.array_equal(np32(t.state.kf_valid), np32(j.state.kf_valid))
+        assert picked[:4] == [0, 1, 2, 3] and len(set(picked[4:])) >= 1
+
+    @pytest.mark.parametrize("want", [0, 5, 40])
+    def test_free_rows(self, want):
+        t, j = self._pair()
+        valid = np.random.default_rng(12).random(32) < 0.6
+        t.state = t.state._replace(pt_valid=torch.tensor(valid))
+        j.state = j.state._replace(pt_valid=jnp.asarray(valid))
+        rows = t.alloc_landmark_rows(want)
+        assert np.array_equal(rows, np.asarray(j.alloc_landmark_rows(want)))
+        assert np.array_equal(rows, np.where(~valid)[0][:want])

@@ -13,6 +13,7 @@ import torch
 
 from . import resolve_device
 from .geometry.camera import PinholeCamera
+from .geometry.se3 import SE3
 from .map.state import MapState
 from .models.batch import BatchState
 from .models.frontend import Features
@@ -20,6 +21,7 @@ from .models.tracking import KeyframeState
 from .ops.kernels.align2d_fused import Align2DPrep
 from .ops.kernels.align2d_kernel import CACHE_WIN, PATCH
 from .ops.sparse_align import LevelRef, ReferencePrep
+from .solvers.initializer import InitResult
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -107,3 +109,19 @@ def map_state_to_numpy(m: MapState) -> dict:
 def features_from_numpy(px, level, score, angle, desc, depth, valid, device=None) -> Features:
     """Features from the JAX Features' fields as numpy arrays."""
     return Features(*(_like(a, device) for a in (px, level, score, angle, desc, depth, valid)))
+
+
+def init_result_from_numpy(success, R, t, points3d, good, used_h, device=None) -> InitResult:
+    """InitResult from the JAX one's fields (T21 as its R [3, 3] and t [3])."""
+    return InitResult(success=_t(success, device, torch.bool),
+                      T21=SE3(_t(R, device), _t(t, device)), points3d=_t(points3d, device),
+                      good=_t(good, device, torch.bool), used_h=_t(used_h, device, torch.bool))
+
+
+def init_result_to_numpy(res: InitResult) -> dict:
+    """The fields of an InitResult as numpy arrays, T21 as R and t."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    return dict(success=np_(res.success), R=np_(res.T21.R), t=np_(res.T21.t),
+                points3d=np_(res.points3d), good=np_(res.good), used_h=np_(res.used_h))

@@ -28,3 +28,8 @@ def dxyz_dxi(pc: torch.Tensor) -> torch.Tensor:
 def duv_dxi(pc: torch.Tensor, fx, fy) -> torch.Tensor:
     """d(pixel)/d(pose tangent): [..., 2, 6]."""
     return duv_dxyz(pc, fx, fy) @ dxyz_dxi(pc)
+
+
+def duv_dpoint(pc: torch.Tensor, R_cw: torch.Tensor, fx, fy) -> torch.Tensor:
+    """d(pixel)/d(world point): [..., 2, 3] = duv_dxyz @ R_cw."""
+    return duv_dxyz(pc, fx, fy) @ R_cw

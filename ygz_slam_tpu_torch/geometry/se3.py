@@ -89,6 +89,11 @@ def log(T: SE3) -> torch.Tensor:
     return torch.cat([rho, phi], dim=-1)
 
 
+def boxplus(T: SE3, xi: torch.Tensor) -> SE3:
+    """Left-multiplicative retraction exp(xi) * T (the BA solvers' update)."""
+    return exp(xi).compose(T)
+
+
 def distance(Ta: SE3, Tb: SE3) -> torch.Tensor:
     """||log(Ta * Tb^-1)||: the tracking gate's pose error."""
     return torch.linalg.norm(log(Ta.compose(Tb.inverse())), dim=-1)

@@ -1,6 +1,6 @@
-"""Local mapping: new-landmark triangulation, landmark fusion and culling
-(counterpart of ygz_slam_tpu/models/local_mapping.py, without
-`local_ba_on_map`, which waits for the LM-Schur solver).
+"""Local mapping: new-landmark triangulation, landmark fusion, local BA
+over the map and culling (counterpart of
+ygz_slam_tpu/models/local_mapping.py).
 
 All steps are pure functions over MapState with fixed shapes.
 """
@@ -13,6 +13,7 @@ from ..geometry.se3 import SE3
 from ..geometry.triangulation import depth_from_triangulation
 from ..map import state as ms
 from ..ops import hamming
+from ..solvers import ba as bam
 from ..solvers.robust import CHI2_2D
 
 
@@ -119,3 +120,17 @@ def keyframe_culling_scores(m: ms.MapState) -> torch.Tensor:
     redundant = linked & (m.pt_obs[pt_safe] >= 4)             # self + 3 others
     n_linked = torch.clamp(torch.sum(linked, dim=1), min=1)
     return torch.sum(redundant, dim=1) / n_linked
+
+
+def local_ba_on_map(m: ms.MapState, cam, fixed_slots: torch.Tensor, n_iter: int = 10):
+    """Windowed BA over every valid keyframe and landmark of the map
+    (LocalMapping::LocalBA -> ba::LocalBAG2O, BA.cpp:386-543), written back
+    into the map: only valid keyframes and landmarks move.  fixed_slots [K]
+    bool are gauge-fixed.  Returns (map, chi2)."""
+    kf_idx, pt_idx, px, mask = ms.observations_from_features(m)
+    obs = bam.Observations(kf_idx=kf_idx, pt_idx=pt_idx, px=px, mask=mask)
+    res = bam.local_ba(m.kf_pose(), m.pt_pos, obs, cam, fixed_slots | ~m.kf_valid,
+                       n_iter=n_iter)
+    pose7 = torch.where(m.kf_valid[:, None], res.poses.params7(), m.kf_pose7)
+    pts = torch.where(m.pt_valid[:, None], res.points, m.pt_pos)
+    return m._replace(kf_pose7=pose7, pt_pos=pts), res.chi2

@@ -1,12 +1,19 @@
-"""The VO's per-frame map-tracking step and its keyframe cycle, as plain
-functions over MapState (counterpart of `_track`, `_triangulate`,
-`_free_rows_device`, `_assemble_core` and `_kf_cycle` inside
-`VisualOdometry._build_jits`, ygz_slam_tpu/models/visual_odometry.py).
+"""VisualOdometry: the monocular frontend state machine over the VO's
+per-frame map-tracking step and keyframe cycle (counterpart of
+ygz_slam_tpu/models/visual_odometry.py, SPARSE_DIRECT, synchronous mapping,
+without vocabulary, depth filter or keyframe archive).
 
-This is the JAX package's configuration `VOOptions(use_vocabulary=False,
-use_depth_filter=False)`: no BoW rows, no depth-filter seeds.  The host
-state machine (initialisation, lost handling, the keyframe decision) is not
-here; `models/vo_workload.py` drives these functions on a bootstrapped map.
+The device steps are plain functions over MapState (`track`,
+`triangulate`, `free_rows`, `assemble_keyframe`, `kf_cycle`: the JAX
+package's `_track`, `_triangulate`, `_free_rows_device`, `_assemble_core`
+and `_kf_cycle`; `mapping_pass`: its `_map_pass` without loop closing).
+`VisualOdometry` is the host state machine around them
+(NOT_READY/INITING/GOOD/LOST, VisualOdometry.cpp:38-107): monocular
+initialization (KLT, descriptor re-check, RANSAC H/F, two-view BA, mean
+depth 1, the first local BA), tracking with inlier-gate hysteresis, the
+keyframe decision, keyframe insertion and the mapping pass, and lost
+handling with a retry and a reset.  Its host syncs (`int(...)`,
+`bool(...)`) are the JAX package's own.
 
 Per frame (`track`): sparse-direct alignment of NS selected landmarks
 against the previous frame (K1 x 6, K3), the NSV best visible landmarks'
@@ -20,35 +27,79 @@ the JAX version makes with `jnp.where` are `torch.where` here, and slots are
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import enum
 
+import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry.se3 import SE3
 from ..map import state as ms
+from ..map.memory import MapServer, refresh_covisibility
 from ..ops import orb
+from ..ops.align import klt_pyramidal
+from ..ops.hamming import hamming_distance
 from ..ops.select import top_k
+from ..solvers import ba as bam
+from ..solvers import initializer as init_mod
+from ..utils import np_se3
 from . import frontend as fe
 from . import local_mapping as lm
 
 INT32_MAX = 2 ** 31 - 1
 
 
+class Status(enum.Enum):
+    NOT_READY = 0
+    INITING = 1
+    GOOD = 2
+    LOST = 3
+
+
+class VOType(enum.Enum):
+    """Frontend method (system.h:26-30); the port runs SPARSE_DIRECT."""
+    SPARSE_DIRECT = 0
+    SPARSE_ORB = 1
+    SEMI_DENSE_DIRECT = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class VOOptions:
-    """The fields of the JAX package's VOOptions that this slice reads,
-    with its defaults (config/default.yaml, VisualOdometry.h:32-45)."""
+    """The fields of the JAX package's VOOptions that the port reads, with
+    its defaults (config/default.yaml, VisualOdometry.h:32-45).  The last
+    five name parts of the JAX package the port does not run:
+    `VisualOdometry` raises unless each is off (False, SPARSE_DIRECT)."""
     n_levels: int = 3
     detect_threshold: float = 20.0
     grid_cell: int = 16
     feat_budgets: tuple = (160, 64, 32)   # per-level detection budgets
+    init_min_features: int = 80           # init.min_features
+    init_check_descriptors: bool = True   # CheckFrameDescriptors (Matcher.cpp:45-84)
+    init_desc_max_dist: int = 100
+    init_min_disparity: float = 20.0      # init.min_disparity, px
+    init_min_inliers: int = 40            # init.min_inliers
     min_track_inliers: int = 30           # TrackLocalMap gate
+    track_confirm_frames: int = 2         # sub-gate frames in a row before LOST
+    track_inlier_floor: int = 0           # immediate-LOST floor (0: min_track_inliers // 2)
     kf_min_frames: int = 10               # keyframe.min_frames
+    kf_max_rot: float = 0.1               # keyframe.max_rot, rad
+    kf_max_trans: float = 0.1             # keyframe.max_trans, map units
     max_alignment_motion: float = 0.2     # Matcher.h:30
     max_step_motion: float = 0.2          # gate on the pose-BA correction
     map_K: int = 10
     map_F: int = 256
     map_L: int = 3072                     # >= map_K * map_F
+    local_ba_iters: int = 8
+    lost_reset_frames: int = 10
+    lost_desc_max_dist: int = 64          # Hamming bound of the lost-retry re-check
+    kf_cull_min_window: int = 4           # KeyFrameCulling keeps at least this many
+    use_depth_filter: bool = True
+    use_vocabulary: bool = True
+    archive_map: bool = True
+    async_mapping: bool = True
+    vo_type: VOType = VOType.SPARSE_DIRECT
 
     @property
     def n_select(self) -> int:
@@ -271,3 +322,433 @@ def kf_cycle(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px, T_cw7, 
         nbr2_slot=nbr2_slot)
     host_block = (slot, evicted, evict_fid, torch.any(depthless)) + snapshot
     return st, kf_images, host_block
+
+
+def desc_check(ref_desc: torch.Tensor, img: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
+    """Hamming distance [N] between each reference descriptor and one
+    computed afresh at its tracked position (CheckFrameDescriptors,
+    Matcher.cpp:45-84)."""
+    return hamming_distance(ref_desc, orb.compute(img, px)[1])
+
+
+def kf_redundancy(m: ms.MapState, min_obs: int = 4, maxlvl: int = 8) -> torch.Tensor:
+    """[K] scale-aware keyframe-redundancy scores (KeyFrameCulling,
+    LocalMapping.cpp:579-618): the share of a keyframe's linked features
+    whose landmark is observed at least `min_obs` times at its own or a
+    finer level."""
+    K, F = m.feat_valid.shape
+    L = m.L
+    p = m.feat_point.reshape(-1)
+    okf = m.feat_valid.reshape(-1) & (p >= 0) & (p < L)
+    psafe = torch.clamp(p, 0, L - 1).long()
+    lvl_raw = m.feat_level.reshape(-1)
+    lvl = torch.clamp(lvl_raw, 0, maxlvl - 1).long()
+    counts = torch.zeros((L, maxlvl), dtype=torch.int32, device=p.device).index_put_(
+        (psafe, lvl), okf.to(torch.int32), accumulate=True)
+    cum = torch.cumsum(counts, dim=1)
+    l1 = torch.clamp(lvl_raw + 1, 0, maxlvl - 1).long()
+    red = okf & (cum[psafe, l1] >= min_obs)
+    linked = okf.reshape(K, F).sum(1)
+    redundant = red.reshape(K, F).sum(1)
+    return torch.where(linked > 0, redundant.float() / torch.clamp(linked, min=1).float(), 0.0)
+
+
+def mapping(cam, o: VOOptions, mstate: ms.MapState, fixed: torch.Tensor):
+    """Covisibility, local BA over the map (fixed [K] gauge slots),
+    landmark culling, covisibility.  Returns (MapState, BA chi2)."""
+    mstate = ms.update_covisibility(mstate)
+    mstate, chi2 = lm.local_ba_on_map(mstate, cam, fixed, n_iter=o.local_ba_iters)
+    mstate = lm.map_point_culling(mstate)
+    return ms.update_covisibility(mstate), chi2
+
+
+def mapping_pass(cam, o: VOOptions, mstate: ms.MapState, fixed: torch.Tensor):
+    """The keyframe mapping pass on the device: covisibility refresh and
+    orphan sweep, `mapping`, and the keyframe-redundancy scores.  Returns
+    (MapState, scores [K])."""
+    mstate, _ = mapping(cam, o, refresh_covisibility(mstate), fixed)
+    return mstate, kf_redundancy(mstate)
+
+
+@dataclasses.dataclass
+class TrackResult:
+    status: Status
+    T_cw: SE3 | None
+    n_inliers: int = 0
+
+
+def _unsupported(o: VOOptions) -> list:
+    return [name for name in ("use_depth_filter", "use_vocabulary", "archive_map",
+                              "async_mapping") if getattr(o, name)] + (
+        [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else [])
+
+
+class VisualOdometry:
+    """Monocular VO over a fixed-capacity tensor map, on `device` (the card
+    unless the caller names another)."""
+
+    def __init__(self, cam, opts: VOOptions | None = None, device=None):
+        o = opts or VOOptions()
+        bad = _unsupported(o)
+        if bad:
+            raise ValueError(f"VOOptions not supported by the port: {', '.join(bad)} "
+                             "(it runs SPARSE_DIRECT without vocabulary, depth filter, "
+                             "keyframe archive or async mapping)")
+        self.cam = cam
+        self.o = o
+        self.device = resolve_device(device)
+        self.server = MapServer(o.map_K, o.map_F, o.map_L, device=self.device)
+        self.status = Status.NOT_READY
+        self.kf_images = None          # [K, H, W]
+        self.T_cw = self._identity()
+        self.velocity = self._identity()
+        self.prev_pyr = None
+        self.prev_T_cw = self._identity()
+        self.prev_found = None         # [L] bool landmarks seen last frame
+        self.prev_obs_px = None        # [L, 2]
+        self.init_pyr = None
+        self.init_feats = None
+        self.init_track_px = None
+        self._init_ref_fid = -1
+        self.init_used_h = None        # which RANSAC model bootstrapped the map
+        self.frames_since_kf = 0
+        self.last_kf_slot = -1
+        self.frame_id = -1
+        self.lost_count = 0
+        self._low_streak = 0           # consecutive sub-gate GOOD frames
+        self.stats = collections.Counter()
+        # Keyframe-anchored trajectory: each frame records (ts, anchor
+        # keyframe id, pose relative to it), so refined keyframe poses
+        # propagate to the exported trajectory.
+        self.trajectory: list[tuple[float, np.ndarray]] = []
+        self.traj_rel: list[tuple[float, int, np.ndarray]] = []
+        self.kf_pose_log: dict[int, np.ndarray] = {}
+        self._last_kf_fid = -1
+        self._last_kf_pose7 = np.asarray([1, 0, 0, 0, 0, 0, 0], np.float32)
+
+    def _identity(self) -> SE3:
+        return SE3.identity(device=self.device)
+
+    # ------------------------------------------------------------------
+    def add_frame(self, img, timestamp: float = 0.0) -> TrackResult:
+        """Track one monocular image [H, W] (VisualOdometry::AddFrame,
+        :38-107)."""
+        self.frame_id += 1
+        if self.status is not Status.GOOD:
+            self._low_streak = 0       # hysteresis counts GOOD frames only
+        pyr = fe.preprocess(torch.as_tensor(img, dtype=torch.float32, device=self.device),
+                            self.o.n_levels)
+        if self.kf_images is None:
+            self.kf_images = torch.zeros((self.o.map_K,) + tuple(pyr[0].shape),
+                                         dtype=torch.float32, device=self.device)
+        if self.status is Status.NOT_READY:
+            res = self._start_init(pyr)
+        elif self.status is Status.INITING:
+            res = self._try_init(pyr)
+        elif self.status is Status.GOOD:
+            res = self._track_frame(pyr)
+        else:
+            res = self._handle_lost(pyr)
+        self.stats["frames"] += 1
+        if res.status is Status.GOOD:
+            self.stats["frames_good"] += 1
+            self.stats["inliers_total"] += res.n_inliers
+        elif res.status is Status.LOST:
+            self.stats["frames_lost"] += 1
+        abs7 = res.T_cw.params7().cpu().numpy()
+        self.trajectory.append((timestamp, abs7))
+        if res.status is Status.GOOD and self._last_kf_fid >= 0:
+            self.traj_rel.append((timestamp, self._last_kf_fid,
+                                  np_se3.relative7(abs7, self._last_kf_pose7).astype(np.float32)))
+        else:
+            self.traj_rel.append((timestamp, -1, abs7))
+        return res
+
+    def _detect(self, pyr, existing_px=None, existing_mask=None):
+        o = self.o
+        return fe.detect_multilevel(pyr, o.detect_threshold, o.grid_cell, o.feat_budgets,
+                                    existing_px, existing_mask)
+
+    # -- NOT_READY ------------------------------------------------------
+    def _start_init(self, pyr) -> TrackResult:
+        feats = self._detect(pyr)
+        if int(feats.valid.sum()) < self.o.init_min_features:
+            return TrackResult(Status.NOT_READY, self._identity())
+        self.init_pyr = pyr
+        self.init_feats = feats
+        self.init_track_px = feats.px
+        # Keyframe 0 of the map is registered under the init reference
+        # frame's id.
+        self._init_ref_fid = self.frame_id
+        self.status = Status.INITING
+        return TrackResult(Status.INITING, self._identity())
+
+    # -- INITING --------------------------------------------------------
+    def _try_init(self, pyr) -> TrackResult:
+        o, cam = self.o, self.cam
+        feats = self.init_feats
+        klt = klt_pyramidal(self.init_pyr, pyr, feats.px, self.init_track_px)
+        tracked = feats.valid & klt.converged
+        if o.init_check_descriptors:
+            cand = tracked & (desc_check(feats.desc, pyr[0], klt.xy) <= o.init_desc_max_dist)
+            # The re-check itself never starves initialization.
+            if int(cand.sum()) >= o.init_min_features:
+                tracked = cand
+        n_tracked = int(tracked.sum())
+        if n_tracked < o.init_min_features:
+            self.status = Status.NOT_READY          # lost the reference: restart here
+            return self._start_init(pyr)
+        self.init_track_px = klt.xy                 # warm start for the next frame
+        disp = torch.linalg.norm(klt.xy - feats.px, dim=-1)
+        if float(torch.where(tracked, disp, 0.0).sum() / n_tracked) < o.init_min_disparity:
+            return TrackResult(Status.INITING, self._identity())
+        K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+                         dtype=torch.float32, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(self.frame_id)
+        out = init_mod.initialize_two_view(cam.undistort_px(feats.px), cam.undistort_px(klt.xy),
+                                           tracked, K, gen, min_good=o.init_min_inliers)
+        if not bool(out.success):
+            return TrackResult(Status.INITING, self._identity())
+        self.init_used_h = bool(out.used_h)
+        self.stats["init_model_h" if self.init_used_h else "init_model_f"] += 1
+        # Two-view BA, then the map rescaled to mean depth 1 (:148-151, :261-275).
+        res = bam.two_view_ba(self._identity(), out.T21, out.points3d, feats.px, klt.xy,
+                              out.good, cam)
+        inl = res.inlier
+        n_inl = int(inl.sum())
+        if n_inl < o.init_min_inliers:
+            return TrackResult(Status.INITING, self._identity())
+        mean_depth = float(torch.where(inl, res.points[:, 2], 0.0).sum() / max(n_inl, 1))
+        scale = 1.0 / max(mean_depth, 1e-6)
+        T2 = SE3(res.poses.R[1], res.poses.t[1] * scale)
+        self._create_initial_map(pyr, klt.xy, res.points * scale, inl, T2)
+        self.status = Status.GOOD
+        return TrackResult(Status.GOOD, T2, n_inl)
+
+    def _create_initial_map(self, pyr, cur_px, pts, inl, T2: SE3) -> None:
+        o, srv = self.o, self.server
+        feats = self.init_feats
+        N = feats.px.shape[0]
+        pad = o.map_F - N
+        dev = self.device
+
+        def padded(x, fill=0):
+            return torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                                            device=dev)])
+
+        rows = torch.arange(N, dtype=torch.int32, device=dev)   # the map is empty
+        T1 = self._identity()
+        slot0 = srv.register_keyframe(
+            self._init_ref_fid, T1, padded(feats.px), padded(feats.level), padded(feats.angle),
+            padded(feats.desc), padded(torch.where(inl, T1.apply(pts)[:, 2], -1.0), -1.0),
+            padded(torch.where(inl, rows, -1), -1), padded(inl, False))
+        # Landmark descriptors come from the current frame (tracking
+        # continues from here).
+        ang2, desc2 = orb.compute(pyr[0], cur_px)
+        srv.state = ms.add_landmarks(srv.state, rows, inl, pts, desc2, slot0,
+                                     ref_feat=slot0 * o.map_F + rows)
+        slot1 = srv.register_keyframe(
+            self.frame_id, T2, padded(cur_px), padded(feats.level), padded(ang2),
+            padded(desc2), padded(torch.where(inl, T2.apply(pts)[:, 2], -1.0), -1.0),
+            padded(torch.where(inl, rows, -1), -1), padded(inl, False))
+        self.kf_images = ms.set_row(ms.set_row(self.kf_images, slot0, self.init_pyr[0]),
+                                    slot1, pyr[0])
+        srv.refresh_covisibility()
+        # First local BA with both keyframes fixed (gauge and scale).
+        fixed = torch.zeros(o.map_K, dtype=torch.bool, device=dev)
+        fixed[[slot0, slot1]] = True
+        srv.state, _ = mapping(self.cam, o, srv.state, fixed)
+        L = o.map_L
+        self.prev_pyr = pyr
+        self.prev_T_cw = T2
+        self.T_cw = T2
+        self.prev_found = torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
+            0, rows.long(), inl)
+        self.prev_obs_px = torch.zeros((L, 2), dtype=torch.float32, device=dev).index_copy(
+            0, rows.long(), cur_px)
+        self.velocity = self._identity()
+        self.last_kf_slot = slot1
+        self._last_kf_fid = self.frame_id
+        self._last_kf_pose7 = srv.state.kf_pose7[slot1].cpu().numpy()
+        self.frames_since_kf = 0
+
+    # -- GOOD -----------------------------------------------------------
+    def _run_tracker(self, pyr, T_pred: SE3):
+        return track(self.cam, self.o, self.prev_pyr, pyr, self.prev_T_cw.params7(),
+                     T_pred.params7(), self.server.state, self.kf_images, self.prev_found,
+                     self.prev_obs_px)
+
+    def _hard_inlier_floor(self) -> int:
+        """Below this a frame goes LOST at once, hysteresis or not."""
+        o = self.o
+        return o.track_inlier_floor or max(1, o.min_track_inliers // 2)
+
+    def _descriptors_agree(self, pyr, tm, need: int) -> bool:
+        """At least `need` found landmarks whose descriptor matches one
+        computed at the tracked position (the lost-retry re-check)."""
+        d = desc_check(self.server.state.pt_desc, pyr[0], tm.obs_px)
+        return int((tm.found & (d <= self.o.lost_desc_max_dist)).sum()) >= need
+
+    def _track_frame(self, pyr) -> TrackResult:
+        o = self.o
+        T_pred = self.velocity.compose(self.prev_T_cw)
+        tm, new_state, _ = self._run_tracker(pyr, T_pred)
+        n_inl = int(tm.n_inliers)
+        marginal = n_inl < o.min_track_inliers
+        if marginal:
+            # Hysteresis: a single sub-gate frame is tracked through; a
+            # sub-gate streak must pass the descriptor re-check; below the
+            # hard floor the frame is LOST at once.
+            self._low_streak += 1
+            hard = self._hard_inlier_floor()
+            streak = self._low_streak >= o.track_confirm_frames
+            verified = n_inl >= hard and streak and self._descriptors_agree(pyr, tm, hard)
+            if n_inl < hard or (streak and not verified):
+                self.status = Status.LOST
+                self.lost_count = 0
+                self._low_streak = 0
+                return TrackResult(Status.LOST, self.T_cw, n_inl)
+        else:
+            self._low_streak = 0
+        self.server.state = new_state
+        T_cw = tm.T_cw
+        self.velocity = T_cw.compose(self.prev_T_cw.inverse())
+        self.prev_pyr = pyr
+        self.prev_T_cw = T_cw
+        self.T_cw = T_cw
+        self.prev_found = tm.found
+        self.prev_obs_px = tm.obs_px
+        self.frames_since_kf += 1
+        # A frame tracked through on hysteresis never becomes a keyframe.
+        if not marginal and self._need_keyframe(T_cw):
+            self._insert_keyframe(pyr, T_cw, tm)
+        return TrackResult(Status.GOOD, T_cw, n_inl)
+
+    def _need_keyframe(self, T_cw: SE3) -> bool:
+        """NeedNewKeyFrame (:304-321): at least kf_min_frames since the last
+        keyframe and motion beyond the rotation or translation threshold,
+        computed on the host from the cached keyframe pose."""
+        o = self.o
+        if self.frames_since_kf < o.kf_min_frames:
+            return False
+        delta = np_se3.log6(np_se3.relative7(T_cw.params7().cpu().numpy(),
+                                             self._last_kf_pose7))
+        return (float(np.linalg.norm(delta[3:])) > o.kf_max_rot
+                or float(np.linalg.norm(delta[:3])) > o.kf_max_trans)
+
+    def _insert_keyframe(self, pyr, T_cw: SE3, tm) -> None:
+        """SetKeyframe (:182-218): the keyframe cycle on the device (slot
+        allocation or eviction, assembly, triangulation and fusion), one
+        host fetch of the slot, then the mapping pass."""
+        srv = self.server
+        self.stats["keyframes"] += 1
+        used = srv.kf_used
+        nbr2 = used[-4] if len(used) >= 4 else used[0]
+        srv.state, self.kf_images, host_block = kf_cycle(
+            self.cam, self.o, srv.state, pyr, tm.found, tm.obs_px, T_cw.params7(),
+            self.last_kf_slot, nbr2, self.frame_id, self.kf_images)
+        slot, evicted = torch.stack([host_block[0].long(), host_block[1].long()]).tolist()
+        if evicted:
+            self.stats["evictions"] += 1
+            srv.kf_used.remove(slot)
+        srv.kf_used.append(slot)
+        self._finish_insert(T_cw, slot)
+
+    def _finish_insert(self, T_cw: SE3, slot: int) -> None:
+        """Bookkeeping and the mapping pass; tracking continues from the
+        refined keyframe pose."""
+        self.last_kf_slot = slot
+        self.frames_since_kf = 0
+        pose7 = self._keyframe_mapping_pass(slot, self.frame_id)
+        self.prev_T_cw = SE3.from_params7(torch.as_tensor(pose7, device=self.device))
+        self.T_cw = self.prev_T_cw
+        self._last_kf_pose7 = np.asarray(pose7, np.float32)
+
+    def _keyframe_mapping_pass(self, slot: int, kf_fid: int) -> np.ndarray:
+        """Local BA and culling for a just-inserted keyframe
+        (LocalMapping::Run, LocalMapping.cpp:301-336): one device pass, one
+        host fetch of the scores and keyframe poses, keyframe culling.
+        Returns the keyframe's refined params7."""
+        o, srv = self.o, self.server
+        fixed = torch.zeros(o.map_K, dtype=torch.bool)
+        oldest = srv.kf_used[0]
+        fixed[srv.kf_used[:2]] = True
+        srv.state, scores = mapping_pass(self.cam, o, srv.state, fixed.to(self.device))
+        scores, pose7, ids = (t.cpu().numpy() for t in (scores, srv.state.kf_pose7,
+                                                         srv.state.kf_id))
+        self._cull_keyframes(protect={slot, oldest}, scores=scores)
+        for s in srv.kf_used:
+            self.kf_pose_log[int(ids[s])] = pose7[s].copy()
+        self._last_kf_fid = int(ids[slot])
+        return pose7[slot].copy()
+
+    def _cull_keyframes(self, protect, scores: np.ndarray, redundancy_th: float = 0.9) -> None:
+        """KeyFrameCulling (LocalMapping.cpp:579-618): evict keyframes more
+        than 90% of whose landmarks are seen by at least 3 other keyframes,
+        keeping at least `kf_cull_min_window`."""
+        srv = self.server
+        min_win = self.o.kf_cull_min_window
+        if len(srv.kf_used) <= min_win:
+            return
+        evicted = False
+        for slot in list(srv.kf_used):
+            if slot in protect or len(srv.kf_used) <= min_win:
+                continue
+            if scores[slot] > redundancy_th:
+                srv.evict_kf(slot)
+                self.stats["keyframes_culled"] += 1
+                evicted = True
+        if evicted:
+            srv.refresh_covisibility()
+
+    # -- LOST -----------------------------------------------------------
+    def _handle_lost(self, pyr) -> TrackResult:
+        """Retry tracking from the last pose with the motion model reset;
+        a retry must pass the full inlier gate and the descriptor re-check.
+        After `lost_reset_frames` failures the map is reset."""
+        o = self.o
+        self.lost_count += 1
+        self.velocity = self._identity()
+        tm, new_state, _ = self._run_tracker(pyr, self.prev_T_cw)
+        n_inl = int(tm.n_inliers)
+        if n_inl >= o.min_track_inliers and self._descriptors_agree(pyr, tm,
+                                                                      o.min_track_inliers):
+            self.status = Status.GOOD
+            self.server.state = new_state
+            self.prev_pyr = pyr
+            self.prev_T_cw = tm.T_cw
+            self.T_cw = tm.T_cw
+            self.prev_found = tm.found
+            self.prev_obs_px = tm.obs_px
+            return TrackResult(Status.GOOD, tm.T_cw, n_inl)
+        if self.lost_count > o.lost_reset_frames:
+            self.reset()
+        return TrackResult(Status.LOST, self.T_cw)
+
+    def reset(self) -> None:
+        """Full reset (System::Reset): an empty map, NOT_READY."""
+        o = self.o
+        self.server = MapServer(o.map_K, o.map_F, o.map_L, device=self.device)
+        self.status = Status.NOT_READY
+        self.T_cw = self._identity()
+        self.velocity = self._identity()
+        self.prev_pyr = None
+        self.init_pyr = None
+        self.frames_since_kf = 0
+        self.last_kf_slot = -1
+        self.lost_count = 0
+        self._last_kf_fid = -1
+
+    def trajectory_poses(self, corrected: bool = True) -> list:
+        """(ts, params7) per frame.  corrected=True re-composes each GOOD
+        frame from its anchor keyframe's current pose and the stored
+        relative pose (SaveTrajectory); False gives the poses as tracked."""
+        if not corrected:
+            return list(self.trajectory)
+        out = []
+        for (ts, abs7), (_, fid, rel7) in zip(self.trajectory, self.traj_rel):
+            if fid >= 0 and fid in self.kf_pose_log:
+                out.append((ts, np_se3.compose7(rel7, self.kf_pose_log[fid]).astype(np.float32)))
+            else:
+                out.append((ts, abs7))
+        return out

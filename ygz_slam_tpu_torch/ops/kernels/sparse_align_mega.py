@@ -79,6 +79,79 @@ def used_rows(J: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.where(m[:, None, None], J, 0.0)
 
 
+def frozen_h0(J, vis, pc0, px0, Hl: int, Wl: int) -> torch.Tensor:
+    """H0 = J^T W0 J over the points usable at the level-init pose: visible,
+    in front (z > 1e-3) and inside the kernel's image margin.  Masked rows
+    are never read (they may hold anything)."""
+    margin = PATCH // 2 + 2
+    w0 = (vis & (pc0[:, 2] > 1e-3) & (px0[:, 0] >= margin) & (px0[:, 0] < Wl - 1 - margin)
+          & (px0[:, 1] >= margin) & (px0[:, 1] < Hl - 1 - margin))
+    J0 = used_rows(J, w0)
+    return torch.einsum("npa,npb->ab", J0, J0)
+
+
+def level_passes(w_l, rp_l, J_l, vis, ox_l, oy_l, p_ref, cam, distorted: bool,
+                 Hl: int, Wl: int, scale: float):
+    """The per-pose passes of one level's GN loop, as the kernels run them
+    (shared by the plain versions of K3 and K9): `usable(R, t)` -> (mask,
+    window-relative support origin x, y) and `residuals(R, t, with_h)` ->
+    (H 21-list or None, b 6-list, chi2), host float32 scalars.  w_l [N,
+    16, 16] windows, rp_l [N, 16] patches, J_l [N, 16, 6], vis [N] bool,
+    ox_l / oy_l [N] window origins; R, t are 9- and 3-lists."""
+    N = vis.shape[0]
+    dev = w_l.device
+    k1, k2, p1, p2 = _distortion(cam, distorted)
+    prx, pry, prz = p_ref[:, 0], p_ref[:, 1], p_ref[:, 2]
+    fxs, fys, cxs, cys = cam.fx * scale, cam.fy * scale, cam.cx * scale, cam.cy * scale
+    oxf, oyf = ox_l.to(torch.float32), oy_l.to(torch.float32)
+    ar = torch.arange(SUP, device=dev)
+    rows_n = torch.arange(N, device=dev)[:, None, None]
+
+    def usable(R, t):
+        R = [float(v) for v in R]
+        t = [float(v) for v in t]
+        x = R[0] * prx + R[1] * pry + R[2] * prz + t[0]
+        y = R[3] * prx + R[4] * pry + R[5] * prz + t[1]
+        z = R[6] * prx + R[7] * pry + R[8] * prz + t[2]
+        zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+        xn = x / zs
+        yn = y / zs
+        r2 = xn * xn + yn * yn
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
+        yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
+        u = fxs * xd + cxs
+        v = fys * yd + cys
+        okc = (vis & (z > 1e-3) & (u >= _MARGIN) & (u < Wl - 1.0 - _MARGIN)
+               & (v >= _MARGIN) & (v < Hl - 1.0 - _MARGIN))
+        fxw = u - _HALF - oxf
+        fyw = v - _HALF - oyf
+        inwin = (fxw >= 0.0) & (fxw <= CWIN - SUP) & (fyw >= 0.0) & (fyw <= CWIN - SUP)
+        return okc & inwin, fxw, fyw
+
+    def residuals(R, t, with_h: bool = False):
+        m, fxw, fyw = usable(R, t)
+        fxw = torch.clamp(fxw, 0.0, float(CWIN - SUP))
+        fyw = torch.clamp(fyw, 0.0, float(CWIN - SUP))
+        x0 = torch.floor(fxw)
+        y0 = torch.floor(fyw)
+        ax = (fxw - x0)[:, None, None]
+        ay = (fyw - y0)[:, None, None]
+        sub = w_l[rows_n, (y0.long()[:, None] + ar)[:, :, None],
+                  (x0.long()[:, None] + ar)[:, None, :]]          # [N, 5, 5]
+        cur = ((1 - ax) * (1 - ay) * sub[:, :4, :4] + ax * (1 - ay) * sub[:, :4, 1:]
+               + (1 - ax) * ay * sub[:, 1:, :4] + ax * ay * sub[:, 1:, 1:])
+        r = torch.where(m[:, None], cur.reshape(N, PATCH * PATCH) - rp_l, 0.0)
+        Jm = used_rows(J_l, m)
+        bv = -torch.einsum("npa,np->a", Jm, r)
+        num = torch.sum(r * r)
+        den = torch.clamp(torch.sum(m).to(torch.float32) * (PATCH * PATCH), min=1.0)
+        h = _gn6.upper21(torch.einsum("npa,npb->ab", Jm, Jm)) if with_h else None
+        return h, [_gn6.F(v) for v in bv.cpu().numpy()], _gn6.F((num / den).item())
+
+    return usable, residuals
+
+
 def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
                   H0, W0, stats: dict | None = None):
     """Plain version of K3.
@@ -88,76 +161,26 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
     (R row-major, t).  Returns [13]: R, t, chi2 of the finest level.
     `stats`, if given, receives "passes": the residual passes run per
     level, coarse to fine (the work this input needs)."""
-    L, N = lvis.shape
-    dev = wins.device
-    k1, k2, p1, p2 = _distortion(cam, distorted)
-    prx, pry, prz = p_ref[:, 0], p_ref[:, 1], p_ref[:, 2]
+    L = lvis.shape[0]
     R, t = _gn6.pose_from_tensor(pose0)
     chi2 = _gn6.F(0.0)
-    ar = torch.arange(SUP, device=dev)
-    rows_n = torch.arange(N, device=dev)[:, None, None]
     passes = []
     for li in range(L - 1, -1, -1):
         Hl, Wl = level_dims(H0, W0, li)
-        scale = 1.0 / float(2 ** li)
-        fxs, fys, cxs, cys = cam.fx * scale, cam.fy * scale, cam.cx * scale, cam.cy * scale
-        w_l, rp_l, J_l = wins[li], refp[li], jac[li]
-        vis = lvis[li] > 0.5
-        oxf, oyf = ox[li].to(torch.float32), oy[li].to(torch.float32)
-
-        def usable(R, t):
-            """(okc & inwin, window-relative support origin) at (R, t)."""
-            R = [float(v) for v in R]
-            t = [float(v) for v in t]
-            x = R[0] * prx + R[1] * pry + R[2] * prz + t[0]
-            y = R[3] * prx + R[4] * pry + R[5] * prz + t[1]
-            z = R[6] * prx + R[7] * pry + R[8] * prz + t[2]
-            zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
-            xn = x / zs
-            yn = y / zs
-            r2 = xn * xn + yn * yn
-            radial = 1.0 + k1 * r2 + k2 * r2 * r2
-            xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
-            yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
-            u = fxs * xd + cxs
-            v = fys * yd + cys
-            okc = (vis & (z > 1e-3) & (u >= _MARGIN) & (u < Wl - 1.0 - _MARGIN)
-                   & (v >= _MARGIN) & (v < Hl - 1.0 - _MARGIN))
-            fxw = u - _HALF - oxf
-            fyw = v - _HALF - oyf
-            inwin = (fxw >= 0.0) & (fxw <= CWIN - SUP) & (fyw >= 0.0) & (fyw <= CWIN - SUP)
-            return okc & inwin, fxw, fyw
-
-        def residual_pass(R, t):
-            m, fxw, fyw = usable(R, t)
-            fxw = torch.clamp(fxw, 0.0, float(CWIN - SUP))
-            fyw = torch.clamp(fyw, 0.0, float(CWIN - SUP))
-            x0 = torch.floor(fxw)
-            y0 = torch.floor(fyw)
-            ax = (fxw - x0)[:, None, None]
-            ay = (fyw - y0)[:, None, None]
-            sub = w_l[rows_n, (y0.long()[:, None] + ar)[:, :, None],
-                      (x0.long()[:, None] + ar)[:, None, :]]          # [N, 5, 5]
-            cur = ((1 - ax) * (1 - ay) * sub[:, :4, :4] + ax * (1 - ay) * sub[:, :4, 1:]
-                   + (1 - ax) * ay * sub[:, 1:, :4] + ax * ay * sub[:, 1:, 1:])
-            r = torch.where(m[:, None], cur.reshape(N, PATCH * PATCH) - rp_l, 0.0)
-            bv = -torch.einsum("npa,np->a", used_rows(J_l, m), r)
-            num = torch.sum(r * r)
-            den = torch.clamp(torch.sum(m).to(torch.float32) * (PATCH * PATCH), min=1.0)
-            return [_gn6.F(v) for v in bv.cpu().numpy()], _gn6.F((num / den).item())
-
+        usable, residuals = level_passes(wins[li], refp[li], jac[li], lvis[li] > 0.5, ox[li],
+                                         oy[li], p_ref, cam, distorted, Hl, Wl,
+                                         1.0 / float(2 ** li))
         # Hessian frozen at the level-init pose and visibility.
-        J0 = used_rows(J_l, usable(R, t)[0])
-        Hm = torch.einsum("npa,npb->ab", J0, J0)
-        Lc = _gn6.chol6(_gn6.upper21(Hm))
-        bv, chi2 = residual_pass(R, t)
+        J0 = used_rows(jac[li], usable(R, t)[0])
+        Lc = _gn6.chol6(_gn6.upper21(torch.einsum("npa,npb->ab", J0, J0)))
+        _, bv, chi2 = residuals(R, t)
         passes.append(1)
         for _ in range(MAX_ITER):
             passes[-1] += 1
             dx = _gn6.subst6(Lc, bv)
             conv = max(abs(d) for d in dx) < _gn6.F(STOP_STEP)
             Rn, tn = _gn6.retract_right(R, t, dx)
-            bn, chi2n = residual_pass(Rn, tn)
+            _, bn, chi2n = residuals(Rn, tn)
             worse = not (chi2n <= chi2)          # a NaN trial counts as worse
             if not worse:
                 R, t, bv, chi2 = Rn, tn, bn, chi2n
@@ -165,7 +188,7 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
                 break
     if stats is not None:
         stats["passes"] = passes
-    return _gn6.pose_to_tensor(R, t, chi2, dev)
+    return _gn6.pose_to_tensor(R, t, chi2, wins.device)
 
 
 def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0):
@@ -235,11 +258,4 @@ def sparse_align_mega(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool,
     out = mega_gn(*args)
     H0, W0 = cur_pyr[0].shape
     R, t, chi2 = out[:9].reshape(3, 3), out[9:12], out[12]
-    lr0 = level_refs[0]
-    margin = PATCH // 2 + 2
-    w0 = ((lr0.vis) & (pc0[:, 2] > 1e-3)
-          & (px0_l0[:, 0] >= margin) & (px0_l0[:, 0] < W0 - 1 - margin)
-          & (px0_l0[:, 1] >= margin) & (px0_l0[:, 1] < H0 - 1 - margin))
-    J0 = used_rows(lr0.J, w0)
-    H = torch.einsum("npa,npb->ab", J0, J0)
-    return R, t, chi2, H
+    return R, t, chi2, frozen_h0(level_refs[0].J, level_refs[0].vis, pc0, px0_l0, H0, W0)

@@ -1,14 +1,21 @@
 """Whole-frame sparse-direct image alignment (counterpart of
-ygz_slam_tpu/ops/sparse_align.py, kernel path only).
+ygz_slam_tpu/ops/sparse_align.py, kernel paths only).
 
 `prepare_reference` computes the keyframe side once (4x4 reference
 patches and inverse-compositional Jacobians per level, through K1's
-`bilinear_patches`); `sparse_image_align` runs every level's GN loop in
-one launch of K3.  `gather_frame_windows` fetches a frame's level windows
-(and optionally align2d's cache windows) in one launch of K6, for callers
-that hand them to `sparse_image_align(frame_windows=)`, as the batch path
-does.  The JAX package's per-level `_level_align` / `gauss_newton`
-fallback is not ported: off the card the port runs K3's plain version.
+`bilinear_patches`).  `sparse_image_align` then runs, as the module
+constant FUSED_VARIANT says when the call is made:
+  3 (the default) every level's GN loop in one launch of K3;
+  2 level by level, max -> 0, each level one launch of K9 v2 (substitutions
+    against the level-init Hessian) on windows gathered by K1 at that
+    level's init pose, the coarser level's result;
+  1 the same with K9 v1 (the Hessian recomputed every iteration).
+`gather_frame_windows` fetches a frame's level windows (and optionally
+align2d's cache windows) in one launch of K6, for callers that hand them
+to `sparse_image_align(frame_windows=)`, as the batch path does; variants 1
+and 2 ignore them, as the JAX package does.  The JAX package's
+`gauss_newton` fallback (`USE_FUSED_LEVEL`) is not ported: off the card
+the port runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -21,12 +28,15 @@ from ..geometry.se3 import SE3
 from .interp import in_bounds
 from .kernels.align2d_fused import A2DWindows, a2d_window_origins
 from .kernels.align2d_kernel import CACHE_WIN, bilinear_patches, gather_windows_grouped
+from .kernels.sparse_align_fused import level_align_fused, level_align_fused_v2
 from .kernels.sparse_align_mega import (MegaWindows, mega_window_requests, mega_windows,
                                         sparse_align_mega)
 
 PATCH_HALF = 2
 PATCH = 2 * PATCH_HALF          # 4x4 patches (SparseImageAlign.h)
 PATCH_AREA = PATCH * PATCH
+# Which kernel route sparse_image_align takes (see above); read at each call.
+FUSED_VARIANT = 3
 
 
 class AlignStats(NamedTuple):
@@ -118,20 +128,32 @@ def sparse_image_align(ref_pyr, cur_pyr, cam, px_ref, depth_ref, mask, T_init: S
                        frame_windows: FrameWindows | None = None) -> AlignStats:
     """Coarse-to-fine sparse-direct alignment of the current frame to the
     reference frame: levels max_level..0, at most MAX_ITER (12) GN
-    iterations each, all in one launch of K3.  The level windows are
-    gathered by K1, or taken from `frame_windows` (gathered by K6 at the
-    same T_init).  Returns AlignStats with the refined relative pose
-    T_cur_ref."""
+    iterations each, by the route FUSED_VARIANT names (module docstring).
+    Under variant 3 the level windows are gathered by K1, or taken from
+    `frame_windows` (gathered by K6 at the same T_init).  Returns
+    AlignStats with the refined relative pose T_cur_ref, and chi2 and H of
+    the finest level."""
     if max_level is None:
         max_level = len(ref_pyr) - 1
     if ref_prep is None:
         ref_prep = prepare_reference(ref_pyr, cam, px_ref, depth_ref, mask,
                                      max_level=max_level, distorted=distorted)
-    R, t, chi2, H = sparse_align_mega(
-        cur_pyr, ref_prep.levels, ref_prep.p_ref, T_init.R, T_init.t, cam,
-        distorted=distorted, max_level=max_level,
-        mega_refp=ref_prep.mega_refp[:max_level + 1],
-        mega_jl=ref_prep.mega_jl[:max_level + 1],
-        pregathered=None if frame_windows is None else frame_windows.mega_wins)
-    return AlignStats(T_cur_ref=SE3(R, t), chi2=chi2,
-                      n_visible=torch.sum(ref_prep.levels[0].vis), H=H)
+    n_visible = torch.sum(ref_prep.levels[0].vis)
+    variant = FUSED_VARIANT
+    if variant == 3:
+        R, t, chi2, H = sparse_align_mega(
+            cur_pyr, ref_prep.levels, ref_prep.p_ref, T_init.R, T_init.t, cam,
+            distorted=distorted, max_level=max_level,
+            mega_refp=ref_prep.mega_refp[:max_level + 1],
+            mega_jl=ref_prep.mega_jl[:max_level + 1],
+            pregathered=None if frame_windows is None else frame_windows.mega_wins)
+        return AlignStats(T_cur_ref=SE3(R, t), chi2=chi2, n_visible=n_visible, H=H)
+    if variant not in (1, 2):
+        raise ValueError(f"FUSED_VARIANT must be 1, 2 or 3, not {variant!r}")
+    level_align = level_align_fused_v2 if variant == 2 else level_align_fused
+    T = T_init
+    for level in range(max_level, -1, -1):
+        R, t, chi2, H = level_align(cur_pyr[level], ref_prep.levels[level], ref_prep.p_ref,
+                                    T.R, T.t, cam, level, distorted=distorted)
+        T = SE3(R, t)
+    return AlignStats(T_cur_ref=T, chi2=chi2, n_visible=n_visible, H=H)

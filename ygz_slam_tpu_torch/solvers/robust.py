@@ -1,4 +1,4 @@
-"""Robust-cost constants and the MAD scale (counterpart of
+"""Robust-cost constants, the Huber weight and the MAD scale (counterpart of
 ygz_slam_tpu/solvers/robust.py)."""
 from __future__ import annotations
 
@@ -6,9 +6,16 @@ import torch
 
 # 95% asymptotic efficiency constants (RobustCost.h).
 TUKEY_B = 4.6851
+HUBER_K = 1.345
 MAD_SCALE = 1.4826
 # Chi2 inlier threshold at 95% for 2 DoF.
 CHI2_2D = 5.991
+
+
+def huber_weight(r: torch.Tensor, k: float = HUBER_K) -> torch.Tensor:
+    """w = 1 for |r| <= k, k/|r| beyond."""
+    a = torch.abs(r)
+    return torch.where(a <= k, torch.ones_like(a), k / torch.clamp(a, min=1e-12))
 
 
 def mad_scale(r: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
