@@ -34,12 +34,21 @@ Phases, each raising (and so exiting non-zero) on failure:
       `System.track_monocular`), on level 0 with no usable point (the
       pose must not move) and with an init pose shifted so that windows
       clamp at the border; per-launch times, bounds and plain times.
+   f. K11 (track_step_fused, the whole step in one kernel) against its
+      plain version on the arguments that frame 1 of main path 5 gives it
+      (recorded from `fused_track_step`), at 512 landmarks, with ten
+      landmarks masked (none may converge or be an inlier) and with no
+      usable sparse point (stage 1 must leave the init pose bit for bit);
+      per-launch times, bound and plain time beside the summed times of
+      the kernels it replaces on path 1's frame 1 (K1 x 4, K3, K4, K5).
+      Then `entry()`, the step's own entry point, once on the card against
+      the CPU.
    K10 is also timed against `torch.cdist(p=0)` on descriptors unpacked to
    256 float bits beforehand (the unpacking left out of its time).
 3. Main path 1: the 640x480 / 200-landmark tracking workload, rendered on
    the card, through `tracking.track_frames`, every frame held to the
    accuracy gate; the launch counters must show K3, K4 and K5 once per
-   frame, K1 four times per frame and the batch kernels never.
+   frame, K1 four times per frame and the batch kernels and K11 never.
 4. Main path 2: bench_batch.py's workload, S=8 sequences x 60 frames,
    through `batch.track_batch_frames`, every sequence's every frame held
    to the gate; the counters must show K6 and K3 S times per frame, K2,
@@ -66,10 +75,15 @@ Phases, each raising (and so exiting non-zero) on failure:
    three times per keyframe; K6 and K8 never.  Then, from a fresh System,
    synchronised times of the init step, `track`, the keyframe cycle and
    the mapping pass.
+5c. Main path 5: path 1's workload through `tracking.track_frames` with
+   `step=fused_track_step` (the whole-step configuration), every frame
+   held to the gate; the counters must show K11 once and K1 four times
+   per frame and no other kernel.  Frames/s beside path 1's, the two run
+   in turns (1, 5, 5, 1).
 6. A short torch.profiler window over each main path (path 4 under
    variant 2, frames 30-49, keyframes in the window): device busy share
    and the kernels that take the most device time.
-7. One JSON line {"kernels": [...]} (launches summed over the four main
+7. One JSON line {"kernels": [...]} (launches summed over the five main
    paths), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
@@ -110,7 +124,9 @@ TOL_XY_ALL = 0.05       # all of them within 0.05 px: a 0.03 px freeze
                         # decision may flip on rounding and skip one step
 MIN_MASK_AGREE = 0.98   # K4 acceptance masks
 MIN_INLIER_AGREE = 0.99  # K5/K8 inlier sets
-TOL_REL = 1e-4          # K9 chi2 and H, relative
+TOL_REL = 1e-4          # K9 and K11 chi2 and K9 H, relative
+TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
+                        # row on noise images (the pyramids' sums differ too)
 
 
 def _run(cmd):
@@ -209,6 +225,8 @@ def main() -> int:
     from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as k8
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as k9
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as k3
+    from ygz_slam_tpu_torch.ops.kernels import track_fused as k11
+    from ygz_slam_tpu_torch.entry import entry
     from ygz_slam_tpu_torch.models import mono_workload as mw
     from ygz_slam_tpu_torch.models import visual_odometry as vo_mod
     from ygz_slam_tpu_torch.system.system import System
@@ -797,9 +815,110 @@ def main() -> int:
         del sysm, rec, k9_calls
     sparse_align.FUSED_VARIANT = 3
 
+    # -- 2f. K11 on the inputs main path 5 gives it ----------------------------
+    # Frame 1 of path 5 (`fused_track_step` from frame 0's ground truth, as
+    # 2a's frame) with every launch recorded: K1 x 4 (three sparse levels, the
+    # align2d cache), then K11, whose arguments are replayed against its
+    # plain version; then 512 landmarks, ten masked landmarks, and no usable
+    # sparse point (H = 0, b = 0: stage 1 must return the init pose).
+    def check_k11(a11, tag):
+        """K11 against its plain version; returns (max |R,t diff|, plain
+        stats, kernel outputs)."""
+        out, xy, per = k11.track_gn(*a11)
+        stats = {}
+        ref, xy_r, per_r = k11.track_gn_plain(*a11, stats=stats)
+        d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
+        d_sp = float(se3.distance(SE3(*_pose_of(out[15:])), SE3(*_pose_of(ref[15:]))))
+        c_err = max(abs(float(out[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6)
+                    for k in (12, 13))
+        conv, conv_r = per[1] > 0.5, per_r[1] > 0.5
+        agree = float((conv == conv_r).float().mean())
+        both = conv & conv_r
+        dxy = torch.linalg.norm(xy[both] - xy_r[both], dim=1)
+        err = float(dxy.max()) if dxy.numel() else 0.0
+        close = float((dxy <= TOL_XY).float().mean()) if dxy.numel() else 1.0
+        inl_agree = float(((per[2] > 0.5) == (per_r[2] > 0.5)).float().mean())
+        print(f"K11 track_step_fused {tag}: pose distance {d:.3e} (after stage 1 {d_sp:.3e}; "
+              f"tolerance {TOL_POSE}), chi2 sparse {float(out[12]):.4f} vs {float(ref[12]):.4f}, "
+              f"BA {float(out[13]):.4f} vs {float(ref[13]):.4f} (relative {c_err:.1e}, "
+              f"tolerance {TOL_REL}); align2d max |xy diff| {err:.3e} px on {int(both.sum())} "
+              f"points both accept, {close:.4f} within {TOL_XY} px (need {MIN_MASK_AGREE}), all "
+              f"within {TOL_XY_ALL}, converged masks agree {agree:.4f}; inliers "
+              f"{int(out[14])} vs {int(ref[14])}, sets agree {inl_agree:.4f} (need "
+              f"{MIN_INLIER_AGREE}); passes per level {stats['passes']}, normal equations "
+              f"{stats['normal_eqs']}", flush=True)
+        if not (d <= TOL_POSE and d_sp <= TOL_POSE and c_err <= TOL_REL and err <= TOL_XY_ALL
+                and close >= MIN_MASK_AGREE and agree >= MIN_MASK_AGREE
+                and inl_agree >= MIN_INLIER_AGREE and float(out[14]) == float(per[2].sum())):
+            raise AssertionError("K11 disagrees with its plain version")
+        return float((out[:12] - ref[:12]).abs().max()), stats, (out, xy, per)
+
+    def k11_bound(a11, stats):
+        """Bytes: K3's inputs, the map points' windows, patches, gradients,
+        inverses, origins, points and mask read once, the outputs written
+        once; operations: K3's passes, 11 align2d iterations of 64 pixels
+        per point, K5's normal equations and bisection counts."""
+        L_, N1 = a11[4].shape
+        N2 = a11[19].shape[0]
+        nbytes = (L_ * N1 * (256 + 16 + 96 + 1 + 2) * 4 + N1 * 12 + 48
+                  + N2 * (1024 + 3 * 64 + 9 + 2 + 3 + 1) * 4 + 27 * 4 + N2 * 5 * 4)
+        flops = (sum(N1 * (700 + 400 * p) for p in stats["passes"])
+                 + N2 * 11 * (64 * 15 + 30)
+                 + N2 * (180 * stats["normal_eqs"] + 27 * 25 + 4 * 30))
+        return _bound(nbytes, flops)
+
+    def record_k11(st, img, T_init7):
+        with kernels.record_launches() as rec:
+            tr.fused_track_step(st, T_init7, img)
+        names = [f.__name__ for f, _ in rec]
+        if names != ["gather_windows"] * 4 + ["track_gn"]:
+            raise AssertionError(f"fused_track_step launched {names}")
+        return rec[-1][1]
+
+    a11 = record_k11(state, frames[1], T_gt7[0])
+    a11_5 = record_k11(state5, frames5[1], T_gt5[0])
+    e11, st11, _ = check_k11(a11, "path 5 frame 1, N=200")
+    _, st11_5, _ = check_k11(a11_5, "path 5 frame 1, N=512")
+    masked = a11[20].clone()
+    masked[:10] = 0.0
+    _, _, (_, _, per_m) = check_k11(a11[:20] + (masked,) + a11[21:],
+                                    "N=200, landmarks 0-9 masked")
+    if bool((per_m[1:, :10] > 0.5).any()):
+        raise AssertionError("K11 accepted a masked landmark")
+    a11_z = a11[:4] + (torch.zeros_like(a11[4]),) + a11[5:]
+    _, _, (out_z, _, _) = check_k11(a11_z, "N=200, no usable sparse point")
+    if not (torch.equal(out_z[15:27], a11[7]) and float(out_z[12]) == 0.0):
+        raise AssertionError("K11's stage 1 moved the pose with no usable point")
+    k11_ms = _time_kernel(torch, lambda: k11.track_gn(*a11))
+    k11_ms_512 = _time_kernel(torch, lambda: k11.track_gn(*a11_5))
+    k11_plain = _time_host(torch, lambda: k11.track_gn_plain(*a11))
+    k11_plain_512 = _time_host(torch, lambda: k11.track_gn_plain(*a11_5))
+    b11, b11_512 = k11_bound(a11, st11), k11_bound(a11_5, st11_5)
+    report["K11"] = dict(ms=k11_ms, plain=k11_plain, lib=None, err=e11, bound=b11)
+    replaced = sum(report[k]["ms"] for k in ("K1", "K3", "K4", "K5"))
+    print(f"K11 per launch: N=200 {k11_ms:.4f} ms, N=512 {k11_ms_512:.4f} ms; plain "
+          f"{k11_plain:.3f} and {k11_plain_512:.3f} ms; bound {b11[0]:.6f} ({b11[1]}) and "
+          f"{b11_512[0]:.6f} ({b11_512[1]}) ms; library null (PyTorch has no single call for "
+          f"it); what it replaces on path 1's frame 1, K1 x 4 + K3 + K4 + K5: "
+          f"{replaced:.4f} ms", flush=True)
+
+    # entry(): the step's own entry point, once on the card, against the CPU.
+    fn_e, args_e = entry()
+    T7e, n_e, chi2_e = fn_e(*args_e)
+    fn_c, args_c = entry("cpu")
+    T7c, n_c, chi2_c = fn_c(*args_c)
+    d_e = float(se3.distance(SE3.from_params7(T7e.cpu()), SE3.from_params7(T7c)))
+    print(f"entry() on the card: pose {[round(v, 6) for v in T7e.tolist()]}, {int(n_e)} "
+          f"inliers, chi2 {float(chi2_e):.4f}; against the CPU: pose distance {d_e:.3e} "
+          f"(tolerance {TOL_ENTRY}), {int(n_c)} inliers, chi2 {float(chi2_c):.4f}", flush=True)
+    if not (d_e <= TOL_ENTRY and int(n_e) == int(n_c) == 200
+            and bool(torch.isfinite(T7e).all())):
+        raise AssertionError("entry() on the card disagrees with the CPU")
+
     # -- 3. main path 1: single-sequence tracking ----------------------------
     counters = (k1.gather_windows, k1.gather_windows_grouped, k1.gather_windows_multi,
-                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn, k10.distance_matrix)
+                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn, k10.distance_matrix,
+                k11.track_gn)
 
     def reset():
         for c in counters:
@@ -822,7 +941,8 @@ def main() -> int:
         raise AssertionError("main path 1 failed the per-frame accuracy gate")
     want1 = {"gather_windows": 4 * N_FRAMES, "gather_windows_grouped": 0,
              "gather_windows_multi": 0, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
-             "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0, "distance_matrix": 0}
+             "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0, "distance_matrix": 0,
+             "track_gn": 0}
     if launches1 != want1:
         raise AssertionError(f"launch counts {launches1}, expected {want1}")
     reps = []
@@ -853,7 +973,7 @@ def main() -> int:
     want2 = {"gather_windows": 0, "gather_windows_grouped": S_BATCH * F_BATCH,
              "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
              "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH,
-             "distance_matrix": 0}
+             "distance_matrix": 0, "track_gn": 0}
     if launches2 != want2:
         raise AssertionError(f"launch counts {launches2}, expected {want2}")
     reps = []
@@ -922,7 +1042,7 @@ def main() -> int:
         raise AssertionError(f"main path 3 inserted {n_kf} keyframes, none into an evicted slot?")
     want3 = {"gather_windows": 6 * n_f, "gather_windows_grouped": 0,
              "gather_windows_multi": n_f, "mega_gn": n_f, "a2d_gn": n_f, "pose_ba_gn": n_f,
-             "pose_ba_batch_gn": 0, "distance_matrix": 3 * n_kf}
+             "pose_ba_batch_gn": 0, "distance_matrix": 3 * n_kf, "track_gn": 0}
     if launches3 != want3:
         raise AssertionError(f"launch counts {launches3}, expected {want3}")
     # Synchronised times of the two steps over 60 frames (6 keyframes), twice
@@ -1026,7 +1146,7 @@ def main() -> int:
         want4 = {"gather_windows": 6 * n_track, "gather_windows_grouped": 0,
                  "gather_windows_multi": n_track, "mega_gn": n_track if variant == 3 else 0,
                  "a2d_gn": n_track, "pose_ba_gn": n_track, "pose_ba_batch_gn": 0,
-                 "distance_matrix": 3 * n_kf,
+                 "distance_matrix": 3 * n_kf, "track_gn": 0,
                  "level_gn": 3 * n_track if variant == 1 else 0,
                  "level_gn_v2": 3 * n_track if variant == 2 else 0}
         if got != want4:
@@ -1044,8 +1164,43 @@ def main() -> int:
         del sysm
     sparse_align.FUSED_VARIANT = 3
 
+    # -- 5c. main path 5: the whole-step configuration (K11) ------------------
+    for c in counters4:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T7f, inl_f = tr.track_frames(state, frames, T0, step=tr.fused_track_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches5 = {c.__name__: c.launches for c in counters4}
+    max_err, min_inl, ok = tr.gate(T7f, inl_f, T_gt7)
+    d15 = se3.distance(SE3.from_params7(T7f), SE3.from_params7(T7))
+    print(f"main path 5 (track_frames, step=fused_track_step): {N_FRAMES} frames in "
+          f"{wall:.3f} s = {N_FRAMES / wall:.1f} frames/s; gate max pose error {max_err:.3e} "
+          f"(< 2e-2), min inliers {min_inl} (> 150): {'pass' if ok else 'FAIL'}; max pose "
+          f"distance to path 1's poses {float(d15.max()):.3e}; launches {launches5}", flush=True)
+    if not ok:
+        raise AssertionError("main path 5 failed the per-frame accuracy gate")
+    want5 = {name: 0 for name in launches5}
+    want5.update(gather_windows=4 * N_FRAMES, track_gn=N_FRAMES)
+    if launches5 != want5:
+        raise AssertionError(f"launch counts {launches5}, expected {want5}")
+    fps = {"path 1": [], "path 5": []}
+    for key, step in (("path 1", tr.track_step), ("path 5", tr.fused_track_step),
+                      ("path 5", tr.fused_track_step), ("path 1", tr.track_step)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.track_frames(state, frames, T0, step=step)
+        torch.cuda.synchronize()
+        fps[key].append(N_FRAMES / (time.perf_counter() - t0))
+    print(f"main paths 1 and 5 in turns (1, 5, 5, 1), frames/s: "
+          f"{ {k: [round(v, 1) for v in r] for k, r in fps.items()} }; path 5 / path 1 "
+          f"{sum(fps['path 5']) / sum(fps['path 1']):.3f}", flush=True)
+
     # -- 6. profile windows ----------------------------------------------------
     _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30, "main path 1")
+    _profile(torch, lambda: tr.track_frames(state, frames[:30], T0, step=tr.fused_track_step),
+             30, "main path 5 (K11)")
     _profile(torch, lambda: bm.track_batch_frames(bstate, frames_b[:10], T0b), 10,
              f"main path 2 (per batched frame of {S_BATCH} sequences)")
     _profile(torch, lambda: vw.track_vo_frames(vstate, vframes[1:31]), 30,
@@ -1070,7 +1225,7 @@ def main() -> int:
     # -- 7. result lines ------------------------------------------------------
     def launches(name):
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
-                + sum(v[name] for v in launches4.values()))
+                + sum(v[name] for v in launches4.values()) + launches5[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"
@@ -1094,6 +1249,8 @@ def main() -> int:
                  pk + "sparse_align_fused.py:519", launches("level_gn")),
         "K9v2": ("level_align_fused_v2", "ygz_slam_tpu_torch/csrc/sparse_align_fused.cu",
                  pk + "sparse_align_fused.py:597", launches("level_gn_v2")),
+        "K11": ("track_step_fused", "ygz_slam_tpu_torch/csrc/track_fused.cu",
+                pk + "track_fused.py:534", launches("track_gn")),
     }
     kernels = []
     for k, (name, src, replaces, n_launch) in meta.items():

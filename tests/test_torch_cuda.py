@@ -4,10 +4,11 @@ image, K2 with an image index past its stack, K5 with planted outliers
 and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
-on windows clamped at the border; and five frames of the single-sequence
-step, three of the batch step, twelve of the VO slice (with one keyframe
-cycle) and forty of the monocular System from raw frames on the card
-against the CPU.
+on windows clamped at the border; K11 on frame 1 of the fused path and with
+ten landmarks masked; and five frames of the single-sequence step, ten of
+the fused step, three of the batch step, twelve of the VO slice (with one
+keyframe cycle) and forty of the monocular System from raw frames on the
+card against the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -42,6 +43,7 @@ from ygz_slam_tpu_torch.ops.kernels import hamming_kernel as tk10
 from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as tk5
 from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as tk8
 from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as tk3
+from ygz_slam_tpu_torch.ops.kernels import track_fused as tk11
 
 from _torch_port import cuda_device  # noqa: F401
 
@@ -117,6 +119,61 @@ def test_track_step_card_matches_cpu(card_workload):
     T7c, _ = tr.track_frames(state_c, frames, TSE3.identity(device="cpu").params7())
     d = tse3.distance(TSE3.from_params7(T7.cpu()), TSE3.from_params7(T7c))
     assert float(d.max()) <= TOL_SLICE
+
+
+@pytest.mark.parametrize("n_masked", [0, 10], ids=["frame1", "ten_masked"])
+def test_track_fused_kernel_matches_plain(card_workload, n_masked):
+    """K11 against its plain version on the inputs frame 1 of the fused path
+    gives it, and with landmarks 0-9 masked (none of them may be accepted
+    by align2d or be an inlier)."""
+    from ygz_slam_tpu_torch.ops import pyramid
+
+    st, (cam, *_, frames, T_gt7) = card_workload["state"], card_workload["out"]
+    mask = st.mask.clone()
+    mask[:n_masked] = False
+    T0 = TSE3.from_params7(T_gt7[0])
+    args = tk11.track_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
+                           st.ref_prep.p_ref, st.a2d_prep, st.pts_w, mask, T0.R, T0.t, cam,
+                           False, 2)
+    n0 = tk11.track_gn.launches
+    out, xy, per = tk11.track_gn(*args)
+    assert tk11.track_gn.launches == n0 + 1
+    ref, xy_r, per_r = tk11.track_gn_plain(*args)
+    assert float(tse3.distance(_pose(out), _pose(ref))) <= TOL_POSE
+    assert float(tse3.distance(_pose(out[15:]), _pose(ref[15:]))) <= TOL_POSE
+    for k in (12, 13):
+        assert abs(float(out[k]) - float(ref[k])) <= 1e-4 * max(abs(float(ref[k])), 1e-6)
+    conv, conv_r = per[1] > 0.5, per_r[1] > 0.5
+    both = conv & conv_r
+    dxy = torch.linalg.norm(xy[both] - xy_r[both], dim=1)
+    assert float((conv == conv_r).float().mean()) >= 0.98
+    assert float((dxy <= 1e-3).float().mean()) >= 0.98 and float(dxy.max()) <= 0.05
+    assert float(((per[2] > 0.5) == (per_r[2] > 0.5)).float().mean()) >= 0.99
+    assert float(out[14]) == float(per[2].sum()) > 150 - n_masked
+    assert not bool((per[1:, :n_masked] > 0.5).any())
+
+
+def test_fused_path_card_matches_cpu(cuda_device):
+    """Ten frames of `fused_track_step` on the card (K1 four times and K11
+    once per frame, no K3, K4 or K5) against the CPU (plain versions)."""
+    out = tr.make_workload(10, cuda_device)
+    cam, px, depth, mask, pts_w, patches, ref_pyr, frames, T_gt7 = out
+    state = tr.make_state(cam, ref_pyr, px, depth, mask, pts_w, patches)
+    counters = (tk1.gather_windows, tk11.track_gn, tk3.mega_gn, tk4.a2d_gn, tk5.pose_ba_gn)
+    before = [c.launches for c in counters]
+    T7, inl = tr.track_frames(state, frames, TSE3.identity(device=cuda_device).params7(),
+                              step=tr.fused_track_step)
+    assert [c.launches - b for c, b in zip(counters, before)] == [40, 10, 0, 0, 0]
+    assert tr.gate(T7, inl, T_gt7)[2]
+    state_c = tr.make_state(cam, [lv.cpu() for lv in ref_pyr], px.cpu(), depth.cpu(),
+                            mask.cpu(), pts_w.cpu(), patches.cpu())
+    T7c, inl_c = tr.track_frames(state_c, frames.cpu(), TSE3.identity(device="cpu").params7(),
+                                 step=tr.fused_track_step)
+    d = tse3.distance(TSE3.from_params7(T7.cpu()), TSE3.from_params7(T7c))
+    print(f"fused path, card versus CPU over 10 frames: max pose distance {float(d.max()):.3e}, "
+          f"inliers {inl.tolist()} vs {inl_c.tolist()}")
+    assert float(d.max()) <= TOL_SLICE
+    assert int((inl.cpu() - inl_c).abs().max()) <= 2
 
 
 def test_gather_windows_grouped_eight_groups(cuda_device):

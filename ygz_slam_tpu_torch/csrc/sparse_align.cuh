@@ -1,8 +1,9 @@
 // Device code shared by the sparse-direct alignment kernels (K3
-// sparse_align_mega.cu, K9 sparse_align_fused.cu): the level geometry,
-// the projection and masks of a point at a pose, its 4x4 patch sampled
-// bilinearly from its 16x16 window with ordinary indexed loads, and the
-// block-reduced normal equations of one residual pass.
+// sparse_align_mega.cu, K9 sparse_align_fused.cu, K11 track_fused.cu): the
+// level geometry, the projection and masks of a point at a pose, its 4x4
+// patch sampled bilinearly from its 16x16 window with ordinary indexed
+// loads, the block-reduced normal equations of one residual pass, and the
+// coarse-to-fine loop over every level (K3 and K11).
 #pragma once
 
 #include "common.cuh"
@@ -178,6 +179,66 @@ __device__ __forceinline__ void retract_right(const float R[9], const float t[3]
     for (int j = 0; j < 3; ++j)
       Rn[3 * i + j] = R[3 * i] * Re[j] + R[3 * i + 1] * Re[3 + j] + R[3 * i + 2] * Re[6 + j];
     tn[i] = R[3 * i] * te[0] + R[3 * i + 1] * te[1] + R[3 * i + 2] * te[2] + t[i];
+  }
+}
+
+// Every level's Gauss-Newton loop, coarse (L - 1) to fine (0), by the
+// whole CTA (K3, and the first stage of K11): per level the Hessian frozen
+// at the level-init pose and factored once, then up to n_iter
+// substitution-only iterations with rollback on a chi2 increase and a stop
+// at max|dx| < eps.  (R, t) is refined in place, identical in every
+// thread; chi2 is the finest level's.  wins [L, N, 16, 16], refp [L, N,
+// 16], jac [L, N, 16, 6], lvis / ox / oy [L, N]; smem holds kMaxWarps * 21
+// floats.
+__device__ __forceinline__ void mega_levels(
+    float R[9], float t[3], float& chi2, const float* __restrict__ wins,
+    const float* __restrict__ refp, const float* __restrict__ jac, const float* __restrict__ pref,
+    const float* __restrict__ lvis, const int* __restrict__ ox, const int* __restrict__ oy, int N,
+    int L, int H0, int W0, const Cam& cam, int n_iter, float eps, float* smem) {
+  chi2 = 0.f;
+  for (int li = L - 1; li >= 0; --li) {
+    int Hl = H0, Wl = W0;
+    for (int k = 0; k < li; ++k) { Hl = (Hl + 1) / 2; Wl = (Wl + 1) / 2; }
+    Level lv;
+    lv.wins = wins + (size_t)li * N * kCwin * kCwin;
+    lv.refp = refp + (size_t)li * N * kNpix;
+    lv.jac = jac + (size_t)li * N * kNpix * 6;
+    lv.vis = lvis + (size_t)li * N;
+    lv.ox = ox + (size_t)li * N;
+    lv.oy = oy + (size_t)li * N;
+    lv.scale = 1.f / (float)(1 << li);
+    lv.Hl = (float)Hl;
+    lv.Wl = (float)Wl;
+
+    float h[21], Lc[6][6];
+    hessian(R, t, pref, N, cam, lv, h, smem);
+    chol6(h, Lc);
+    float bv[6];
+    residual_pass(R, t, pref, N, cam, lv, bv, chi2, smem);
+    bool stop = false;
+    for (int it = 0; !stop && it < n_iter; ++it) {
+      float dx[6];
+      subst6(Lc, bv, dx);
+      float amax = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) amax = fmaxf(amax, fabsf(dx[k]));
+      const bool conv = amax < eps;
+      float Rn[9], tn[3];
+      retract_right(R, t, dx, Rn, tn);
+      float bn[6], chi2n;
+      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, smem);
+      const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
+      if (!worse) {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) t[k] = tn[k];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) bv[k] = bn[k];
+        chi2 = chi2n;
+      }
+      stop = worse || conv;
+    }
   }
 }
 

@@ -40,51 +40,9 @@ sparse_align_mega_kernel(const float* __restrict__ wins, const float* __restrict
   for (int k = 0; k < 9; ++k) R[k] = pose0[k];
 #pragma unroll
   for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
-  float chi2 = 0.f;
-  for (int li = L - 1; li >= 0; --li) {
-    int Hl = H0, Wl = W0;
-    for (int k = 0; k < li; ++k) { Hl = (Hl + 1) / 2; Wl = (Wl + 1) / 2; }
-    Level lv;
-    lv.wins = wins + (size_t)li * N * kCwin * kCwin;
-    lv.refp = refp + (size_t)li * N * kNpix;
-    lv.jac = jac + (size_t)li * N * kNpix * 6;
-    lv.vis = lvis + (size_t)li * N;
-    lv.ox = ox + (size_t)li * N;
-    lv.oy = oy + (size_t)li * N;
-    lv.scale = 1.f / (float)(1 << li);
-    lv.Hl = (float)Hl;
-    lv.Wl = (float)Wl;
-
-    float h[21], Lc[6][6];
-    hessian(R, t, pref, N, cam, lv, h, smem);
-    chol6(h, Lc);
-    float bv[6];
-    residual_pass(R, t, pref, N, cam, lv, bv, chi2, smem);
-    bool stop = false;
-    for (int it = 0; !stop && it < n_iter; ++it) {
-      float dx[6];
-      subst6(Lc, bv, dx);
-      float amax = 0.f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) amax = fmaxf(amax, fabsf(dx[k]));
-      const bool conv = amax < eps;
-      float Rn[9], tn[3];
-      retract_right(R, t, dx, Rn, tn);
-      float bn[6], chi2n;
-      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, smem);
-      const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
-      if (!worse) {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) t[k] = tn[k];
-#pragma unroll
-        for (int k = 0; k < 6; ++k) bv[k] = bn[k];
-        chi2 = chi2n;
-      }
-      stop = worse || conv;
-    }
-  }
+  float chi2;
+  mega_levels(R, t, chi2, wins, refp, jac, pref, lvis, ox, oy, N, L, H0, W0, cam, n_iter,
+              eps, smem);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) out[k] = R[k];

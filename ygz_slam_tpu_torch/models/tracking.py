@@ -1,10 +1,13 @@
 """The SPARSE_DIRECT monocular tracking step, assembled (counterpart of
 `track_step` in bench.py and of _bench_common.py).
 
-Per frame: build the pyramid, align sparse-direct to the keyframe (K1
-gathers + K3), align each map point's 8x8 patch (K1 + K4), then 4-round
-pose-only BA (K5).  The keyframe side (reference pyramid, patches,
-Jacobians, inverse normal matrices) is computed once in `make_state`.
+Per frame (`track_step`): build the pyramid, align sparse-direct to the
+keyframe (K1 gathers + K3), align each map point's 8x8 patch (K1 + K4),
+then 4-round pose-only BA (K5).  `fused_track_step` is the whole-step
+configuration (`_bench_ab2.py` variant F): the same pyramid, then K1's four
+window fetches at the frame-init pose and all three stages in one launch of
+K11.  The keyframe side (reference pyramid, patches, Jacobians, inverse
+normal matrices) is computed once in `make_state`.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..ops import pyramid
 from ..ops.align import align2d
 from ..ops.interp import sample_patches
 from ..ops.kernels.align2d_fused import Align2DPrep, align2d_prepare
+from ..ops.kernels.track_fused import track_step_fused
 from ..ops.sparse_align import ReferencePrep, prepare_reference, sparse_image_align
 from ..solvers.ba import pose_only_ba
 from ..utils.synthetic import PlaneScene
@@ -66,13 +70,27 @@ def track_step(state: KeyframeState, T_init7: torch.Tensor, img: torch.Tensor):
     return T.params7(), torch.sum(inlier)
 
 
-def track_frames(state: KeyframeState, frames: torch.Tensor, T_init7: torch.Tensor):
-    """Track frames [F, H, W] in order, each warm-started from the last
-    pose.  Returns (poses params7 [F, 7], inlier counts [F])."""
+def fused_track_step(state: KeyframeState, T_init7: torch.Tensor, img: torch.Tensor):
+    """One frame through K11 (`_bench_ab2.py:51-64`): returns (pose params7
+    [7], inlier count int32).  The world frame is the reference camera
+    here, so the landmarks double as K11's reference-frame points."""
+    cur_pyr = pyramid.build_pyramid(img, N_LEVELS)
+    T = SE3.from_params7(T_init7)
+    R, t, _, _, n_inl, _, _, _, _ = track_step_fused(
+        cur_pyr, state.ref_prep.levels, state.ref_prep.p_ref, state.a2d_prep, state.pts_w,
+        state.mask, T.R, T.t, state.cam, distorted=False, max_level=N_LEVELS - 1)
+    return SE3(R, t).params7(), n_inl.to(torch.int32)
+
+
+def track_frames(state: KeyframeState, frames: torch.Tensor, T_init7: torch.Tensor,
+                 step=track_step):
+    """Track frames [F, H, W] in order with `step` (`track_step` or
+    `fused_track_step`), each warm-started from the last pose.  Returns
+    (poses params7 [F, 7], inlier counts [F])."""
     T7 = T_init7
     poses, inliers = [], []
     for img in frames:
-        T7, n_inl = track_step(state, T7, img)
+        T7, n_inl = step(state, T7, img)
         poses.append(T7)
         inliers.append(n_inl)
     return torch.stack(poses), torch.stack(inliers)

@@ -65,8 +65,11 @@ def a2d_window_origins(center_xy: torch.Tensor, H, W):
             origin(center_xy[:, 1], H).to(torch.int32))
 
 
-def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
-    """Plain version of K4.
+def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
+                 clamp_step: bool = True):
+    """Plain version of K4 (clamp_step True: each step clamped to +-1 px)
+    and of K11's second stage (clamp_step False: the unclamped loop of
+    ops/pallas/track_fused.py).
 
     wins [N, 32, 32], ref/jx/jy [N, 8, 8], hinv [N, 3, 3], ox/oy [N] int32,
     xy0 [N, 2].  Returns [N, 4]: x, y, mean offset, final mean |r|."""
@@ -105,8 +108,9 @@ def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03)
         dv = h[:, 3] * gx + h[:, 4] * gy + h[:, 5] * gm
         dm = h[:, 6] * gx + h[:, 7] * gy + h[:, 8] * gm
         small = du * du + dv * dv < conv_eps * conv_eps
-        du = torch.clamp(du, -1.0, 1.0)      # <= 1 px per iteration
-        dv = torch.clamp(dv, -1.0, 1.0)
+        if clamp_step:                       # <= 1 px per iteration
+            du = torch.clamp(du, -1.0, 1.0)
+            dv = torch.clamp(dv, -1.0, 1.0)
         act = ~small & ~frozen               # a step that freezes is not applied
         x = torch.where(act, x - du, x)
         y = torch.where(act, y - dv, y)

@@ -90,38 +90,44 @@ def frozen_h0(J, vis, pc0, px0, Hl: int, Wl: int) -> torch.Tensor:
     return torch.einsum("npa,npb->ab", J0, J0)
 
 
+def project_points(R: list, t: list, p: torch.Tensor, cam, distorted: bool,
+                   scale: float = 1.0):
+    """Pixels (u, v) on the level of `scale` and depths z of points p [N, 3]
+    at pose (R 9-list, t 3-list), as the kernels project them (|z| < 1e-9
+    taken as 1e-9, the radial-tangential model when `distorted`)."""
+    k1, k2, p1, p2 = _distortion(cam, distorted)
+    R = [float(v) for v in R]
+    t = [float(v) for v in t]
+    px, py, pz = p[:, 0], p[:, 1], p[:, 2]
+    x = R[0] * px + R[1] * py + R[2] * pz + t[0]
+    y = R[3] * px + R[4] * py + R[5] * pz + t[1]
+    z = R[6] * px + R[7] * py + R[8] * pz + t[2]
+    zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    xn = x / zs
+    yn = y / zs
+    r2 = xn * xn + yn * yn
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2
+    xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
+    yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
+    return cam.fx * scale * xd + cam.cx * scale, cam.fy * scale * yd + cam.cy * scale, z
+
+
 def level_passes(w_l, rp_l, J_l, vis, ox_l, oy_l, p_ref, cam, distorted: bool,
                  Hl: int, Wl: int, scale: float):
     """The per-pose passes of one level's GN loop, as the kernels run them
-    (shared by the plain versions of K3 and K9): `usable(R, t)` -> (mask,
-    window-relative support origin x, y) and `residuals(R, t, with_h)` ->
-    (H 21-list or None, b 6-list, chi2), host float32 scalars.  w_l [N,
-    16, 16] windows, rp_l [N, 16] patches, J_l [N, 16, 6], vis [N] bool,
-    ox_l / oy_l [N] window origins; R, t are 9- and 3-lists."""
+    (shared by the plain versions of K3, K9 and K11): `usable(R, t)` ->
+    (mask, window-relative support origin x, y) and `residuals(R, t,
+    with_h)` -> (H 21-list or None, b 6-list, chi2), host float32 scalars.
+    w_l [N, 16, 16] windows, rp_l [N, 16] patches, J_l [N, 16, 6], vis [N]
+    bool, ox_l / oy_l [N] window origins; R, t are 9- and 3-lists."""
     N = vis.shape[0]
     dev = w_l.device
-    k1, k2, p1, p2 = _distortion(cam, distorted)
-    prx, pry, prz = p_ref[:, 0], p_ref[:, 1], p_ref[:, 2]
-    fxs, fys, cxs, cys = cam.fx * scale, cam.fy * scale, cam.cx * scale, cam.cy * scale
     oxf, oyf = ox_l.to(torch.float32), oy_l.to(torch.float32)
     ar = torch.arange(SUP, device=dev)
     rows_n = torch.arange(N, device=dev)[:, None, None]
 
     def usable(R, t):
-        R = [float(v) for v in R]
-        t = [float(v) for v in t]
-        x = R[0] * prx + R[1] * pry + R[2] * prz + t[0]
-        y = R[3] * prx + R[4] * pry + R[5] * prz + t[1]
-        z = R[6] * prx + R[7] * pry + R[8] * prz + t[2]
-        zs = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
-        xn = x / zs
-        yn = y / zs
-        r2 = xn * xn + yn * yn
-        radial = 1.0 + k1 * r2 + k2 * r2 * r2
-        xd = xn * radial + 2.0 * p1 * xn * yn + p2 * (r2 + 2.0 * xn * xn)
-        yd = yn * radial + p1 * (r2 + 2.0 * yn * yn) + 2.0 * p2 * xn * yn
-        u = fxs * xd + cxs
-        v = fys * yd + cys
+        u, v, z = project_points(R, t, p_ref, cam, distorted, scale)
         okc = (vis & (z > 1e-3) & (u >= _MARGIN) & (u < Wl - 1.0 - _MARGIN)
                & (v >= _MARGIN) & (v < Hl - 1.0 - _MARGIN))
         fxw = u - _HALF - oxf
@@ -153,14 +159,15 @@ def level_passes(w_l, rp_l, J_l, vis, ox_l, oy_l, p_ref, cam, distorted: bool,
 
 
 def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
-                  H0, W0, stats: dict | None = None):
-    """Plain version of K3.
+                  H0, W0, stats: dict | None = None, n_iter: int = MAX_ITER):
+    """Plain version of K3 (and of K11's first stage).
 
     wins [L, N, 16, 16], refp [L, N, 16], jac [L, N, 16, 6], p_ref [N, 3],
     lvis [L, N] (0/1), ox/oy [L, N] int32 window origins, pose0 [12]
-    (R row-major, t).  Returns [13]: R, t, chi2 of the finest level.
-    `stats`, if given, receives "passes": the residual passes run per
-    level, coarse to fine (the work this input needs)."""
+    (R row-major, t); at most n_iter iterations per level.  Returns [13]: R,
+    t, chi2 of the finest level.  `stats`, if given, receives "passes": the
+    residual passes run per level, coarse to fine (the work this input
+    needs)."""
     L = lvis.shape[0]
     R, t = _gn6.pose_from_tensor(pose0)
     chi2 = _gn6.F(0.0)
@@ -175,7 +182,7 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
         Lc = _gn6.chol6(_gn6.upper21(torch.einsum("npa,npb->ab", J0, J0)))
         _, bv, chi2 = residuals(R, t)
         passes.append(1)
-        for _ in range(MAX_ITER):
+        for _ in range(n_iter):
             passes[-1] += 1
             dx = _gn6.subst6(Lc, bv)
             conv = max(abs(d) for d in dx) < _gn6.F(STOP_STEP)
