@@ -5,11 +5,16 @@
 
 Phases, each raising (and so exiting non-zero) on failure:
 
-1. Header: the card's name and power limit, torch and CUDA versions, and
-   the nvcc build of every kernel in ygz_slam_tpu_torch/csrc.
-2. Kernel versus plain version, at the stated tolerances.  Kernel times
-   are medians of per-launch CUDA-event intervals with the host's enqueue
-   hidden behind a sleep kernel.
+1. Header: the card's name and power limit, torch and CUDA versions, the
+   nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
+   registers, stack and spills of the chained single-CTA kernels (K3,
+   K5, K8, K9 v1/v2, K11); a spill in K3 or K5 fails the run at the end.
+2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
+   K8, K9 and K11 a second launch on the same inputs giving the same
+   bits.  Kernel times are medians of per-launch CUDA-event intervals with
+   the host's enqueue hidden behind a sleep kernel; K3's and K5's chains
+   (dependent passes or reductions per launch, from the plain versions'
+   iteration counts) and µs per link beside them.
    a. The single-sequence tracking step's kernels (K1 gather_windows, K3
       sparse_align_mega, K4 align2d_fused, K5 pose_ba_fused) on the inputs
       that path gives them on frame 1 of its workload; K3-K5 again at 512
@@ -39,7 +44,9 @@ Phases, each raising (and so exiting non-zero) on failure:
       (recorded from `fused_track_step`), at 512 landmarks, with ten
       landmarks masked (none may converge or be an inlier) and with no
       usable sparse point (stage 1 must leave the init pose bit for bit);
-      per-launch times, bound and plain time beside the summed times of
+      its BA chi2 against the plain chain's on frames 1-16 at 200 and 512
+      landmarks beside two float16 controls (TOL_BA_CHAIN must separate
+      them); per-launch times, bound and plain time beside the summed times of
       the kernels it replaces on path 1's frame 1 (K1 x 4, K3, K4, K5).
       Then `entry()`, the step's own entry point, once on the card against
       the CPU.
@@ -74,7 +81,8 @@ Phases, each raising (and so exiting non-zero) on failure:
    once under 3, the variant's K9 entry three times under 1 or 2; K10
    three times per keyframe; K6 and K8 never.  Then, from a fresh System,
    synchronised times of the init step, `track`, the keyframe cycle and
-   the mapping pass.
+   the mapping pass; that second run must equal the first bit for bit
+   (statuses, trajectory, keyframe poses, landmarks).
 5c. Main path 5: path 1's workload through `tracking.track_frames` with
    `step=fused_track_step` (the whole-step configuration), every frame
    held to the gate; the counters must show K11 once and K1 four times
@@ -125,8 +133,27 @@ TOL_XY_ALL = 0.05       # all of them within 0.05 px: a 0.03 px freeze
 MIN_MASK_AGREE = 0.98   # K4 acceptance masks
 MIN_INLIER_AGREE = 0.99  # K5/K8 inlier sets
 TOL_REL = 1e-4          # K9 and K11 chi2 and K9 H, relative
+TOL_BA_CHAIN = 1e-3     # K11's BA chi2 against the plain chain's, relative:
+                        # an align2d freeze flip (TOL_XY_ALL) moves one
+                        # point of stage 3's input.  Phase 2f prints the
+                        # readings behind it and fails unless it passes
+                        # all of them and no float16 control.
+K11_FRAMES = 16         # path 5's frames whose K11 BA chi2 phase 2f reads
+# (source, kernel) pairs whose ptxas report the header prints.
+PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
+                 ("pose_ba_fused", "pose_ba_fused_kernel"),
+                 ("pose_ba_fused_batch", "pose_ba_fused_batch_kernel"),
+                 ("sparse_align_fused", "level_align_v1_kernel"),
+                 ("sparse_align_fused", "level_align_v2_kernel"),
+                 ("track_fused", "track_fused_kernel"))
+NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel")   # must not spill
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
+
+
+def _rel(a, b):
+    """|a - b| relative to |b| (floored at 1e-6), of two scalars."""
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
 
 
 def _run(cmd):
@@ -161,10 +188,39 @@ def _time_host(torch, fn, reps=PLAIN_REPS):
     return statistics.median(ts)
 
 
+def _k5_links(normal_eqs, rounds=4):
+    """K5's dependent block reductions per launch: its normal equations, a
+    count per round, round 0's count and two medians of 1 max + 4 grouped
+    bisection counts each."""
+    return normal_eqs + rounds + 1 + 2 * (1 + 4)
+
+
 def _bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fingerprint(system, statuses, T7):
+    """What a run of main path 4 leaves: its statuses, trajectory and the
+    map's keyframe poses and landmarks, as bytes for a bit-for-bit test."""
+    m = system.vo.server.state
+    return ([s.name for s in statuses], T7.tobytes(), m.kf_pose7.cpu().numpy().tobytes(),
+            m.pt_pos.cpu().numpy().tobytes()), (T7, m.kf_pose7.cpu().numpy())
+
+
+def _check_repeat(first, second, label):
+    """Two runs of main path 4 in one process must be equal bit for bit."""
+    (fa, (Ta, Ka)), (fb, (Tb, Kb)) = first, second
+    same = fa == fb
+    d = max(float(abs(Ta - Tb).max()), float(abs(Ka - Kb).max())) if len(Ta) == len(Tb) \
+        else float("inf")
+    print(f"main path 4 repeated, {label}: statuses {'equal' if fa[0] == fb[0] else 'DIFFERENT'}, "
+          f"trajectory, keyframe poses and landmarks "
+          f"{'equal bit for bit' if same else 'DIFFERENT'} (max |difference| of poses {d:.3e})",
+          flush=True)
+    if not same:
+        raise AssertionError(f"main path 4 is not repeatable on the card ({label})")
 
 
 def _profile(torch, fn, n, label):
@@ -242,6 +298,15 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.perf_counter() - t_start:.2f} s for {len(_build.sources())} sources "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
+    # ptxas's registers, stack and spills of the chained single-CTA kernels.
+    spills = {}
+    for src, kernel in PTXAS_KERNELS:
+        for name, r in _build.kernel_resources(src).items():
+            if kernel in name:
+                spills[kernel] = r["spill_stores"] + r["spill_loads"]
+                print(f"ptxas {src}.cu {kernel}: {r['registers']} registers, {r['stack']} bytes "
+                      f"stack, {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes "
+                      f"spill loads", flush=True)
     dev = torch.device("cuda")
     L = tr.N_LEVELS
 
@@ -289,6 +354,11 @@ def main() -> int:
         yo[:n] = torch.tensor(ys, dtype=torch.int32, device=yi.device)
         return xo, yo
 
+    def same_launch(name, first, second, tag):
+        """A second launch on the same inputs must give the same bits."""
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{name} {tag}: two launches on the same inputs differ")
+
     def check_k1(g1, tag, with_library=True):
         err = 0.0
         for img, ox, oy, win in g1:
@@ -305,6 +375,7 @@ def main() -> int:
 
     def check_k3(a3, tag):
         out = k3.mega_gn(*a3)
+        same_launch("K3", [out], [k3.mega_gn(*a3)], tag)
         stats = {}
         ref = k3.mega_gn_plain(*a3, stats=stats)
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
@@ -336,6 +407,7 @@ def main() -> int:
 
     def check_k5(a5, tag):
         out, inl = k5.pose_ba_gn(*a5)
+        same_launch("K5", [out, inl], k5.pose_ba_gn(*a5), tag)
         stats = {}
         ref, inl_ref = k5.pose_ba_gn_plain(*a5, stats=stats)
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
@@ -388,6 +460,13 @@ def main() -> int:
     k5_flops = N * (180 * st5["normal_eqs"] + 27 * 25 + 4 * 30)
     report["K5"] = dict(ms=k5_ms, plain=k5_plain, lib=None, err=e5,
                         bound=_bound(k5_bytes, k5_flops))
+    print(f"chains at N=200: K3 {sum(st3['passes'])} dependent passes (per level, coarse to "
+          f"fine, {st3['passes']}: the frozen Hessian with the first residuals, then one per "
+          f"iteration), {k3_ms * 1e3 / sum(st3['passes']):.2f} us per link; K5 "
+          f"{_k5_links(st5['normal_eqs'])} dependent block reductions ({st5['normal_eqs']} "
+          f"normal equations, 4 reclassification counts, 1 count, 2 x (1 max + 4 grouped "
+          f"bisection counts)), {k5_ms * 1e3 / _k5_links(st5['normal_eqs']):.2f} us per link",
+          flush=True)
     print("K1 times below are per frame: the sum over its 4 launches (3 levels x 16^2, 32^2)")
     for k, r in report.items():
         lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
@@ -396,13 +475,19 @@ def main() -> int:
 
     # The same kernels at 512 landmarks (the VO's visible-subset size).
     cam5, px5, depth5, mask5, pts5, patches5, ref_pyr5, frames5, T_gt5 = tr.make_workload(
-        2, dev, n_points=512)
+        K11_FRAMES + 1, dev, n_points=512)
     state5 = tr.make_state(cam5, ref_pyr5, px5, depth5, mask5, pts5, patches5)
     g1_5, a3_5, a4_5, a5_5 = frame_inputs(state5, frames5[1], SE3.from_params7(T_gt5[0]))
     check_k1(g1_5, "N=512")
-    check_k3(a3_5, "N=512")
+    _, st3_5 = check_k3(a3_5, "N=512")
     check_k4(a4_5, "N=512")
-    check_k5(a5_5, "N=512")
+    _, st5_5 = check_k5(a5_5, "N=512")
+    k3_ms_512 = _time_kernel(torch, lambda: k3.mega_gn(*a3_5))
+    k5_ms_512 = _time_kernel(torch, lambda: k5.pose_ba_gn(*a5_5))
+    print(f"N=512: K3 {k3_ms_512:.4f} ms ({sum(st3_5['passes'])} passes, "
+          f"{k3_ms_512 * 1e3 / sum(st3_5['passes']):.2f} us per link), K5 {k5_ms_512:.4f} ms "
+          f"({_k5_links(st5_5['normal_eqs'])} reductions, "
+          f"{k5_ms_512 * 1e3 / _k5_links(st5_5['normal_eqs']):.2f} us per link)", flush=True)
     # K1 off the image: the zero-padded window at the requested origin.
     check_k1([(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g1],
              "origins off the image", with_library=False)
@@ -468,6 +553,7 @@ def main() -> int:
 
     def check_k8(a8, tag):
         out, inl = k8.pose_ba_batch_gn(*a8)
+        same_launch("K8", [out, inl], k8.pose_ba_batch_gn(*a8), tag)
         stats = {}
         ref, inl_ref = k8.pose_ba_batch_gn_plain(*a8, stats=stats)
         S = out.shape[0]
@@ -529,8 +615,9 @@ def main() -> int:
         lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
         print(f"{k} ({tag}): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, library {lib} "
               f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
-    print(f"K8 is bound by its chain of ~40 dependent block reductions per sequence, not by "
-          f"bytes or operations; K4 over {Nb} rows {k4b_ms:.4f} ms; K3 on K6's windows "
+    print(f"K8 is bound by its chain of {_k5_links(max(st8['normal_eqs']))} dependent block "
+          f"reductions per sequence, not by bytes or operations; K4 over {Nb} rows "
+          f"{k4b_ms:.4f} ms; K3 on K6's windows "
           f"{k3b_ms:.4f} ms (median over the {S_BATCH} sequences)", flush=True)
 
     # The same kernels at 16 sequences.
@@ -676,14 +763,14 @@ def main() -> int:
             f"{float(a3v[2].abs().max()):.1e})")
     check_k1(g1v, tagv + f", {L} levels x {ref_win}^2 on the previous frame and {L} x "
              f"{k3.CWIN}^2 on this one")
-    check_k3(a3v, tagv)
+    _, st3v = check_k3(a3v, tagv)
     tagv = f"VO frame 10, N={a2v[1].shape[0]} ({int(a5v[2].sum())} matched)"
     check_k2(a2v, tagv + f", {a2v[0].shape[0]}-level stack")
     # Substituted inits (PATCH + 2, PATCH + 2) are the out-of-bounds ones,
     # which `align2d` never accepts; every other init is the path's center.
     xy0v = a4v[7]
     check_k4((a4v, xy0v, (xy0v != k1.PATCH + 2.0).any(dim=1), *vframes.shape[1:]), tagv)
-    check_k5(a5v, tagv)
+    _, st5v = check_k5(a5v, tagv)
     for a, b in d10v:
         check_exact("K10 hamming distance_matrix", [k10.distance_matrix(a, b)],
                     [k10.distance_matrix_plain(a, b)],
@@ -691,13 +778,16 @@ def main() -> int:
     k1v_ms = sum(_time_kernel(torch, lambda g=g: k1.gather_windows(*g)) for g in g1v)
     k1v_plain = sum(_time_host(torch, lambda g=g: k1.gather_windows_plain(*g)) for g in g1v)
     k1v_bound = _bound(sum(n_sel * (2 * g[3] * g[3] * 4 + 8) for g in g1v), 0.0)
+    k3v_ms = _time_kernel(torch, lambda: k3.mega_gn(*a3v))
+    k5v_ms = _time_kernel(torch, lambda: k5.pose_ba_gn(*a5v))
     print(f"VO frame 10: K1 per frame (sum over its 6 launches: {L} x {ref_win}^2, {L} x "
           f"{k3.CWIN}^2, {n_sel} windows each) kernel {k1v_ms:.4f} ms, plain {k1v_plain:.4f} ms, "
-          f"bound {k1v_bound[0]:.6f} ms ({k1v_bound[1]}); K3 "
-          f"{_time_kernel(torch, lambda: k3.mega_gn(*a3v)):.4f} ms, K2 "
-          f"{_time_kernel(torch, lambda: k1.gather_windows_multi(*a2v)):.4f} ms, K4 "
-          f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 "
-          f"{_time_kernel(torch, lambda: k5.pose_ba_gn(*a5v)):.4f} ms", flush=True)
+          f"bound {k1v_bound[0]:.6f} ms ({k1v_bound[1]}); K3 {k3v_ms:.4f} ms "
+          f"({sum(st3v['passes'])} passes, {k3v_ms * 1e3 / sum(st3v['passes']):.2f} us per link), "
+          f"K2 {_time_kernel(torch, lambda: k1.gather_windows_multi(*a2v)):.4f} ms, K4 "
+          f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 {k5v_ms:.4f} ms "
+          f"({_k5_links(st5v['normal_eqs'])} reductions, "
+          f"{k5v_ms * 1e3 / _k5_links(st5v['normal_eqs']):.2f} us per link)", flush=True)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
@@ -720,11 +810,13 @@ def main() -> int:
         if lfac is None:
             out, ref = k9.level_gn(*args), k9.level_gn_plain(*args, stats=stats)
             name = "K9 level_align_fused (v1)"
+            same_launch("K9 v1", [out], [k9.level_gn(*args)], tag)
             h_err = float((out[13:] - ref[13:]).abs().max() / ref[13:].abs().max().clamp(min=1e-30))
         else:
             v2 = args[:8] + (lfac,) + args[8:]
             out, ref = k9.level_gn_v2(*v2), k9.level_gn_v2_plain(*v2, stats=stats)
             name = "K9 level_align_fused_v2"
+            same_launch("K9 v2", [out], [k9.level_gn_v2(*v2)], tag)
             h_err = 0.0
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
         err = float((out[:12] - ref[:12]).abs().max())
@@ -750,7 +842,7 @@ def main() -> int:
     e2_report = {}
     for variant, fn in ((1, k9.level_gn), (2, k9.level_gn_v2)):
         sparse_align.FUSED_VARIANT = variant
-        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        sysm = System(camera=cam_m, options=mw.mono_options(), device=dev)
         for k in range(E2_FRAME):
             sysm.track_monocular(frames_m[k], float(k))
         if sysm.status is not vo_mod.Status.GOOD:
@@ -825,12 +917,11 @@ def main() -> int:
         """K11 against its plain version; returns (max |R,t diff|, plain
         stats, kernel outputs)."""
         out, xy, per = k11.track_gn(*a11)
+        same_launch("K11", [out, xy, per], k11.track_gn(*a11), tag)
         stats = {}
         ref, xy_r, per_r = k11.track_gn_plain(*a11, stats=stats)
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
         d_sp = float(se3.distance(SE3(*_pose_of(out[15:])), SE3(*_pose_of(ref[15:]))))
-        c_err = max(abs(float(out[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-6)
-                    for k in (12, 13))
         conv, conv_r = per[1] > 0.5, per_r[1] > 0.5
         agree = float((conv == conv_r).float().mean())
         both = conv & conv_r
@@ -838,16 +929,27 @@ def main() -> int:
         err = float(dxy.max()) if dxy.numel() else 0.0
         close = float((dxy <= TOL_XY).float().mean()) if dxy.numel() else 1.0
         inl_agree = float(((per[2] > 0.5) == (per_r[2] > 0.5)).float().mean())
+        # The BA chi2 twice: against the plain chain's (TOL_BA_CHAIN), and,
+        # for stage 3 alone, against the plain BA on the kernel's own
+        # stage-2 output from the kernel's stage-1 pose (TOL_REL).
+        chain = _rel(out[13], ref[13])
+        ba_own = float(k5.pose_ba_gn_plain(
+            a11[19], xy, per[1] * a11[20], out[15:27].contiguous(), a11[8], a11[26], a11[24],
+            a11[25], k11.BA_EPS)[0][12])
+        c_err = max(_rel(out[12], ref[12]), _rel(out[13], ba_own))
         print(f"K11 track_step_fused {tag}: pose distance {d:.3e} (after stage 1 {d_sp:.3e}; "
               f"tolerance {TOL_POSE}), chi2 sparse {float(out[12]):.4f} vs {float(ref[12]):.4f}, "
-              f"BA {float(out[13]):.4f} vs {float(ref[13]):.4f} (relative {c_err:.1e}, "
+              f"BA {float(out[13]):.4f} vs the plain chain's {float(ref[13]):.4f} (relative "
+              f"{chain:.1e}, tolerance {TOL_BA_CHAIN}) and vs the plain BA on the kernel's "
+              f"stage 2 {ba_own:.4f} (sparse and stage-3 chi2 relative {c_err:.1e}, "
               f"tolerance {TOL_REL}); align2d max |xy diff| {err:.3e} px on {int(both.sum())} "
               f"points both accept, {close:.4f} within {TOL_XY} px (need {MIN_MASK_AGREE}), all "
               f"within {TOL_XY_ALL}, converged masks agree {agree:.4f}; inliers "
               f"{int(out[14])} vs {int(ref[14])}, sets agree {inl_agree:.4f} (need "
               f"{MIN_INLIER_AGREE}); passes per level {stats['passes']}, normal equations "
               f"{stats['normal_eqs']}", flush=True)
-        if not (d <= TOL_POSE and d_sp <= TOL_POSE and c_err <= TOL_REL and err <= TOL_XY_ALL
+        if not (d <= TOL_POSE and d_sp <= TOL_POSE and c_err <= TOL_REL
+                and chain <= TOL_BA_CHAIN and err <= TOL_XY_ALL
                 and close >= MIN_MASK_AGREE and agree >= MIN_MASK_AGREE
                 and inl_agree >= MIN_INLIER_AGREE and float(out[14]) == float(per[2].sum())):
             raise AssertionError("K11 disagrees with its plain version")
@@ -879,6 +981,39 @@ def main() -> int:
     a11_5 = record_k11(state5, frames5[1], T_gt5[0])
     e11, st11, _ = check_k11(a11, "path 5 frame 1, N=200")
     _, st11_5, _ = check_k11(a11_5, "path 5 frame 1, N=512")
+    # The readings behind TOL_BA_CHAIN: K11's BA chi2 against the plain
+    # chain's on frames 1..K11_FRAMES of path 5 (each its own noise seed)
+    # at both sizes, and two controls on the same inputs, the plain chain
+    # with its stage-2 output or stage 3's points rounded to float16.  The
+    # tolerance must pass every reading and fail every control.
+    gaps, ctrl = {}, {"stage 2 in float16": [], "stage 3 points in float16": []}
+    for n_tag, st_k, fr_k, T_k in (("N=200", state, frames, T_gt7),
+                                   ("N=512", state5, frames5, T_gt5)):
+        gaps[n_tag] = []
+        for i in range(1, K11_FRAMES + 1):
+            a = record_k11(st_k, fr_k[i], T_k[i - 1])
+            out, _, _ = k11.track_gn(*a)
+            ref, xy_r, per_r = k11.track_gn_plain(*a)
+            gaps[n_tag].append(_rel(out[13], ref[13]))
+            ba_args = (per_r[1] * a[20], ref[15:27].contiguous(), a[8], a[26], a[24], a[25],
+                       k11.BA_EPS)
+            for name, pts_c, xy_c in (("stage 2 in float16", a[19], xy_r.half().float()),
+                                      ("stage 3 points in float16", a[19].half().float(),
+                                       xy_r)):
+                ctrl[name].append(_rel(k5.pose_ba_gn_plain(pts_c, xy_c, *ba_args)[0][12],
+                                       ref[13]))
+    worst = max(max(g) for g in gaps.values())
+    least = min(min(c) for c in ctrl.values())
+    for n_tag, g in gaps.items():
+        print(f"K11 BA chi2 against the plain chain, {n_tag}, frames 1-{K11_FRAMES}: relative "
+              f"{[f'{v:.1e}' for v in g]}, largest {max(g):.3e}", flush=True)
+    for name, c in ctrl.items():
+        print(f"K11 BA chi2 control, the plain chain with {name}: relative "
+              f"{[f'{v:.1e}' for v in c]}, least {min(c):.3e}", flush=True)
+    print(f"K11 BA chi2 tolerance {TOL_BA_CHAIN}: largest reading {worst:.3e}, least control "
+          f"{least:.3e}", flush=True)
+    if not worst <= TOL_BA_CHAIN < least:
+        raise AssertionError("TOL_BA_CHAIN does not separate K11's readings from the controls")
     masked = a11[20].clone()
     masked[:10] = 0.0
     _, _, (_, _, per_m) = check_k11(a11[:20] + (masked,) + a11[21:],
@@ -1105,21 +1240,21 @@ def main() -> int:
                 return out
             return timed
 
-        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        sysm = System(camera=cam_m, options=mw.mono_options(), device=dev)
         sysm.vo._try_init = wrap("init", sysm.vo._try_init)
         saved = {n: getattr(vo_mod, n) for n in ("track", "kf_cycle", "mapping_pass")}
         try:
             for n, fn in saved.items():
                 setattr(vo_mod, n, wrap(n, fn))
-            mw.run_mono(sysm, frames_m)
+            st_t, T7_t, _ = mw.run_mono(sysm, frames_m)
         finally:
             for n, fn in saved.items():
                 setattr(vo_mod, n, fn)
-        return times
+        return times, _fingerprint(sysm, st_t, T7_t)
 
     for variant in (3, 2, 1):
         sparse_align.FUSED_VARIANT = variant
-        sysm = System(cam_m, options=mw.mono_options(), device=dev)
+        sysm = System(camera=cam_m, options=mw.mono_options(), device=dev)
         for c in counters4:
             c.launches = 0
         st_m, T7_m, wall = mw.run_mono(sysm, frames_m)
@@ -1151,7 +1286,9 @@ def main() -> int:
                  "level_gn_v2": 3 * n_track if variant == 2 else 0}
         if got != want4:
             raise AssertionError(f"launch counts {got}, expected {want4}")
-        times = timed_run(variant)
+        # The timed run repeats the gate run in this process: bit for bit.
+        times, fp_timed = timed_run(variant)
+        _check_repeat(_fingerprint(sysm, st_m, T7_m), fp_timed, f"FUSED_VARIANT {variant}")
         med = {k: statistics.median(v) for k, v in times.items() if k != "init"}
         klt_only = statistics.median(times["init"][:-1] or [float("nan")])
         print(f"main path 4, FUSED_VARIANT {variant}, synchronised ms: init step (KLT, "
@@ -1207,7 +1344,7 @@ def main() -> int:
              "main path 3 (30 frames with 3 keyframe cycles)")
     # Path 4 under variant 2, past init, over a window with keyframes in it.
     sparse_align.FUSED_VARIANT = 2
-    sysm = System(cam_m, options=mw.mono_options(), device=dev)
+    sysm = System(camera=cam_m, options=mw.mono_options(), device=dev)
     for k in range(P4_PROFILE[0]):
         sysm.track_monocular(frames_m[k], float(k))
     n_kf0 = sysm.vo.stats["keyframes"]
@@ -1223,6 +1360,11 @@ def main() -> int:
     del sysm
 
     # -- 7. result lines ------------------------------------------------------
+    spilled = {k: v for k, v in spills.items() if k in NO_SPILL and v}
+    if set(NO_SPILL) - set(spills) or spilled:
+        raise AssertionError(f"ptxas: spills in {spilled}, or no report for "
+                             f"{set(NO_SPILL) - set(spills)}")
+
     def launches(name):
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
                 + sum(v[name] for v in launches4.values()) + launches5[name])

@@ -5,10 +5,13 @@ and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
 on windows clamped at the border; K11 on frame 1 of the fused path and with
-ten landmarks masked; and five frames of the single-sequence step, ten of
+ten landmarks masked; K3 and K5 from 1 to 1500 points and K3 with every
+point masked, K8 at 16 sequences, K5, K8 and K11 refusing a float mask,
+and second launches of K3, K5, K8, K9 and K11 (the same bits); five frames of the single-sequence step, ten of
 the fused step, three of the batch step, twelve of the VO slice (with one
 keyframe cycle) and forty of the monocular System from raw frames on the
-card against the CPU.
+card against the CPU, and that System run twice on the card (the same
+bits).
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -18,9 +21,10 @@ imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: kernel and plain version run the same float32 algorithm and
-differ in summation order (warp shuffles versus PyTorch reductions) and
-multiply-add contraction only, so poses agree far below the 1e-4 GN
-stopping step and K1's copy is exact.
+differ in the order of their sums only (warp shuffles versus PyTorch
+reductions; the kernels are built without multiply-add contraction, so
+each per-point value rounds as the plain version's does), so poses agree
+far below the 1e-4 GN stopping step and K1's copy is exact.
 """
 import pathlib
 import subprocess
@@ -489,7 +493,7 @@ def test_mono_system_card_matches_cpu(cuda_device, monkeypatch):
 
     def run(dev, imgs, sample):
         monkeypatch.setattr(tin, "sample_hypotheses", sample)
-        s = System(cam, options=mw.mono_options(), device=dev)
+        s = System(camera=cam, options=mw.mono_options(), device=dev)
         kf = []
 
         def on_frame(k, r):
@@ -524,3 +528,172 @@ def test_mono_system_card_matches_cpu(cuda_device, monkeypatch):
     assert float(d[:first_kf + 1].max()) <= TOL_SLICE
     assert float(d.max()) <= TOL_MAPPED
     assert mw.mono_gate(card[0], card[1].numpy(), T_gt7.cpu())[2]
+
+
+# -- the Hopper redesign of K3 and of the pose-BA body (K5, K8, K11) ------
+
+_SIZED = {}
+
+
+def _sized(dev, n):
+    """The tracking workload with n landmarks (two frames) and its state."""
+    if n not in _SIZED:
+        out = tr.make_workload(2, dev, n_points=n)
+        cam, px, depth, mask, pts_w, patches, ref_pyr, frames, T_gt7 = out
+        _SIZED[n] = (out, tr.make_state(cam, ref_pyr, px, depth, mask, pts_w, patches))
+    return _SIZED[n]
+
+
+def _k3_args(dev, n):
+    from ygz_slam_tpu_torch.ops import pyramid
+
+    (cam, *_, frames, T_gt7), st = _sized(dev, n)
+    T0 = TSE3.from_params7(T_gt7[0])
+    return tk3.mega_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
+                         st.ref_prep.p_ref, T0.R, T0.t, cam, False, 3, st.ref_prep.mega_refp,
+                         st.ref_prep.mega_jl)[0]
+
+
+def _k5_args(dev, n, seed=4):
+    (cam, *_, frames, T_gt7), st = _sized(dev, n)
+    rng = np.random.default_rng(seed)
+    obs = cam.world_to_pixel(st.pts_w, TSE3.from_params7(T_gt7[1]), distorted=False)
+    noise = rng.normal(0, 0.3, obs.shape)
+    k = max(1, n // 10)
+    noise[:k] += rng.uniform(8, 30, (k, 2))                         # gross outliers
+    obs = obs + torch.tensor(noise, dtype=torch.float32, device=dev)
+    mask = st.mask.clone()
+    mask[k:k + n // 20] = False
+    return tk5.pose_ba_args(TSE3.from_params7(T_gt7[0]), st.pts_w, obs, mask, cam)
+
+
+@pytest.mark.parametrize("n", [1, 31, 200, 512, 1500])
+def test_sparse_align_mega_sizes(cuda_device, n):
+    """K3 against its plain version from 1 to 1500 points (the kernel's
+    fixed block of 512 threads takes the 16 pixels of each point on 16
+    lanes: 1500 points are three rounds of its warps), and two launches
+    equal bit for bit."""
+    args = _k3_args(cuda_device, n)
+    out = tk3.mega_gn(*args)
+    stats = {}
+    ref = tk3.mega_gn_plain(*args, stats=stats)
+    d = float(tse3.distance(_pose(out), _pose(ref)))
+    print(f"K3 N={n}: pose distance {d:.3e}, passes {stats['passes']}")
+    assert d <= TOL_POSE and bool(torch.isfinite(out).all())
+    assert abs(float(out[12]) - float(ref[12])) <= 1e-4 * max(abs(float(ref[12])), 1e-6)
+    assert torch.equal(tk3.mega_gn(*args), out)
+
+
+def test_sparse_align_mega_every_point_masked(cuda_device):
+    """No visible point on any level: the pose stays the init pose bit for
+    bit and chi2 is 0, as in the plain version."""
+    args = _k3_args(cuda_device, 200)
+    args = args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+    out = tk3.mega_gn(*args)
+    torch.testing.assert_close(out[:12], args[7], rtol=0, atol=0)
+    assert float(out[12]) == 0.0
+    torch.testing.assert_close(tk3.mega_gn_plain(*args), out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 31, 200, 512, 1500])
+def test_pose_ba_sizes(cuda_device, n):
+    """K5 against its plain version from 1 to 1500 points (one point per
+    thread up to 1024, then the loop over each thread's points), with
+    outliers and masked rows, and two launches equal bit for bit."""
+    args = _k5_args(cuda_device, n)
+    out, inl = tk5.pose_ba_gn(*args)
+    ref, inl_ref = tk5.pose_ba_gn_plain(*args)
+    d = float(tse3.distance(_pose(out), _pose(ref)))
+    agree = float(((inl > 0.5) == (inl_ref > 0.5)).float().mean())
+    print(f"K5 N={n}: pose distance {d:.3e}, inlier sets agree {agree:.4f}")
+    assert d <= TOL_POSE and agree >= 0.99 and bool(torch.isfinite(out).all())
+    out2, inl2 = tk5.pose_ba_gn(*args)
+    assert torch.equal(out2, out) and torch.equal(inl2, inl)
+
+
+def test_pose_ba_kernels_refuse_a_float_mask(cuda_device):
+    """K5, K8 and K11's stage 3 count each point's weight as 0 or 1, so
+    their wrappers take the mask as bool on the card and refuse a float
+    one (a fractional weight would make kernel and plain version differ)."""
+    from ygz_slam_tpu_torch.ops import pyramid
+
+    args = _k5_args(cuda_device, 31)
+    half = args[2].float() * 0.5
+    with pytest.raises(ValueError, match="msk"):
+        tk5.pose_ba_gn(*args[:2], half, *args[3:])
+    args8 = tuple(a[None].contiguous() for a in args[:4]) + (args[4],)
+    tk8.pose_ba_batch_gn(*args8)
+    with pytest.raises(ValueError, match="msk"):
+        tk8.pose_ba_batch_gn(*args8[:2], half[None], *args8[3:])
+    (cam, *_, frames, T_gt7), st = _sized(cuda_device, 31)
+    T0 = TSE3.from_params7(T_gt7[0])
+    a11 = tk11.track_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
+                          st.ref_prep.p_ref, st.a2d_prep, st.pts_w, st.mask, T0.R, T0.t, cam,
+                          False, 2)
+    assert a11[20].dtype == torch.bool
+    with pytest.raises(ValueError, match="a2_mask"):
+        tk11.track_gn(*a11[:20], a11[20].float())
+
+
+def test_pose_ba_batch_sixteen_sequences(cuda_device):
+    """K8 at S=16 (each sequence its own noise, outliers and masked rows)
+    against its plain version, and two launches equal bit for bit."""
+    S = 16
+    parts = [_k5_args(cuda_device, 200, seed=20 + s) for s in range(S)]
+    cam = parts[0][4]
+    args = tuple(torch.stack([p[k] for p in parts]).contiguous() for k in range(4)) + (cam,)
+    out, inl = tk8.pose_ba_batch_gn(*args)
+    ref, inl_ref = tk8.pose_ba_batch_gn_plain(*args)
+    for s in range(S):
+        assert float(tse3.distance(_pose(out[s]), _pose(ref[s]))) <= TOL_POSE
+        assert float(((inl[s] > 0.5) == (inl_ref[s] > 0.5)).float().mean()) >= 0.99
+    out2, inl2 = tk8.pose_ba_batch_gn(*args)
+    assert torch.equal(out2, out) and torch.equal(inl2, inl)
+
+
+def test_level_align_and_track_fused_repeat(cuda_device):
+    """Two launches of K9 v1, K9 v2 and K11 on the same inputs give the
+    same bits."""
+    from ygz_slam_tpu_torch.ops import pyramid
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    cam, prep, cur = _level_case(cuda_device, [0.03, -0.02, 0.01, 0.002, -0.004, 0.002])
+    R0, t0 = torch.eye(3, device=cuda_device), torch.zeros(3, device=cuda_device)
+    for level in range(3):
+        lr = prep.levels[level]
+        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t0, cam, level, False)
+        assert torch.equal(tk9.level_gn(*args), tk9.level_gn(*args))
+        lfac = tk9.frozen_factor(tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[level].shape))
+        v2 = args[:8] + (lfac,) + args[8:]
+        assert torch.equal(tk9.level_gn_v2(*v2), tk9.level_gn_v2(*v2))
+    (cam, *_, frames, T_gt7), st = _sized(cuda_device, 200)
+    T0 = TSE3.from_params7(T_gt7[0])
+    args = tk11.track_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
+                           st.ref_prep.p_ref, st.a2d_prep, st.pts_w, st.mask, T0.R, T0.t, cam,
+                           False, 2)
+    a, b = tk11.track_gn(*args), tk11.track_gn(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_mono_system_repeats_on_the_card(cuda_device):
+    """`test_mono_system_card_matches_cpu`'s run (40 frames of the
+    monocular System, a mapping pass with local BA after each keyframe)
+    twice on the card: equal bit for bit.  Local BA sums its blocks in a
+    fixed order (no float atomics), and every kernel reduces in a fixed
+    order."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, _ = mw.make_mono_workload(40, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        s = System(camera=cam, options=mw.mono_options(), device=cuda_device)
+        st, T7, _ = mw.run_mono(s, frames)
+        m = s.vo.server.state
+        runs.append(([x.name for x in st], T7, m.kf_pose7.cpu(), m.pt_pos.cpu()))
+    assert s.vo.stats["keyframes"] >= 2
+    a, b = runs
+    assert a[0] == b[0]
+    assert a[1].tobytes() == b[1].tobytes(), \
+        f"trajectories differ by up to {float(abs(a[1] - b[1]).max()):.3e}"
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])

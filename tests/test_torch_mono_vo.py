@@ -50,7 +50,7 @@ def _port_run(cam, frames, monkeypatch, jax_draw: bool = True):
         return real_init(pts1, pts2, mask, *a, **kw)
 
     monkeypatch.setattr(tin, "initialize_two_view", record_init)
-    s = System(cam, options=mw.mono_options(), device="cpu")
+    s = System(camera=cam, options=mw.mono_options(), device="cpu")
     kf_frames = []
 
     def on_frame(k, r):
@@ -183,7 +183,7 @@ def test_saved_trajectory(runs, tmp_path):
 def test_static_camera_stays_initing():
     """A camera that never moves never initialises (tests/test_vo.py:111)."""
     cam, frames, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
-    s = System(cam, options=mw.mono_options(), device="cpu")
+    s = System(camera=cam, options=mw.mono_options(), device="cpu")
     for _ in range(5):
         r = s.track_monocular(frames[0])
     assert r.status in (tvo.Status.NOT_READY, tvo.Status.INITING)
@@ -193,7 +193,7 @@ def test_reset_and_reinit(runs):
     """reset() empties the map and the system initialises again
     (tests/test_vo.py:124)."""
     frames = runs["frames"]
-    s = System(runs["cam"], options=mw.mono_options(), device="cpu")
+    s = System(camera=runs["cam"], options=mw.mono_options(), device="cpu")
     for k in range(20):
         s.track_monocular(frames[k], float(k))
     assert s.status is tvo.Status.GOOD
@@ -212,11 +212,11 @@ def test_reset_and_reinit(runs):
 def test_unsupported_options_raise(bad):
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
     with pytest.raises(ValueError, match="not supported by the port"):
-        System(cam, options=mw.mono_options(**bad), device="cpu")
+        System(camera=cam, options=mw.mono_options(**bad), device="cpu")
 
 
 @pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.RGBD])
 def test_other_sensors_raise(sensor):
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
     with pytest.raises(ValueError, match="MONOCULAR"):
-        System(cam, sensor=sensor, options=mw.mono_options(), device="cpu")
+        System(camera=cam, sensor=sensor, options=mw.mono_options(), device="cpu")

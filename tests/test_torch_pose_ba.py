@@ -86,3 +86,25 @@ def test_keeps_inliers_when_none_pass():
                                      dtype=torch.float32), mask, cam)
     assert torch.isfinite(T.R).all() and torch.isfinite(T.t).all()
     assert int(inl.sum()) == int(mask.sum())
+
+
+def test_kernel_inputs_carry_the_mask_as_bool(cases):
+    """K5's and K8's inputs carry the mask as bool (the kernels count each
+    point's weight as 0 or 1), and the plain versions give the same bits
+    for it as for the same mask in 0/1 floats."""
+    from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused as tk5
+    from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as tk8
+
+    c = cases["outliers"]
+    T0 = TSE3.from_params7(torch.tensor(c["T07"]))
+    args = tk5.pose_ba_args(T0, c["pts_w"], c["obs"], c["mask"], c["cam"])
+    assert args[2].dtype == torch.bool and not bool(args[2].all())
+    out_b, inl_b = tk5.pose_ba_gn_plain(*args)
+    out_f, inl_f = tk5.pose_ba_gn_plain(*args[:2], args[2].float(), *args[3:])
+    assert torch.equal(out_b, out_f) and torch.equal(inl_b, inl_f)
+    T0b = TSE3(T0.R[None], T0.t[None])
+    args8 = tk8.pose_ba_batch_args(T0b, c["pts_w"][None], c["obs"][None], c["mask"][None].float(),
+                                   c["cam"])
+    assert args8[2].dtype == torch.bool
+    out8, inl8 = tk8.pose_ba_batch_gn_plain(*args8)
+    assert torch.equal(out8[0], out_b) and torch.equal(inl8[0], inl_b)

@@ -5,13 +5,16 @@ interface, loaded with ctypes.  All sources are compiled together, one
 nvcc process each, started at once.  Outputs go to `_build/<hash>/`
 (listed in .gitignore); the hash covers every source, header and flag, so
 a build is reused while they are unchanged and redone when they change.
-A failed build raises with nvcc's output.
+A failed build raises with nvcc's output; a good one keeps it beside the
+library (`lib<name>.log`: ptxas's registers, stack and spills of every
+kernel, read by `kernel_resources`).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,8 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+# -fmad=false: no multiply-add contraction.  Each product and sum rounds on
+# its own, as in the plain versions' PyTorch operations, so a kernel's
+# per-point decisions (a window's or image margin's edge, cheirality, an
+# inlier test, a bisection count) on the same inputs are the plain
+# version's bit for bit, and only the order of its block sums differs.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -75,6 +83,7 @@ def build_all() -> Path:
             failures.append(f"{src.name}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            (out / f"lib{src.stem}.log").write_text(log)
             os.replace(tmp, out / f"lib{src.stem}.so")
     last_build_seconds = time.perf_counter() - t0
     if failures:
@@ -91,3 +100,33 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
             _libs[name] = lib
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_resources(name: str) -> dict[str, dict[str, int]]:
+    """ptxas's report on each kernel (entry function, by mangled name) of
+    csrc/<name>.cu in the current build: registers per thread, stack frame
+    and spill stores / loads in bytes."""
+    out: dict[str, dict[str, int]] = {}
+    entry = None
+    for line in (build_all() / f"lib{name}.log").read_text().splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = _FRAME.search(line)
+        if m and "stack" not in out[entry]:
+            out[entry].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            entry = None
+    return out

@@ -1,8 +1,8 @@
-// Device helpers shared by the single-CTA Gauss-Newton kernels
-// (sparse_align_mega.cu, pose_ba_fused.cu): block-wide sums whose totals
-// every thread receives in the same order, a damped 6x6 Cholesky solve
-// with a non-finite guard, and the Taylor-series SE(3) exponential of
-// the JAX kernels (same coefficients, same 1.2 rad trust clamp).
+// Device helpers shared by the single-CTA Gauss-Newton kernels (K3, K5,
+// K8, K9, K11): block-wide sums whose totals every thread receives bit for
+// bit alike, a damped 6x6 Cholesky solve with a non-finite guard, and the
+// Taylor-series SE(3) exponential of the JAX kernels (same coefficients,
+// same 1.2 rad trust clamp).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,46 +10,112 @@
 namespace ygz {
 
 constexpr int kMaxWarps = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// Shared floats a Reducer needs: two buffers of kMaxWarps x 32 partials.
+constexpr int kRedFloats = 2 * kMaxWarps * 32;
 
-// Sums K per-thread values over the block.  blockDim.x must be a
-// multiple of 32.  smem holds kMaxWarps * K floats.  On return every
-// thread holds the same K totals, summed warp by warp in a fixed order,
-// so every thread takes the same branch on them afterwards.
+// One halving step of the transposed warp reduction and the steps after
+// it, on the N values v[0..N) with lane offset OFF: a lane keeps the half
+// of its values its partner (lane ^ OFF) does not and adds the partner's
+// copy of them (N / 2 shuffles).  N and OFF are template arguments, so
+// every index is a constant and v stays in registers.
+template <int N, int OFF>
+__device__ __forceinline__ void halve(float* v, int lane) {
+  if constexpr (N > 1) {
+    const bool upper = lane & OFF;
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float send = upper ? v[j] : v[j + N / 2];
+      const float keep = upper ? v[j + N / 2] : v[j];
+      v[j] = keep + __shfl_xor_sync(kFull, send, OFF);
+    }
+    halve<N / 2, OFF / 2>(v, lane);
+  }
+}
+
+// Transposed warp reduction of KP values (KP a power of two <= 32): a
+// reduce-scatter by recursive halving (KP/2 + KP/4 + ... + 1 shuffles),
+// then a butterfly over the lanes that hold the same value.  Returns the
+// warp total of value lane / (32 / KP); every lane that holds one value
+// holds the same bits (a + b == b + a).
+template <int KP>
+__device__ __forceinline__ float warp_scatter_sum(float (&v)[KP]) {
+  const int lane = threadIdx.x & 31;
+  halve<KP, 16>(v, lane);
+  float x = v[0];
+#pragma unroll
+  for (int off = 16 / KP; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// The least power of two >= K (K <= 32).
 template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) smem[warp * K + k] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int w = 0; w < nwarps; ++w) s += smem[w * K + k];
-    v[k] = s;
-  }
-  __syncthreads();
-}
+struct Pow2AtLeast {
+  static constexpr int value =
+      K <= 1 ? 1 : K <= 2 ? 2 : K <= 4 ? 4 : K <= 8 ? 8 : K <= 16 ? 16 : 32;
+};
 
-__device__ __forceinline__ float block_max(float v, float* smem) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+// Block-wide reductions for a CTA whose blockDim.x is a multiple of 32.
+// Each is one transposed warp reduction, one __syncthreads() and one pass
+// of each warp over the warps' partials (value k summed by lane k, warp 0
+// first), then a broadcast by shuffle: the sums come out in a fixed
+// order, identical in every thread, so every thread takes the same branch
+// on them and a launch repeats bit for bit.  The partials alternate
+// between two buffers: a reduction writes its buffer only after the
+// previous reduction's barrier, which every warp passes only after it has
+// read the buffer of the one before.  So all block reductions of a kernel
+// go through one Reducer, and nothing else writes its shared memory.
+class Reducer {
+ public:
+  __device__ explicit Reducer(float* smem) : smem_(smem) {}
+
+  // v[k] <- the sum of v[k] over the block, for k < K <= 32.
+  template <int K>
+  __device__ __forceinline__ void sum(float (&v)[K]) {
+    constexpr int KP = Pow2AtLeast<K>::value;
+    static_assert(K <= 32, "at most 32 values per reduction");
+    float w[KP];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  if (lane == 0) smem[warp] = v;
-  __syncthreads();
-  float m = smem[0];
-  for (int w = 1; w < nwarps; ++w) m = fmaxf(m, smem[w]);
-  __syncthreads();
-  return m;
-}
+    for (int k = 0; k < K; ++k) w[k] = v[k];
+#pragma unroll
+    for (int k = K; k < KP; ++k) w[k] = 0.f;
+    const float x = warp_scatter_sum<KP>(w);
+    const float tot = across_warps<KP>(x, false);
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __shfl_sync(kFull, tot, k);
+  }
+
+  // The block's maximum of v (fmaxf: a NaN loses to a number).
+  __device__ __forceinline__ float max(float v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+    return __shfl_sync(kFull, across_warps<1>(v, true), 0);
+  }
+
+ private:
+  // Lane 0 of each value's lanes publishes the warp's partial; after the
+  // barrier, lane k < KP of every warp combines value k over the warps.
+  template <int KP>
+  __device__ __forceinline__ float across_warps(float x, bool take_max) {
+    const int lane = threadIdx.x & 31;
+    const int nwarps = blockDim.x >> 5;
+    constexpr int G = 32 / KP;             // lanes holding one value
+    float* buf = smem_ + flip_ * (kMaxWarps * 32);
+    flip_ ^= 1;
+    if (lane % G == 0) buf[(threadIdx.x >> 5) * KP + lane / G] = x;
+    __syncthreads();
+    float tot = 0.f;
+    if (lane < KP) {
+      tot = buf[lane];
+      for (int w = 1; w < nwarps; ++w)
+        tot = take_max ? fmaxf(tot, buf[w * KP + lane]) : tot + buf[w * KP + lane];
+    }
+    return tot;
+  }
+
+  float* smem_;
+  int flip_ = 0;
+};
 
 // Cholesky of the 21-entry upper-triangular 6x6 H (row-major a<=b) with
 // the 1e-8 diagonal damping and 1e-20 pivot floor of the JAX solvers.

@@ -1,9 +1,10 @@
 // Device code shared by the sparse-direct alignment kernels (K3
 // sparse_align_mega.cu, K9 sparse_align_fused.cu, K11 track_fused.cu): the
-// level geometry, the projection and masks of a point at a pose, its 4x4
-// patch sampled bilinearly from its 16x16 window with ordinary indexed
-// loads, the block-reduced normal equations of one residual pass, and the
-// coarse-to-fine loop over every level (K3 and K11).
+// level geometry, the projection and masks of a point at a pose, the
+// pixel-per-lane pass over every usable point's 4x4 patch (sampled
+// bilinearly from its 16x16 window with ordinary indexed loads), the
+// block-reduced normal equations of one pass, and the coarse-to-fine loop
+// over every level (K3 and K11).
 #pragma once
 
 #include "common.cuh"
@@ -63,104 +64,130 @@ __device__ __forceinline__ bool in_window(const Level& lv, int i, float u, float
   return fx >= 0.f && fx <= kMaxPos && fy >= 0.f && fy <= kMaxPos;
 }
 
-// Frozen Hessian (21 upper-triangular sums) at pose (R, t).
-__device__ inline void hessian(const float R[9], const float t[3], const float* pref, int N,
-                               const Cam& c, const Level& lv, float (&h)[21], float* smem) {
-#pragma unroll
-  for (int k = 0; k < 21; ++k) h[k] = 0.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float u, v, fx, fy;
-    if (!project(R, t, pref, i, c, lv, u, v) || !in_window(lv, i, u, v, fx, fy)) continue;
-    const float* J = lv.jac + (size_t)i * kNpix * 6;
-    for (int p = 0; p < kNpix; ++p) {
-      int k = 0;
-#pragma unroll
-      for (int a = 0; a < 6; ++a)
-#pragma unroll
-        for (int b = a; b < 6; ++b) h[k++] += J[6 * p + a] * J[6 * p + b];
+// Calls f(i, p, fx, fy, use) for pixel p (row-major in the 4x4 patch) of
+// the points i, with use true exactly once for every pixel of every point
+// usable at pose (R, t) and (fx, fy) its window-relative support origin.
+// A pixel per lane: each half-warp takes one point at a time, lane p of
+// it the point's pixel p, so the 16 lanes of a point read its 16 Jacobian
+// rows (384 contiguous bytes), its patch and a 5x5 corner of its window
+// side by side.  A warp owns P consecutive points per round (P even, at
+// most 32, chosen so that the block's warps share the N points evenly);
+// its lane j < P projects point base + j once, and the half-warps take
+// the warp's points two at a time, reading the projection from lane j by
+// shuffle.  Calls with use false come with i < N and (fx, fy) = (0, 0), so
+// f may load unconditionally and select its contributions: the loop body
+// has no branch.  Any multiple of 32 threads works.
+template <class F>
+__device__ __forceinline__ void for_each_pixel(const float R[9], const float t[3],
+                                               const float* __restrict__ pref, int N,
+                                               const Cam& c, const Level& lv, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int half = lane >> 4, p = lane & 15;
+  const int per = (N + nwarps - 1) / nwarps;
+  const int P = min(32, per + (per & 1));
+  for (int base = (threadIdx.x >> 5) * P; base < N; base += nwarps * P) {
+    const int i = base + lane;
+    float fx = 0.f, fy = 0.f;
+    int ok = 0;
+    if (lane < P && i < N) {
+      float u, v, wx, wy;
+      ok = project(R, t, pref, i, c, lv, u, v) && in_window(lv, i, u, v, wx, wy);
+      if (ok) {
+        fx = wx;
+        fy = wy;
+      }
+    }
+    // Two points per half-warp and step (s, then s + 2: the order of a
+    // one-at-a-time loop), their shuffles first.  s + 2 + half < 32 since
+    // s <= 28.
+#pragma unroll 2
+    for (int s = 0; s < P; s += 4) {
+      const int src0 = s + half, src1 = s + 2 + half;
+      const bool use0 = __shfl_sync(kFull, ok, src0) != 0;
+      const float fx0 = __shfl_sync(kFull, fx, src0), fy0 = __shfl_sync(kFull, fy, src0);
+      const bool use1 = __shfl_sync(kFull, ok, src1) != 0;
+      const float fx1 = __shfl_sync(kFull, fx, src1), fy1 = __shfl_sync(kFull, fy, src1);
+      f(min(base + src0, N - 1), p, fx0, fy0, use0);
+      f(min(base + src1, N - 1), p, fx1, fy1, use1);
     }
   }
-  block_sum<21>(h, smem);
+}
+
+// Pixel p's bilinear sample of point i's window at support origin (fx, fy).
+__device__ __forceinline__ float sample(const Level& lv, int i, int p, float fx, float fy) {
+  const float x0 = floorf(fx), y0 = floorf(fy);
+  const float ax = fx - x0, ay = fy - y0;
+  const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
+  const float w10 = (1.f - ax) * ay, w11 = ax * ay;
+  const float* s = lv.wins + (size_t)i * kCwin * kCwin + ((int)y0 + (p >> 2)) * kCwin +
+                   (int)x0 + (p & 3);
+  return w00 * s[0] + w01 * s[1] + w10 * s[kCwin] + w11 * s[kCwin + 1];
+}
+
+// Pixel p of point i at support origin (fx, fy): its residual and
+// Jacobian row, both 0 unless `use` (a masked row may hold anything; it is
+// read, never used).
+__device__ __forceinline__ float pixel(const Level& lv, int i, int p, float fx, float fy,
+                                       bool use, float Jp[6]) {
+  const float* J = lv.jac + ((size_t)i * kNpix + p) * 6;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) Jp[a] = use ? J[a] : 0.f;
+  const float res = sample(lv, i, p, fx, fy) - lv.refp[(size_t)i * kNpix + p];
+  return use ? res : 0.f;
 }
 
 // Gradient b = -sum J r and chi2 = sum r^2 / max(#pixels used, 1) at
-// pose (R, t).
-__device__ inline void residual_pass(const float R[9], const float t[3], const float* pref,
-                                     int N, const Cam& c, const Level& lv, float bv[6],
-                                     float& chi2, float* smem) {
+// pose (R, t).  The sums accumulate by explicit fused multiply-adds (the
+// build contracts nothing else): their order differs from the plain
+// version's in any case, and a per-pixel value never decides alone.
+__device__ __forceinline__ void residual_pass(const float R[9], const float t[3],
+                                              const float* pref, int N, const Cam& c,
+                                              const Level& lv, float bv[6], float& chi2,
+                                              Reducer& red) {
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float u, v, fx, fy;
-    if (!project(R, t, pref, i, c, lv, u, v) || !in_window(lv, i, u, v, fx, fy)) continue;
-    const float x0 = floorf(fx), y0 = floorf(fy);
-    const float ax = fx - x0, ay = fy - y0;
-    const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
-    const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-    const float* w = lv.wins + (size_t)i * kCwin * kCwin + (int)y0 * kCwin + (int)x0;
-    const float* rp = lv.refp + (size_t)i * kNpix;
-    const float* J = lv.jac + (size_t)i * kNpix * 6;
+  for_each_pixel(R, t, pref, N, c, lv, [&](int i, int p, float fx, float fy, bool use) {
+    float Jp[6];
+    const float res = pixel(lv, i, p, fx, fy, use, Jp);
 #pragma unroll
-    for (int r = 0; r < kPatch; ++r)
-#pragma unroll
-      for (int q = 0; q < kPatch; ++q) {
-        const float* s = w + r * kCwin + q;
-        const float cur = w00 * s[0] + w01 * s[1] + w10 * s[kCwin] + w11 * s[kCwin + 1];
-        const float res = cur - rp[r * kPatch + q];
-        const int p = r * kPatch + q;
-#pragma unroll
-        for (int a = 0; a < 6; ++a) acc[a] -= J[6 * p + a] * res;
-        acc[6] += res * res;
-      }
-    acc[7] += (float)kNpix;
-  }
-  block_sum<8>(acc, smem);
+    for (int a = 0; a < 6; ++a) acc[a] = fmaf(-Jp[a], res, acc[a]);
+    acc[6] = fmaf(res, res, acc[6]);
+    acc[7] += use ? 1.f : 0.f;
+  });
+  red.sum(acc);
 #pragma unroll
   for (int a = 0; a < 6; ++a) bv[a] = acc[a];
   chi2 = acc[6] / fmaxf(acc[7], 1.f);
 }
 
 // H (21 upper-triangular sums), b = -sum J r and chi2 = sum r^2 /
-// max(#pixels used, 1) at pose (R, t), in one pass and one 29-float block
-// reduction (the per-iteration normal equations of K9 v1).
-__device__ inline void normal_eqs(const float R[9], const float t[3], const float* pref,
-                                  int N, const Cam& c, const Level& lv, float (&h)[21],
-                                  float bv[6], float& chi2, float* smem) {
+// max(#pixels used, 1) at pose (R, t), in one pass and one 29-value block
+// reduction (the per-iteration normal equations of K9 v1, and each level's
+// first pass in mega_levels).
+__device__ __forceinline__ void normal_eqs(const float R[9], const float t[3],
+                                           const float* pref, int N, const Cam& c,
+                                           const Level& lv, float (&h)[21], float bv[6],
+                                           float& chi2, Reducer& red) {
   float acc[29];
 #pragma unroll
   for (int k = 0; k < 29; ++k) acc[k] = 0.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    float u, v, fx, fy;
-    if (!project(R, t, pref, i, c, lv, u, v) || !in_window(lv, i, u, v, fx, fy)) continue;
-    const float x0 = floorf(fx), y0 = floorf(fy);
-    const float ax = fx - x0, ay = fy - y0;
-    const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
-    const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-    const float* w = lv.wins + (size_t)i * kCwin * kCwin + (int)y0 * kCwin + (int)x0;
-    const float* rp = lv.refp + (size_t)i * kNpix;
-    const float* J = lv.jac + (size_t)i * kNpix * 6;
+  for_each_pixel(R, t, pref, N, c, lv, [&](int i, int p, float fx, float fy, bool use) {
+    float Jp[6];
+    const float res = pixel(lv, i, p, fx, fy, use, Jp);
+    int k = 0;
 #pragma unroll
-    for (int r = 0; r < kPatch; ++r)
+    for (int a = 0; a < 6; ++a) {
 #pragma unroll
-      for (int q = 0; q < kPatch; ++q) {
-        const float* s = w + r * kCwin + q;
-        const float cur = w00 * s[0] + w01 * s[1] + w10 * s[kCwin] + w11 * s[kCwin + 1];
-        const float res = cur - rp[r * kPatch + q];
-        const float* Jp = J + 6 * (r * kPatch + q);
-        int k = 0;
+      for (int b = a; b < 6; ++b, ++k) acc[k] = fmaf(Jp[a], Jp[b], acc[k]);
+    }
 #pragma unroll
-        for (int a = 0; a < 6; ++a) {
-#pragma unroll
-          for (int b = a; b < 6; ++b) acc[k++] += Jp[a] * Jp[b];
-        }
-#pragma unroll
-        for (int a = 0; a < 6; ++a) acc[21 + a] -= Jp[a] * res;
-        acc[27] += res * res;
-      }
-    acc[28] += (float)kNpix;
-  }
-  block_sum<29>(acc, smem);
+    for (int a = 0; a < 6; ++a) acc[21 + a] = fmaf(-Jp[a], res, acc[21 + a]);
+    acc[27] = fmaf(res, res, acc[27]);
+    acc[28] += use ? 1.f : 0.f;
+  });
+  red.sum(acc);
 #pragma unroll
   for (int k = 0; k < 21; ++k) h[k] = acc[k];
 #pragma unroll
@@ -184,17 +211,18 @@ __device__ __forceinline__ void retract_right(const float R[9], const float t[3]
 
 // Every level's Gauss-Newton loop, coarse (L - 1) to fine (0), by the
 // whole CTA (K3, and the first stage of K11): per level the Hessian frozen
-// at the level-init pose and factored once, then up to n_iter
+// at the level-init pose (computed in the level's first residual pass) and
+// factored once, then up to n_iter
 // substitution-only iterations with rollback on a chi2 increase and a stop
 // at max|dx| < eps.  (R, t) is refined in place, identical in every
 // thread; chi2 is the finest level's.  wins [L, N, 16, 16], refp [L, N,
-// 16], jac [L, N, 16, 6], lvis / ox / oy [L, N]; smem holds kMaxWarps * 21
-// floats.
+// 16], jac [L, N, 16, 6], lvis / ox / oy [L, N]; every block reduction
+// goes through `red`.
 __device__ __forceinline__ void mega_levels(
     float R[9], float t[3], float& chi2, const float* __restrict__ wins,
     const float* __restrict__ refp, const float* __restrict__ jac, const float* __restrict__ pref,
     const float* __restrict__ lvis, const int* __restrict__ ox, const int* __restrict__ oy, int N,
-    int L, int H0, int W0, const Cam& cam, int n_iter, float eps, float* smem) {
+    int L, int H0, int W0, const Cam& cam, int n_iter, float eps, Reducer& red) {
   chi2 = 0.f;
   for (int li = L - 1; li >= 0; --li) {
     int Hl = H0, Wl = W0;
@@ -210,11 +238,11 @@ __device__ __forceinline__ void mega_levels(
     lv.Hl = (float)Hl;
     lv.Wl = (float)Wl;
 
-    float h[21], Lc[6][6];
-    hessian(R, t, pref, N, cam, lv, h, smem);
+    // The frozen Hessian and the first residuals, both at the level-init
+    // pose: one pass.
+    float h[21], Lc[6][6], bv[6];
+    normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, red);
     chol6(h, Lc);
-    float bv[6];
-    residual_pass(R, t, pref, N, cam, lv, bv, chi2, smem);
     bool stop = false;
     for (int it = 0; !stop && it < n_iter; ++it) {
       float dx[6];
@@ -226,7 +254,7 @@ __device__ __forceinline__ void mega_levels(
       float Rn[9], tn[3];
       retract_right(R, t, dx, Rn, tn);
       float bn[6], chi2n;
-      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, smem);
+      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, red);
       const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
       if (!worse) {
 #pragma unroll

@@ -19,7 +19,7 @@
 //      returns the pose and chi2.
 // The TPU layout (lane-packed windows, 8 bit-masked power-of-two rolls
 // standing in for a per-point dynamic slice, [1,1] splat scalars) is gone:
-// a thread reads its point's 5x5 support with ordinary indexed loads.  The
+// a lane reads its pixel's 2x2 support with ordinary indexed loads.  The
 // JAX loop runs all n_iter iterations with gated updates; here the loop
 // breaks once stopped, which gives the same result.  A non-finite or huge
 // step becomes zero and a NaN trial counts as worse (the JAX kernels keep
@@ -29,10 +29,11 @@
 // (N=256 windows, patches, Jacobians: well under a microsecond at
 // 3.35 TB/s) and does ~1 MFLOP per iteration; the time is the serial chain
 // of dependent iterations, each one pass over the points and one block
-// reduction.  So one CTA runs the chain: threads stride over the points,
-// every iteration ends in a block sum that all threads receive in the same
-// order, and each thread then solves the 6x6 system redundantly in
-// registers (no broadcast, the pose never leaves registers).
+// reduction.  So one CTA of 512 threads runs the chain on K3's per-pass
+// body (sparse_align.cuh: a pixel per lane, transposed warp reductions
+// whose sums every thread receives in the same order), and each thread
+// then solves the 6x6 system redundantly in registers (no broadcast, the
+// pose never leaves registers).
 #include "sparse_align.cuh"
 
 using namespace ygz;
@@ -56,6 +57,8 @@ __device__ __forceinline__ Level make_level(const float* wins, const float* refp
   return lv;
 }
 
+constexpr int kThreads = 512;
+
 __device__ __forceinline__ float max_abs6(const float dx[6]) {
   float m = 0.f;
 #pragma unroll
@@ -63,14 +66,15 @@ __device__ __forceinline__ float max_abs6(const float dx[6]) {
   return m;
 }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads)
 level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
                       const float* __restrict__ vis, const int* __restrict__ ox,
                       const int* __restrict__ oy, const float* __restrict__ pose0,
                       float* __restrict__ out, int N, int Hl, int Wl, float scale, Cam cam,
                       int n_iter, float eps) {
-  __shared__ float smem[kMaxWarps * 29];
+  __shared__ float smem[kRedFloats];
+  Reducer red(smem);
   const Level lv = make_level(wins, refp, jac, vis, ox, oy, scale, Hl, Wl);
   float R[9], t[3];
 #pragma unroll
@@ -78,7 +82,7 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
 #pragma unroll
   for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
   float h[21], bv[6], chi2;
-  normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, smem);
+  normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, red);
   bool stop = false;
   for (int it = 0; !stop && it < n_iter; ++it) {
     float dx[6];
@@ -86,7 +90,7 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
     const bool conv = max_abs6(dx) < eps;
     float Rn[9], tn[3], hn[21], bn[6], chi2n;
     retract_right(R, t, dx, Rn, tn);
-    normal_eqs(Rn, tn, pref, N, cam, lv, hn, bn, chi2n, smem);
+    normal_eqs(Rn, tn, pref, N, cam, lv, hn, bn, chi2n, red);
     const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
     if (!worse) {
 #pragma unroll
@@ -112,14 +116,15 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads)
 level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
                       const float* __restrict__ vis, const int* __restrict__ ox,
                       const int* __restrict__ oy, const float* __restrict__ pose0,
                       const float* __restrict__ lfac, float* __restrict__ out, int N, int Hl,
                       int Wl, float scale, Cam cam, int n_iter, float eps) {
-  __shared__ float smem[kMaxWarps * 8];
+  __shared__ float smem[kRedFloats];
+  Reducer red(smem);
   const Level lv = make_level(wins, refp, jac, vis, ox, oy, scale, Hl, Wl);
   float R[9], t[3], Lc[6][6];
 #pragma unroll
@@ -133,7 +138,7 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
 #pragma unroll
     for (int q = 0; q <= i; ++q) Lc[i][q] = lfac[k++];
   float bv[6], chi2;
-  residual_pass(R, t, pref, N, cam, lv, bv, chi2, smem);
+  residual_pass(R, t, pref, N, cam, lv, bv, chi2, red);
   bool stop = false;
   for (int it = 0; !stop && it < n_iter; ++it) {
     float dx[6];
@@ -141,7 +146,7 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
     const bool conv = max_abs6(dx) < eps;
     float Rn[9], tn[3], bn[6], chi2n;
     retract_right(R, t, dx, Rn, tn);
-    residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, smem);
+    residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, red);
     const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
     if (!worse) {
 #pragma unroll
@@ -170,10 +175,9 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
                                      const int* oy, const float* pose0, float* out, int N,
                                      int Hl, int Wl, float scale, float fx, float fy, float cx,
                                      float cy, float k1, float k2, float p1, float p2,
-                                     int n_iter, float eps, int threads,
-                                     cudaStream_t stream) {
+                                     int n_iter, float eps, cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  level_align_v1_kernel<<<1, threads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
+  level_align_v1_kernel<<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
                                                    out, N, Hl, Wl, scale, cam, n_iter, eps);
   return (int)cudaGetLastError();
 }
@@ -183,10 +187,10 @@ extern "C" int level_align_v2_launch(const float* wins, const float* refp, const
                                      const int* oy, const float* pose0, const float* lfac,
                                      float* out, int N, int Hl, int Wl, float scale, float fx,
                                      float fy, float cx, float cy, float k1, float k2,
-                                     float p1, float p2, int n_iter, float eps, int threads,
+                                     float p1, float p2, int n_iter, float eps,
                                      cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  level_align_v2_kernel<<<1, threads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
+  level_align_v2_kernel<<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
                                                    lfac, out, N, Hl, Wl, scale, cam, n_iter,
                                                    eps);
   return (int)cudaGetLastError();

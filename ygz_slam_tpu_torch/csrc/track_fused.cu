@@ -26,9 +26,9 @@
 // Bound: neither bytes nor operations.  One frame at N = 200 reads ~1.9 MB
 // (windows, patches, Jacobians, the align2d prep; ~0.6 us at 3.35 TB/s)
 // and does a few MFLOP; the time is the chain of dependent block
-// reductions of stages 1 and 3 (a Hessian and ~14 residual passes, ~9
-// normal equations and 27 bisection counts) with stage 2's 11 dependent
-// warp-reduced iterations per point between them.  So one CTA runs the
+// reductions of stages 1 and 3 (K3's Hessian and ~14 residual passes,
+// K5's ~10 normal equations and 10 bisection reductions) with stage 2's 11
+// dependent warp-reduced iterations per point between them.  So one CTA runs the
 // whole chain with no host round trip: in stages 1 and 3 threads own
 // points and every thread holds the pose in registers; in stage 2 each
 // warp aligns one point at a time (a thread per point would make every
@@ -59,7 +59,7 @@ struct MapIn {          // stage 2, N map points
   const int* ox;        // [N] window origins
   const int* oy;
   const float* pts;     // [N, 3] in the reference camera
-  const float* mask;    // [N] 0/1
+  const bool* mask;     // [N]
   int N;
 };
 
@@ -78,18 +78,19 @@ constexpr float kMaxDrift = 11.f;     // min(2 * PATCH, CACHE_SLACK)
 
 // out [27]: R, t, chi2 of stage 1, chi2 of the last BA round, inlier
 // count, then stage 1's R, t.  xy [N2, 2]; per [5, N2]: err, converged,
-// inlier (0/1), then BA's mask and weights (scratch).
+// inlier (0/1), then BA's mask (bytes) and weights (scratch).
 __global__ void __launch_bounds__(1024)
 track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
                    float* __restrict__ out, float* __restrict__ xy, float* __restrict__ per,
                    int H0, int W0, ygz::sparse_align::Cam cam, Caps caps) {
-  __shared__ float smem[kMaxWarps * 28];
+  __shared__ float smem[kRedFloats];
+  Reducer red(smem);
   __shared__ float pose_sp[12];
   __shared__ float ba[13];
   float* err = per;
   float* conv = per + mp.N;
   float* inl = per + 2 * mp.N;
-  float* bamsk = per + 3 * mp.N;
+  bool* bamsk = reinterpret_cast<bool*>(per + 3 * mp.N);
   float* wf = per + 4 * mp.N;
 
   // -- stage 1: sparse-direct alignment, every level ---------------------
@@ -100,7 +101,7 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
   for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
   ygz::sparse_align::mega_levels(R, t, chi2_sp, sp.wins, sp.refp, sp.jac, sp.pts, sp.lvis,
                                  sp.ox, sp.oy, sp.N, sp.L, H0, W0, cam, caps.sp_iter,
-                                 caps.sp_eps, smem);
+                                 caps.sp_eps, red);
 
   // -- stage 2: align2d from the projections at stage 1's pose -----------
   const int lane = threadIdx.x & 31;
@@ -130,12 +131,12 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
                         r.y >= kFinalMargin && r.y < Hf - 1.f - kFinalMargin;
       const float dx = r.x - xi, dy = r.y - yi;
       const bool ok = inb0 && inb1 && r.err < caps.a2d_max_err &&
-                      dx * dx + dy * dy < kMaxDrift * kMaxDrift && mp.mask[n] > 0.5f;
+                      dx * dx + dy * dy < kMaxDrift * kMaxDrift && mp.mask[n];
       xy[2 * n] = r.x;
       xy[2 * n + 1] = r.y;
       err[n] = r.err;
       conv[n] = ok ? 1.f : 0.f;
-      bamsk[n] = (ok ? 1.f : 0.f) * mp.mask[n];
+      bamsk[n] = ok;
     }
   }
   if (threadIdx.x == 0) {
@@ -148,10 +149,10 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
 
   // -- stage 3: pose-only BA on the accepted points ----------------------
   pose_ba_cta(Obs{mp.pts, xy, bamsk, cam.fx, cam.fy, cam.cx, cam.cy}, pose_sp, ba, inl, wf,
-              mp.N, caps.chi2_th, caps.ba_rounds, caps.ba_iters, caps.ba_eps, smem);
+              mp.N, caps.chi2_th, caps.ba_rounds, caps.ba_iters, caps.ba_eps, red);
   float cnt[1] = {0.f};
   for (int i = threadIdx.x; i < mp.N; i += blockDim.x) cnt[0] += inl[i];   // own rows
-  block_sum<1>(cnt, smem);   // its barrier also publishes `ba`, written by thread 0
+  red.sum(cnt);   // its barrier also publishes `ba`, written by thread 0
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < 12; ++k) out[k] = ba[k];
@@ -169,7 +170,7 @@ extern "C" int track_fused_launch(
     const float* wins, const float* refp, const float* jac, const float* pts, const float* lvis,
     const int* ox, const int* oy, int N1, int L, const float* a2_wins, const float* a2_ref,
     const float* a2_jx, const float* a2_jy, const float* a2_hinv, const int* a2_ox,
-    const int* a2_oy, const float* a2_pts, const float* a2_mask, int N2, const float* pose0,
+    const int* a2_oy, const float* a2_pts, const bool* a2_mask, int N2, const float* pose0,
     float* out, float* xy, float* per, int H0, int W0, float fx, float fy, float cx, float cy,
     float k1, float k2, float p1, float p2, int sp_iter, float sp_eps, int a2d_iter,
     float a2d_eps2, float a2d_max_err, int ba_rounds, int ba_iters, float ba_eps,

@@ -24,11 +24,12 @@ def pose_ba_gn_plain(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=
                      eps=1e-4, stats: dict | None = None):
     """Plain version of K5.
 
-    pts [N, 3] world points, px [N, 2] ideal-pinhole pixels, msk [N] 0/1,
-    pose0 [12].  Returns ([13]: R, t, last round's chi2; inliers [N] 0/1).
-    `stats`, if given, receives "normal_eqs": the normal-equation passes
-    run (the work this input needs)."""
+    pts [N, 3] world points, px [N, 2] ideal-pinhole pixels, msk [N] bool
+    (or 0/1), pose0 [12].  Returns ([13]: R, t, last round's chi2; inliers
+    [N] 0/1).  `stats`, if given, receives "normal_eqs": the
+    normal-equation passes run (the work this input needs)."""
     dev = pts.device
+    msk = msk.to(torch.float32)
     X, Y, Z = pts[:, 0], pts[:, 1], pts[:, 2]
     U, V = px[:, 0], px[:, 1]
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
@@ -124,23 +125,23 @@ def pose_ba_gn_plain(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=
 
 def pose_ba_gn(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=10, eps=1e-4):
     """K5 on the card, its plain version on the CPU; arguments as for
-    `pose_ba_gn_plain`."""
+    `pose_ba_gn_plain`, except that on the card msk must be bool: the
+    kernel's counts take each point's weight as 0 or 1."""
     if not on_card(pts):
         return pose_ba_gn_plain(pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     N = pts.shape[0]
     dev = pts.device
     require(pts, "pts", torch.float32, (N, 3), dev)
     require(px, "px", torch.float32, (N, 2), dev)
-    require(msk, "msk", torch.float32, (N,), dev)
+    require(msk, "msk", torch.bool, (N,), dev)
     require(pose0, "pose0", torch.float32, (12,), dev)
     out = torch.empty(13, dtype=torch.float32, device=dev)
     inl = torch.empty(N, dtype=torch.float32, device=dev)
     scratch = torch.empty(N, dtype=torch.float32, device=dev)
-    threads = min(1024, max(32, -(-N // 32) * 32))
-    launch("pose_ba_fused", "pose_ba_fused_launch", [P] * 7 + [I] + [Fl] * 5 + [I, I, Fl, I, P],
+    launch("pose_ba_fused", "pose_ba_fused_launch", [P] * 7 + [I] + [Fl] * 5 + [I, I, Fl, P],
            pts.data_ptr(), px.data_ptr(), msk.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            inl.data_ptr(), scratch.data_ptr(), N, cam.fx, cam.fy, cam.cx, cam.cy, chi2_th,
-           rounds, iters, eps, threads, stream(dev))
+           rounds, iters, eps, stream(dev))
     launched(pose_ba_gn, pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     return out, inl
 
@@ -153,7 +154,7 @@ def pose_ba_args(T_cw: SE3, points: torch.Tensor, px: torch.Tensor,
     """K5's inputs: (pts, px, msk, pose0, cam) in the kernel's layout."""
     pose0 = torch.cat([T_cw.R.reshape(9), T_cw.t.reshape(3)]).to(torch.float32).contiguous()
     return (points.contiguous(), px.to(torch.float32).contiguous(),
-            mask.to(torch.float32).contiguous(), pose0, cam)
+            mask.to(torch.bool).contiguous(), pose0, cam)
 
 
 def pose_only_ba_fused(T_cw: SE3, points: torch.Tensor, px: torch.Tensor,

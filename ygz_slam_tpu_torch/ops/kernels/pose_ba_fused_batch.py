@@ -20,7 +20,7 @@ def pose_ba_batch_gn_plain(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, 
                            eps=1e-4, stats: dict | None = None):
     """Plain version of K8.
 
-    pts [S, N, 3], px [S, N, 2] ideal-pinhole pixels, msk [S, N] 0/1,
+    pts [S, N, 3], px [S, N, 2] ideal-pinhole pixels, msk [S, N] bool,
     pose0 [S, 12].  Returns ([S, 13]: R, t, last round's chi2 per
     sequence; inliers [S, N] 0/1).  `stats`, if given, receives
     "normal_eqs": the normal-equation passes run, per sequence."""
@@ -40,24 +40,23 @@ def pose_ba_batch_gn_plain(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, 
 def pose_ba_batch_gn(pts, px, msk, pose0, cam, chi2_th=CHI2_2D, rounds=4, iters=10,
                      eps=1e-4):
     """K8 on the card, its plain version on the CPU; arguments as for
-    `pose_ba_batch_gn_plain`."""
+    `pose_ba_batch_gn_plain`, msk bool on the card (as for K5)."""
     if not on_card(pts):
         return pose_ba_batch_gn_plain(pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     S, N = msk.shape
     dev = pts.device
     require(pts, "pts", torch.float32, (S, N, 3), dev)
     require(px, "px", torch.float32, (S, N, 2), dev)
-    require(msk, "msk", torch.float32, (S, N), dev)
+    require(msk, "msk", torch.bool, (S, N), dev)
     require(pose0, "pose0", torch.float32, (S, 12), dev)
     out = torch.empty((S, 13), dtype=torch.float32, device=dev)
     inl = torch.empty((S, N), dtype=torch.float32, device=dev)
     scratch = torch.empty((S, N), dtype=torch.float32, device=dev)
-    threads = min(1024, max(32, -(-N // 32) * 32))
     launch("pose_ba_fused_batch", "pose_ba_fused_batch_launch",
-           [P] * 7 + [I, I] + [Fl] * 5 + [I, I, Fl, I, P],
+           [P] * 7 + [I, I] + [Fl] * 5 + [I, I, Fl, P],
            pts.data_ptr(), px.data_ptr(), msk.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            inl.data_ptr(), scratch.data_ptr(), S, N, cam.fx, cam.fy, cam.cx, cam.cy, chi2_th,
-           rounds, iters, eps, threads, stream(dev))
+           rounds, iters, eps, stream(dev))
     launched(pose_ba_batch_gn, pts, px, msk, pose0, cam, chi2_th, rounds, iters, eps)
     return out, inl
 
@@ -73,7 +72,7 @@ def pose_ba_batch_args(T_cw: SE3, points: torch.Tensor, px: torch.Tensor,
     S = points.shape[0]
     pose0 = torch.cat([T_cw.R.reshape(S, 9), T_cw.t.reshape(S, 3)], dim=1)
     return (points.to(torch.float32).contiguous(), px.to(torch.float32).contiguous(),
-            mask.to(torch.float32).contiguous(), pose0.to(torch.float32).contiguous(), cam)
+            mask.to(torch.bool).contiguous(), pose0.to(torch.float32).contiguous(), cam)
 
 
 def pose_only_ba_fused_batch(T_cw: SE3, points: torch.Tensor, px: torch.Tensor,

@@ -98,7 +98,7 @@ def _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0):
     require(ox, "ox", torch.int32, (N,), dev)
     require(oy, "oy", torch.int32, (N,), dev)
     require(pose0, "pose0", torch.float32, (12,), dev)
-    return N, dev, min(1024, max(32, -(-N // 32) * 32))
+    return N, dev
 
 
 def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level):
@@ -107,14 +107,14 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
     if not on_card(wins):
         return level_gn_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl,
                               Wl, level)
-    N, dev, threads = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
+    N, dev = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
     out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
     launch("sparse_align_fused", "level_align_v1_launch",
-           [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, P],
+           [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(), N, Hl, Wl,
            1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy, *_distortion(cam, distorted),
-           MAX_ITER, STOP_STEP, threads, stream(dev))
+           MAX_ITER, STOP_STEP, stream(dev))
     launched(level_gn, wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
              level)
     return out
@@ -130,15 +130,15 @@ def level_gn_v2(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, distorted
     if not on_card(wins):
         return level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam,
                                  distorted, Hl, Wl, level)
-    N, dev, threads = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
+    N, dev = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
     require(lfac, "lfac", torch.float32, (21,), dev)
     out = torch.empty(13, dtype=torch.float32, device=dev)
     launch("sparse_align_fused", "level_align_v2_launch",
-           [P] * 10 + [I] * 3 + [Fl] * 9 + [I, Fl, I, P],
+           [P] * 10 + [I] * 3 + [Fl] * 9 + [I, Fl, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), lfac.data_ptr(), out.data_ptr(), N,
            Hl, Wl, 1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy,
-           *_distortion(cam, distorted), MAX_ITER, STOP_STEP, threads, stream(dev))
+           *_distortion(cam, distorted), MAX_ITER, STOP_STEP, stream(dev))
     launched(level_gn_v2, wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, distorted, Hl,
              Wl, level)
     return out

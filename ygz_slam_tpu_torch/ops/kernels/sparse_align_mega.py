@@ -215,14 +215,13 @@ def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
     require(oy, "oy", torch.int32, (L, N), dev)
     require(pose0, "pose0", torch.float32, (12,), dev)
     out = torch.empty(13, dtype=torch.float32, device=dev)
-    threads = min(1024, max(32, -(-N // 32) * 32))
     k1, k2, p1, p2 = _distortion(cam, distorted)
     launch("sparse_align_mega", "sparse_align_mega_launch",
-           [P] * 9 + [I] * 4 + [Fl] * 8 + [I, Fl, I, P],
+           [P] * 9 + [I] * 4 + [Fl] * 8 + [I, Fl, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(),
            lvis.data_ptr(), ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(),
            N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, MAX_ITER, STOP_STEP,
-           threads, stream(dev))
+           stream(dev))
     launched(mega_gn, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
     return out
 

@@ -40,7 +40,7 @@ def track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H
     pose0 [12], the camera, `distorted`, the level-0 size.  Then the map
     points': windows a2_wins [N2, 32, 32] at the frame-init pose, the
     Align2DPrep fields, window origins [N2] int32, reference-camera points
-    p_a2 [N2, 3], a2_mask [N2] 0/1.
+    p_a2 [N2, 3], a2_mask [N2] bool.
 
     Returns (out [27]: R, t, chi2 of the sparse stage, chi2 of the last BA
     round, inlier count, then the sparse stage's R, t; xy [N2, 2]; per [3,
@@ -72,7 +72,7 @@ def track_gn(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
              sp_iter=MAX_ITER, a2d_iter=10, a2d_max_err=30.0, ba_rounds=4, ba_iters=10,
              chi2_th=CHI2_2D):
     """K11 on the card, its plain version on the CPU; arguments and results
-    as for `track_gn_plain`."""
+    as for `track_gn_plain` (a2_mask bool on the card, as K5's msk)."""
     if not on_card(wins):
         return track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0,
                               W0, a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, p_a2,
@@ -96,7 +96,7 @@ def track_gn(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
     require(a2_ox, "a2_ox", torch.int32, (N2,), dev)
     require(a2_oy, "a2_oy", torch.int32, (N2,), dev)
     require(p_a2, "p_a2", torch.float32, (N2, 3), dev)
-    require(a2_mask, "a2_mask", torch.float32, (N2,), dev)
+    require(a2_mask, "a2_mask", torch.bool, (N2,), dev)
     out = torch.empty(27, dtype=torch.float32, device=dev)
     xy = torch.empty((N2, 2), dtype=torch.float32, device=dev)
     per = torch.empty((5, N2), dtype=torch.float32, device=dev)    # rows 3, 4: scratch
@@ -136,7 +136,7 @@ def track_args(cur_pyr, level_refs, p_ref_sp, a2d_prep: Align2DPrep, p_ref_a2, a
     ox, oy = a2d_window_origins(pxa0, *img0.shape)
     return a3 + (gather_windows(img0, ox, oy, CACHE_WIN), a2d_prep.ref, a2d_prep.jx,
                  a2d_prep.jy, a2d_prep.hinv, ox, oy, p_ref_a2.contiguous(),
-                 a2_mask.to(torch.float32).contiguous())
+                 a2_mask.to(torch.bool).contiguous())
 
 
 def track_step_fused(cur_pyr, level_refs, p_ref_sp, a2d_prep: Align2DPrep, p_ref_a2, a2_mask,

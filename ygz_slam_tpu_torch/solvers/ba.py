@@ -4,10 +4,13 @@ landmark blocks that two-view BA and the mapping pass use.
 
 The observation graph is a fixed-capacity table (kf_idx [O], pt_idx [O],
 px [O, 2], mask [O]) over poses SE3[K] and landmarks [L, 3]; per-observation
-analytic Jacobians are built in one batched pass, the camera and landmark
-blocks are summed with `index_add_` (atomics on the card: the order of the
-sums changes from run to run, so an LM accept can flip between the card
-and the CPU), and the reduced camera system is one dense [6K, 6K] solve.
+analytic Jacobians are built in one batched pass, and the camera and
+landmark blocks are summed per segment (camera, landmark, camera-landmark
+pair) in a canonical order: the table is sorted once per BA call, by
+(camera, landmark) and by (landmark, camera), and every sum is a segmented
+reduction over the sorted rows.  No float atomics, so a run repeats bit for
+bit on the card, and any order of the table's rows gives the same sums.
+The reduced camera system is one dense [6K, 6K] solve.
 Not ported: point_only_ba, optimize_current.
 """
 from __future__ import annotations
@@ -100,29 +103,77 @@ class BAResult(NamedTuple):
     inlier: torch.Tensor  # [O] final per-observation inlier mask
 
 
-def _segment_sum(v: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros((n,) + v.shape[1:], dtype=v.dtype, device=v.device).index_add_(
-        0, idx, v)
+class Segments(NamedTuple):
+    """Observation rows grouped by one index: `order` lists the rows sorted by
+    it, segment s at sorted positions offsets[s]..offsets[s + 1]; the last
+    segment holds the masked rows, which no sum reads."""
+    order: torch.Tensor    # [O] int64
+    offsets: torch.Tensor  # [n + 2] int64
 
 
-def _assemble(poses, points, obs, cam, fixed_pose, huber_delta, K, L, w_frozen=None):
-    """Every Hessian block and gradient at the current state.  With
-    `w_frozen` (already masked) the IRLS weights are held, so an LM accept
-    compares chi2 under one objective.  Fixed cameras get zero Jacobians."""
+def _sorted_by(major, minor, n_major: int, n_minor: int, mask):
+    """Rows sorted by (major, minor), masked rows last: (keys, order)."""
+    key = torch.where(mask, major * n_minor + minor, n_major * n_minor)
+    return torch.sort(key, stable=True)
+
+
+def _segments(key, order, bounds) -> Segments:
+    end = torch.full((1,), key.shape[0], dtype=torch.int64, device=key.device)
+    return Segments(order, torch.cat([torch.searchsorted(key, bounds), end]))
+
+
+class BlockSegments(NamedTuple):
+    """The observations grouped by camera, by landmark and by
+    camera-landmark pair: the segments of `_assemble`'s block sums."""
+    kf: Segments
+    pt: Segments
+    pair: Segments
+
+
+def block_segments(obs: Observations, K: int, L: int) -> BlockSegments:
+    """Each segment's rows in a canonical order, whatever the table's: a
+    camera's by landmark, a landmark's by camera (rows of one camera and
+    landmark, which the map never holds, keep table order).  Two sorts per
+    BA call; the table does not change inside it."""
+    kf, pt = obs.kf_idx.long(), obs.pt_idx.long()
+    dev = kf.device
+    key_c, order_c = _sorted_by(kf, pt, K, L, obs.mask)
+    key_l, order_l = _sorted_by(pt, kf, L, K, obs.mask)
+    return BlockSegments(
+        kf=_segments(key_c, order_c, torch.arange(K + 1, device=dev) * L),
+        pt=_segments(key_l, order_l, torch.arange(L + 1, device=dev) * K),
+        pair=_segments(key_c, order_c, torch.arange(K * L + 1, device=dev)))
+
+
+def segment_sum(v: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """[n, ...] sums of v's rows [O, ...] over each segment, in its order (an
+    empty segment sums to 0): a segmented reduction, no atomics, so the
+    result is the same bit for bit whatever order the rows come in and on
+    every run."""
+    return torch.segment_reduce(v[seg.order], "sum", offsets=seg.offsets, axis=0,
+                                unsafe=True)[:-1]
+
+
+def _assemble(poses, points, obs, cam, fixed_pose, huber_delta, seg: BlockSegments,
+              w_frozen=None):
+    """Every Hessian block and gradient at the current state, summed over
+    `seg` (`block_segments` of obs).  With `w_frozen` (already masked) the
+    IRLS weights are held, so an LM accept compares chi2 under one
+    objective.  Fixed cameras get zero Jacobians."""
     r, Jp, Jl, valid = reproject(poses, points, obs, cam)
     if w_frozen is None:
         w = _irls_weights(r, valid, huber_delta)
     else:
         w = torch.where(valid, w_frozen, 0.0)
-    kf, pt = obs.kf_idx.long(), obs.pt_idx.long()
+    K, L = fixed_pose.shape[0], points.shape[0]
+    kf = obs.kf_idx.long()
     Jp = Jp * (~fixed_pose)[kf].to(Jp.dtype)[:, None, None]
-    Hcc = _segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jp), kf, K)
-    Hll = _segment_sum(torch.einsum("oia,o,oib->oab", Jl, w, Jl), pt, L)
-    bc = _segment_sum(-torch.einsum("oia,o,oi->oa", Jp, w, r), kf, K)
-    bl = _segment_sum(-torch.einsum("oia,o,oi->oa", Jl, w, r), pt, L)
+    Hcc = segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jp), seg.kf)
+    Hll = segment_sum(torch.einsum("oia,o,oib->oab", Jl, w, Jl), seg.pt)
+    bc = segment_sum(-torch.einsum("oia,o,oi->oa", Jp, w, r), seg.kf)
+    bl = segment_sum(-torch.einsum("oia,o,oi->oa", Jl, w, r), seg.pt)
     # Camera-landmark coupling blocks W[k, l, 6, 3].
-    W = _segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jl), kf * L + pt,
-                     K * L).reshape(K, L, 6, 3)
+    W = segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jl), seg.pair).reshape(K, L, 6, 3)
     chi2 = torch.sum(w * torch.sum(r * r, dim=-1))
     return Hcc, Hll, W, bc, bl, chi2
 
@@ -168,20 +219,20 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: Observations, cam,
 
 
 def _local_ba(poses, points, obs, cam, fixed_pose, n_iter, huber_delta, chi2_th):
-    K, L = fixed_pose.shape[0], points.shape[0]
+    seg = block_segments(obs, fixed_pose.shape[0], points.shape[0])
     T, pts = poses, points
     lam = torch.tensor(1e-4, dtype=points.dtype, device=points.device)
-    chi2 = _assemble(T, pts, obs, cam, fixed_pose, huber_delta, K, L)[5]
+    chi2 = _assemble(T, pts, obs, cam, fixed_pose, huber_delta, seg)[5]
     for _ in range(n_iter):
         # IRLS weights frozen at the iteration's start state.
         r, _, _, valid = reproject(T, pts, obs, cam)
         w_frozen = _irls_weights(r, valid, huber_delta)
         Hcc, Hll, W, bc, bl, chi2_old = _assemble(T, pts, obs, cam, fixed_pose, huber_delta,
-                                                  K, L, w_frozen)
+                                                  seg, w_frozen)
         dc, dl = _schur_solve(Hcc, Hll, W, bc, bl, fixed_pose, lam)
         T_new = se3m.boxplus(T, dc)
         pts_new = pts + dl
-        chi2_new = _assemble(T_new, pts_new, obs, cam, fixed_pose, huber_delta, K, L,
+        chi2_new = _assemble(T_new, pts_new, obs, cam, fixed_pose, huber_delta, seg,
                              w_frozen)[5]
         accept = chi2_new < chi2_old
         T = SE3(torch.where(accept, T_new.R, T.R), torch.where(accept, T_new.t, T.t))
