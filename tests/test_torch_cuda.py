@@ -5,7 +5,9 @@ and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
 on windows clamped at the border; K11 on frame 1 of the fused path and with
-ten landmarks masked; K3 and K5 from 1 to 1500 points and K3 with every
+ten landmarks masked, from 1 to 1500 map points (its partition over the
+cluster and its chunks at a CTA's edges), its stage 1 against K3 and its
+stage 3 against K5 bit for bit; K3 and K5 from 1 to 1500 points and K3 with every
 point masked, K8 at 16 sequences, K5, K8 and K11 refusing a float mask,
 and second launches of K3, K5, K8, K9 and K11 (the same bits); five frames of the single-sequence step, ten of
 the fused step, three of the batch step, twelve of the VO slice (with one
@@ -697,3 +699,91 @@ def test_mono_system_repeats_on_the_card(cuda_device):
     assert a[1].tobytes() == b[1].tobytes(), \
         f"trajectories differ by up to {float(abs(a[1] - b[1]).max()):.3e}"
     assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+# -- K11 on K3's and K5's block, its align2d stage over a cluster ----------
+
+TOL_BA_CHAIN = 1e-3     # K11's BA chi2 against the plain chain's (chip_smoke.py's):
+                        # one align2d freeze flip moves one point of stage 3's input
+
+
+def _k11_args(dev, n):
+    from ygz_slam_tpu_torch.ops import pyramid
+
+    (cam, *_, frames, T_gt7), st = _sized(dev, n)
+    T0 = TSE3.from_params7(T_gt7[0])
+    return tk11.track_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
+                           st.ref_prep.p_ref, st.a2d_prep, st.pts_w, st.mask, T0.R, T0.t, cam,
+                           False, 2)
+
+
+def _k11_against_k3_and_k5(args, res):
+    """K3 on K11's stage-1 arguments, and K5 on K11's own stage-2 output
+    (positions, accepted points) from K11's stage-1 pose: their outputs
+    and whether K11's equal them bit for bit."""
+    out, xy, per = res
+    out3 = tk3.mega_gn(*args[:12])
+    out5, inl5 = tk5.pose_ba_gn(args[19], xy, per[1] > 0.5, out[15:27].contiguous(), args[8])
+    same1 = torch.equal(out[15:27], out3[:12]) and torch.equal(out[12], out3[12])
+    same3 = (torch.equal(out[:12], out5[:12]) and torch.equal(out[13], out5[12])
+             and torch.equal(per[2], inl5))
+    return same1, same3
+
+
+@pytest.mark.parametrize("n", [1, 31, 200, 512, 1500])
+def test_track_fused_sizes(cuda_device, n):
+    """K11 against its plain version from 1 to 1500 map points: one CTA at
+    N=1, two at 31, the portable 8 from 113 on; each CTA's range staged in
+    shared memory in one chunk up to 45 points, in chunks through two
+    buffers beyond (512: 3 chunks of 22 per CTA; 1500: 9 of 21).  Stage 1
+    equals K3 and stage 3 equals K5 on K11's own stage-2 output, bit for
+    bit; a second launch, and a launch that reads stage 2's windows from
+    device memory instead, give the same bits."""
+    args = _k11_args(cuda_device, n)
+    part = tk11.track_partition(n)
+    res = tk11.track_gn(*args)
+    out, xy, per = res
+    stats = {}
+    ref, xy_r, per_r = tk11.track_gn_plain(*args, stats=stats)
+    d = float(tse3.distance(_pose(out), _pose(ref)))
+    d_sp = float(tse3.distance(_pose(out[15:]), _pose(ref[15:])))
+    chain = abs(float(out[13]) - float(ref[13])) / max(abs(float(ref[13])), 1e-6)
+    conv, conv_r = per[1] > 0.5, per_r[1] > 0.5
+    both = conv & conv_r
+    dxy = torch.linalg.norm(xy[both] - xy_r[both], dim=1)
+    same1, same3 = _k11_against_k3_and_k5(args, res)
+    print(f"K11 N={n} ({part}): pose distance {d:.3e}, after stage 1 {d_sp:.3e}, BA chi2 "
+          f"against the plain chain {chain:.1e}, max |xy diff| "
+          f"{float(dxy.max()) if dxy.numel() else 0.0:.3e} on {int(both.sum())} points, "
+          f"stage 1 == K3 {same1}, stage 3 == K5 {same3}, passes {stats['passes']}")
+    assert d <= TOL_POSE and d_sp <= TOL_POSE and bool(torch.isfinite(out).all())
+    assert abs(float(out[12]) - float(ref[12])) <= 1e-4 * max(abs(float(ref[12])), 1e-6)
+    assert chain <= TOL_BA_CHAIN
+    assert float((conv == conv_r).float().mean()) >= 0.98
+    assert not dxy.numel() or float(dxy.max()) <= 0.05
+    assert float(((per[2] > 0.5) == (per_r[2] > 0.5)).float().mean()) >= 0.99
+    assert float(out[14]) == float(per[2].sum())
+    assert same1 and same3
+    for again in (tk11.track_gn(*args), tk11.track_gn(*args, staged=False)):
+        assert all(torch.equal(a, b) for a, b in zip(again, res))
+
+
+@pytest.mark.parametrize("n", [200, 512])
+def test_track_fused_stages_equal_k3_and_k5(cuda_device, n):
+    """K11's stage-1 pose and chi2 equal K3's output on the same arguments,
+    and its BA (pose, chi2, inlier flags) equals K5 run on K11's own
+    stage-2 output from K11's stage-1 pose, bit for bit."""
+    args = _k11_args(cuda_device, n)
+    same1, same3 = _k11_against_k3_and_k5(args, tk11.track_gn(*args))
+    assert same1, "K11's stage 1 differs from K3"
+    assert same3, "K11's stage 3 differs from K5 on K11's stage-2 output"
+
+
+def test_track_fused_stamps(cuda_device):
+    """The stage marks come in order, and passing them changes no result."""
+    args = _k11_args(cuda_device, 200)
+    stamps = torch.zeros(10, dtype=torch.int64, device=cuda_device)
+    res = tk11.track_gn(*args, stamps=stamps)
+    assert all(torch.equal(a, b) for a, b in zip(res, tk11.track_gn(*args)))
+    clk, ns = stamps[0::2].tolist(), stamps[1::2].tolist()
+    assert clk == sorted(clk) and ns == sorted(ns) and clk[-1] > clk[0]

@@ -152,3 +152,50 @@ def test_sparse_image_align_variant_matches_jax(scene, variant, monkeypatch):
     assert int(tst.n_visible) == int(jst.n_visible)
     if variant == 2:
         assert float(tse3.distance(tst.T_cur_ref, T_gt)) < 1e-2
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+def test_distorted_flag_reaches_the_level_kernels(variant, monkeypatch):
+    """A camera with nonzero distortion, the scene rendered through it and
+    the reference prepared with it: under FUSED_VARIANT 1 / 2 the port's
+    `sparse_image_align` with distorted=False gives another pose than with
+    distorted=True, because it hands the caller's flag to K9
+    (ops/sparse_align.py).  The JAX package gives the same pose for both:
+    its `_level_align` passes distorted=True to K9 whatever the caller asks
+    (ygz_slam_tpu/ops/sparse_align.py:163, 169; ROADMAP queue 3).  Prints
+    the gap between the two packages; fails if the port stops honouring
+    the flag or the packages part where both project with distortion."""
+    cam = TCam.create(320.0, 320.0, 160.0, 120.0, k1=-0.08, k2=0.01, p1=5e-4, p2=-5e-4)
+    scene = PlaneScene(cam, plane_z=3.0, seed=3, device="cpu")
+    ident = TSE3.identity(device="cpu")
+    img_r = scene.render(ident, (240, 320))
+    img_c = scene.render(tse3.exp(torch.tensor(SMALL, dtype=torch.float32)), (240, 320))
+    c = fast.detect(img_r, 20.0, 16, 80)
+    depth = scene.depth(c.xy, ident)
+    rp, cp = tpyr.build_pyramid(img_r, 3), tpyr.build_pyramid(img_c, 3)
+    prep = tsa.prepare_reference(rp, cam, c.xy, depth, c.mask, distorted=True)
+    n_iter = V1_ITER if variant == 1 else k9.MAX_ITER
+    max_level = 1 if variant == 1 else 2
+    monkeypatch.setattr(k9, "MAX_ITER", n_iter)
+    monkeypatch.setattr(tsa, "FUSED_VARIANT", variant)
+    monkeypatch.setattr(jsa, "FUSED_VARIANT", variant)
+    port, ref = {}, {}
+    for flag in (False, True):
+        port[flag] = tsa.sparse_image_align(rp, cp, cam, c.xy, depth, c.mask, ident,
+                                            max_level=max_level, distorted=flag,
+                                            ref_prep=prep).T_cur_ref
+        with jax_kernels_interpreted():
+            jst = jsa.sparse_image_align(
+                tuple(jnp.asarray(np32(x)) for x in rp), tuple(jnp.asarray(np32(x)) for x in cp),
+                jax_camera(cam), jnp.asarray(np32(c.xy)), jnp.asarray(np32(depth)),
+                jnp.asarray(np32(c.mask)), JSE3.identity(), n_iter=n_iter, max_level=max_level,
+                distorted=flag, ref_prep=jax_prep_from_port(prep))
+        ref[flag] = TSE3(torch.tensor(np32(jst.T_cur_ref.R)), torch.tensor(np32(jst.T_cur_ref.t)))
+    moved = float(tse3.distance(port[False], port[True]))
+    moved_jax = float(tse3.distance(ref[False], ref[True]))
+    gap = {flag: float(tse3.distance(port[flag], ref[flag])) for flag in (False, True)}
+    print(f"variant {variant}, distorted camera: the port's pose moves by {moved:.3e} between "
+          f"distorted=False and True, the JAX package's by {moved_jax:.3e}; gap between the "
+          f"packages {gap[False]:.3e} with distorted=False, {gap[True]:.3e} with True")
+    assert moved > 10 * TOL_POSE
+    assert gap[True] <= TOL_POSE

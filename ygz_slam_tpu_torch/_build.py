@@ -105,12 +105,13 @@ def library(name: str) -> ctypes.CDLL:
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def kernel_resources(name: str) -> dict[str, dict[str, int]]:
     """ptxas's report on each kernel (entry function, by mangled name) of
-    csrc/<name>.cu in the current build: registers per thread, stack frame
-    and spill stores / loads in bytes."""
+    csrc/<name>.cu in the current build: registers per thread, stack frame,
+    spill stores / loads and static shared memory in bytes."""
     out: dict[str, dict[str, int]] = {}
     entry = None
     for line in (build_all() / f"lib{name}.log").read_text().splitlines():
@@ -128,5 +129,7 @@ def kernel_resources(name: str) -> dict[str, dict[str, int]]:
         m = _REGS.search(line)
         if m:
             out[entry]["registers"] = int(m.group(1))
+            m = _SMEM.search(line)
+            out[entry]["smem"] = int(m.group(1)) if m else 0
             entry = None
     return out
