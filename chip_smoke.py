@@ -8,8 +8,7 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11); a spill in K3, K5 or K11, or
-   more static shared memory in K11 than its partition allows for, fails
+   kernels (K3, K5, K8, K9 v1/v2, K11); a spill in K3, K5 or K11 fails
    the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
@@ -48,15 +47,14 @@ Phases, each raising (and so exiting non-zero) on failure:
       usable sparse point (stage 1 must leave the init pose bit for bit);
       its BA chi2 against the plain chain's on frames 1-16 at 200 and 512
       landmarks beside two float16 controls (TOL_BA_CHAIN must separate
-      them); its partition over the cluster (CTAs, points per CTA, chunk,
-      shared bytes) and, at both sizes, its stage 1 against K3 on the same
+      them); its partition over the cluster (CTAs, points per CTA, shared
+      bytes) and, at both sizes, its stage 1 against K3 on the same
       arguments and its stage 3 against K5 on its own stage-2 output, bit
-      for bit; per-launch times with stage 2's inputs staged in shared
-      memory and read from device memory, in turns, and a split by stage
-      (CTA 0's SM clock at each stage's end, converted at the global
-      timer's rate over the kernel) beside K3 and K5 alone; bound and
-      plain time beside the summed times of the kernels it replaces on
-      path 1's frame 1 (K1 x 4, K3, K4, K5).
+      for bit; a split by stage (CTA 0's SM clock at each stage's end,
+      converted at the global timer's rate over the kernel) beside K3 and
+      K5 alone; per-launch times, bound and plain time beside the summed
+      times of the kernels it replaces on path 1's frame 1 (K1 x 4, K3,
+      K4, K5).
       Then `entry()`, the step's own entry point, once on the card against
       the CPU.
    K10 is also timed against `torch.cdist(p=0)` on descriptors unpacked to
@@ -311,7 +309,7 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.perf_counter() - t_start:.2f} s for {len(_build.sources())} sources "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
-    # ptxas's registers, stack and spills of the chained single-CTA kernels.
+    # ptxas's registers, stack, spills and shared memory of the chained kernels.
     spills, smem_static = {}, {}
     for src, kernel in PTXAS_KERNELS:
         for name, r in _build.kernel_resources(src).items():
@@ -1038,39 +1036,18 @@ def main() -> int:
     _, _, (out_z, _, _) = check_k11(a11_z, "N=200, no usable sparse point")
     if not (torch.equal(out_z[15:27], a11[7]) and float(out_z[12]) == 0.0):
         raise AssertionError("K11's stage 1 moved the pose with no usable point")
-    # The partition over the cluster, and the redesign's two bit-equalities:
-    # stage 1 is K3's code on K3's block, stage 3 K5's code (its extra warps
-    # add +0 partials), so on the same inputs they give K3's and K5's bits.
-    def k11_k3_k5(a, res):
-        out, xy, per = res
-        out3 = k3.mega_gn(*a[:12])
-        out5, inl5 = k5.pose_ba_gn(a[19], xy, per[1] > 0.5, out[15:27].contiguous(), a[8],
-                                   a[26], a[24], a[25], k11.BA_EPS)
-        return (torch.equal(out[15:27], out3[:12]) and torch.equal(out[12], out3[12]),
-                torch.equal(out[:12], out5[:12]) and torch.equal(out[13], out5[12])
-                and torch.equal(per[2], inl5))
-
-    for n_tag, a in (("N=200", a11), ("N=512", a11_5)):
-        part = k11.track_partition(a[19].shape[0])
-        same1, same3 = k11_k3_k5(a, k11.track_gn(*a))
-        print(f"K11 {n_tag} partition: a cluster of {part.cluster} CTAs x {k11.THREADS} threads, "
-              f"{part.per_cta} map points per CTA, chunks of {part.chunk} through "
-              f"{part.buffers} buffer(s), {part.smem} bytes of dynamic shared memory (+ "
-              f"{smem_static.get('track_fused_kernel')} static); path 5 frame 1: stage 1 "
-              f"{'equals' if same1 else 'DIFFERS FROM'} K3 on the same arguments, stage 3 "
-              f"{'equals' if same3 else 'DIFFERS FROM'} K5 on K11's own stage-2 output from "
-              f"its stage-1 pose (torch.equal)", flush=True)
-        if not (same1 and same3):
-            raise AssertionError(f"K11 {n_tag}: stage 1 is not K3's bits or stage 3 not K5's")
-
-    def k11_split(a, staged, reps=REPS):
+    # The partition over the cluster; the redesign's two bit-equalities
+    # (stage 1 is K3's code on K3's block, stage 3 K5's code, whose extra
+    # warps add +0 partials, so on the same inputs they give K3's and K5's
+    # bits); the split by stage beside K3 and K5 alone.
+    def k11_split(a, reps=REPS):
         """Medians over reps launches of CTA 0's stage times (µs: SM clock
         between marks at the global timer's rate over the kernel) and of
         the kernel's body on the global timer."""
         stamps = torch.zeros(10, dtype=torch.int64, device=dev)
         rows = []
         for _ in range(reps):
-            k11.track_gn(*a, staged=staged, stamps=stamps)
+            k11.track_gn(*a, stamps=stamps)
             c, g = stamps[0::2].tolist(), stamps[1::2].tolist()
             rate = (c[4] - c[0]) / max(g[4] - g[0], 1)          # cycles per ns
             rows.append([(c[i + 1] - c[i]) / rate / 1e3 for i in range(4)]
@@ -1078,26 +1055,33 @@ def main() -> int:
         return [statistics.median(r[k] for r in rows) for k in range(5)]
 
     for n_tag, a in (("N=200", a11), ("N=512", a11_5)):
-        ab = {True: [], False: []}
-        for staged in (True, False, False, True):
-            ab[staged].append(_time_kernel(torch, lambda: k11.track_gn(*a, staged=staged)))
+        part = k11.track_partition(a[19].shape[0])
         out_a, xy_a, per_a = k11.track_gn(*a)
-        k3_alone = _time_kernel(torch, lambda: k3.mega_gn(*a[:12]))
+        out3 = k3.mega_gn(*a[:12])
         k5_args = (a[19], xy_a, per_a[1] > 0.5, out_a[15:27].contiguous(), a[8], a[26], a[24],
                    a[25], k11.BA_EPS)
+        out5, inl5 = k5.pose_ba_gn(*k5_args)
+        same1 = torch.equal(out_a[15:27], out3[:12]) and torch.equal(out_a[12], out3[12])
+        same3 = (torch.equal(out_a[:12], out5[:12]) and torch.equal(out_a[13], out5[12])
+                 and torch.equal(per_a[2], inl5))
+        print(f"K11 {n_tag}: a cluster of {part.cluster} CTAs x {k11.THREADS} threads, "
+              f"{part.per_cta} map points per CTA, {smem_static['track_fused_kernel']} bytes of "
+              f"static shared memory (no dynamic); path 5 frame 1: stage 1 "
+              f"{'equals' if same1 else 'DIFFERS FROM'} K3 on the same arguments, stage 3 "
+              f"{'equals' if same3 else 'DIFFERS FROM'} K5 on K11's own stage-2 output from "
+              f"its stage-1 pose (torch.equal)", flush=True)
+        if not (same1 and same3):
+            raise AssertionError(f"K11 {n_tag}: stage 1 is not K3's bits or stage 3 not K5's")
+        ms = _time_kernel(torch, lambda: k11.track_gn(*a))
+        k3_alone = _time_kernel(torch, lambda: k3.mega_gn(*a[:12]))
         k5_alone = _time_kernel(torch, lambda: k5.pose_ba_gn(*k5_args))
-        print(f"K11 {n_tag} per launch in turns (staged, device memory, device memory, staged): "
-              f"stage 2's inputs staged in shared memory {[round(v, 4) for v in ab[True]]} ms, "
-              f"read from device memory {[round(v, 4) for v in ab[False]]} ms", flush=True)
-        for staged in (True, False):
-            s1, s2own, s2wait, s3, body = k11_split(a, staged)
-            print(f"K11 {n_tag} split by stage, {'staged' if staged else 'device memory'} "
-                  f"(CTA 0, medians of {REPS} launches): stage 1 {s1:.2f} us (K3 alone on the "
-                  f"same arguments {k3_alone * 1e3:.2f}), stage 2 {s2own + s2wait:.2f} us (its "
-                  f"own points {s2own:.2f}, then waiting at the cluster barrier {s2wait:.2f}), "
-                  f"stage 3 {s3:.2f} us (K5 alone on K11's stage-2 output "
-                  f"{k5_alone * 1e3:.2f}); body {body:.2f} us on the global timer, CUDA-event "
-                  f"interval {statistics.median(ab[staged]) * 1e3:.2f} us", flush=True)
+        s1, s2own, s2wait, s3, body = k11_split(a)
+        print(f"K11 {n_tag} split by stage (CTA 0, medians of {REPS} launches): stage 1 "
+              f"{s1:.2f} us (K3 alone on the same arguments {k3_alone * 1e3:.2f}), stage 2 "
+              f"{s2own + s2wait:.2f} us (its own points {s2own:.2f}, then waiting at the "
+              f"cluster barrier {s2wait:.2f}), stage 3 {s3:.2f} us (K5 alone on K11's stage-2 "
+              f"output {k5_alone * 1e3:.2f}); body {body:.2f} us on the global timer, CUDA-event "
+              f"interval {ms * 1e3:.2f} us", flush=True)
 
     k11_ms = _time_kernel(torch, lambda: k11.track_gn(*a11))
     k11_ms_512 = _time_kernel(torch, lambda: k11.track_gn(*a11_5))
@@ -1454,7 +1438,6 @@ def main() -> int:
         if not hits:
             raise AssertionError(f"the profiler saw no {sym} in main path {window}'s window")
         us = sum(h[0] for h in hits) / sum(h[1] for h in hits)
-        report[k]["prof_us"] = us
         print(f"{k} {sym}: profiler device {us:.2f} us per launch ({us * per_unit:.2f} per "
               f"{per_unit} launch(es), main path {window}'s window); CUDA-event interval "
               f"{report[k]['ms'] * 1e3:.2f} us per {per_unit} launch(es)", flush=True)
@@ -1464,9 +1447,6 @@ def main() -> int:
     if set(NO_SPILL) - set(spills) or spilled:
         raise AssertionError(f"ptxas: spills in {spilled}, or no report for "
                              f"{set(NO_SPILL) - set(spills)}")
-    if not smem_static["track_fused_kernel"] <= k11.STATIC_SMEM:
-        raise AssertionError(f"ptxas: K11 has {smem_static['track_fused_kernel']} bytes of "
-                             f"static shared memory, its partition allows for {k11.STATIC_SMEM}")
 
     def launches(name):
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)

@@ -5,9 +5,9 @@ and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
 on windows clamped at the border; K11 on frame 1 of the fused path and with
-ten landmarks masked, from 1 to 1500 map points (its partition over the
-cluster and its chunks at a CTA's edges), its stage 1 against K3 and its
-stage 3 against K5 bit for bit; K3 and K5 from 1 to 1500 points and K3 with every
+ten landmarks masked, from 1 to 1500 map points (one to eight CTAs, the
+last range cut at N) with its stage 1 against K3 and its stage 3 against
+K5 bit for bit, and with its stage marks on; K3 and K5 from 1 to 1500 points and K3 with every
 point masked, K8 at 16 sequences, K5, K8 and K11 refusing a float mask,
 and second launches of K3, K5, K8, K9 and K11 (the same bits); five frames of the single-sequence step, ten of
 the fused step, three of the batch step, twelve of the VO slice (with one
@@ -717,28 +717,13 @@ def _k11_args(dev, n):
                            False, 2)
 
 
-def _k11_against_k3_and_k5(args, res):
-    """K3 on K11's stage-1 arguments, and K5 on K11's own stage-2 output
-    (positions, accepted points) from K11's stage-1 pose: their outputs
-    and whether K11's equal them bit for bit."""
-    out, xy, per = res
-    out3 = tk3.mega_gn(*args[:12])
-    out5, inl5 = tk5.pose_ba_gn(args[19], xy, per[1] > 0.5, out[15:27].contiguous(), args[8])
-    same1 = torch.equal(out[15:27], out3[:12]) and torch.equal(out[12], out3[12])
-    same3 = (torch.equal(out[:12], out5[:12]) and torch.equal(out[13], out5[12])
-             and torch.equal(per[2], inl5))
-    return same1, same3
-
-
 @pytest.mark.parametrize("n", [1, 31, 200, 512, 1500])
 def test_track_fused_sizes(cuda_device, n):
     """K11 against its plain version from 1 to 1500 map points: one CTA at
-    N=1, two at 31, the portable 8 from 113 on; each CTA's range staged in
-    shared memory in one chunk up to 45 points, in chunks through two
-    buffers beyond (512: 3 chunks of 22 per CTA; 1500: 9 of 21).  Stage 1
-    equals K3 and stage 3 equals K5 on K11's own stage-2 output, bit for
-    bit; a second launch, and a launch that reads stage 2's windows from
-    device memory instead, give the same bits."""
+    N=1, two at 31 (16 and 15 points), the portable 8 from 113 on (25, 64
+    and 188 points per CTA at 200, 512 and 1500, the last CTA's range cut
+    at N).  Stage 1 equals K3 and stage 3 equals K5 on K11's own stage-2
+    output, bit for bit; a second launch gives the same bits."""
     args = _k11_args(cuda_device, n)
     part = tk11.track_partition(n)
     res = tk11.track_gn(*args)
@@ -751,7 +736,13 @@ def test_track_fused_sizes(cuda_device, n):
     conv, conv_r = per[1] > 0.5, per_r[1] > 0.5
     both = conv & conv_r
     dxy = torch.linalg.norm(xy[both] - xy_r[both], dim=1)
-    same1, same3 = _k11_against_k3_and_k5(args, res)
+    # K3 on K11's stage-1 arguments; K5 on K11's own stage-2 output
+    # (positions, accepted points) from K11's stage-1 pose.
+    out3 = tk3.mega_gn(*args[:12])
+    out5, inl5 = tk5.pose_ba_gn(args[19], xy, per[1] > 0.5, out[15:27].contiguous(), args[8])
+    same1 = torch.equal(out[15:27], out3[:12]) and torch.equal(out[12], out3[12])
+    same3 = (torch.equal(out[:12], out5[:12]) and torch.equal(out[13], out5[12])
+             and torch.equal(per[2], inl5))
     print(f"K11 N={n} ({part}): pose distance {d:.3e}, after stage 1 {d_sp:.3e}, BA chi2 "
           f"against the plain chain {chain:.1e}, max |xy diff| "
           f"{float(dxy.max()) if dxy.numel() else 0.0:.3e} on {int(both.sum())} points, "
@@ -764,19 +755,7 @@ def test_track_fused_sizes(cuda_device, n):
     assert float(((per[2] > 0.5) == (per_r[2] > 0.5)).float().mean()) >= 0.99
     assert float(out[14]) == float(per[2].sum())
     assert same1 and same3
-    for again in (tk11.track_gn(*args), tk11.track_gn(*args, staged=False)):
-        assert all(torch.equal(a, b) for a, b in zip(again, res))
-
-
-@pytest.mark.parametrize("n", [200, 512])
-def test_track_fused_stages_equal_k3_and_k5(cuda_device, n):
-    """K11's stage-1 pose and chi2 equal K3's output on the same arguments,
-    and its BA (pose, chi2, inlier flags) equals K5 run on K11's own
-    stage-2 output from K11's stage-1 pose, bit for bit."""
-    args = _k11_args(cuda_device, n)
-    same1, same3 = _k11_against_k3_and_k5(args, tk11.track_gn(*args))
-    assert same1, "K11's stage 1 differs from K3"
-    assert same3, "K11's stage 3 differs from K5 on K11's stage-2 output"
+    assert all(torch.equal(a, b) for a, b in zip(tk11.track_gn(*args), res))
 
 
 def test_track_fused_stamps(cuda_device):

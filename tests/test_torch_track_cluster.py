@@ -1,59 +1,58 @@
 """CPU checks of K11's launch geometry (ops/kernels/track_fused.py::
 track_partition): how one launch spreads the map points over its cluster of
-CTAs, in chunks staged through shared memory.  The kernel (csrc/
-track_fused.cu) walks the ranges and chunks exactly as `Partition.walk`
-does; the card tests (tests/test_torch_cuda.py) hold its results to the
-plain version at N = 1 to 1500.  No JAX."""
+CTAs.  The card tests (tests/test_torch_cuda.py) hold the kernel's
+results to the plain version at N = 1 to 1500.  No JAX."""
 import pathlib
-
-import pytest
 
 from ygz_slam_tpu_torch.ops.kernels import track_fused as k11
 
 SOURCE = (pathlib.Path(k11.__file__).resolve().parents[2] / "csrc" / "track_fused.cu")
 
 
-@pytest.mark.parametrize("staged", [True, False], ids=["staged", "device_memory"])
-def test_partition_covers_every_point_once(staged):
-    """For N from 0 to 4096: every map point falls in exactly one chunk of
-    exactly one CTA, each CTA's range is contiguous, a chunk holds at most
-    `chunk` points and alternates between the ring's two buffers."""
+def _ranges(p, n):
+    """Each CTA's (first point, end) as the kernel computes them:
+    n0 = min(N, rank * per_cta), n1 = min(N, n0 + per_cta)."""
+    return [(min(n, r * p.per_cta), min(n, min(n, r * p.per_cta) + p.per_cta))
+            for r in range(p.cluster)]
+
+
+def test_partition_covers_every_point_once():
+    """For N from 0 to 4096: every map point falls in exactly one CTA's
+    range, the ranges are contiguous and in rank order, and no CTA of a
+    non-empty map is left without a point (it would run stage 1 for
+    nothing)."""
     for n in range(0, 4097):
-        p = k11.track_partition(n, staged)
+        p = k11.track_partition(n)
+        ranges = _ranges(p, n)
         seen = [0] * n
-        last = {}
-        for rank, buf, c0, cnt in p.walk(n):
-            assert 1 <= cnt and c0 + cnt <= n
-            assert last.get(rank, (None, c0))[1] == c0, (n, rank)     # contiguous
-            if staged:
-                assert cnt <= p.chunk and buf == (0 if rank not in last else 1 - last[rank][0])
-            last[rank] = (buf, c0 + cnt)
-            for i in range(c0, c0 + cnt):
+        end = 0
+        for n0, n1 in ranges:
+            assert n0 == end and n0 <= n1 <= n, (n, ranges)
+            assert n1 > n0 or n == 0, (n, ranges)
+            for i in range(n0, n1):
                 seen[i] += 1
+            end = n1
         assert seen == [1] * n, n
-        assert p.cluster * p.per_cta >= n
 
 
-@pytest.mark.parametrize("staged", [True, False], ids=["staged", "device_memory"])
-def test_partition_fits_the_card(staged):
-    """A cluster of at most the portable 8 CTAs (one per WARPS points up to
-    that), and shared memory within the 227 KB a block can opt into: the
-    ring's buffers plus the kernel's static arrays."""
+def test_partition_fits_the_card():
+    """A CTA for every WARPS points (a warp per point), at most the
+    portable 8, each with K3's and K5's 512 threads."""
+    assert k11.THREADS == 512 and k11.WARPS == 16 and k11.MAX_CLUSTER == 8
     for n in range(0, 4097):
-        p = k11.track_partition(n, staged)
-        assert 1 <= p.cluster <= k11.MAX_CLUSTER == 8
+        p = k11.track_partition(n)
         assert p.cluster == max(1, min(8, -(-n // k11.WARPS)))
-        assert p.smem + k11.STATIC_SMEM <= k11.SMEM_OPTIN == 227 * 1024
-        if staged:
-            assert p.buffers in (1, 2) and p.smem == p.buffers * p.chunk * k11.STAGED_POINT_BYTES
-            assert p.buffers == 1 or p.per_cta > p.chunk
-        else:
-            assert (p.chunk, p.buffers, p.smem) == (0, 0, 0)
+        assert p.cluster * p.per_cta >= n
+        assert p.per_cta <= max(k11.WARPS, -(-n // 8))
 
 
 def test_kernel_stays_portable():
     """The kernel sets no non-portable cluster size, and its launch refuses
-    a cluster above 8 rather than retrying with another."""
+    a cluster above 8 rather than retrying with another; its block is the
+    wrapper's."""
     src = SOURCE.read_text()
     assert "NonPortableClusterSizeAllowed" not in src
-    assert "cluster > 8" in src and "cudaLaunchAttributeClusterDimension" in src
+    assert "constexpr int kMaxCluster = 8;" in src and "cluster > kMaxCluster" in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert f"constexpr int kThreads = {k11.THREADS};" in src
+    assert "min(mp.N, (int)blockIdx.x * per_cta)" in src and "min(mp.N, n0 + per_cta)" in src

@@ -42,13 +42,12 @@
 //     N = 200, where one CTA took ~29).  Results go to device memory; one
 //     cluster barrier (release / acquire at cluster scope) publishes them;
 //     rank 0 runs stage 3 and the other CTAs leave (no DSMEM is read).
-//   - Optionally (part.chunk > 0), the range's windows, patches and
-//     gradients staged in shared memory while stage 1 runs: one thread
-//     issues bulk asynchronous copies (cp.async.bulk) that complete on an
-//     mbarrier; stage 2 waits on it.  A range larger than the shared
-//     memory goes in chunks through a ring of two buffers: one chunk is
-//     aligned while the next loads.  The wrapper computes the partition
+//     The wrapper computes the partition
 //     (ops/kernels/track_fused.py::track_partition).
+//   - Stage 2 reads its windows from device memory through L1.  Staging
+//     them in shared memory with bulk asynchronous copies during stage 1
+//     was measured and taken out: the shared memory it takes comes out of
+//     L1, and stage 1 then slows by more than stage 2 gains (PERF.md).
 #include "align2d.cuh"
 #include "pose_ba.cuh"
 #include "sparse_align.cuh"
@@ -57,10 +56,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWinFloats = ygz::align2d::kWin * ygz::align2d::kWin;           // 1024
-constexpr int kPatchFloats = ygz::align2d::kPatch * ygz::align2d::kPatch;     // 64
-// A staged point: its window, reference patch and two gradients.
-constexpr int kStagedFloats = kWinFloats + 3 * kPatchFloats;
+constexpr int kMaxCluster = 8;       // the portable cluster size
 
 struct SparseIn {       // stage 1, N points, L levels
   const float* wins;    // [L, N, 16, 16]
@@ -95,65 +91,9 @@ struct Caps {
   float ba_eps, chi2_th;
 };
 
-// The map points over the cluster: CTA r aligns [r * per_cta, min(N, (r +
-// 1) * per_cta)); with chunk > 0 in chunks of at most `chunk` points
-// staged in shared memory, chunk k in buffer k % 2.
-struct Part {
-  int per_cta;
-  int chunk;
-};
-
 constexpr float kInitMargin = 6.f;    // PATCH / 2 + 2
 constexpr float kFinalMargin = 5.f;   // PATCH / 2 + 1
 constexpr float kMaxDrift = 11.f;     // min(2 * PATCH, CACHE_SLACK)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      :
-      : "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src)), "r"(bytes),
-        "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Thread 0: stage chunk [c0, c0 + cnt) of the map points into `buf` (a
-// buffer of `cap` points: windows, then patches, x- and y-gradients), its
-// completion on `bar`.
-__device__ __forceinline__ void stage_chunk(const MapIn& mp, float* buf, int cap, int c0,
-                                            int cnt, unsigned long long* bar) {
-  unsigned long long state;
-  const unsigned bytes = (unsigned)cnt * kStagedFloats * 4u;
-  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 %0, [%1], %2;"
-               : "=l"(state)
-               : "r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-  (void)state;
-  bulk_load(buf, mp.wins + (size_t)c0 * kWinFloats, (unsigned)cnt * kWinFloats * 4u, bar);
-  bulk_load(buf + cap * kWinFloats, mp.ref + (size_t)c0 * kPatchFloats,
-            (unsigned)cnt * kPatchFloats * 4u, bar);
-  bulk_load(buf + cap * (kWinFloats + kPatchFloats), mp.jx + (size_t)c0 * kPatchFloats,
-            (unsigned)cnt * kPatchFloats * 4u, bar);
-  bulk_load(buf + cap * (kWinFloats + 2 * kPatchFloats), mp.jy + (size_t)c0 * kPatchFloats,
-            (unsigned)cnt * kPatchFloats * 4u, bar);
-}
-
-__device__ __forceinline__ void wait_parity(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred P;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n\t"
-        "selp.b32 %0, 1, 0, P;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
 
 // Thread 0 of rank 0, when stamps is given: SM clock and global timer at
 // mark k (0 start, 1 after stage 1, 2 after the CTA's stage 2, 3 after the
@@ -173,41 +113,18 @@ __device__ __forceinline__ void mark(unsigned long long* stamps, int k) {
 __global__ void __launch_bounds__(kThreads)
 track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
                    float* __restrict__ out, float* __restrict__ xy, float* __restrict__ per,
-                   int H0, int W0, ygz::sparse_align::Cam cam, Caps caps, Part part,
+                   int H0, int W0, ygz::sparse_align::Cam cam, Caps caps, int per_cta,
                    unsigned long long* __restrict__ stamps) {
   __shared__ float smem[kRedFloats];
   Reducer red(smem);
   __shared__ float pose_sp[12];
   __shared__ float ba[13];
-  __shared__ __align__(8) unsigned long long bars[2];
-  extern __shared__ __align__(128) float staged[];   // [2][chunk][kStagedFloats]
   mark(stamps, 0);
   float* err = per;
   float* conv = per + mp.N;
   float* inl = per + 2 * mp.N;
   bool* bamsk = reinterpret_cast<bool*>(per + 3 * mp.N);
   float* wf = per + 4 * mp.N;
-
-  // This CTA's map points, in chunks (one chunk of the whole range when
-  // nothing is staged).
-  const bool stage = part.chunk > 0;
-  const int n0 = min(mp.N, (int)blockIdx.x * part.per_cta);
-  const int n1 = min(mp.N, n0 + part.per_cta);
-  const int chunk = stage ? part.chunk : max(1, n1 - n0);
-  const int n_chunks = (n1 - n0 + chunk - 1) / chunk;
-  if (stage) {
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_addr(&bars[0])), "r"(1)
-                   : "memory");
-      asm volatile("mbarrier.init.shared.b64 [%0], %1;" ::"r"(smem_addr(&bars[1])), "r"(1)
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      for (int k = 0; k < min(2, n_chunks); ++k)
-        stage_chunk(mp, staged + k * chunk * kStagedFloats, chunk, n0 + k * chunk,
-                    min(chunk, n1 - n0 - k * chunk), &bars[k]);
-    }
-    __syncthreads();   // the barriers' init, before any thread waits on them
-  }
 
   // -- stage 1: sparse-direct alignment, every level (K3's code) ----------
   float R[9], t[3], chi2_sp;
@@ -227,60 +144,41 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
   mark(stamps, 1);
 
   // -- stage 2: align2d of this CTA's points from stage 1's pose ----------
+  // CTA r takes the points [r * per_cta, min(N, (r + 1) * per_cta)).
   const int lane = threadIdx.x & 31;
   const float Wf = (float)W0, Hf = (float)H0;
-  for (int k = 0; k < n_chunks; ++k) {
-    const int c0 = n0 + k * chunk, c1 = min(n1, c0 + chunk);
-    float* buf = staged + (k & 1) * chunk * kStagedFloats;
-    if (stage) wait_parity(&bars[k & 1], (unsigned)(k >> 1) & 1u);
-    for (int n = c0 + (threadIdx.x >> 5); n < c1; n += kWarps) {   // whole warps
-      const float px = mp.pts[3 * n], py = mp.pts[3 * n + 1], pz = mp.pts[3 * n + 2];
-      const float x = R[0] * px + R[1] * py + R[2] * pz + t[0];
-      const float y = R[3] * px + R[4] * py + R[5] * pz + t[1];
-      const float z = R[6] * px + R[7] * py + R[8] * pz + t[2];
-      const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
-      const float xn = x / zs, yn = y / zs;
-      const float r2 = xn * xn + yn * yn;
-      const float radial = 1.f + cam.k1 * r2 + cam.k2 * r2 * r2;
-      const float xd = xn * radial + 2.f * cam.p1 * xn * yn + cam.p2 * (r2 + 2.f * xn * xn);
-      const float yd = yn * radial + cam.p1 * (r2 + 2.f * yn * yn) + 2.f * cam.p2 * xn * yn;
-      const float xi = cam.fx * xd + cam.cx;
-      const float yi = cam.fy * yd + cam.cy;
-      const int j = n - c0;
-      const float* w = stage ? buf + j * kWinFloats : mp.wins + (size_t)n * kWinFloats;
-      const float* rp = stage ? buf + chunk * kWinFloats + j * kPatchFloats
-                              : mp.ref + (size_t)n * kPatchFloats;
-      const float* gxp = stage ? buf + chunk * (kWinFloats + kPatchFloats) + j * kPatchFloats
-                               : mp.jx + (size_t)n * kPatchFloats;
-      const float* gyp = stage ? buf + chunk * (kWinFloats + 2 * kPatchFloats) + j * kPatchFloats
-                               : mp.jy + (size_t)n * kPatchFloats;
-      const ygz::align2d::Result r = ygz::align2d::align_point<false>(
-          w, rp, gxp, gyp, mp.hinv + (size_t)n * 9, (float)mp.ox[n], (float)mp.oy[n], xi, yi,
-          caps.a2d_iter, caps.a2d_eps2);
-      if (lane == 0) {
-        const bool inb0 = z > 0.05f && xi >= kInitMargin && xi < Wf - 1.f - kInitMargin &&
-                          yi >= kInitMargin && yi < Hf - 1.f - kInitMargin;
-        const bool inb1 = r.x >= kFinalMargin && r.x < Wf - 1.f - kFinalMargin &&
-                          r.y >= kFinalMargin && r.y < Hf - 1.f - kFinalMargin;
-        const float dx = r.x - xi, dy = r.y - yi;
-        const bool ok = inb0 && inb1 && r.err < caps.a2d_max_err &&
-                        dx * dx + dy * dy < kMaxDrift * kMaxDrift && mp.mask[n];
-        xy[2 * n] = r.x;
-        xy[2 * n + 1] = r.y;
-        err[n] = r.err;
-        conv[n] = ok ? 1.f : 0.f;
-        bamsk[n] = ok;
-      }
-    }
-    if (stage && k + 2 < n_chunks) {
-      __syncthreads();   // every warp is done with this buffer
-      if (threadIdx.x == 0) {
-        // The buffer's reads (generic proxy) before the copy's writes
-        // (async proxy).
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        stage_chunk(mp, buf, chunk, c0 + 2 * chunk, min(chunk, n1 - c0 - 2 * chunk),
-                    &bars[k & 1]);
-      }
+  const int n0 = min(mp.N, (int)blockIdx.x * per_cta);
+  const int n1 = min(mp.N, n0 + per_cta);
+  for (int n = n0 + (threadIdx.x >> 5); n < n1; n += kWarps) {   // whole warps
+    const float px = mp.pts[3 * n], py = mp.pts[3 * n + 1], pz = mp.pts[3 * n + 2];
+    const float x = R[0] * px + R[1] * py + R[2] * pz + t[0];
+    const float y = R[3] * px + R[4] * py + R[5] * pz + t[1];
+    const float z = R[6] * px + R[7] * py + R[8] * pz + t[2];
+    const float zs = fabsf(z) < 1e-9f ? 1e-9f : z;
+    const float xn = x / zs, yn = y / zs;
+    const float r2 = xn * xn + yn * yn;
+    const float radial = 1.f + cam.k1 * r2 + cam.k2 * r2 * r2;
+    const float xd = xn * radial + 2.f * cam.p1 * xn * yn + cam.p2 * (r2 + 2.f * xn * xn);
+    const float yd = yn * radial + cam.p1 * (r2 + 2.f * yn * yn) + 2.f * cam.p2 * xn * yn;
+    const float xi = cam.fx * xd + cam.cx;
+    const float yi = cam.fy * yd + cam.cy;
+    const ygz::align2d::Result r = ygz::align2d::align_point<false>(
+        mp.wins + (size_t)n * 1024, mp.ref + (size_t)n * 64, mp.jx + (size_t)n * 64,
+        mp.jy + (size_t)n * 64, mp.hinv + (size_t)n * 9, (float)mp.ox[n], (float)mp.oy[n], xi,
+        yi, caps.a2d_iter, caps.a2d_eps2);
+    if (lane == 0) {
+      const bool inb0 = z > 0.05f && xi >= kInitMargin && xi < Wf - 1.f - kInitMargin &&
+                        yi >= kInitMargin && yi < Hf - 1.f - kInitMargin;
+      const bool inb1 = r.x >= kFinalMargin && r.x < Wf - 1.f - kFinalMargin &&
+                        r.y >= kFinalMargin && r.y < Hf - 1.f - kFinalMargin;
+      const float dx = r.x - xi, dy = r.y - yi;
+      const bool ok = inb0 && inb1 && r.err < caps.a2d_max_err &&
+                      dx * dx + dy * dy < kMaxDrift * kMaxDrift && mp.mask[n];
+      xy[2 * n] = r.x;
+      xy[2 * n + 1] = r.y;
+      err[n] = r.err;
+      conv[n] = ok ? 1.f : 0.f;
+      bamsk[n] = ok;
     }
   }
   mark(stamps, 2);
@@ -311,10 +209,10 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
 
 }  // namespace
 
-// One launch of K11 as a single cluster of `cluster` CTAs (1..8) with
-// `smem` bytes of dynamic shared memory.  Returns the CUDA error of the
-// set-up or the launch (a refused cluster launch is an error: no retry
-// with a smaller cluster).
+// One launch of K11 as a single cluster of `cluster` CTAs (1..8), CTA r
+// aligning map points [r * per_cta, min(N2, (r + 1) * per_cta)); stamps
+// may be null.  Returns the CUDA error of the launch (a refused cluster
+// launch is an error: no retry with a smaller cluster).
 extern "C" int track_fused_launch(
     const float* wins, const float* refp, const float* jac, const float* pts, const float* lvis,
     const int* ox, const int* oy, int N1, int L, const float* a2_wins, const float* a2_ref,
@@ -323,36 +221,17 @@ extern "C" int track_fused_launch(
     float* out, float* xy, float* per, int H0, int W0, float fx, float fy, float cx, float cy,
     float k1, float k2, float p1, float p2, int sp_iter, float sp_eps, int a2d_iter,
     float a2d_eps2, float a2d_max_err, int ba_rounds, int ba_iters, float ba_eps,
-    float chi2_th, int cluster, int per_cta, int chunk, int smem, unsigned long long* stamps,
-    cudaStream_t stream) {
-  // The dynamic shared memory the kernel may take: all the block can opt
-  // into beyond its static arrays.  Set once, before the first launch.
-  static int max_dynamic = -1;
-  if (max_dynamic < 0) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, track_fused_kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(track_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)fa.sharedSizeBytes);
-    if (e != cudaSuccess) return (int)e;
-    max_dynamic = optin - (int)fa.sharedSizeBytes;
-  }
-  if (cluster < 1 || cluster > 8 || smem < 0 || smem > max_dynamic)
+    float chi2_th, int cluster, int per_cta, unsigned long long* stamps, cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < N2)
     return (int)cudaErrorInvalidValue;
   const SparseIn sp{wins, refp, jac, pts, lvis, ox, oy, N1, L};
   const MapIn mp{a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, a2_pts, a2_mask, N2};
   const ygz::sparse_align::Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
   const Caps caps{sp_iter, sp_eps, a2d_iter, a2d_eps2, a2d_max_err, ba_rounds, ba_iters,
                   ba_eps, chi2_th};
-  const Part part{per_cta, chunk};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -362,7 +241,7 @@ extern "C" int track_fused_launch(
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, track_fused_kernel, sp, mp, pose0, out, xy,
-                                           per, H0, W0, cam, caps, part, stamps);
+                                           per, H0, W0, cam, caps, per_cta, stamps);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,7 @@ versions of K3 (`mega_gn_plain`), of K4 without its step clamp
 `track_step_fused` fetches the windows (K1: three sparse levels and the
 align2d cache, all at the frame-init pose) and makes the one K11 launch.
 The kernel runs as one cluster of CTAs; `track_partition` says how the
-map points are spread over it and staged in shared memory.
+map points are spread over it.
 """
 from __future__ import annotations
 
@@ -35,50 +35,20 @@ _MAX_DRIFT = min(A2D_PATCH * 2.0, float(CACHE_SLACK))  # 11 px from the start
 THREADS = 512                  # K3's and K5's block, whatever N is
 WARPS = THREADS // 32          # stage 2 aligns a point per warp
 MAX_CLUSTER = 8                # the portable cluster size (no non-portable attribute is set)
-SMEM_OPTIN = 232448            # shared bytes an H100 block can opt into (227 KB)
-STATIC_SMEM = 9216             # a bound on the kernel's static shared memory (the
-                               # Reducer's 8 KB and a few scalars; chip_smoke.py holds
-                               # ptxas's figure to it)
-STAGED_POINT_BYTES = (CACHE_WIN * CACHE_WIN + 3 * A2D_PATCH * A2D_PATCH) * 4   # 4864
-STAGE_WINDOWS = True           # stage 2's inputs staged in shared memory (see PERF.md)
 
 
 class Partition(NamedTuple):
     """How one K11 launch spreads N2 map points over its cluster."""
     cluster: int     # CTAs, all in one cluster (the grid)
     per_cta: int     # CTA r aligns points [r * per_cta, min(N2, (r + 1) * per_cta))
-    chunk: int       # points per staged chunk; 0: stage 2 reads device memory
-    buffers: int     # staging buffers in the ring (0, 1 or 2)
-    smem: int        # dynamic shared bytes: buffers * chunk * STAGED_POINT_BYTES
-
-    def walk(self, n2: int):
-        """(rank, buffer, first point, count) of every chunk, in the order
-        each CTA of the kernel takes them (buffer None when not staged)."""
-        for r in range(self.cluster):
-            n0 = min(n2, r * self.per_cta)
-            n1 = min(n2, n0 + self.per_cta)
-            step = self.chunk if self.chunk else max(1, n1 - n0)
-            for k, c0 in enumerate(range(n0, n1, step)):
-                yield r, (k % 2 if self.chunk else None), c0, min(step, n1 - c0)
 
 
-def track_partition(n2: int, staged: bool | None = None) -> Partition:
+def track_partition(n2: int) -> Partition:
     """K11's partition of n2 map points: a CTA for every WARPS points (a
-    warp per point) up to MAX_CLUSTER, contiguous equal ranges; staged, a
-    range that fits the shared memory is one chunk, a larger one goes in
-    equal chunks through two buffers (one aligned while the next loads)."""
-    staged = STAGE_WINDOWS if staged is None else staged
+    warp per point) up to MAX_CLUSTER, in contiguous ranges of equal
+    size but the last."""
     cluster = max(1, min(MAX_CLUSTER, -(-n2 // WARPS)))
-    per_cta = -(-n2 // cluster)
-    if not staged:
-        return Partition(cluster, per_cta, 0, 0, 0)
-    cap = (SMEM_OPTIN - STATIC_SMEM) // STAGED_POINT_BYTES   # points in one buffer
-    if per_cta <= cap:
-        chunk, buffers = max(1, per_cta), 1
-    else:
-        n_chunks = -(-per_cta // (cap // 2))
-        chunk, buffers = -(-per_cta // n_chunks), 2
-    return Partition(cluster, per_cta, chunk, buffers, buffers * chunk * STAGED_POINT_BYTES)
+    return Partition(cluster, -(-n2 // cluster))
 
 
 def track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
@@ -123,16 +93,13 @@ def track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H
 def track_gn(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
              a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, p_a2, a2_mask,
              sp_iter=MAX_ITER, a2d_iter=10, a2d_max_err=30.0, ba_rounds=4, ba_iters=10,
-             chi2_th=CHI2_2D, *, staged: bool | None = None,
-             stamps: torch.Tensor | None = None):
+             chi2_th=CHI2_2D, *, stamps: torch.Tensor | None = None):
     """K11 on the card, its plain version on the CPU; arguments and results
     as for `track_gn_plain` (a2_mask bool on the card, as K5's msk).
 
-    On the card, `staged` (default STAGE_WINDOWS) chooses whether stage 2
-    reads its windows from shared memory; the results are the same bits
-    either way.  `stamps`, an int64 tensor [10] on the card, receives the
-    SM clock and global timer (ns) of CTA 0 at the kernel's start, after
-    stage 1, after its stage 2, after the cluster barrier and at the end."""
+    `stamps`, an int64 tensor [10] on the card, receives the SM clock and
+    the global timer (ns) of CTA 0 at the kernel's start, after stage 1,
+    after its stage 2, after the cluster barrier and at the end."""
     if not on_card(wins):
         return track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0,
                               W0, a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, p_a2,
@@ -157,19 +124,15 @@ def track_gn(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
     require(a2_oy, "a2_oy", torch.int32, (N2,), dev)
     require(p_a2, "p_a2", torch.float32, (N2, 3), dev)
     require(a2_mask, "a2_mask", torch.bool, (N2,), dev)
-    for name, a in (("a2_wins", a2_wins), ("a2_ref", a2_ref), ("a2_jx", a2_jx),
-                    ("a2_jy", a2_jy)):
-        if a.data_ptr() % 16:       # bulk copies move 16-byte-aligned blocks
-            raise ValueError(f"{name}: the kernel needs a 16-byte-aligned start")
     if stamps is not None:
         require(stamps, "stamps", torch.int64, (10,), dev)
     out = torch.empty(27, dtype=torch.float32, device=dev)
     xy = torch.empty((N2, 2), dtype=torch.float32, device=dev)
     per = torch.empty((5, N2), dtype=torch.float32, device=dev)    # rows 3, 4: scratch
-    part = track_partition(N2, staged)
+    part = track_partition(N2)
     launch("track_fused", "track_fused_launch",
            [P] * 7 + [I, I] + [P] * 9 + [I] + [P] * 4 + [I, I] + [Fl] * 8
-           + [I, Fl, I, Fl, Fl, I, I, Fl, Fl] + [I] * 4 + [P, P],
+           + [I, Fl, I, Fl, Fl, I, I, Fl, Fl, I, I, P, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_sp.data_ptr(), lvis.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), N1, L, a2_wins.data_ptr(), a2_ref.data_ptr(),
            a2_jx.data_ptr(), a2_jy.data_ptr(), a2_hinv.data_ptr(), a2_ox.data_ptr(),
@@ -177,8 +140,7 @@ def track_gn(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
            out.data_ptr(), xy.data_ptr(), per.data_ptr(), H0, W0, cam.fx, cam.fy, cam.cx,
            cam.cy, *_distortion(cam, distorted), sp_iter, STOP_STEP, a2d_iter,
            A2D_EPS * A2D_EPS, a2d_max_err, ba_rounds, ba_iters, BA_EPS, chi2_th, part.cluster,
-           part.per_cta, part.chunk, part.smem, None if stamps is None else stamps.data_ptr(),
-           stream(dev))
+           part.per_cta, None if stamps is None else stamps.data_ptr(), stream(dev))
     launched(track_gn, wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,
              a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, p_a2, a2_mask, sp_iter,
              a2d_iter, a2d_max_err, ba_rounds, ba_iters, chi2_th)
