@@ -8,8 +8,8 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11); a spill in K3, K5 or K11 fails
-   the run at the end.
+   kernels (K3, K5, K8, K9 v1/v2, K11); a spill in K3, K5, K9 v1 or K11
+   fails the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
    bits.  Kernel times are medians of per-launch CUDA-event intervals with
@@ -18,8 +18,11 @@ Phases, each raising (and so exiting non-zero) on failure:
    iteration counts) and µs per link beside them.
    a. The single-sequence tracking step's kernels (K1 gather_windows, K3
       sparse_align_mega, K4 align2d_fused, K5 pose_ba_fused) on the inputs
-      that path gives them on frame 1 of its workload; K3-K5 again at 512
-      landmarks; K1 with origins off the image.
+      that path gives them on frame 1 of its workload (K1's recorded from
+      the step: the pyramid's three levels in one launch, then K4's
+      windows); K3-K5 again at 512 landmarks; K1 with origins off the
+      image, per image and for the pyramid; K1's windows per block timed
+      at 1 to 32.
    b. The batch path's kernels (K6 gather_windows_grouped, K3 on K6's
       windows, K2 gather_windows_multi, K4 over all S*N rows, K8
       pose_ba_fused_batch) on that path's frame-1 inputs at S=8; K2, K6
@@ -31,15 +34,18 @@ Phases, each raising (and so exiting non-zero) on failure:
       130 x 77 and with all-ones and sign-bit-only words; `match_nn` and
       the tie-breaking argmins on the card against the CPU, exactly.
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
-      that frame 10 of the VO path gives them (N=256 with masked rows for
-      K3, 512 rows on the three-level pyramid stack for K2, K4 and K5),
-      recorded from the step itself.
+      that frame 10 of the VO path gives them (K1's two pyramid launches,
+      N=256 with masked rows for K3, 512 rows on the three-level pyramid
+      stack for K2, K4 and K5), recorded from the step itself.
    e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2) against
       their plain versions on the three per-level launches that frame 12
       of main path 4 makes under FUSED_VARIANT 1 and 2 (recorded from
       `System.track_monocular`), on level 0 with no usable point (the
       pose must not move) and with an init pose shifted so that windows
-      clamp at the border; per-launch times, bounds and plain times.
+      clamp at the border; per-launch times, bounds and plain times; K9
+      v1's cluster and the split of its passes (pixel steps, block
+      reduction, cluster exchange, solve and retraction; CTA 0's SM clock
+      marks) per level.
    f. K11 (track_step_fused, the whole step in one kernel) against its
       plain version on the arguments that frame 1 of main path 5 gives it
       (recorded from `fused_track_step`), at 512 landmarks, with ten
@@ -53,7 +59,7 @@ Phases, each raising (and so exiting non-zero) on failure:
       for bit; a split by stage (CTA 0's SM clock at each stage's end,
       converted at the global timer's rate over the kernel) beside K3 and
       K5 alone; per-launch times, bound and plain time beside the summed
-      times of the kernels it replaces on path 1's frame 1 (K1 x 4, K3,
+      times of the kernels it replaces on path 1's frame 1 (K1 x 2, K3,
       K4, K5).
       Then `entry()`, the step's own entry point, once on the card against
       the CPU.
@@ -62,7 +68,8 @@ Phases, each raising (and so exiting non-zero) on failure:
 3. Main path 1: the 640x480 / 200-landmark tracking workload, rendered on
    the card, through `tracking.track_frames`, every frame held to the
    accuracy gate; the launch counters must show K3, K4 and K5 once per
-   frame, K1 four times per frame and the batch kernels and K11 never.
+   frame, K1 twice per frame (the pyramid's windows in one launch, K4's
+   windows) and the batch kernels and K11 never.
 4. Main path 2: bench_batch.py's workload, S=8 sequences x 60 frames,
    through `batch.track_batch_frames`, every sequence's every frame held
    to the gate; the counters must show K6 and K3 S times per frame, K2,
@@ -73,9 +80,10 @@ Phases, each raising (and so exiting non-zero) on failure:
    rows bootstrapped on frame 0, through `vo_workload.track_vo_frames`: a
    keyframe every 10 frames, so slots are evicted from the 10th insertion
    on; every frame held to `vo_gate`.  The counters must show, per frame,
-   K3, K2, K4 and K5 once and K1 six times (three reference-patch levels
-   and three window levels: the reference is the previous frame, prepared
-   anew each frame); per keyframe K10 three times (two triangulation
+   K3, K2, K4 and K5 once and K1 twice (the three reference-patch levels
+   in one launch, the three window levels in another: the reference is
+   the previous frame, prepared anew each frame); per keyframe K10 three
+   times (two triangulation
    neighbours and the fusion with the map); K6 and K8 never.
 5b. Main path 4: the monocular System from raw frames
    (`models/mono_workload.py`: 160 frames 640x480, 3 levels, map K=10 x
@@ -83,23 +91,25 @@ Phases, each raising (and so exiting non-zero) on failure:
    under FUSED_VARIANT 3, 2 and 1, each run held to `mono_gate` (GOOD
    within 30 frames, no LOST frame after, Sim(3)-aligned ATE < 0.05 m)
    with at least 12 keyframes and keyframe culling at work.  Per frame
-   through `track`: K2, K4, K5 once and K1 six times (three 7x7 reference
-   levels, three 16x16 window levels, for K3 or for each K9 launch); K3
-   once under 3, the variant's K9 entry three times under 1 or 2; K10
+   through `track`: K2, K4, K5 once; K1 once for the three 7x7 reference
+   levels, then once for the three 16x16 window levels under 3 or once
+   per level (before each K9 launch) under 1 and 2; K3 once under 3, the
+   variant's K9 entry three times under 1 or 2; K10
    three times per keyframe; K6 and K8 never.  Then, from a fresh System,
    synchronised times of the init step, `track`, the keyframe cycle and
    the mapping pass; that second run must equal the first bit for bit
    (statuses, trajectory, keyframe poses, landmarks).
 5c. Main path 5: path 1's workload through `tracking.track_frames` with
    `step=fused_track_step` (the whole-step configuration), every frame
-   held to the gate; the counters must show K11 once and K1 four times
-   per frame and no other kernel.  Frames/s beside path 1's, the two run
+   held to the gate; the counters must show K11 once and K1 twice per
+   frame (the three sparse levels, the align2d cache) and no other kernel.  Frames/s beside path 1's, the two run
    in turns (1, 5, 5, 1).
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window): device busy
    share and the kernels that take the most device time; then each
    kernel's device µs per launch in the profiler beside its CUDA-event
-   time from phase 2 (whose intervals include the gap between launches).
+   time from phase 2 (whose intervals include the gap between launches),
+   K9 v1's pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the five main
    paths), then the last line {"ok": true, "device": {...}}.
 
@@ -156,7 +166,7 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
                  ("sparse_align_fused", "level_align_v2_kernel"),
                  ("track_fused", "track_fused_kernel"))
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
-            "track_fused_kernel")
+            "track_fused_kernel", "level_align_v1_kernel")
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
 
@@ -332,7 +342,16 @@ def main() -> int:
     state = tr.make_state(cam, ref_pyr, px, depth, mask, pts_w, patches)
 
     def frame_inputs(st, img, T_init):
-        """Each kernel's inputs on one frame of the main path."""
+        """Each kernel's inputs on one frame of the main path; K1's are the
+        ones `track_step` itself passes (recorded): the pyramid's windows,
+        then K4's at K3's pose."""
+        with kernels.record_launches() as rec:
+            tr.track_step(st, T_init.params7(), img)
+        names = [f.__name__ for f, _ in rec]
+        if names != ["gather_windows_levels", "mega_gn", "gather_windows", "a2d_gn",
+                     "pose_ba_gn"]:
+            raise AssertionError(f"track_step launched {names}")
+        g1 = [a for f, a in rec if f in (k1.gather_windows_levels, k1.gather_windows)]
         cur_pyr = pyramid.build_pyramid(img, L)
         a3, _ = k3.mega_args(cur_pyr, st.ref_prep.levels, st.ref_prep.p_ref, T_init.R,
                              T_init.t, st.cam, False, L, st.ref_prep.mega_refp,
@@ -344,8 +363,6 @@ def main() -> int:
         xy0s, inb0 = substitute_inits(proj, H, W)
         a4 = k4.a2d_args(cur_pyr[0], st.a2d_prep, xy0s)
         a5 = k5.pose_ba_args(T_sa, st.pts_w, ares.xy, ares.converged & st.mask, st.cam)
-        g1 = [(cur_pyr[li], a3[5][li], a3[6][li], k3.CWIN) for li in range(L)]
-        g1.append((cur_pyr[0], a4[5], a4[6], k1.CACHE_WIN))
         return g1, a3, (a4, proj, inb0, H, W), a5
 
     def _pose_of(out):
@@ -371,16 +388,38 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{name} {tag}: two launches on the same inputs differ")
 
+    def k1_call(g, plain=False, **kw):
+        """K1 on request g: (img, ox [N], oy [N], win) for one image, or
+        (imgs, ox [L, N], oy [L, N], win) for the levels of a pyramid."""
+        if isinstance(g[0], tuple):
+            return (k1.gather_windows_levels_plain(*g) if plain
+                    else k1.gather_windows_levels(*g, **kw))
+        return k1.gather_windows_plain(*g) if plain else k1.gather_windows(*g)
+
+    def k1_levels(g):
+        """Request g as one (img, ox, oy, win) per image."""
+        if isinstance(g[0], tuple):
+            return [(img, g[1][li], g[2][li], g[3]) for li, img in enumerate(g[0])]
+        return [g]
+
+    def k1_off_image(g):
+        return [(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in
+                k1_levels(g)]
+
     def check_k1(g1, tag, with_library=True):
         err = 0.0
-        for img, ox, oy, win in g1:
-            a = k1.gather_windows(img, ox, oy, win)
-            b = k1.gather_windows_plain(img, ox, oy, win)
-            err = max(err, float((a - b).abs().max()))
+        for g in g1:
+            a = k1_call(g)
+            err = max(err, float((a - k1_call(g, plain=True)).abs().max()) if a.numel() else 0.0)
             if with_library:
-                lib = img.unfold(0, win, 1).unfold(1, win, 1)[oy.long(), ox.long()]
-                err = max(err, float((a - lib).abs().max()))
-        print(f"K1 gather_windows {tag}: max |kernel - plain| = {err} (tolerance 0, exact copy)")
+                lib = torch.stack([img.unfold(0, win, 1).unfold(1, win, 1)[oy.long(), ox.long()]
+                                   for img, ox, oy, win in k1_levels(g)])
+                err = max(err, float((a.reshape(lib.shape) - lib).abs().max()))
+        forms = " + ".join(f"{len(g[0])} levels x {g[1].shape[1]} x {g[3]}^2 in one launch"
+                           if isinstance(g[0], tuple) else f"{g[1].shape[0]} x {g[3]}^2"
+                           for g in g1)
+        print(f"K1 gather_windows {tag} ({forms}): max |kernel - plain| = {err} (tolerance 0, "
+              f"exact copy)")
         if err != 0.0:
             raise AssertionError("K1 disagrees with its plain version")
         return err
@@ -443,13 +482,14 @@ def main() -> int:
 
     # Times and bounds at the main path's shapes.
     N = px.shape[0]
-    k1_ms = sum(_time_kernel(torch, lambda g=g: k1.gather_windows(*g)) for g in g1)
-    k1_plain = sum(_time_host(torch, lambda g=g: k1.gather_windows_plain(*g)) for g in g1)
-    # Yardstick: one advanced-indexing gather on int64 origins made beforehand.
-    g1_lib = [(img, oy.long(), ox.long(), win) for img, ox, oy, win in g1]
+    k1_ms = sum(_time_kernel(torch, lambda g=g: k1_call(g)) for g in g1)
+    k1_plain = sum(_time_host(torch, lambda g=g: k1_call(g, plain=True)) for g in g1)
+    # Yardstick: one advanced-indexing gather per image on int64 origins
+    # made beforehand.
+    g1_lib = [(img, oy.long(), ox.long(), win) for g in g1 for img, ox, oy, win in k1_levels(g)]
     k1_lib = sum(_time_kernel(torch, lambda g=g: g[0].unfold(0, g[3], 1).unfold(1, g[3], 1)
                               [g[1], g[2]]) for g in g1_lib)
-    k1_bytes = sum(N * (2 * g[3] * g[3] * 4 + 8) for g in g1)
+    k1_bytes = sum(N * (2 * g[3] * g[3] * 4 + 8) for g in g1_lib)
     report["K1"] = dict(ms=k1_ms, plain=k1_plain, lib=k1_lib, err=e1,
                         bound=_bound(k1_bytes, 0.0))
     k3_ms = _time_kernel(torch, lambda: k3.mega_gn(*a3))
@@ -479,7 +519,15 @@ def main() -> int:
           f"normal equations, 4 reclassification counts, 1 count, 2 x (1 max + 4 grouped "
           f"bisection counts)), {k5_ms * 1e3 / _k5_links(st5['normal_eqs']):.2f} us per link",
           flush=True)
-    print("K1 times below are per frame: the sum over its 4 launches (3 levels x 16^2, 32^2)")
+    # K1's block: windows (warps) per block, timed on path 1's two requests.
+    sweep = {w: [_time_kernel(torch, lambda g=g, w=w: k1.gather_windows_levels(
+        *(g if isinstance(g[0], tuple) else ((g[0],), g[1][None], g[2][None], g[3])),
+        windows_per_block=w)) * 1e3 for g in g1] for w in (1, 2, 4, 8, 16, 32)}
+    print(f"K1 windows per block (the wrapper's {k1.WINDOWS_PER_BLOCK}), us per launch on path "
+          f"1's frame 1 (the pyramid's 3 x {N} x 16^2; {N} x 32^2): "
+          + ", ".join(f"{w}: {v[0]:.2f}, {v[1]:.2f}" for w, v in sweep.items()), flush=True)
+    print("K1 times below are per frame: the sum over its 2 launches (the pyramid's 3 levels x "
+          "16^2 in one, 32^2 at K3's pose)")
     for k, r in report.items():
         lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
         print(f"{k}: kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, library {lib} ms, "
@@ -500,9 +548,14 @@ def main() -> int:
           f"{k3_ms_512 * 1e3 / sum(st3_5['passes']):.2f} us per link), K5 {k5_ms_512:.4f} ms "
           f"({_k5_links(st5_5['normal_eqs'])} reductions, "
           f"{k5_ms_512 * 1e3 / _k5_links(st5_5['normal_eqs']):.2f} us per link)", flush=True)
-    # K1 off the image: the zero-padded window at the requested origin.
-    check_k1([(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g1],
-             "origins off the image", with_library=False)
+    # K1 off the image: the zero-padded window at the requested origin, per
+    # image and for the pyramid in one launch.
+    check_k1([o for g in g1 for o in k1_off_image(g)], "origins off the image",
+             with_library=False)
+    lv_off = k1_off_image(g1[0])
+    check_k1([(tuple(o[0] for o in lv_off), torch.stack([o[1] for o in lv_off]),
+               torch.stack([o[2] for o in lv_off]), k3.CWIN)],
+             "origins off the image, the pyramid", with_library=False)
 
     # -- 2b. batch kernels versus plain versions -----------------------------
     def batch_frame_inputs(bst, imgs, T7):
@@ -515,8 +568,9 @@ def main() -> int:
         for s, prep in enumerate(bst.ref_preps):
             cp = tuple(c[s] for c in cur_pyrs)
             T0 = SE3.from_params7(T7[s])
-            g6.append(k3.mega_window_requests(cp, prep.p_ref, T0.R, T0.t, bst.cam, bt.DISTORTED,
-                                              L)[2])
+            _, _, ox_l, oy_l = k3.mega_window_origins(cp, prep.p_ref, T0.R, T0.t, bst.cam,
+                                                      bt.DISTORTED, L)
+            g6.append([(cp[li], ox_l[li], oy_l[li], k3.CWIN) for li in range(L)])
             fw = sparse_align.gather_frame_windows(cp, bst.cam, prep, T0, distorted=bt.DISTORTED)
             a3s.append(k3.mega_args(cp, prep.levels, prep.p_ref, T0.R, T0.t, bst.cam,
                                     bt.DISTORTED, L, prep.mega_refp, prep.mega_jl,
@@ -755,8 +809,8 @@ def main() -> int:
     with kernels.record_launches() as rec:
         vw.track_vo_frames(st9, vframes[10:11])
     ref_win = sparse_align.PATCH + 3                  # a 6x6 bilinear patch needs 7x7 pixels
-    want_rec = (["gather_windows"] * 6 + ["mega_gn", "gather_windows_multi", "a2d_gn",
-                                          "pose_ba_gn"] + ["distance_matrix"] * 3)
+    want_rec = (["gather_windows_levels"] * 2 + ["mega_gn", "gather_windows_multi", "a2d_gn",
+                                                 "pose_ba_gn"] + ["distance_matrix"] * 3)
     if [fn.__name__ for fn, _ in rec] != want_rec:
         raise AssertionError(f"VO frame 10 launched {[fn.__name__ for fn, _ in rec]}, "
                              f"expected {want_rec}")
@@ -764,17 +818,18 @@ def main() -> int:
     def recorded(fn):
         return [args for f, args in rec if f is fn]
 
-    g1v, (a3v,), (a2v,) = recorded(k1.gather_windows), recorded(k3.mega_gn), \
+    g1v, (a3v,), (a2v,) = recorded(k1.gather_windows_levels), recorded(k3.mega_gn), \
         recorded(k1.gather_windows_multi)
     (a4v,), (a5v,), d10v = recorded(k4.a2d_gn), recorded(k5.pose_ba_gn), \
         recorded(k10.distance_matrix)
-    if [g[3] for g in g1v] != [ref_win] * L + [k3.CWIN] * L:
-        raise AssertionError(f"VO frame 10: K1 windows {[g[3] for g in g1v]}")
-    n_sel = g1v[0][1].shape[0]
+    if [(len(g[0]), g[3]) for g in g1v] != [(L, ref_win), (L, k3.CWIN)]:
+        raise AssertionError(f"VO frame 10: K1 levels and windows "
+                             f"{[(len(g[0]), g[3]) for g in g1v]}")
+    n_sel = g1v[0][1].shape[1]
     tagv = (f"VO frame 10, N={n_sel} ({int((a3v[4][0] < 0.5).sum())} masked, max |J| "
             f"{float(a3v[2].abs().max()):.1e})")
-    check_k1(g1v, tagv + f", {L} levels x {ref_win}^2 on the previous frame and {L} x "
-             f"{k3.CWIN}^2 on this one")
+    check_k1(g1v, tagv + f", {ref_win}^2 on the previous frame's pyramid and {k3.CWIN}^2 on "
+             f"this one's")
     _, st3v = check_k3(a3v, tagv)
     tagv = f"VO frame 10, N={a2v[1].shape[0]} ({int(a5v[2].sum())} matched)"
     check_k2(a2v, tagv + f", {a2v[0].shape[0]}-level stack")
@@ -787,12 +842,12 @@ def main() -> int:
         check_exact("K10 hamming distance_matrix", [k10.distance_matrix(a, b)],
                     [k10.distance_matrix_plain(a, b)],
                     f"VO frame 10 keyframe cycle, {a.shape[0]} x {b.shape[0]}")
-    k1v_ms = sum(_time_kernel(torch, lambda g=g: k1.gather_windows(*g)) for g in g1v)
-    k1v_plain = sum(_time_host(torch, lambda g=g: k1.gather_windows_plain(*g)) for g in g1v)
-    k1v_bound = _bound(sum(n_sel * (2 * g[3] * g[3] * 4 + 8) for g in g1v), 0.0)
+    k1v_ms = sum(_time_kernel(torch, lambda g=g: k1_call(g)) for g in g1v)
+    k1v_plain = sum(_time_host(torch, lambda g=g: k1_call(g, plain=True)) for g in g1v)
+    k1v_bound = _bound(sum(L * n_sel * (2 * g[3] * g[3] * 4 + 8) for g in g1v), 0.0)
     k3v_ms = _time_kernel(torch, lambda: k3.mega_gn(*a3v))
     k5v_ms = _time_kernel(torch, lambda: k5.pose_ba_gn(*a5v))
-    print(f"VO frame 10: K1 per frame (sum over its 6 launches: {L} x {ref_win}^2, {L} x "
+    print(f"VO frame 10: K1 per frame (sum over its 2 launches: {L} levels x {ref_win}^2, {L} x "
           f"{k3.CWIN}^2, {n_sel} windows each) kernel {k1v_ms:.4f} ms, plain {k1v_plain:.4f} ms, "
           f"bound {k1v_bound[0]:.6f} ms ({k1v_bound[1]}); K3 {k3v_ms:.4f} ms "
           f"({sum(st3v['passes'])} passes, {k3v_ms * 1e3 / sum(st3v['passes']):.2f} us per link), "
@@ -851,6 +906,30 @@ def main() -> int:
         per_pass = 40 + 16 * (22 + (42 if v1 else 0))
         return _bound(nbytes, n * per_pass * passes)
 
+    def k9_split(a, reps=REPS, ppc=k9.V1_POINTS_PER_CTA):
+        """K9 v1's pass split with `ppc` points per CTA: medians over reps
+        launches of the µs per pass (CTA 0's SM clock between its marks, at
+        the global timer's rate over the kernel) in pixel steps, block
+        reduction, cluster exchange and solve + retraction, then the
+        kernel's body on the global timer (µs) and its passes."""
+        stamps = torch.zeros(k9.V1_STAMPS, dtype=torch.int64, device=dev)
+        rows = []
+        for _ in range(reps):
+            stamps.zero_()
+            k9.level_gn(*a, stamps=stamps, points_per_cta=ppc)
+            st_ = stamps.tolist()
+            rate = (st_[3] - st_[1]) / max(st_[2] - st_[0], 1)      # cycles per ns
+            n_pass = sum(1 for p in range(k9.MAX_ITER + 1) if st_[7 + 4 * p])
+            parts, prev = [0.0] * 4, st_[1]
+            for p in range(n_pass):
+                m = st_[4 + 4 * p:8 + 4 * p]
+                for k in range(4):
+                    parts[k] += m[k] - (prev if k == 0 else m[k - 1])
+                prev = m[3]
+            rows.append([x / rate / 1e3 / n_pass for x in parts]
+                        + [(st_[2] - st_[0]) / 1e3, n_pass])
+        return [statistics.median(r[k] for r in rows) for k in range(6)]
+
     e2_report = {}
     for variant, fn in ((1, k9.level_gn), (2, k9.level_gn_v2)):
         sparse_align.FUSED_VARIANT = variant
@@ -862,13 +941,13 @@ def main() -> int:
         with kernels.record_launches() as rec:
             sysm.track_monocular(frames_m[E2_FRAME], float(E2_FRAME))
         names = [f.__name__ for f, _ in rec]
-        want_rec = (["gather_windows"] * 3 + ["gather_windows", fn.__name__] * L
+        want_rec = (["gather_windows_levels"] + ["gather_windows", fn.__name__] * L
                     + ["gather_windows_multi", "a2d_gn", "pose_ba_gn"])
         if names != want_rec:
             raise AssertionError(f"variant {variant}, frame {E2_FRAME} launched {names}, "
                                  f"expected {want_rec}")
         k9_calls = [a for f, a in rec if f is fn]
-        level_imgs = [a[0] for f, a in rec[3:3 + 2 * L:2]]
+        level_imgs = [a[0] for f, a in rec[1:1 + 2 * L:2]]
         if [a[-1] for a in k9_calls] != list(range(L - 1, -1, -1)):
             raise AssertionError(f"K9 levels {[a[-1] for a in k9_calls]}")
         errs, times, plains, bounds, passes = [], [], [], [], []
@@ -910,6 +989,38 @@ def main() -> int:
         report[key] = dict(ms=sum(times), plain=sum(plains), lib=None, err=max(errs),
                            bound=(b_ms, bounds[-1][1]))
         e2_report[key] = dict(times=times, plains=plains, bounds=bounds, passes=passes)
+        if variant == 1:
+            # The cluster and the split of a pass, per level, beside the
+            # CUDA-event interval of one launch.
+            splits = []
+            for a, t_ms in zip(k9_calls, times):
+                part = k9.level_partition(a[0].shape[0])
+                pix, red_, clu, sol, body, n_pass = k9_split(a)
+                splits.append((part, pix, red_, clu, sol, body, n_pass))
+                print(f"K9v1 level {a[12]}: a cluster of {part.cluster} CTAs x "
+                      f"{k9.V1_THREADS} threads, {part.per_cta} points per CTA; per pass "
+                      f"(medians of {REPS} launches, CTA 0) pixel steps {pix:.2f} us, block "
+                      f"reduction {red_:.2f}, cluster exchange {clu:.2f}, solve and retraction "
+                      f"{sol:.2f}; {int(n_pass)} passes, body {body:.2f} us on the global timer, "
+                      f"CUDA-event interval {t_ms * 1e3:.2f} us", flush=True)
+            e2_report[key]["splits"] = splits
+            # The cluster's size against the pass: level 0's launch spread
+            # over 8, 4, 2 and 1 CTAs, each against the plain version.
+            a0 = k9_calls[-1]
+            ref0 = k9.level_gn_plain(*a0)
+            for ppc in (32, 64, 128, 256):
+                part = k9.level_partition(a0[0].shape[0], ppc)
+                out_p = k9.level_gn(*a0, points_per_cta=ppc)
+                d = float(se3.distance(SE3(*_pose_of(out_p)), SE3(*_pose_of(ref0))))
+                if not d <= TOL_POSE:
+                    raise AssertionError(f"K9 v1 with {ppc} points per CTA disagrees")
+                t_ms = _time_kernel(torch, lambda: k9.level_gn(*a0, points_per_cta=ppc))
+                pix, red_, clu, sol, body, n_pass = k9_split(a0, ppc=ppc)
+                print(f"K9v1 level 0, {ppc} points per CTA: a cluster of {part.cluster}; per pass "
+                      f"pixel steps {pix:.2f} us, block reduction {red_:.2f}, cluster exchange "
+                      f"{clu:.2f}, solve and retraction {sol:.2f}; {int(n_pass)} passes, body "
+                      f"{body:.2f} us, CUDA-event interval {t_ms * 1e3:.2f} us; pose distance to "
+                      f"the plain version {d:.3e}", flush=True)
         print(f"{key} per launch (levels 2, 1, 0): kernel "
               f"{[round(t, 4) for t in times]} ms, plain {[round(t, 3) for t in plains]} ms, "
               f"bound {[f'{b[0]:.6f} ({b[1]})' for b in bounds]} ms, passes {passes}; per "
@@ -921,8 +1032,8 @@ def main() -> int:
 
     # -- 2f. K11 on the inputs main path 5 gives it ----------------------------
     # Frame 1 of path 5 (`fused_track_step` from frame 0's ground truth, as
-    # 2a's frame) with every launch recorded: K1 x 4 (three sparse levels, the
-    # align2d cache), then K11, whose arguments are replayed against its
+    # 2a's frame) with every launch recorded: K1 x 2 (the three sparse levels
+    # in one, the align2d cache), then K11, whose arguments are replayed against its
     # plain version; then 512 landmarks, ten masked landmarks, and no usable
     # sparse point (H = 0, b = 0: stage 1 must return the init pose).
     def check_k11(a11, tag):
@@ -985,7 +1096,7 @@ def main() -> int:
         with kernels.record_launches() as rec:
             tr.fused_track_step(st, T_init7, img)
         names = [f.__name__ for f, _ in rec]
-        if names != ["gather_windows"] * 4 + ["track_gn"]:
+        if names != ["gather_windows_levels", "gather_windows", "track_gn"]:
             raise AssertionError(f"fused_track_step launched {names}")
         return rec[-1][1]
 
@@ -1089,11 +1200,11 @@ def main() -> int:
     k11_plain_512 = _time_host(torch, lambda: k11.track_gn_plain(*a11_5))
     b11, b11_512 = k11_bound(a11, st11), k11_bound(a11_5, st11_5)
     report["K11"] = dict(ms=k11_ms, plain=k11_plain, lib=None, err=e11, bound=b11)
-    replaced = sum(report[k]["ms"] for k in ("K1", "K3", "K4", "K5"))
+    replaced = sum(report[k]["ms"] for k in ("K1", "K3", "K4", "K5"))   # K1: 2 launches
     print(f"K11 per launch: N=200 {k11_ms:.4f} ms, N=512 {k11_ms_512:.4f} ms; plain "
           f"{k11_plain:.3f} and {k11_plain_512:.3f} ms; bound {b11[0]:.6f} ({b11[1]}) and "
           f"{b11_512[0]:.6f} ({b11_512[1]}) ms; library null (PyTorch has no single call for "
-          f"it); what it replaces on path 1's frame 1, K1 x 4 + K3 + K4 + K5: "
+          f"it); what it replaces on path 1's frame 1, K1 x 2 + K3 + K4 + K5: "
           f"{replaced:.4f} ms", flush=True)
 
     # entry(): the step's own entry point, once on the card, against the CPU.
@@ -1110,9 +1221,9 @@ def main() -> int:
         raise AssertionError("entry() on the card disagrees with the CPU")
 
     # -- 3. main path 1: single-sequence tracking ----------------------------
-    counters = (k1.gather_windows, k1.gather_windows_grouped, k1.gather_windows_multi,
-                k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn, k8.pose_ba_batch_gn, k10.distance_matrix,
-                k11.track_gn)
+    counters = (k1.gather_windows_levels, k1.gather_windows, k1.gather_windows_grouped,
+                k1.gather_windows_multi, k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn,
+                k8.pose_ba_batch_gn, k10.distance_matrix, k11.track_gn)
 
     def reset():
         for c in counters:
@@ -1133,7 +1244,8 @@ def main() -> int:
           flush=True)
     if not ok:
         raise AssertionError("main path 1 failed the per-frame accuracy gate")
-    want1 = {"gather_windows": 4 * N_FRAMES, "gather_windows_grouped": 0,
+    want1 = {"gather_windows_levels": N_FRAMES, "gather_windows": N_FRAMES,
+             "gather_windows_grouped": 0,
              "gather_windows_multi": 0, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
              "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0, "distance_matrix": 0,
              "track_gn": 0}
@@ -1164,7 +1276,8 @@ def main() -> int:
           f"launches {launches2}", flush=True)
     if not ok:
         raise AssertionError("main path 2 failed the per-frame accuracy gate")
-    want2 = {"gather_windows": 0, "gather_windows_grouped": S_BATCH * F_BATCH,
+    want2 = {"gather_windows_levels": 0, "gather_windows": 0,
+             "gather_windows_grouped": S_BATCH * F_BATCH,
              "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
              "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH,
              "distance_matrix": 0, "track_gn": 0}
@@ -1234,7 +1347,8 @@ def main() -> int:
         raise AssertionError("main path 3 failed the per-frame gate")
     if n_kf != n_f // vo_opts.kf_min_frames or not any(c["evicted"] for c in kf_log):
         raise AssertionError(f"main path 3 inserted {n_kf} keyframes, none into an evicted slot?")
-    want3 = {"gather_windows": 6 * n_f, "gather_windows_grouped": 0,
+    want3 = {"gather_windows_levels": 2 * n_f, "gather_windows": 0,
+             "gather_windows_grouped": 0,
              "gather_windows_multi": n_f, "mega_gn": n_f, "a2d_gn": n_f, "pose_ba_gn": n_f,
              "pose_ba_batch_gn": 0, "distance_matrix": 3 * n_kf, "track_gn": 0}
     if launches3 != want3:
@@ -1337,7 +1451,9 @@ def main() -> int:
         if n_kf < 12 or vo_m.stats["keyframes_culled"] == 0:
             raise AssertionError(f"main path 4 inserted {n_kf} keyframes, culled "
                                  f"{vo_m.stats['keyframes_culled']}")
-        want4 = {"gather_windows": 6 * n_track, "gather_windows_grouped": 0,
+        want4 = {"gather_windows_levels": (2 if variant == 3 else 1) * n_track,
+                 "gather_windows": 0 if variant == 3 else 3 * n_track,
+                 "gather_windows_grouped": 0,
                  "gather_windows_multi": n_track, "mega_gn": n_track if variant == 3 else 0,
                  "a2d_gn": n_track, "pose_ba_gn": n_track, "pose_ba_batch_gn": 0,
                  "distance_matrix": 3 * n_kf, "track_gn": 0,
@@ -1378,7 +1494,7 @@ def main() -> int:
     if not ok:
         raise AssertionError("main path 5 failed the per-frame accuracy gate")
     want5 = {name: 0 for name in launches5}
-    want5.update(gather_windows=4 * N_FRAMES, track_gn=N_FRAMES)
+    want5.update(gather_windows_levels=N_FRAMES, gather_windows=N_FRAMES, track_gn=N_FRAMES)
     if launches5 != want5:
         raise AssertionError(f"launch counts {launches5}, expected {want5}")
     fps = {"path 1": [], "path 5": []}
@@ -1424,9 +1540,9 @@ def main() -> int:
     sparse_align.FUSED_VARIANT = 3
     # Each kernel's device time per launch in the profiler, in the window
     # whose shapes its phase-2 CUDA-event time was taken at, beside that
-    # time (per frame for K1 and K9: 4 and 3 launches; per keyframe for
+    # time (per frame for K1 and K9: 2 and 3 launches; per keyframe for
     # K10: 3): the difference is the gap between back-to-back launches.
-    prof_rows = (("K1", 1, "gather_windows_kernel", 4), ("K2", 2, "gather_windows_multi_kernel", 1),
+    prof_rows = (("K1", 1, "gather_levels_kernel", 2), ("K2", 2, "gather_windows_multi_kernel", 1),
                  ("K3", 1, "sparse_align_mega_kernel", 1), ("K4", 1, "align2d_fused_kernel", 1),
                  ("K5", 1, "pose_ba_fused_kernel", 1),
                  ("K6", 2, "gather_windows_grouped_kernel", 1),
@@ -1441,6 +1557,12 @@ def main() -> int:
         print(f"{k} {sym}: profiler device {us:.2f} us per launch ({us * per_unit:.2f} per "
               f"{per_unit} launch(es), main path {window}'s window); CUDA-event interval "
               f"{report[k]['ms'] * 1e3:.2f} us per {per_unit} launch(es)", flush=True)
+        if k == "K9v1":
+            for part, pix, red_, clu, sol, body, n_pass in e2_report[k]["splits"]:
+                print(f"  K9v1 at frame {E2_FRAME}'s levels 2, 1, 0: cluster {part.cluster}, "
+                      f"{int(n_pass)} passes of {pix + red_ + clu + sol:.2f} us (pixel steps "
+                      f"{pix:.2f}, block reduction {red_:.2f}, cluster exchange {clu:.2f}, "
+                      f"solve and retraction {sol:.2f}), body {body:.2f} us", flush=True)
 
     # -- 7. result lines ------------------------------------------------------
     spilled = {k: v for k, v in spills.items() if k in NO_SPILL and v}
@@ -1455,7 +1577,8 @@ def main() -> int:
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"
     meta = {
-        "K1": ("gather_windows", gw, pk + "align2d_kernel.py:77", launches("gather_windows")),
+        "K1": ("gather_windows", gw, pk + "align2d_kernel.py:77",
+               launches("gather_windows") + launches("gather_windows_levels")),
         "K2": ("gather_windows_multi", gw, pk + "align2d_kernel.py:298",
                launches("gather_windows_multi")),
         "K3": ("sparse_align_mega", "ygz_slam_tpu_torch/csrc/sparse_align_mega.cu",

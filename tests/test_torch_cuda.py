@@ -1,10 +1,13 @@
 """The port's CUDA kernels against their plain versions, on the card, on
 inputs the main paths do not give them: K1 with origins outside the
-image, K2 with an image index past its stack, K5 with planted outliers
+image, on one image and over a pyramid of one and three levels (windows
+7, 16 and 32, 1 to 512 points, every windows-per-block setting; nine
+levels refused), K2 with an image index past its stack, K5 with planted outliers
 and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
-on windows clamped at the border; K11 on frame 1 of the fused path and with
+on windows clamped at the border, K9 v1 from 1 to 1500 points (one to
+eight CTAs of its cluster), without spills and with its pass marks on; K11 on frame 1 of the fused path and with
 ten landmarks masked, from 1 to 1500 map points (one to eight CTAs, the
 last range cut at N) with its stage 1 against K3 and its stage 3 against
 K5 bit for bit, and with its stage marks on; K3 and K5 from 1 to 1500 points and K3 with every
@@ -90,6 +93,41 @@ def test_gather_windows(cuda_device):
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n", [1, 200, 512])
+@pytest.mark.parametrize("win", [7, 16, 32])
+@pytest.mark.parametrize("levels", [1, 3])
+def test_gather_windows_levels(cuda_device, levels, win, n):
+    """K1 over a pyramid (640x480, 320x240, 160x120) against its plain
+    version bit for bit, a third of each level's origins off the image
+    (negative and past W - win / H - win), at every windows-per-block
+    setting; one launch per call."""
+    rng = np.random.default_rng(16 + win + n)
+    imgs, xs, ys = [], [], []
+    for H, W in ((480, 640), (240, 320), (120, 160))[:levels]:
+        imgs.append(torch.tensor(rng.uniform(0, 255, (H, W)), dtype=torch.float32,
+                                 device=cuda_device))
+        x, y = rng.integers(0, W - win + 1, n), rng.integers(0, H - win + 1, n)
+        k = max(1, n // 3)
+        x[:k], y[:k] = rng.integers(-40, W + 11, k), rng.integers(-40, H + 11, k)
+        xs.append(x)
+        ys.append(y)
+    xi = torch.tensor(np.array(xs), dtype=torch.int32, device=cuda_device)
+    yi = torch.tensor(np.array(ys), dtype=torch.int32, device=cuda_device)
+    ref = tk1.gather_windows_levels_plain(tuple(imgs), xi, yi, win)
+    for wpb in (1, 4, tk1.WINDOWS_PER_BLOCK, 32):
+        n0 = tk1.gather_windows_levels.launches
+        out = tk1.gather_windows_levels(tuple(imgs), xi, yi, win, windows_per_block=wpb)
+        assert tk1.gather_windows_levels.launches == n0 + 1
+        assert torch.equal(out, ref), wpb
+
+
+def test_gather_windows_levels_refuses_nine_levels(cuda_device):
+    img = torch.zeros((64, 64), device=cuda_device)
+    xi = torch.zeros((9, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="levels"):
+        tk1.gather_windows_levels((img,) * 9, xi, xi, 16)
+
+
 def test_pose_ba_fused(card_workload):
     st, (cam, *_, frames, T_gt7) = card_workload["state"], card_workload["out"]
     rng = np.random.default_rng(2)
@@ -113,10 +151,11 @@ def test_track_step_card_matches_cpu(card_workload):
     """Five frames of the step on the card (kernels) against the CPU
     (plain versions), each kernel launched as often as the step calls it."""
     out, state, dev = card_workload["out"], card_workload["state"], card_workload["dev"]
-    counters = (tk1.gather_windows, tk3.mega_gn, tk4.a2d_gn, tk5.pose_ba_gn)
+    counters = (tk1.gather_windows_levels, tk1.gather_windows, tk3.mega_gn, tk4.a2d_gn,
+                tk5.pose_ba_gn)
     before = [c.launches for c in counters]
     T7, inl = tr.track_frames(state, out[7], TSE3.identity(device=dev).params7())
-    assert [c.launches - b for c, b in zip(counters, before)] == [20, 5, 5, 5]
+    assert [c.launches - b for c, b in zip(counters, before)] == [5, 5, 5, 5, 5]
     assert tr.gate(T7, inl, out[8])[2]
     cam, px, depth, mask, pts_w, patches, ref_pyr, frames, _ = [
         a.cpu() if isinstance(a, torch.Tensor) else a for a in out]
@@ -160,16 +199,18 @@ def test_track_fused_kernel_matches_plain(card_workload, n_masked):
 
 
 def test_fused_path_card_matches_cpu(cuda_device):
-    """Ten frames of `fused_track_step` on the card (K1 four times and K11
-    once per frame, no K3, K4 or K5) against the CPU (plain versions)."""
+    """Ten frames of `fused_track_step` on the card (K1 twice, the
+    pyramid's levels in one launch, and K11 once per frame, no K3, K4 or
+    K5) against the CPU (plain versions)."""
     out = tr.make_workload(10, cuda_device)
     cam, px, depth, mask, pts_w, patches, ref_pyr, frames, T_gt7 = out
     state = tr.make_state(cam, ref_pyr, px, depth, mask, pts_w, patches)
-    counters = (tk1.gather_windows, tk11.track_gn, tk3.mega_gn, tk4.a2d_gn, tk5.pose_ba_gn)
+    counters = (tk1.gather_windows_levels, tk1.gather_windows, tk11.track_gn, tk3.mega_gn,
+                tk4.a2d_gn, tk5.pose_ba_gn)
     before = [c.launches for c in counters]
     T7, inl = tr.track_frames(state, frames, TSE3.identity(device=cuda_device).params7(),
                               step=tr.fused_track_step)
-    assert [c.launches - b for c, b in zip(counters, before)] == [40, 10, 0, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [10, 10, 10, 0, 0, 0]
     assert tr.gate(T7, inl, T_gt7)[2]
     state_c = tr.make_state(cam, [lv.cpu() for lv in ref_pyr], px.cpu(), depth.cpu(),
                             mask.cpu(), pts_w.cpu(), patches.cpu())
@@ -317,11 +358,11 @@ def test_vo_slice_card_matches_cpu(cuda_device):
     The detector's float32 integral image is summed in another order on the
     card, so a few corners of the new keyframe may differ."""
     state, frames, T_gt7 = vw.make_vo_workload(13, cuda_device)
-    counters = (tk1.gather_windows, tk1.gather_windows_multi, tk3.mega_gn, tk4.a2d_gn,
-                tk5.pose_ba_gn, tk10.distance_matrix)
+    counters = (tk1.gather_windows_levels, tk1.gather_windows, tk1.gather_windows_multi,
+                tk3.mega_gn, tk4.a2d_gn, tk5.pose_ba_gn, tk10.distance_matrix)
     before = [c.launches for c in counters]
     st, T7, inl, log = vw.track_vo_frames(state, frames[1:])
-    assert [c.launches - b for c, b in zip(counters, before)] == [72, 12, 12, 12, 12, 3]
+    assert [c.launches - b for c, b in zip(counters, before)] == [24, 0, 12, 12, 12, 12, 3]
     assert vw.vo_gate(T7, inl, T_gt7[1:])[2]
     # The CPU run, frame by frame, keeping the state each frame started from.
     st_c, starts, T7c, inl_c, log_c = _to(state, "cpu"), [], [], [], []
@@ -368,12 +409,13 @@ def test_recorded_launches_are_the_steps_own(cuda_device):
     with kernels.record_launches() as rec:
         vw.track_vo_frames(state, frames[1:], kf_every=1)
     names = [fn.__name__ for fn, _ in rec]
-    assert names == (["gather_windows"] * 6 + ["mega_gn", "gather_windows_multi", "a2d_gn",
-                                               "pose_ba_gn"] + ["distance_matrix"] * 3)
-    assert [a[3] for fn, a in rec[:6]] == [7, 7, 7, 16, 16, 16]
-    assert [tuple(a[0].shape) + tuple(a[1].shape) for fn, a in rec[10:]] == \
+    assert names == (["gather_windows_levels"] * 2 + ["mega_gn", "gather_windows_multi",
+                                                      "a2d_gn", "pose_ba_gn"]
+                     + ["distance_matrix"] * 3)
+    assert [(len(a[0]), a[3]) for fn, a in rec[:2]] == [(3, 7), (3, 16)]
+    assert [tuple(a[0].shape) + tuple(a[1].shape) for fn, a in rec[6:]] == \
         [(128, 8, 256, 8), (128, 8, 256, 8), (256, 8, 3072, 8)]
-    plain = {tk1.gather_windows: tk1.gather_windows_plain,
+    plain = {tk1.gather_windows_levels: tk1.gather_windows_levels_plain,
              tk1.gather_windows_multi: tk1.gather_windows_multi_plain,
              tk10.distance_matrix: tk10.distance_matrix_plain}
     for fn, args in rec:
@@ -766,3 +808,64 @@ def test_track_fused_stamps(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(res, tk11.track_gn(*args)))
     clk, ns = stamps[0::2].tolist(), stamps[1::2].tolist()
     assert clk == sorted(clk) and ns == sorted(ns) and clk[-1] > clk[0]
+
+
+# -- K9 v1 over a thread-block cluster ---------------------------------------
+
+def _k9_args(dev, n, level):
+    """K9 v1's arguments at one level of frame 1 of the tracking workload
+    with n landmarks, from frame 0's pose."""
+    from ygz_slam_tpu_torch.ops import pyramid
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    (cam, *_, frames, T_gt7), st = _sized(dev, n)
+    T0 = TSE3.from_params7(T_gt7[0])
+    cur = pyramid.build_pyramid(frames[1], 3)
+    return tk9.level_args(cur[level], st.ref_prep.levels[level], st.ref_prep.p_ref, T0.R, T0.t,
+                          cam, level, False)[0]
+
+
+@pytest.mark.parametrize("n", [1, 31, 100, 256, 1500])
+def test_level_align_v1_sizes(cuda_device, n):
+    """K9 v1 against its plain version from 1 to 1500 points at levels 2
+    and 0: one CTA at N=1 and 31, four at 100 (25 points each), the
+    portable 8 at 256 (32 each) and 1500 (188 each, the last range cut at
+    N); a second launch gives the same bits; with no usable point the pose
+    does not move."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    part = tk9.level_partition(n)
+    assert part.cluster == {1: 1, 31: 1, 100: 4, 256: 8, 1500: 8}[n]
+    assert part.cluster * part.per_cta >= n > (part.cluster - 1) * part.per_cta
+    for level in (2, 0):
+        args = _k9_args(cuda_device, n, level)
+        out = _k9_agree(args)
+        assert torch.equal(tk9.level_gn(*args), out)
+    zero = args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+    out = _k9_agree(zero)
+    assert torch.equal(out[:12], zero[7]) and float(out[12]) == 0.0
+
+
+def test_level_align_v1_does_not_spill(cuda_device):
+    """ptxas's report on K9 v1 (the build's log): no spill stores or loads."""
+    from ygz_slam_tpu_torch import _build
+
+    res = {k: r for k, r in _build.kernel_resources("sparse_align_fused").items()
+           if "level_align_v1_kernel" in k}
+    print(f"K9 v1 ptxas: {res}")
+    assert res and all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in res.values())
+
+
+def test_level_align_v1_stamps(cuda_device):
+    """The pass marks come in order inside the kernel's start and end, and
+    passing them changes no result."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    args = _k9_args(cuda_device, 256, 0)
+    stamps = torch.zeros(tk9.V1_STAMPS, dtype=torch.int64, device=cuda_device)
+    out = tk9.level_gn(*args, stamps=stamps)
+    assert torch.equal(out, tk9.level_gn(*args))
+    s = stamps.tolist()
+    marks = [m for m in s[4:] if m]
+    assert len(marks) % 4 == 0 and marks == sorted(marks)
+    assert s[0] < s[2] and s[1] <= marks[0] and marks[-1] <= s[3]

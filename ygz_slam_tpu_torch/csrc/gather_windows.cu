@@ -1,7 +1,9 @@
 // K1, K2 and K6: integer-origin window gathers.
 //
 // Replace, in ygz_slam_tpu/ops/pallas/align2d_kernel.py:
-//   K1 gather_windows          one [H, W] image, N windows;
+//   K1 gather_windows          one [H, W] image, N windows; here also the L
+//                              levels of one pyramid, N windows each, in
+//                              one launch (gather_windows_levels);
 //   K2 gather_windows_multi    an [S, H, W] stack, an image index per window;
 //   K6 gather_windows_grouped  up to kMaxGroups requests (image, origins,
 //                              window size) with different images and sizes,
@@ -10,15 +12,28 @@
 // one-hot matmuls, because Mosaic's slices must start on a tile.  What
 // they return is the window of the zero-padded image at the requested
 // origin: pixels inside the image are copied, the rest are 0.  On Hopper a
-// window read is an ordinary indexed load, so all three kernels share one
-// device body that copies a window with that zero fill: one block per
-// window, threads over its pixels.
+// window read is an ordinary indexed load.
 //
 // Bound: bytes.  Each window is read once and written once (K2 on the
 // batch path: 1600 windows of 32x32, 6.6 MB each way), so the byte bound
-// is a few microseconds; the kernels keep each window row's reads and
-// writes coalesced and do no arithmetic beyond indexing.
+// is a few microseconds.  K1's launches are smaller still (a frame's three
+// levels of 200 16x16 windows: 0.6 MB each way, ~0.2 us at 3.35 TB/s), so
+// what a K1 launch costs is the launch itself, the ramp of its grid and
+// one dependent chain (origin, pixel, store).  Its design for this card:
+//   - one launch for every level of a pyramid (the levels' images and
+//     shapes by value in a __grid_constant__ struct), where a frame took
+//     one launch per level;
+//   - a warp per window, several windows per block (the wrapper's
+//     windows_per_block), so a frame's L * N windows are a few hundred
+//     blocks; each warp reads its (level, origin) once;
+//   - the warp's lanes across a window row, so each row is one coalesced
+//     read and write, with no division per pixel: for win 16 and 32 each
+//     lane copies 4 pixels of a row and stores them as one 128-bit store
+//     (the output rows are 16-byte aligned, the source rows are not);
+//   - zero fill outside the image, as before.
+// K2 and K6 keep one block per window, threads over its pixels.
 #include <cassert>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -43,14 +58,6 @@ __device__ __forceinline__ void copy_window(const float* __restrict__ img, int H
 int threads_for(int win) {
   const int pix = win * win;
   return pix >= 256 ? 256 : ((pix + 31) / 32) * 32;
-}
-
-__global__ void gather_windows_kernel(const float* __restrict__ img, int H, int W,
-                                      const int* __restrict__ ox,
-                                      const int* __restrict__ oy, int win,
-                                      float* __restrict__ out) {
-  const int n = blockIdx.x;
-  copy_window(img, H, W, ox[n], oy[n], win, out + (size_t)n * win * win);
 }
 
 // An image index outside [0, S) names no image of the stack: the kernel
@@ -101,11 +108,84 @@ __global__ void gather_windows_grouped_kernel(const __grid_constant__ GroupedArg
 
 }  // namespace
 
-extern "C" int gather_windows_launch(const float* img, int H, int W, const int* ox,
-                                     const int* oy, int N, int win, float* out,
-                                     cudaStream_t stream) {
+// One level of a K1 launch.  The layout is mirrored by a ctypes.Structure
+// in ops/kernels/align2d_kernel.py: a pointer, then two ints.
+struct LevelImage {
+  const float* img;
+  int H, W;
+};
+
+namespace {
+
+constexpr int kMaxLevels = 8;
+
+struct LevelsArgs {
+  LevelImage lv[kMaxLevels];
+  int L;
+};
+
+// Window g of a K1 launch (level g / N, point g % N) is written by warp g.
+// kVec: win % 4 == 0, each lane copies 4 pixels of a row into one float4.
+template <bool kVec>
+__global__ void gather_levels_kernel(const __grid_constant__ LevelsArgs a,
+                                     const int* __restrict__ ox, const int* __restrict__ oy,
+                                     int N, int win, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= a.L * N) return;
+  const LevelImage q = a.lv[g / N];
+  const int x0 = ox[g], y0 = oy[g];
+  float* dst = out + (size_t)g * win * win;
+  // A row is `units` lane units (a pixel, or 4 pixels under kVec); a warp
+  // step covers `rows` rows, lane (dr, c) unit c of row dr of the step.
+  const int units = kVec ? win >> 2 : win;
+  const int rows = units <= 32 ? 32 / units : 1;
+  const int dr = units <= 32 ? lane / units : 0;
+  const int c0 = lane - dr * (units <= 32 ? units : 0);
+  const int cstep = units <= 32 ? units : 32;
+  for (int r = dr; r < win && dr < rows; r += rows) {
+    const int y = y0 + r;
+    const bool yin = y >= 0 && y < q.H;
+    const float* src = q.img + (size_t)(yin ? y : 0) * q.W;
+    for (int c = c0; c < units; c += cstep) {
+      if (kVec) {
+        const int x = x0 + 4 * c;
+        float4 v;
+        v.x = (yin && x >= 0 && x < q.W) ? src[x] : 0.f;
+        v.y = (yin && x + 1 >= 0 && x + 1 < q.W) ? src[x + 1] : 0.f;
+        v.z = (yin && x + 2 >= 0 && x + 2 < q.W) ? src[x + 2] : 0.f;
+        v.w = (yin && x + 3 >= 0 && x + 3 < q.W) ? src[x + 3] : 0.f;
+        reinterpret_cast<float4*>(dst + (size_t)r * win)[c] = v;
+      } else {
+        const int x = x0 + c;
+        dst[(size_t)r * win + c] = (yin && x >= 0 && x < q.W) ? src[x] : 0.f;
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// K1: the [L, N, win, win] windows of L images (levels[l], origins ox / oy
+// [L, N]) in one launch, windows_per_block warps per block.
+extern "C" int gather_windows_levels_launch(const LevelImage* levels, int L, const int* ox,
+                                            const int* oy, int N, int win, float* out,
+                                            int windows_per_block, cudaStream_t stream) {
+  if (L < 1 || L > kMaxLevels || windows_per_block < 1 || windows_per_block > 32)
+    return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  gather_windows_kernel<<<N, threads_for(win), 0, stream>>>(img, H, W, ox, oy, win, out);
+  LevelsArgs a;
+  a.L = L;
+  for (int l = 0; l < L; ++l) a.lv[l] = levels[l];
+  for (int l = L; l < kMaxLevels; ++l) a.lv[l] = LevelImage{nullptr, 0, 0};
+  const int blocks = (L * N + windows_per_block - 1) / windows_per_block;
+  const bool vec = win % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
+  if (vec)
+    gather_levels_kernel<true><<<blocks, 32 * windows_per_block, 0, stream>>>(a, ox, oy, N,
+                                                                            win, out);
+  else
+    gather_levels_kernel<false><<<blocks, 32 * windows_per_block, 0, stream>>>(a, ox, oy, N,
+                                                                             win, out);
   return (int)cudaGetLastError();
 }
 

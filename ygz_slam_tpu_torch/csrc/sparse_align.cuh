@@ -4,7 +4,8 @@
 // pixel-per-lane pass over every usable point's 4x4 patch (sampled
 // bilinearly from its 16x16 window with ordinary indexed loads), the
 // block-reduced normal equations of one pass, and the coarse-to-fine loop
-// over every level (K3 and K11).
+// over every level (K3 and K11).  K9 v1 runs the same pass over a
+// thread-block cluster (sparse_align_fused.cu).
 #pragma once
 
 #include "common.cuh"
@@ -162,15 +163,12 @@ __device__ __forceinline__ void residual_pass(const float R[9], const float t[3]
   chi2 = acc[6] / fmaxf(acc[7], 1.f);
 }
 
-// H (21 upper-triangular sums), b = -sum J r and chi2 = sum r^2 /
-// max(#pixels used, 1) at pose (R, t), in one pass and one 29-value block
-// reduction (the per-iteration normal equations of K9 v1, and each level's
-// first pass in mega_levels).
-__device__ __forceinline__ void normal_eqs(const float R[9], const float t[3],
-                                           const float* pref, int N, const Cam& c,
-                                           const Level& lv, float (&h)[21], float bv[6],
-                                           float& chi2, Reducer& red) {
-  float acc[29];
+// This thread's share of one normal-equation pass at pose (R, t) over
+// points [0, N): acc[0..21) the upper-triangular J^T J, acc[21..27) -J^T r,
+// acc[27] r^2, acc[28] the pixels used; no reduction.
+__device__ __forceinline__ void normal_partials(const float R[9], const float t[3],
+                                                const float* pref, int N, const Cam& c,
+                                                const Level& lv, float (&acc)[29]) {
 #pragma unroll
   for (int k = 0; k < 29; ++k) acc[k] = 0.f;
   for_each_pixel(R, t, pref, N, c, lv, [&](int i, int p, float fx, float fy, bool use) {
@@ -187,6 +185,17 @@ __device__ __forceinline__ void normal_eqs(const float R[9], const float t[3],
     acc[27] = fmaf(res, res, acc[27]);
     acc[28] += use ? 1.f : 0.f;
   });
+}
+
+// H (21 upper-triangular sums), b = -sum J r and chi2 = sum r^2 /
+// max(#pixels used, 1) at pose (R, t), in one pass and one 29-value block
+// reduction (each level's first pass in mega_levels).
+__device__ __forceinline__ void normal_eqs(const float R[9], const float t[3],
+                                           const float* pref, int N, const Cam& c,
+                                           const Level& lv, float (&h)[21], float bv[6],
+                                           float& chi2, Reducer& red) {
+  float acc[29];
+  normal_partials(R, t, pref, N, c, lv, acc);
   red.sum(acc);
 #pragma unroll
   for (int k = 0; k < 21; ++k) h[k] = acc[k];

@@ -28,14 +28,34 @@
 // Bound: neither bytes nor operations.  One level reads at most ~0.4 MB
 // (N=256 windows, patches, Jacobians: well under a microsecond at
 // 3.35 TB/s) and does ~1 MFLOP per iteration; the time is the serial chain
-// of dependent iterations, each one pass over the points and one block
-// reduction.  So one CTA of 512 threads runs the chain on K3's per-pass
-// body (sparse_align.cuh: a pixel per lane, transposed warp reductions
-// whose sums every thread receives in the same order), and each thread
-// then solves the 6x6 system redundantly in registers (no broadcast, the
-// pose never leaves registers).
+// of dependent iterations, each one pass over the points and one
+// reduction.
+//   v2 runs the chain in one CTA of 512 threads on K3's per-pass body
+//      (sparse_align.cuh: a pixel per lane, transposed warp reductions
+//      whose sums every thread receives in the same order); each thread
+//      solves the 6x6 system redundantly in registers (no broadcast, the
+//      pose never leaves registers).
+//   v1 spreads each pass over a thread-block cluster of up to 8 CTAs of
+//      256 threads (the wrapper's partition: a CTA per 32 points, so one
+//      round of the pixel loop per CTA where one CTA took N / 32 rounds).
+//      Every CTA holds the pose in registers and runs the same loop over
+//      its own contiguous range of points; each pass it block-reduces its
+//      29 partial sums (21 H, 6 b, chi2, the pixel count), publishes them
+//      in its own shared-memory slot, passes one cluster barrier (release
+//      / acquire) and reads every CTA's slot through distributed shared
+//      memory, summing them in rank order.  So every thread of every CTA
+//      holds the same bits, solves the same system and takes the same
+//      accept and stop decisions, with no broadcast and no atomics: a
+//      launch repeats bit for bit.  The slots alternate between two
+//      buffers, so one barrier per pass suffices, and a last barrier keeps
+//      every CTA (and its slots) alive until all have read them.  The
+//      loop keeps one state of sums (the last pass's) in registers; thread
+//      0 of rank 0 writes each accepted state to the output.
+#include <cooperative_groups.h>
+
 #include "sparse_align.cuh"
 
+namespace cg = cooperative_groups;
 using namespace ygz;
 using namespace ygz::sparse_align;
 
@@ -66,54 +86,139 @@ __device__ __forceinline__ float max_abs6(const float dx[6]) {
   return m;
 }
 
-__global__ void __launch_bounds__(kThreads)
-level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
-                      const float* __restrict__ jac, const float* __restrict__ pref,
-                      const float* __restrict__ vis, const int* __restrict__ ox,
-                      const int* __restrict__ oy, const float* __restrict__ pose0,
-                      float* __restrict__ out, int N, int Hl, int Wl, float scale, Cam cam,
-                      int n_iter, float eps) {
-  __shared__ float smem[kRedFloats];
-  Reducer red(smem);
-  const Level lv = make_level(wins, refp, jac, vis, ox, oy, scale, Hl, Wl);
-  float R[9], t[3];
+constexpr int kV1Threads = 256;
+constexpr int kMaxCluster = 8;       // the portable cluster size
+constexpr int kSums = 29;            // 21 H, 6 b, chi2 numerator, pixel count
+
+// The cluster's sums of v: each CTA's block sums (identical in all its
+// threads) published in its slot slots[flip], one cluster barrier, then
+// lane k < kSums of every warp adds sum k of CTAs 0, 1, ..., C - 1 (read
+// through distributed shared memory, in rank order) and a shuffle hands
+// each lane all of them.  A slot is written again two exchanges later,
+// after a barrier that every CTA passes only once it has read it.
+__device__ __forceinline__ void cluster_sum(float (&v)[kSums], float (*slots)[32], int& flip,
+                                            int C) {
+  const int lane = threadIdx.x & 31;
+  float* mine = slots[flip];
+  flip ^= 1;
+  float x = 0.f;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = pose0[k];
+  for (int k = 0; k < kSums; ++k) x = lane == k ? v[k] : x;
+  if (threadIdx.x < kSums) mine[threadIdx.x] = x;
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = lane < kSums ? lane : 0;
+  float tot = *cluster.map_shared_rank(mine + k, 0);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
-  float h[21], bv[6], chi2;
-  normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, red);
-  bool stop = false;
-  for (int it = 0; !stop && it < n_iter; ++it) {
-    float dx[6];
-    solve6(h, bv, dx);
-    const bool conv = max_abs6(dx) < eps;
-    float Rn[9], tn[3], hn[21], bn[6], chi2n;
-    retract_right(R, t, dx, Rn, tn);
-    normal_eqs(Rn, tn, pref, N, cam, lv, hn, bn, chi2n, red);
-    const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
-    if (!worse) {
+  for (int r = 1; r < kMaxCluster; ++r)
+    if (r < C) tot += *cluster.map_shared_rank(mine + k, r);
 #pragma unroll
-      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) t[k] = tn[k];
-#pragma unroll
-      for (int k = 0; k < 21; ++k) h[k] = hn[k];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) bv[k] = bn[k];
-      chi2 = chi2n;
-    }
-    stop = worse || conv;
+  for (int q = 0; q < kSums; ++q) v[q] = __shfl_sync(kFull, tot, q);
+}
+
+// Thread 0 of rank 0, when stamps is given: SM clock at mark k of pass p
+// (0 after the pixel steps, 1 after the block reduction, 2 after the
+// cluster exchange, 3 after the solve and retraction, or the decision of
+// the last pass).
+__device__ __forceinline__ void v1_mark(unsigned long long* stamps, int p, int k) {
+  if (stamps != nullptr && threadIdx.x == 0 && blockIdx.x == 0)
+    stamps[4 + 4 * p + k] = (unsigned long long)clock64();
+}
+
+__device__ __forceinline__ void v1_time(unsigned long long* stamps, int k) {
+  if (stamps != nullptr && threadIdx.x == 0 && blockIdx.x == 0) {
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    stamps[2 * k] = g;
+    stamps[2 * k + 1] = (unsigned long long)clock64();
   }
-  if (threadIdx.x == 0) {
+}
+
+// One normal-equation pass at pose (R, t): the cluster's 29 sums in acc,
+// the same bits in every thread of every CTA.
+__device__ __forceinline__ void v1_pass(const float R[9], const float t[3], const float* pref,
+                                        int n, const Cam& cam, const Level& lv,
+                                        float (&acc)[kSums], Reducer& red, float (*slots)[32],
+                                        int& flip, int C, unsigned long long* stamps, int p) {
+  normal_partials(R, t, pref, n, cam, lv, acc);
+  v1_mark(stamps, p, 0);
+  red.sum(acc);
+  v1_mark(stamps, p, 1);
+  cluster_sum(acc, slots, flip, C);
+  v1_mark(stamps, p, 2);
+}
+
+// Thread 0 of rank 0 writes an accepted state: R, t, chi2, H.
+__device__ __forceinline__ void v1_accept(float* __restrict__ out, const float R[9],
+                                          const float t[3], float chi2,
+                                          const float (&acc)[kSums]) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) out[k] = R[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) out[9 + k] = t[k];
     out[12] = chi2;
 #pragma unroll
-    for (int k = 0; k < 21; ++k) out[13 + k] = h[k];
+    for (int k = 0; k < 21; ++k) out[13 + k] = acc[k];
   }
+}
+
+// The grid is one cluster of C CTAs; CTA r takes points
+// [r * per_cta, min(N, (r + 1) * per_cta)).
+__global__ void __launch_bounds__(kV1Threads)
+level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
+                      const float* __restrict__ jac, const float* __restrict__ pref,
+                      const float* __restrict__ vis, const int* __restrict__ ox,
+                      const int* __restrict__ oy, const float* __restrict__ pose0,
+                      float* __restrict__ out, int N, int Hl, int Wl, float scale, Cam cam,
+                      int n_iter, float eps, int per_cta,
+                      unsigned long long* __restrict__ stamps) {
+  __shared__ float smem[kRedFloats];
+  __shared__ float slots[2][32];
+  Reducer red(smem);
+  v1_time(stamps, 0);
+  const int C = gridDim.x;
+  const int n0 = min(N, (int)blockIdx.x * per_cta);
+  const int n = min(N, n0 + per_cta) - n0;
+  const Level lv = make_level(wins + (size_t)n0 * kCwin * kCwin, refp + (size_t)n0 * kNpix,
+                              jac + (size_t)n0 * kNpix * 6, vis + n0, ox + n0, oy + n0, scale,
+                              Hl, Wl);
+  const float* pts = pref + 3 * (size_t)n0;
+  int flip = 0;
+  float R[9], t[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[k] = pose0[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
+  // acc: the sums of the last pass, the accepted state's until a trial.
+  float acc[kSums];
+  int p = 0;                              // passes so far, less one
+  v1_pass(R, t, pts, n, cam, lv, acc, red, slots, flip, C, stamps, p);
+  float chi2 = acc[27] / fmaxf(acc[28], 1.f);
+  v1_accept(out, R, t, chi2, acc);
+  for (int it = 0; it < n_iter; ++it) {
+    float dx[6], Rn[9], tn[3];
+    solve6(acc, acc + 21, dx);
+    const bool conv = max_abs6(dx) < eps;
+    retract_right(R, t, dx, Rn, tn);
+    v1_mark(stamps, p++, 3);
+    v1_pass(Rn, tn, pts, n, cam, lv, acc, red, slots, flip, C, stamps, p);
+    const float chi2n = acc[27] / fmaxf(acc[28], 1.f);
+    if (!(chi2n <= chi2)) break;          // worse (a NaN trial counts as worse): roll back
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = tn[k];
+    chi2 = chi2n;
+    v1_accept(out, R, t, chi2, acc);
+    if (conv) break;
+  }
+  v1_mark(stamps, p, 3);
+  // No CTA leaves (and frees its slots) before every CTA has read them.
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  v1_time(stamps, 1);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -170,15 +275,37 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
 
 }  // namespace
 
+// One launch of K9 v1 as a single cluster of `cluster` CTAs (1..8), CTA r
+// taking points [r * per_cta, min(N, (r + 1) * per_cta)); stamps may be
+// null, else int64 [4 + 4 * (n_iter + 1)]: the global timer and SM clock
+// at the start and the end, then each pass's four marks.  Returns the CUDA
+// error of the launch (a refused cluster launch is an error: no retry with
+// a smaller cluster).
 extern "C" int level_align_v1_launch(const float* wins, const float* refp, const float* jac,
                                      const float* pref, const float* vis, const int* ox,
                                      const int* oy, const float* pose0, float* out, int N,
                                      int Hl, int Wl, float scale, float fx, float fy, float cx,
                                      float cy, float k1, float k2, float p1, float p2,
-                                     int n_iter, float eps, cudaStream_t stream) {
+                                     int n_iter, float eps, int cluster, int per_cta,
+                                     unsigned long long* stamps, cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < N)
+    return (int)cudaErrorInvalidValue;
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  level_align_v1_kernel<<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
-                                                   out, N, Hl, Wl, scale, cam, n_iter, eps);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kV1Threads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, level_align_v1_kernel, wins, refp, jac, pref,
+                                           vis, ox, oy, pose0, out, N, Hl, Wl, scale, cam,
+                                           n_iter, eps, per_cta, stamps);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

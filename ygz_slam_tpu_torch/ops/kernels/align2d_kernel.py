@@ -7,7 +7,8 @@ kernels (csrc/gather_windows.cu) replace `gather_windows` (K1),
 TPU's aligned super-windows, shift matmuls and image de-duplication are
 not carried over.  Every gather returns the window of the zero-padded
 image at the requested origin, as the JAX kernels do: pixels outside the
-image are 0.
+image are 0.  K1 also takes every level of a pyramid in one launch
+(`gather_windows_levels`); `gather_windows` is its one-level case.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ PATCH = 8
 CACHE_WIN = 32
 CACHE_SLACK = (CACHE_WIN - PATCH - 1) // 2  # 11 px
 MAX_GROUPS = 8          # K6 requests per launch (csrc/gather_windows.cu)
+MAX_LEVELS = 8          # K1 levels per launch (csrc/gather_windows.cu)
+# K1's block: a warp per window, this many windows per block (chip_smoke.py
+# phase 2a times the choices on the card; PERF.md).
+WINDOWS_PER_BLOCK = 4
 
 
 def _check_window(win: int, H: int, W: int) -> None:
@@ -52,27 +57,82 @@ def gather_windows_plain(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
     return torch.where(inside, img[r, c], 0.0)
 
 
+class _LevelImage(ctypes.Structure):
+    """One level of a K1 launch, laid out as `LevelImage` in
+    csrc/gather_windows.cu."""
+    _fields_ = [("img", ctypes.c_void_p), ("H", ctypes.c_int), ("W", ctypes.c_int)]
+
+
+def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor, windows_per_block: int) -> None:
+    """K1 on L = len(imgs) images and origins [L, N] into out [L, N, win, win]."""
+    dev = out.device
+    L, N = xi.shape
+    descs = (_LevelImage * L)()
+    for l, img in enumerate(imgs):
+        require(img, f"imgs[{l}]", torch.float32, tuple(img.shape), dev)
+        if img.dim() != 2:
+            raise ValueError(f"imgs[{l}]: expected an [H, W] image, got {tuple(img.shape)}")
+        descs[l] = _LevelImage(img.data_ptr(), *img.shape)
+    require(xi, "xi", torch.int32, (L, N), dev)
+    require(yi, "yi", torch.int32, (L, N), dev)
+    launch("gather_windows", "gather_windows_levels_launch", [P, I, P, P, I, I, P, I, P],
+           ctypes.addressof(descs), L, xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
+           windows_per_block, stream(dev))
+
+
 def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
                    win: int) -> torch.Tensor:
     """[H, W] float32 image + int32 origins [N] -> [N, win, win] windows of
-    the zero-padded image.  K1 on the card, the plain version on the CPU."""
+    the zero-padded image.  K1 (one level) on the card, the plain version
+    on the CPU."""
     H, W = img.shape
     _check_window(win, H, W)
     if not on_card(img):
         return gather_windows_plain(img, xi, yi, win)
     N = xi.shape[0]
-    require(img, "img", torch.float32, (H, W), img.device)
     require(xi, "xi", torch.int32, (N,), img.device)
     require(yi, "yi", torch.int32, (N,), img.device)
-    out = torch.empty((N, win, win), dtype=torch.float32, device=img.device)
-    launch("gather_windows", "gather_windows_launch", [P, I, I, P, P, I, I, P, P],
-           img.data_ptr(), H, W, xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
-           stream(img.device))
+    out = torch.empty((1, N, win, win), dtype=torch.float32, device=img.device)
+    _launch_levels((img,), xi.view(1, N), yi.view(1, N), win, out, WINDOWS_PER_BLOCK)
     launched(gather_windows, img, xi, yi, win)
-    return out
+    return out[0]
 
 
 gather_windows.launches = 0
+
+
+def gather_windows_levels_plain(imgs, xi: torch.Tensor, yi: torch.Tensor,
+                                win: int) -> torch.Tensor:
+    """Plain version of K1 over a pyramid: K1's plain version on each
+    level, stacked."""
+    return torch.stack([gather_windows_plain(img, xi[l], yi[l], win)
+                        for l, img in enumerate(imgs)])
+
+
+def gather_windows_levels(imgs, xi: torch.Tensor, yi: torch.Tensor, win: int, *,
+                          windows_per_block: int = WINDOWS_PER_BLOCK) -> torch.Tensor:
+    """The levels of one pyramid, `imgs` (1..MAX_LEVELS float32 [H_l, W_l]
+    images), with int32 origins xi, yi [L, N] -> [L, N, win, win]: level
+    l's windows of its zero-padded image, `gather_windows` on each level,
+    in one launch of K1 on the card (`windows_per_block` windows per
+    block), the plain version on the CPU."""
+    L = len(imgs)
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"K1 takes 1..{MAX_LEVELS} levels, got {L}")
+    if xi.dim() != 2 or xi.shape[0] != L or yi.shape != xi.shape:
+        raise ValueError(f"origins: expected xi, yi [{L}, N], got {tuple(xi.shape)} and "
+                         f"{tuple(yi.shape)}")
+    for img in imgs:
+        _check_window(win, *img.shape)
+    if not on_card(imgs[0]):
+        return gather_windows_levels_plain(imgs, xi, yi, win)
+    out = torch.empty((L, xi.shape[1], win, win), dtype=torch.float32, device=imgs[0].device)
+    _launch_levels(imgs, xi, yi, win, out, windows_per_block)
+    launched(gather_windows_levels, imgs, xi, yi, win)
+    return out
+
+
+gather_windows_levels.launches = 0
 
 
 def gather_windows_multi_plain(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Tensor,

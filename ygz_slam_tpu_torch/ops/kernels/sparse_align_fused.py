@@ -9,9 +9,12 @@ their wrappers, `level_gn_plain` / `level_gn_v2_plain` their plain
 versions, and `level_align_fused` / `level_align_fused_v2` the JAX
 package's entry points: windows gathered by K1 around the level-init
 projection, then one launch.  `ops.sparse_align` runs them level by level
-under FUSED_VARIANT 1 and 2.
+under FUSED_VARIANT 1 and 2.  K9 v1 runs as one thread-block cluster;
+`level_partition` says how the points are spread over it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +24,24 @@ from .sparse_align_mega import (CWIN, MAX_ITER, PATCH, SLACK, STOP_STEP, _HALF, 
                                 frozen_h0, level_passes)
 
 _NPIX = PATCH * PATCH
+# K9 v1's launch geometry (csrc/sparse_align_fused.cu).
+V1_THREADS = 256               # a CTA's threads
+V1_POINTS_PER_CTA = 32         # one round of the pixel loop of a 256-thread CTA
+MAX_CLUSTER = 8                # the portable cluster size
+V1_STAMPS = 4 + 4 * (MAX_ITER + 1)   # `level_gn(stamps=)`'s length
+
+
+class Partition(NamedTuple):
+    """How one K9 v1 launch spreads N points over its cluster."""
+    cluster: int     # CTAs, all in one cluster (the grid)
+    per_cta: int     # CTA r takes points [r * per_cta, min(N, (r + 1) * per_cta))
+
+
+def level_partition(n: int, points_per_cta: int = V1_POINTS_PER_CTA) -> Partition:
+    """K9 v1's partition of n points: a CTA per `points_per_cta` points up
+    to MAX_CLUSTER, in contiguous ranges of equal size but the last."""
+    cluster = max(1, min(MAX_CLUSTER, -(-n // points_per_cta)))
+    return Partition(cluster, -(-n // cluster))
 
 
 def level_gn_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level,
@@ -101,20 +122,33 @@ def _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0):
     return N, dev
 
 
-def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level):
+def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level, *,
+             stamps: torch.Tensor | None = None, points_per_cta: int = V1_POINTS_PER_CTA):
     """K9 v1 on the card, its plain version on the CPU; arguments as for
-    `level_gn_plain`."""
+    `level_gn_plain`.  The launch spreads the points over a cluster of
+    `level_partition(N, points_per_cta)`.
+
+    `stamps`, an int64 tensor [V1_STAMPS] on the card set to 0, receives
+    from thread 0 of CTA 0 the global timer (ns) and SM clock at the
+    kernel's start ([0:2]) and end ([2:4]), then for pass p the SM clock at
+    [4 + 4p:8 + 4p]: after its pixel steps, its block reduction, its
+    cluster exchange, and its solve and retraction (the last pass: its
+    decision)."""
     if not on_card(wins):
         return level_gn_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl,
                               Wl, level)
     N, dev = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
+    if stamps is not None:
+        require(stamps, "stamps", torch.int64, (V1_STAMPS,), dev)
     out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
+    part = level_partition(N, points_per_cta)
     launch("sparse_align_fused", "level_align_v1_launch",
-           [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, P],
+           [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, I, P, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(), N, Hl, Wl,
            1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy, *_distortion(cam, distorted),
-           MAX_ITER, STOP_STEP, stream(dev))
+           MAX_ITER, STOP_STEP, part.cluster, part.per_cta,
+           None if stamps is None else stamps.data_ptr(), stream(dev))
     launched(level_gn, wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
              level)
     return out

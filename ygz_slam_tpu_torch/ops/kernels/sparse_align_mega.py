@@ -3,17 +3,19 @@
 Counterpart of ygz_slam_tpu/ops/pallas/sparse_align_mega.py.  The CUDA
 kernel (csrc/sparse_align_mega.cu) replaces `_mega_kernel`; `mega_gn` is
 its wrapper and `mega_gn_plain` its plain version.  Windows are gathered
-at the frame-init pose, SLACK px at each level's own scale: by K1 here, or
-beforehand by the caller (K6 through `sparse_align.gather_frame_windows`).
+at the frame-init pose, SLACK px at each level's own scale: every level in
+one launch of K1 here, or beforehand by the caller (K6 through
+`sparse_align.gather_frame_windows`).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
-from .align2d_kernel import gather_windows
+from .align2d_kernel import gather_windows_levels
 
 # Geometry of the TPU kernel (ops/pallas/sparse_align_fused.py), kept here.
 CWIN = 16                      # cached window side
@@ -43,28 +45,36 @@ class MegaWindows(NamedTuple):
     px0_l0: torch.Tensor   # [N, 2] their level-0 pixels
 
 
-def mega_window_requests(cur_pyr, p_ref, R0, t0, cam, distorted: bool, n_levels: int):
-    """The reference points projected at the frame-init pose, and each
-    level's (img, ox, oy, CWIN) gather request around them.  Returns (pc0,
-    px0_l0, requests)."""
+def level_consts(shapes, device, sub: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """For a pyramid whose levels have these [H_l, W_l] shapes: each level's
+    scale 2^-l [L, 1] and (W_l - sub, H_l - sub) [L, 2], float32 tensors on
+    `device`, made once per pyramid geometry (no host-to-device copy per
+    frame)."""
+    return _level_consts(tuple((int(h), int(w)) for h, w in shapes), str(device), float(sub))
+
+
+@functools.lru_cache(maxsize=64)
+def _level_consts(shapes, device: str, sub: float):
+    scale = torch.tensor([[0.5 ** li] for li in range(len(shapes))], dtype=torch.float32,
+                         device=device)
+    wh = torch.tensor([[W - sub, H - sub] for H, W in shapes], dtype=torch.float32,
+                      device=device)
+    return scale, wh
+
+
+def mega_window_origins(cur_pyr, p_ref, R0, t0, cam, distorted: bool, n_levels: int):
+    """The reference points projected at the frame-init pose, and every
+    level's 16x16 window origins around them, all levels at once.  Returns
+    (pc0 [N, 3], px0_l0 [N, 2], ox [L, N], oy [L, N] int32)."""
     pc0 = p_ref @ R0.T + t0
     px0_l0 = torch.nan_to_num(cam.camera_to_pixel(pc0, distorted=distorted))
-    reqs = []
-    for li in range(n_levels):
-        img = cur_pyr[li]
-        Hl, Wl = img.shape
-        px0 = px0_l0 / (2.0 ** li)
-        ox = torch.clamp(torch.floor(px0[:, 0] - _HALF) - SLACK, 0, Wl - CWIN).to(torch.int32)
-        oy = torch.clamp(torch.floor(px0[:, 1] - _HALF) - SLACK, 0, Hl - CWIN).to(torch.int32)
-        reqs.append((img, ox, oy, CWIN))
-    return pc0, px0_l0, reqs
-
-
-def mega_windows(pc0, px0_l0, reqs, wins) -> MegaWindows:
-    """The MegaWindows of `mega_window_requests`' output and the windows
-    fetched for its requests (per level [N, CWIN, CWIN])."""
-    return MegaWindows(torch.stack(tuple(wins)), torch.stack([r[1] for r in reqs]),
-                       torch.stack([r[2] for r in reqs]), pc0, px0_l0)
+    scale, hi = level_consts([img.shape for img in cur_pyr[:n_levels]], px0_l0.device, CWIN)
+    # [L, N, 2]: (x, y) at each level's scale (x 2^-l is exact), floored,
+    # then clamped into [0, W_l - CWIN] x [0, H_l - CWIN].
+    o = torch.floor(px0_l0 * scale[:, :, None] - _HALF) - SLACK
+    o = torch.minimum(torch.clamp(o, min=0), hi[:, None, :]).to(torch.int32)
+    o = o.permute(2, 0, 1).contiguous()
+    return pc0, px0_l0, o[0], o[1]
 
 
 def _distortion(cam, distorted: bool) -> tuple[float, float, float, float]:
@@ -231,17 +241,18 @@ mega_gn.launches = 0
 
 def mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool, n_levels: int,
               mega_refp, mega_jl, pregathered: MegaWindows | None = None):
-    """K3's inputs for one frame: the windows of every level gathered (K1)
-    at the frame-init pose, or `pregathered` (fetched at that pose
+    """K3's inputs for one frame: the windows of every level gathered at
+    the frame-init pose (one launch of K1), or `pregathered` (fetched at that pose
     beforehand, by K6), plus the keyframe constants (`mega_refp` /
     `mega_jl`: every level's patches and Jacobians stacked, as
     ReferencePrep holds them).  Returns (args of `mega_gn`, the
     MegaWindows)."""
     mw = pregathered
     if mw is None:
-        pc0, px0_l0, reqs = mega_window_requests(cur_pyr, p_ref, R0, t0, cam, distorted,
-                                                 n_levels)
-        mw = mega_windows(pc0, px0_l0, reqs, [gather_windows(*r) for r in reqs])
+        pc0, px0_l0, ox, oy = mega_window_origins(cur_pyr, p_ref, R0, t0, cam, distorted,
+                                                  n_levels)
+        wins = gather_windows_levels(tuple(cur_pyr[:n_levels]), ox, oy, CWIN)
+        mw = MegaWindows(wins, ox, oy, pc0, px0_l0)
     lvis = torch.stack([level_refs[li].vis for li in range(n_levels)]).to(torch.float32)
     pose0 = torch.cat([R0.reshape(9), t0.reshape(3)]).to(torch.float32).contiguous()
     H0, W0 = cur_pyr[0].shape

@@ -2,8 +2,8 @@
 ygz_slam_tpu/ops/sparse_align.py, kernel paths only).
 
 `prepare_reference` computes the keyframe side once (4x4 reference
-patches and inverse-compositional Jacobians per level, through K1's
-`bilinear_patches`).  `sparse_image_align` then runs, as the module
+patches and inverse-compositional Jacobians per level, from one 7x7 window
+per point and level, every level's in one launch of K1).  `sparse_image_align` then runs, as the module
 constant FUSED_VARIANT says when the call is made:
   3 (the default) every level's GN loop in one launch of K3;
   2 level by level, max -> 0, each level one launch of K9 v2 (substitutions
@@ -27,9 +27,10 @@ from ..geometry import jacobians as jac
 from ..geometry.se3 import SE3
 from .interp import in_bounds
 from .kernels.align2d_fused import A2DWindows, a2d_window_origins
-from .kernels.align2d_kernel import CACHE_WIN, bilinear_patches, gather_windows_grouped
+from .kernels.align2d_kernel import (CACHE_WIN, _bilinear_mix, gather_windows_grouped,
+                                     gather_windows_levels)
 from .kernels.sparse_align_fused import level_align_fused, level_align_fused_v2
-from .kernels.sparse_align_mega import (MegaWindows, mega_window_requests, mega_windows,
+from .kernels.sparse_align_mega import (CWIN, MegaWindows, level_consts, mega_window_origins,
                                         sparse_align_mega)
 
 PATCH_HALF = 2
@@ -61,38 +62,56 @@ class ReferencePrep(NamedTuple):
     mega_jl: torch.Tensor    # [L, N, 16, 6]: J of every level, stacked
 
 
-def _prep_level(ref_img, cam, px_ref, p_ref, visible0, level) -> LevelRef:
-    """Reference patches + Jacobians for one pyramid level: one 6x6
-    bilinear window per point gives the 4x4 patch and its central
-    differences."""
-    scale = 1.0 / (2.0 ** level)
-    Hh, Ww = ref_img.shape
-    u_ref = px_ref * scale
-    vis = visible0 & in_bounds(u_ref, Hh, Ww, margin=PATCH_HALF + 2)
-    p6 = bilinear_patches(ref_img, u_ref, PATCH + 2)
-    ref_patch = p6[:, 1:5, 1:5].reshape(-1, PATCH_AREA)
-    dx = (0.5 * (p6[:, 1:5, 2:6] - p6[:, 1:5, 0:4])).reshape(-1, PATCH_AREA)
-    dy = (0.5 * (p6[:, 2:6, 1:5] - p6[:, 0:4, 1:5])).reshape(-1, PATCH_AREA)
-    J_proj = jac.duv_dxi(p_ref, cam.fx * scale, cam.fy * scale)        # [N, 2, 6]
-    J = dx[..., None] * J_proj[:, None, 0, :] + dy[..., None] * J_proj[:, None, 1, :]
-    return LevelRef(vis=vis, ref_patch=ref_patch.contiguous(), J=J.contiguous())
+def _bilinear_level_patches(ref_pyr, px_ref: torch.Tensor, size: int) -> torch.Tensor:
+    """`bilinear_patches(ref_pyr[l], px_ref * 2^-l, size)` for every level
+    l of `ref_pyr` -> [L, N, size, size], the (size+1)-windows of every
+    level gathered in one launch of K1.  Per element the same operations
+    as the per-level call, so the same bits."""
+    L = len(ref_pyr)
+    shapes = [img.shape for img in ref_pyr]
+    scale, hi_c = level_consts(shapes, px_ref.device, 1.0)         # (W_l - 1, H_l - 1)
+    _, hi_o = level_consts(shapes, px_ref.device, size + 1.0)      # (W_l - win, H_l - win)
+    half = (size - 1) / 2.0
+    u = torch.nan_to_num(px_ref * scale[:, :, None])                 # [L, N, 2]
+    c = torch.minimum(torch.clamp(u, min=0.0), hi_c[:, None, :])
+    o = torch.minimum(torch.clamp(torch.floor(c - half), min=0), hi_o[:, None, :])
+    oi = o.to(torch.int32).permute(2, 0, 1).contiguous()
+    w = gather_windows_levels(tuple(ref_pyr), oi[0], oi[1], size + 1)
+    N = px_ref.shape[0]
+    p = _bilinear_mix(w.reshape(L * N, size + 1, size + 1), c[..., 0].reshape(-1),
+                      c[..., 1].reshape(-1), o[..., 0].reshape(-1), o[..., 1].reshape(-1),
+                      half, size)
+    return p.reshape(L, N, size, size)
 
 
 def prepare_reference(ref_pyr, cam, px_ref, depth_ref, mask,
                       max_level: int | None = None, distorted: bool = True) -> ReferencePrep:
     """Everything sparse_image_align needs from the reference frame
     (precomputeReferencePatches, SparseImageAlign.cpp:59-122), for levels
-    max_level..0."""
+    max_level..0: per level and point, the 4x4 patch and its central
+    differences from one 6x6 bilinear patch (every level's 7x7 windows in
+    one launch of K1), and the Jacobians."""
     if max_level is None:
         max_level = len(ref_pyr) - 1
+    L = max_level + 1
     p_ref = cam.pixel_to_camera(px_ref, depth_ref, distorted=distorted)
     visible0 = mask & (depth_ref > 1e-3)
-    levels = tuple(_prep_level(ref_pyr[lv], cam, px_ref, p_ref, visible0, lv)
-                   for lv in range(max_level + 1))
-    return ReferencePrep(
-        p_ref=p_ref.contiguous(), levels=levels,
-        mega_refp=torch.stack([lr.ref_patch for lr in levels]).contiguous(),
-        mega_jl=torch.stack([lr.J for lr in levels]).contiguous())
+    p6 = _bilinear_level_patches(ref_pyr[:L], px_ref, PATCH + 2)       # [L, N, 6, 6]
+    ref_patch = p6[:, :, 1:5, 1:5].reshape(L, -1, PATCH_AREA)
+    dx = (0.5 * (p6[:, :, 1:5, 2:6] - p6[:, :, 1:5, 0:4])).reshape(L, -1, PATCH_AREA)
+    dy = (0.5 * (p6[:, :, 2:6, 1:5] - p6[:, :, 0:4, 1:5])).reshape(L, -1, PATCH_AREA)
+    levels = []
+    for lv in range(L):
+        scale = 1.0 / (2.0 ** lv)
+        Hh, Ww = ref_pyr[lv].shape
+        vis = visible0 & in_bounds(px_ref * scale, Hh, Ww, margin=PATCH_HALF + 2)
+        J_proj = jac.duv_dxi(p_ref, cam.fx * scale, cam.fy * scale)    # [N, 2, 6]
+        J = (dx[lv][..., None] * J_proj[:, None, 0, :]
+             + dy[lv][..., None] * J_proj[:, None, 1, :])
+        levels.append(LevelRef(vis=vis, ref_patch=ref_patch[lv], J=J.contiguous()))
+    return ReferencePrep(p_ref=p_ref.contiguous(), levels=tuple(levels),
+                         mega_refp=ref_patch.contiguous(),
+                         mega_jl=torch.stack([lr.J for lr in levels]))
 
 
 class FrameWindows(NamedTuple):
@@ -109,16 +128,17 @@ def gather_frame_windows(cur_pyr, cam, ref_prep: ReferencePrep, T_init: SE3,
     given `a2d_centers [M, 2]` (predicted patch centers on level 0),
     align2d's 32x32 cache windows around them, in one launch of K6."""
     n_levels = len(cur_pyr)
-    pc0, px0_l0, reqs = mega_window_requests(cur_pyr, ref_prep.p_ref, T_init.R, T_init.t, cam,
-                                             distorted, n_levels)
+    pc0, px0_l0, ox_l, oy_l = mega_window_origins(cur_pyr, ref_prep.p_ref, T_init.R, T_init.t,
+                                                  cam, distorted, n_levels)
+    reqs = [(cur_pyr[li], ox_l[li], oy_l[li], CWIN) for li in range(n_levels)]
     if a2d_centers is not None:
         img0 = cur_pyr[0]
         ox, oy = a2d_window_origins(torch.nan_to_num(a2d_centers.to(img0.dtype)), *img0.shape)
         reqs.append((img0, ox, oy, CACHE_WIN))
     outs = gather_windows_grouped(reqs)
     a2d = None if a2d_centers is None else A2DWindows(wins=outs[n_levels], ox=ox, oy=oy)
-    return FrameWindows(mega_wins=mega_windows(pc0, px0_l0, reqs[:n_levels], outs[:n_levels]),
-                        a2d=a2d)
+    return FrameWindows(mega_wins=MegaWindows(torch.stack(outs[:n_levels]), ox_l, oy_l, pc0,
+                                              px0_l0), a2d=a2d)
 
 
 def sparse_image_align(ref_pyr, cur_pyr, cam, px_ref, depth_ref, mask, T_init: SE3,
