@@ -30,6 +30,9 @@
 //     read and write, with no division per pixel: for win 16 and 32 each
 //     lane copies 4 pixels of a row and stores them as one 128-bit store
 //     (the output rows are 16-byte aligned, the source rows are not);
+//   - a lane issues all its loads of a window (up to 8 warp steps of
+//     rows) before its first store, so they wait on one memory latency,
+//     not one per step;
 //   - zero fill outside the image, as before.
 // K2 and K6 keep one block per window, threads over its pixels.
 #include <cassert>
@@ -126,39 +129,52 @@ struct LevelsArgs {
 
 // Window g of a K1 launch (level g / N, point g % N) is written by warp g.
 // kVec: win % 4 == 0, each lane copies 4 pixels of a row into one float4.
+// A row is `units` lane units (a pixel, or 4 pixels under kVec); a warp
+// step covers `rows` rows, lane (dr, c) unit c of row dr of the step.  A
+// lane loads up to kSteps steps' units before it stores any (a 32x32
+// window is 8 steps), so its loads are in flight together.
+constexpr int kSteps = 8;
+
 template <bool kVec>
-__global__ void gather_levels_kernel(const __grid_constant__ LevelsArgs a,
-                                     const int* __restrict__ ox, const int* __restrict__ oy,
-                                     int N, int win, float* __restrict__ out) {
+__global__ void __launch_bounds__(1024)
+gather_levels_kernel(const __grid_constant__ LevelsArgs a,
+                     const int* __restrict__ ox, const int* __restrict__ oy, int N, int win,
+                     float* __restrict__ out) {
+  using Unit = typename std::conditional<kVec, float4, float>::type;
   const int lane = threadIdx.x & 31;
   const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (g >= a.L * N) return;
   const LevelImage q = a.lv[g / N];
   const int x0 = ox[g], y0 = oy[g];
-  float* dst = out + (size_t)g * win * win;
-  // A row is `units` lane units (a pixel, or 4 pixels under kVec); a warp
-  // step covers `rows` rows, lane (dr, c) unit c of row dr of the step.
+  Unit* dst = reinterpret_cast<Unit*>(out + (size_t)g * win * win);
   const int units = kVec ? win >> 2 : win;
   const int rows = units <= 32 ? 32 / units : 1;
   const int dr = units <= 32 ? lane / units : 0;
+  if (dr >= rows) return;
   const int c0 = lane - dr * (units <= 32 ? units : 0);
   const int cstep = units <= 32 ? units : 32;
-  for (int r = dr; r < win && dr < rows; r += rows) {
-    const int y = y0 + r;
-    const bool yin = y >= 0 && y < q.H;
-    const float* src = q.img + (size_t)(yin ? y : 0) * q.W;
-    for (int c = c0; c < units; c += cstep) {
-      if (kVec) {
-        const int x = x0 + 4 * c;
-        float4 v;
-        v.x = (yin && x >= 0 && x < q.W) ? src[x] : 0.f;
-        v.y = (yin && x + 1 >= 0 && x + 1 < q.W) ? src[x + 1] : 0.f;
-        v.z = (yin && x + 2 >= 0 && x + 2 < q.W) ? src[x + 2] : 0.f;
-        v.w = (yin && x + 3 >= 0 && x + 3 < q.W) ? src[x + 3] : 0.f;
-        reinterpret_cast<float4*>(dst + (size_t)r * win)[c] = v;
-      } else {
-        const int x = x0 + c;
-        dst[(size_t)r * win + c] = (yin && x >= 0 && x < q.W) ? src[x] : 0.f;
+  for (int c = c0; c < units; c += cstep) {
+    const int x = x0 + (kVec ? 4 * c : c);
+    for (int r0 = dr; r0 < win; r0 += kSteps * rows) {
+      Unit v[kSteps];
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const int y = y0 + r0 + j * rows;
+        const bool yin = r0 + j * rows < win && y >= 0 && y < q.H;
+        const float* src = q.img + (size_t)(yin ? y : 0) * q.W;
+        if constexpr (kVec) {
+          v[j].x = (yin && x >= 0 && x < q.W) ? __ldg(src + x) : 0.f;
+          v[j].y = (yin && x + 1 >= 0 && x + 1 < q.W) ? __ldg(src + x + 1) : 0.f;
+          v[j].z = (yin && x + 2 >= 0 && x + 2 < q.W) ? __ldg(src + x + 2) : 0.f;
+          v[j].w = (yin && x + 3 >= 0 && x + 3 < q.W) ? __ldg(src + x + 3) : 0.f;
+        } else {
+          v[j] = (yin && x >= 0 && x < q.W) ? __ldg(src + x) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const int r = r0 + j * rows;
+        if (r < win) dst[(size_t)r * units + c] = v[j];
       }
     }
   }
