@@ -164,40 +164,8 @@ __device__ __forceinline__ void v1_accept(float* __restrict__ out, const float R
   }
 }
 
-// Points per CTA up to which a CTA stages its share of the level in
-// shared memory (1472 bytes a point: 188 KB at 128).
-constexpr int kStageMax = 128;
-
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
-
-// Floats of a CTA's staged share of n points: windows, Jacobians,
-// patches, points, then visibility and window origins, each padded to 16
-// bytes.
-__host__ __device__ constexpr int stage_floats(int n) {
-  return n * (kCwin * kCwin + kNpix * 6 + kNpix) + pad4(3 * n) + 3 * pad4(n);
-}
-
-// dst[0..n) <- src[0..n) (4-byte words) by the whole CTA with asynchronous
-// copies, 16 bytes at a time where both sides allow it.
-__device__ __forceinline__ void stage_async(float* dst, const void* src, int n) {
-  const char* s = static_cast<const char*>(src);
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (((reinterpret_cast<size_t>(src) | d) & 15) == 0 && (n & 3) == 0) {
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d + 16 * i),
-                   "l"(s + 16 * i) : "memory");
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d + 4 * i),
-                   "l"(s + 4 * i) : "memory");
-  }
-}
-
 // The grid is one cluster of C CTAs; CTA r takes points
-// [r * per_cta, min(N, (r + 1) * per_cta)).  kStaged: the CTA first
-// copies its share (windows, patches, Jacobians, points, masks, origins)
-// into dynamic shared memory, and every pass reads it there.
-template <bool kStaged>
+// [r * per_cta, min(N, (r + 1) * per_cta)).
 __global__ void __launch_bounds__(kV1Threads)
 level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
@@ -208,40 +176,15 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
                       unsigned long long* __restrict__ stamps) {
   __shared__ float smem[kRedFloats];
   __shared__ float slots[2][32];
-  extern __shared__ float4 staged[];
   Reducer red(smem);
   v1_time(stamps, 0);
   const int C = gridDim.x;
   const int n0 = min(N, (int)blockIdx.x * per_cta);
   const int n = min(N, n0 + per_cta) - n0;
-  Level lv = make_level(wins + (size_t)n0 * kCwin * kCwin, refp + (size_t)n0 * kNpix,
-                        jac + (size_t)n0 * kNpix * 6, vis + n0, ox + n0, oy + n0, scale, Hl, Wl);
+  const Level lv = make_level(wins + (size_t)n0 * kCwin * kCwin, refp + (size_t)n0 * kNpix,
+                              jac + (size_t)n0 * kNpix * 6, vis + n0, ox + n0, oy + n0, scale,
+                              Hl, Wl);
   const float* pts = pref + 3 * (size_t)n0;
-  if constexpr (kStaged) {
-    float* w = reinterpret_cast<float*>(staged);
-    float* j = w + n * kCwin * kCwin;
-    float* r = j + n * kNpix * 6;
-    float* q = r + n * kNpix;
-    float* v = q + pad4(3 * n);
-    float* x = v + pad4(n);
-    float* y = x + pad4(n);
-    stage_async(w, lv.wins, n * kCwin * kCwin);
-    stage_async(j, lv.jac, n * kNpix * 6);
-    stage_async(r, lv.refp, n * kNpix);
-    stage_async(q, pts, 3 * n);
-    stage_async(v, lv.vis, n);
-    stage_async(x, lv.ox, n);
-    stage_async(y, lv.oy, n);
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();
-    lv.wins = w;
-    lv.jac = j;
-    lv.refp = r;
-    lv.vis = v;
-    lv.ox = reinterpret_cast<const int*>(x);
-    lv.oy = reinterpret_cast<const int*>(y);
-    pts = q;
-  }
   int flip = 0;
   float R[9], t[3];
 #pragma unroll
@@ -348,20 +291,9 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
   if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < N)
     return (int)cudaErrorInvalidValue;
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  const bool staged = per_cta <= kStageMax;
-  const int smem_bytes = staged ? stage_floats(per_cta) * (int)sizeof(float) : 0;
-  static bool attr_set = false;   // the staged kernel's dynamic shared memory cap, once
-  if (staged && !attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(level_align_v1_kernel<true>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               stage_floats(kStageMax) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, 1, 1);
   cfg.blockDim = dim3(kV1Threads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -370,13 +302,9 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      staged ? cudaLaunchKernelEx(&cfg, level_align_v1_kernel<true>, wins, refp, jac, pref, vis,
-                                  ox, oy, pose0, out, N, Hl, Wl, scale, cam, n_iter, eps, per_cta,
-                                  stamps)
-             : cudaLaunchKernelEx(&cfg, level_align_v1_kernel<false>, wins, refp, jac, pref,
-                                  vis, ox, oy, pose0, out, N, Hl, Wl, scale, cam, n_iter, eps,
-                                  per_cta, stamps);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, level_align_v1_kernel, wins, refp, jac, pref,
+                                           vis, ox, oy, pose0, out, N, Hl, Wl, scale, cam,
+                                           n_iter, eps, per_cta, stamps);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
