@@ -45,7 +45,8 @@ Phases, each raising (and so exiting non-zero) on failure:
       clamp at the border; per-launch times, bounds and plain times; K9
       v1's cluster and the split of its passes (pixel steps, block
       reduction, cluster exchange, solve and retraction; CTA 0's SM clock
-      marks) per level.
+      marks) per level, and level 0's launch spread over 8, 4, 2 and 1
+      CTAs (each against the plain version).
    f. K11 (track_step_fused, the whole step in one kernel) against its
       plain version on the arguments that frame 1 of main path 5 gives it
       (recorded from `fused_track_step`), at 512 landmarks, with ten

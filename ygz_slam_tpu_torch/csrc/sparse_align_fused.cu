@@ -50,7 +50,11 @@
 //      buffers, so one barrier per pass suffices, and a last barrier keeps
 //      every CTA (and its slots) alive until all have read them.  The
 //      loop keeps one state of sums (the last pass's) in registers; thread
-//      0 of rank 0 writes each accepted state to the output.
+//      0 of rank 0 writes each accepted state to the output.  A pass is a
+//      chain of latencies (PERF.md: pixel steps ~1.4 us, block reduction
+//      0.5, cluster exchange 1.3, solve and retraction 1.3-1.5 at N=256);
+//      staging each CTA's share in shared memory (cp.async) cut the pixel
+//      steps to ~1.1 us but spilled, and was taken out.
 #include <cooperative_groups.h>
 
 #include "sparse_align.cuh"
