@@ -21,8 +21,7 @@ Phases, each raising (and so exiting non-zero) on failure:
       that path gives them on frame 1 of its workload (K1's recorded from
       the step: the pyramid's three levels in one launch, then K4's
       windows); K3-K5 again at 512 landmarks; K1 with origins off the
-      image, per image and for the pyramid; K1's windows per block timed
-      at 1 to 32.
+      image, per image and for the pyramid.
    b. The batch path's kernels (K6 gather_windows_grouped, K3 on K6's
       windows, K2 gather_windows_multi, K4 over all S*N rows, K8
       pose_ba_fused_batch) on that path's frame-1 inputs at S=8; K2, K6
@@ -45,8 +44,7 @@ Phases, each raising (and so exiting non-zero) on failure:
       clamp at the border; per-launch times, bounds and plain times; K9
       v1's cluster and the split of its passes (pixel steps, block
       reduction, cluster exchange, solve and retraction; CTA 0's SM clock
-      marks) per level, and level 0's launch spread over 8, 4, 2 and 1
-      CTAs (each against the plain version).
+      marks) per level.
    f. K11 (track_step_fused, the whole step in one kernel) against its
       plain version on the arguments that frame 1 of main path 5 gives it
       (recorded from `fused_track_step`), at 512 landmarks, with ten
@@ -389,12 +387,12 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{name} {tag}: two launches on the same inputs differ")
 
-    def k1_call(g, plain=False, **kw):
+    def k1_call(g, plain=False):
         """K1 on request g: (img, ox [N], oy [N], win) for one image, or
         (imgs, ox [L, N], oy [L, N], win) for the levels of a pyramid."""
         if isinstance(g[0], tuple):
             return (k1.gather_windows_levels_plain(*g) if plain
-                    else k1.gather_windows_levels(*g, **kw))
+                    else k1.gather_windows_levels(*g))
         return k1.gather_windows_plain(*g) if plain else k1.gather_windows(*g)
 
     def k1_levels(g):
@@ -520,13 +518,6 @@ def main() -> int:
           f"normal equations, 4 reclassification counts, 1 count, 2 x (1 max + 4 grouped "
           f"bisection counts)), {k5_ms * 1e3 / _k5_links(st5['normal_eqs']):.2f} us per link",
           flush=True)
-    # K1's block: windows (warps) per block, timed on path 1's two requests.
-    sweep = {w: [_time_kernel(torch, lambda g=g, w=w: k1.gather_windows_levels(
-        *(g if isinstance(g[0], tuple) else ((g[0],), g[1][None], g[2][None], g[3])),
-        windows_per_block=w)) * 1e3 for g in g1] for w in (1, 2, 4, 8, 16, 32)}
-    print(f"K1 windows per block (the wrapper's {k1.WINDOWS_PER_BLOCK}), us per launch on path "
-          f"1's frame 1 (the pyramid's 3 x {N} x 16^2; {N} x 32^2): "
-          + ", ".join(f"{w}: {v[0]:.2f}, {v[1]:.2f}" for w, v in sweep.items()), flush=True)
     print("K1 times below are per frame: the sum over its 2 launches (the pyramid's 3 levels x "
           "16^2 in one, 32^2 at K3's pose)")
     for k, r in report.items():
@@ -907,17 +898,17 @@ def main() -> int:
         per_pass = 40 + 16 * (22 + (42 if v1 else 0))
         return _bound(nbytes, n * per_pass * passes)
 
-    def k9_split(a, reps=REPS, ppc=k9.V1_POINTS_PER_CTA):
-        """K9 v1's pass split with `ppc` points per CTA: medians over reps
-        launches of the µs per pass (CTA 0's SM clock between its marks, at
-        the global timer's rate over the kernel) in pixel steps, block
-        reduction, cluster exchange and solve + retraction, then the
-        kernel's body on the global timer (µs) and its passes."""
+    def k9_split(a, reps=REPS):
+        """K9 v1's pass split: medians over reps launches of the µs per pass
+        (CTA 0's SM clock between its marks, at the global timer's rate over
+        the kernel) in pixel steps, block reduction, cluster exchange and
+        solve + retraction, then the kernel's body on the global timer (µs)
+        and its passes."""
         stamps = torch.zeros(k9.V1_STAMPS, dtype=torch.int64, device=dev)
         rows = []
         for _ in range(reps):
             stamps.zero_()
-            k9.level_gn(*a, stamps=stamps, points_per_cta=ppc)
+            k9.level_gn(*a, stamps=stamps)
             st_ = stamps.tolist()
             rate = (st_[3] - st_[1]) / max(st_[2] - st_[0], 1)      # cycles per ns
             n_pass = sum(1 for p in range(k9.MAX_ITER + 1) if st_[7 + 4 * p])
@@ -995,7 +986,7 @@ def main() -> int:
             # CUDA-event interval of one launch.
             splits = []
             for a, t_ms in zip(k9_calls, times):
-                part = k9.level_partition(a[0].shape[0])
+                part = kernels.cluster_partition(a[0].shape[0], k9.V1_POINTS_PER_CTA)
                 pix, red_, clu, sol, body, n_pass = k9_split(a)
                 splits.append((part, pix, red_, clu, sol, body, n_pass))
                 print(f"K9v1 level {a[12]}: a cluster of {part.cluster} CTAs x "
@@ -1005,23 +996,6 @@ def main() -> int:
                       f"{sol:.2f}; {int(n_pass)} passes, body {body:.2f} us on the global timer, "
                       f"CUDA-event interval {t_ms * 1e3:.2f} us", flush=True)
             e2_report[key]["splits"] = splits
-            # The cluster's size against the pass: level 0's launch spread
-            # over 8, 4, 2 and 1 CTAs, each against the plain version.
-            a0 = k9_calls[-1]
-            ref0 = k9.level_gn_plain(*a0)
-            for ppc in (32, 64, 128, 256):
-                part = k9.level_partition(a0[0].shape[0], ppc)
-                out_p = k9.level_gn(*a0, points_per_cta=ppc)
-                d = float(se3.distance(SE3(*_pose_of(out_p)), SE3(*_pose_of(ref0))))
-                if not d <= TOL_POSE:
-                    raise AssertionError(f"K9 v1 with {ppc} points per CTA disagrees")
-                t_ms = _time_kernel(torch, lambda: k9.level_gn(*a0, points_per_cta=ppc))
-                pix, red_, clu, sol, body, n_pass = k9_split(a0, ppc=ppc)
-                print(f"K9v1 level 0, {ppc} points per CTA: a cluster of {part.cluster}; per pass "
-                      f"pixel steps {pix:.2f} us, block reduction {red_:.2f}, cluster exchange "
-                      f"{clu:.2f}, solve and retraction {sol:.2f}; {int(n_pass)} passes, body "
-                      f"{body:.2f} us, CUDA-event interval {t_ms * 1e3:.2f} us; pose distance to "
-                      f"the plain version {d:.3e}", flush=True)
         print(f"{key} per launch (levels 2, 1, 0): kernel "
               f"{[round(t, 4) for t in times]} ms, plain {[round(t, 3) for t in plains]} ms, "
               f"bound {[f'{b[0]:.6f} ({b[1]})' for b in bounds]} ms, passes {passes}; per "

@@ -99,8 +99,7 @@ def test_gather_windows(cuda_device):
 def test_gather_windows_levels(cuda_device, levels, win, n):
     """K1 over a pyramid (640x480, 320x240, 160x120) against its plain
     version bit for bit, a third of each level's origins off the image
-    (negative and past W - win / H - win), at every windows-per-block
-    setting; one launch per call."""
+    (negative and past W - win / H - win); one launch per call."""
     rng = np.random.default_rng(16 + win + n)
     imgs, xs, ys = [], [], []
     for H, W in ((480, 640), (240, 320), (120, 160))[:levels]:
@@ -114,11 +113,10 @@ def test_gather_windows_levels(cuda_device, levels, win, n):
     xi = torch.tensor(np.array(xs), dtype=torch.int32, device=cuda_device)
     yi = torch.tensor(np.array(ys), dtype=torch.int32, device=cuda_device)
     ref = tk1.gather_windows_levels_plain(tuple(imgs), xi, yi, win)
-    for wpb in sorted({1, 2, tk1.WINDOWS_PER_BLOCK, 32}):
-        n0 = tk1.gather_windows_levels.launches
-        out = tk1.gather_windows_levels(tuple(imgs), xi, yi, win, windows_per_block=wpb)
-        assert tk1.gather_windows_levels.launches == n0 + 1
-        assert torch.equal(out, ref), wpb
+    n0 = tk1.gather_windows_levels.launches
+    out = tk1.gather_windows_levels(tuple(imgs), xi, yi, win)
+    assert tk1.gather_windows_levels.launches == n0 + 1
+    assert torch.equal(out, ref)
 
 
 def test_gather_windows_levels_refuses_nine_levels(cuda_device):
@@ -834,7 +832,7 @@ def test_level_align_v1_sizes(cuda_device, n):
     does not move."""
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
 
-    part = tk9.level_partition(n)
+    part = kernels.cluster_partition(n, tk9.V1_POINTS_PER_CTA)
     assert part.cluster == {1: 1, 31: 1, 100: 4, 256: 8, 1500: 8}[n]
     assert part.cluster * part.per_cta >= n > (part.cluster - 1) * part.per_cta
     for level in (2, 0):

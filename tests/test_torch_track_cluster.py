@@ -6,7 +6,9 @@ import pathlib
 
 from ygz_slam_tpu_torch.ops.kernels import track_fused as k11
 
-SOURCE = (pathlib.Path(k11.__file__).resolve().parents[2] / "csrc" / "track_fused.cu")
+CSRC = pathlib.Path(k11.__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "track_fused.cu"
+COMMON = CSRC / "common.cuh"      # launch_cluster, which makes K11's launch
 
 
 def _ranges(p, n):
@@ -51,8 +53,10 @@ def test_kernel_stays_portable():
     a cluster above 8 rather than retrying with another; its block is the
     wrapper's."""
     src = SOURCE.read_text()
-    assert "NonPortableClusterSizeAllowed" not in src
-    assert "constexpr int kMaxCluster = 8;" in src and "cluster > kMaxCluster" in src
-    assert "cudaLaunchAttributeClusterDimension" in src
+    launcher = COMMON.read_text()
+    assert "NonPortableClusterSizeAllowed" not in src + launcher
+    assert "launch_cluster(track_fused_kernel, cluster, per_cta, N2, kThreads" in src
+    assert "constexpr int kMaxCluster = 8;" in launcher and "cluster > kMaxCluster" in launcher
+    assert "cudaLaunchAttributeClusterDimension" in launcher
     assert f"constexpr int kThreads = {k11.THREADS};" in src
     assert "min(mp.N, (int)blockIdx.x * per_cta)" in src and "min(mp.N, n0 + per_cta)" in src

@@ -1,8 +1,9 @@
-// Device helpers shared by the single-CTA Gauss-Newton kernels (K3, K5,
-// K8, K9, K11): block-wide sums whose totals every thread receives bit for
-// bit alike, a damped 6x6 Cholesky solve with a non-finite guard, and the
+// Device helpers shared by the Gauss-Newton kernels (K3, K5, K8, K9,
+// K11): block-wide sums whose totals every thread receives bit for bit
+// alike, a damped 6x6 Cholesky solve with a non-finite guard, and the
 // Taylor-series SE(3) exponential of the JAX kernels (same coefficients,
-// same 1.2 rad trust clamp).
+// same 1.2 rad trust clamp); and the launch of a thread-block cluster (K9
+// v1, K11).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +14,35 @@ constexpr int kMaxWarps = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Shared floats a Reducer needs: two buffers of kMaxWarps x 32 partials.
 constexpr int kRedFloats = 2 * kMaxWarps * 32;
+constexpr int kMaxCluster = 8;       // the portable cluster size
+
+// Launches `kernel` as one thread-block cluster of `cluster` CTAs of
+// `threads` threads (the grid is the cluster), CTA r taking items
+// [r * per_cta, min(n, (r + 1) * per_cta)) (the wrapper's
+// ops/kernels/__init__.py::cluster_partition).  Returns the launch's CUDA error: a
+// cluster outside 1..kMaxCluster, or ranges that leave an item out, are
+// refused, and a refused launch is not retried with a smaller cluster.  No
+// non-portable cluster size is allowed.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, int per_cta, int n,
+                                  int threads, cudaStream_t stream, Args... args) {
+  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < n)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
 
 // One halving step of the transposed warp reduction and the steps after
 // it, on the N values v[0..N) with lane offset OFF: a lane keeps the half

@@ -23,9 +23,10 @@
 //   - one launch for every level of a pyramid (the levels' images and
 //     shapes by value in a __grid_constant__ struct), where a frame took
 //     one launch per level;
-//   - a warp per window, several windows per block (the wrapper's
-//     windows_per_block), so a frame's L * N windows are a few hundred
-//     blocks; each warp reads its (level, origin) once;
+//   - a warp per window, kWindowsPerBlock windows per block, so a frame's
+//     L * N windows are a few hundred blocks; each warp reads its (level,
+//     origin) once (1 to 4 windows per block time alike on the H100, 8 to
+//     32 slower: PERF.md);
 //   - the warp's lanes across a window row, so each row is one coalesced
 //     read and write, with no division per pixel: for win 16 and 32 each
 //     lane copies 4 pixels of a row and stores them as one 128-bit store
@@ -121,6 +122,7 @@ struct LevelImage {
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kWindowsPerBlock = 4;     // warps per block, a window each
 
 struct LevelsArgs {
   LevelImage lv[kMaxLevels];
@@ -183,25 +185,24 @@ gather_levels_kernel(const __grid_constant__ LevelsArgs a,
 }  // namespace
 
 // K1: the [L, N, win, win] windows of L images (levels[l], origins ox / oy
-// [L, N]) in one launch, windows_per_block warps per block.
+// [L, N]) in one launch.
 extern "C" int gather_windows_levels_launch(const LevelImage* levels, int L, const int* ox,
                                             const int* oy, int N, int win, float* out,
-                                            int windows_per_block, cudaStream_t stream) {
-  if (L < 1 || L > kMaxLevels || windows_per_block < 1 || windows_per_block > 32)
-    return (int)cudaErrorInvalidValue;
+                                            cudaStream_t stream) {
+  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   LevelsArgs a;
   a.L = L;
   for (int l = 0; l < L; ++l) a.lv[l] = levels[l];
   for (int l = L; l < kMaxLevels; ++l) a.lv[l] = LevelImage{nullptr, 0, 0};
-  const int blocks = (L * N + windows_per_block - 1) / windows_per_block;
+  const int blocks = (L * N + kWindowsPerBlock - 1) / kWindowsPerBlock;
   const bool vec = win % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
   if (vec)
-    gather_levels_kernel<true><<<blocks, 32 * windows_per_block, 0, stream>>>(a, ox, oy, N,
-                                                                            win, out);
+    gather_levels_kernel<true><<<blocks, 32 * kWindowsPerBlock, 0, stream>>>(a, ox, oy, N, win,
+                                                                           out);
   else
-    gather_levels_kernel<false><<<blocks, 32 * windows_per_block, 0, stream>>>(a, ox, oy, N,
-                                                                             win, out);
+    gather_levels_kernel<false><<<blocks, 32 * kWindowsPerBlock, 0, stream>>>(a, ox, oy, N,
+                                                                            win, out);
   return (int)cudaGetLastError();
 }
 

@@ -91,7 +91,6 @@ __device__ __forceinline__ float max_abs6(const float dx[6]) {
 }
 
 constexpr int kV1Threads = 256;
-constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr int kSums = 29;            // 21 H, 6 b, chi2 numerator, pixel count
 
 // The cluster's sums of v: each CTA's block sums (identical in all its
@@ -292,25 +291,10 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
                                      float cy, float k1, float k2, float p1, float p2,
                                      int n_iter, float eps, int cluster, int per_cta,
                                      unsigned long long* stamps, cudaStream_t stream) {
-  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < N)
-    return (int)cudaErrorInvalidValue;
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kV1Threads, 1, 1);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, level_align_v1_kernel, wins, refp, jac, pref,
-                                           vis, ox, oy, pose0, out, N, Hl, Wl, scale, cam,
-                                           n_iter, eps, per_cta, stamps);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch_cluster(level_align_v1_kernel, cluster, per_cta, N, kV1Threads, stream,
+                             wins, refp, jac, pref, vis, ox, oy, pose0, out, N, Hl, Wl, scale,
+                             cam, n_iter, eps, per_cta, stamps);
 }
 
 extern "C" int level_align_v2_launch(const float* wins, const float* refp, const float* jac,

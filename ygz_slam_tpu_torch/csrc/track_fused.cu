@@ -43,7 +43,8 @@
 //     cluster barrier (release / acquire at cluster scope) publishes them;
 //     rank 0 runs stage 3 and the other CTAs leave (no DSMEM is read).
 //     The wrapper computes the partition
-//     (ops/kernels/track_fused.py::track_partition).
+//     (ops/kernels/track_fused.py::track_partition); common.cuh's
+//     launch_cluster makes the launch.
 //   - Stage 2 reads its windows from device memory through L1.  Staging
 //     them in shared memory with bulk asynchronous copies during stage 1
 //     was measured and taken out: the shared memory it takes comes out of
@@ -56,7 +57,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCluster = 8;       // the portable cluster size
 
 struct SparseIn {       // stage 1, N points, L levels
   const float* wins;    // [L, N, 16, 16]
@@ -222,26 +222,12 @@ extern "C" int track_fused_launch(
     float k1, float k2, float p1, float p2, int sp_iter, float sp_eps, int a2d_iter,
     float a2d_eps2, float a2d_max_err, int ba_rounds, int ba_iters, float ba_eps,
     float chi2_th, int cluster, int per_cta, unsigned long long* stamps, cudaStream_t stream) {
-  if (cluster < 1 || cluster > kMaxCluster || (long long)cluster * per_cta < N2)
-    return (int)cudaErrorInvalidValue;
   const SparseIn sp{wins, refp, jac, pts, lvis, ox, oy, N1, L};
   const MapIn mp{a2_wins, a2_ref, a2_jx, a2_jy, a2_hinv, a2_ox, a2_oy, a2_pts, a2_mask, N2};
   const ygz::sparse_align::Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
   const Caps caps{sp_iter, sp_eps, a2d_iter, a2d_eps2, a2d_max_err, ba_rounds, ba_iters,
                   ba_eps, chi2_th};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, track_fused_kernel, sp, mp, pose0, out, xy,
-                                           per, H0, W0, cam, caps, per_cta, stamps);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)ygz::launch_cluster(track_fused_kernel, cluster, per_cta, N2, kThreads, stream,
+                                  sp, mp, pose0, out, xy, per, H0, W0, cam, caps, per_cta,
+                                  stamps);
 }

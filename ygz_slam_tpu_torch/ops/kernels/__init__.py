@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +52,22 @@ def launch(lib_name: str, fn_name: str, argtypes: list, *args) -> None:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+MAX_CLUSTER = 8         # the portable cluster size (csrc/common.cuh::kMaxCluster)
+
+
+class Partition(NamedTuple):
+    """How one cluster launch (K9 v1, K11) spreads n items over its CTAs."""
+    cluster: int     # CTAs, all in one cluster (the grid)
+    per_cta: int     # CTA r takes items [r * per_cta, min(n, (r + 1) * per_cta))
+
+
+def cluster_partition(n: int, per_cta: int) -> Partition:
+    """A CTA for every `per_cta` items, at least 1 and at most MAX_CLUSTER,
+    in contiguous ranges of equal size but the last."""
+    cluster = max(1, min(MAX_CLUSTER, -(-n // per_cta)))
+    return Partition(cluster, -(-n // cluster))
 
 
 _recording = None       # the open `record_launches` list, if any

@@ -8,11 +8,13 @@ TPU's aligned super-windows, shift matmuls and image de-duplication are
 not carried over.  Every gather returns the window of the zero-padded
 image at the requested origin, as the JAX kernels do: pixels outside the
 image are 0.  K1 also takes every level of a pyramid in one launch
-(`gather_windows_levels`); `gather_windows` is its one-level case.
+(`gather_windows_levels`); `gather_windows` is its one-level case, and
+`bilinear_patches` the one-level case of `bilinear_patches_levels`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,9 +28,6 @@ CACHE_WIN = 32
 CACHE_SLACK = (CACHE_WIN - PATCH - 1) // 2  # 11 px
 MAX_GROUPS = 8          # K6 requests per launch (csrc/gather_windows.cu)
 MAX_LEVELS = 8          # K1 levels per launch (csrc/gather_windows.cu)
-# K1's block: a warp per window, this many windows per block (chip_smoke.py
-# phase 2a times the choices on the card; PERF.md).
-WINDOWS_PER_BLOCK = 4
 
 
 def _check_window(win: int, H: int, W: int) -> None:
@@ -63,7 +62,7 @@ class _LevelImage(ctypes.Structure):
     _fields_ = [("img", ctypes.c_void_p), ("H", ctypes.c_int), ("W", ctypes.c_int)]
 
 
-def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor, windows_per_block: int) -> None:
+def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor) -> None:
     """K1 on L = len(imgs) images and origins [L, N] into out [L, N, win, win]."""
     dev = out.device
     L, N = xi.shape
@@ -75,9 +74,9 @@ def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor, windows_per_block:
         descs[l] = _LevelImage(img.data_ptr(), *img.shape)
     require(xi, "xi", torch.int32, (L, N), dev)
     require(yi, "yi", torch.int32, (L, N), dev)
-    launch("gather_windows", "gather_windows_levels_launch", [P, I, P, P, I, I, P, I, P],
+    launch("gather_windows", "gather_windows_levels_launch", [P, I, P, P, I, I, P, P],
            ctypes.addressof(descs), L, xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
-           windows_per_block, stream(dev))
+           stream(dev))
 
 
 def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
@@ -93,7 +92,7 @@ def gather_windows(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
     require(xi, "xi", torch.int32, (N,), img.device)
     require(yi, "yi", torch.int32, (N,), img.device)
     out = torch.empty((1, N, win, win), dtype=torch.float32, device=img.device)
-    _launch_levels((img,), xi.view(1, N), yi.view(1, N), win, out, WINDOWS_PER_BLOCK)
+    _launch_levels((img,), xi.view(1, N), yi.view(1, N), win, out)
     launched(gather_windows, img, xi, yi, win)
     return out[0]
 
@@ -109,13 +108,12 @@ def gather_windows_levels_plain(imgs, xi: torch.Tensor, yi: torch.Tensor,
                         for l, img in enumerate(imgs)])
 
 
-def gather_windows_levels(imgs, xi: torch.Tensor, yi: torch.Tensor, win: int, *,
-                          windows_per_block: int = WINDOWS_PER_BLOCK) -> torch.Tensor:
+def gather_windows_levels(imgs, xi: torch.Tensor, yi: torch.Tensor,
+                          win: int) -> torch.Tensor:
     """The levels of one pyramid, `imgs` (1..MAX_LEVELS float32 [H_l, W_l]
     images), with int32 origins xi, yi [L, N] -> [L, N, win, win]: level
     l's windows of its zero-padded image, `gather_windows` on each level,
-    in one launch of K1 on the card (`windows_per_block` windows per
-    block), the plain version on the CPU."""
+    in one launch of K1 on the card, the plain version on the CPU."""
     L = len(imgs)
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"K1 takes 1..{MAX_LEVELS} levels, got {L}")
@@ -127,7 +125,7 @@ def gather_windows_levels(imgs, xi: torch.Tensor, yi: torch.Tensor, win: int, *,
     if not on_card(imgs[0]):
         return gather_windows_levels_plain(imgs, xi, yi, win)
     out = torch.empty((L, xi.shape[1], win, win), dtype=torch.float32, device=imgs[0].device)
-    _launch_levels(imgs, xi, yi, win, out, windows_per_block)
+    _launch_levels(imgs, xi, yi, win, out)
     launched(gather_windows_levels, imgs, xi, yi, win)
     return out
 
@@ -221,44 +219,74 @@ def gather_windows_grouped(groups) -> list:
 gather_windows_grouped.launches = 0
 
 
-def _bilinear_origins(centers: torch.Tensor, H: int, W: int, size: int):
-    """Clamped centers, window origins (float) and the half-width of
-    `size`-patches on the symmetric grid.  Wild centers (NaN, +-1e12 from
-    behind-camera projections of masked points) are clamped into the image
-    first, so the mix weights stay finite."""
+def level_consts(shapes, device, sub: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """For a pyramid whose levels have these [H_l, W_l] shapes: each level's
+    scale 2^-l [L, 1] and (W_l - sub, H_l - sub) [L, 2], float32 tensors on
+    `device`, made once per pyramid geometry (no host-to-device copy per
+    frame)."""
+    return _level_consts(tuple((int(h), int(w)) for h, w in shapes), str(device), float(sub))
+
+
+@functools.lru_cache(maxsize=64)
+def _level_consts(shapes, device: str, sub: float):
+    scale = torch.tensor([[0.5 ** li] for li in range(len(shapes))], dtype=torch.float32,
+                         device=device)
+    wh = torch.tensor([[W - sub, H - sub] for H, W in shapes], dtype=torch.float32,
+                      device=device)
+    return scale, wh
+
+
+def _bilinear_origins(centers: torch.Tensor, shapes, size: int):
+    """Clamped centers c [..., 2] (x, y), window origins o [..., 2] (float)
+    and the half-width of `size`-patches on the symmetric grid, for centers
+    [L, N, 2] on images of the L `shapes` (or [N, 2] on one image).  Wild
+    centers (NaN, +-1e12 from behind-camera projections of masked points)
+    are clamped into the image first, so the mix weights stay finite."""
     half = (size - 1) / 2.0
-    win = size + 1
-    cx = torch.clamp(torch.nan_to_num(centers[:, 0]), 0.0, W - 1.0)
-    cy = torch.clamp(torch.nan_to_num(centers[:, 1]), 0.0, H - 1.0)
-    x0f = torch.clamp(torch.floor(cx - half), 0, W - win)
-    y0f = torch.clamp(torch.floor(cy - half), 0, H - win)
-    return cx, cy, x0f, y0f, half
+    _, hi_c = level_consts(shapes, centers.device, 1.0)           # (W - 1, H - 1)
+    _, hi_o = level_consts(shapes, centers.device, size + 1.0)    # (W - win, H - win)
+    if centers.dim() == 3:
+        hi_c, hi_o = hi_c[:, None, :], hi_o[:, None, :]
+    c = torch.minimum(torch.clamp(torch.nan_to_num(centers), min=0.0), hi_c)
+    o = torch.minimum(torch.clamp(torch.floor(c - half), min=0.0), hi_o)
+    return c, o, half
 
 
-def _bilinear_mix(w, cx, cy, x0f, y0f, half, size):
-    fx = (cx - half - x0f)[:, None, None]
-    fy = (cy - half - y0f)[:, None, None]
-    return (w[:, :size, :size] * (1 - fx) * (1 - fy)
-            + w[:, :size, 1:] * fx * (1 - fy)
-            + w[:, 1:, :size] * (1 - fx) * fy
-            + w[:, 1:, 1:] * fx * fy)
+def _bilinear_mix(w, c, o, half, size):
+    """The [..., size, size] patches of the (size+1)-windows w at origins o
+    around centers c ([..., 2] each)."""
+    f = c - half - o
+    fx = f[..., 0, None, None]
+    fy = f[..., 1, None, None]
+    return (w[..., :size, :size] * (1 - fx) * (1 - fy)
+            + w[..., :size, 1:] * fx * (1 - fy)
+            + w[..., 1:, :size] * (1 - fx) * fy
+            + w[..., 1:, 1:] * fx * fy)
+
+
+def bilinear_patches_levels(imgs, centers: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear [L, N, size, size] patches at sub-pixel `centers [L, N, 2]`,
+    level l's on `imgs[l]`, on the symmetric grid, from one (size+1)-window
+    per point and level: every level's in one launch of K1."""
+    c, o, half = _bilinear_origins(centers, [img.shape for img in imgs], size)
+    oi = o.to(torch.int32)
+    w = gather_windows_levels(tuple(imgs), oi[..., 0].contiguous(), oi[..., 1].contiguous(),
+                              size + 1)
+    return _bilinear_mix(w, c, o, half, size)
 
 
 def bilinear_patches(img: torch.Tensor, centers: torch.Tensor, size: int) -> torch.Tensor:
     """Bilinear [N, size, size] patches at sub-pixel `centers [N, 2]` on the
-    symmetric grid, from one (size+1)-window per point (K1)."""
-    H, W = img.shape
-    cx, cy, x0f, y0f, half = _bilinear_origins(centers, H, W, size)
-    w = gather_windows(img, x0f.to(torch.int32), y0f.to(torch.int32), size + 1)
-    return _bilinear_mix(w, cx, cy, x0f, y0f, half, size)
+    symmetric grid: `bilinear_patches_levels` on one image."""
+    return bilinear_patches_levels((img,), centers[None], size)[0]
 
 
 def bilinear_patches_multi(imgs: torch.Tensor, img_idx: torch.Tensor, centers: torch.Tensor,
                            size: int) -> torch.Tensor:
     """`bilinear_patches` over an image stack [S, H, W] with an int32 image
     index per point (K2)."""
-    _, H, W = imgs.shape
-    cx, cy, x0f, y0f, half = _bilinear_origins(centers, H, W, size)
-    w = gather_windows_multi(imgs, img_idx, x0f.to(torch.int32), y0f.to(torch.int32),
+    c, o, half = _bilinear_origins(centers, [imgs.shape[1:]], size)
+    oi = o.to(torch.int32)
+    w = gather_windows_multi(imgs, img_idx, oi[:, 0].contiguous(), oi[:, 1].contiguous(),
                              size + 1)
-    return _bilinear_mix(w, cx, cy, x0f, y0f, half, size)
+    return _bilinear_mix(w, c, o, half, size)

@@ -9,16 +9,14 @@ their wrappers, `level_gn_plain` / `level_gn_v2_plain` their plain
 versions, and `level_align_fused` / `level_align_fused_v2` the JAX
 package's entry points: windows gathered by K1 around the level-init
 projection, then one launch.  `ops.sparse_align` runs them level by level
-under FUSED_VARIANT 1 and 2.  K9 v1 runs as one thread-block cluster;
-`level_partition` says how the points are spread over it.
+under FUSED_VARIANT 1 and 2.  K9 v1 runs as one thread-block cluster of
+`cluster_partition(N, V1_POINTS_PER_CTA)` CTAs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
-from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
+from . import Fl, I, P, _gn6, cluster_partition, launch, launched, on_card, require, stream
 from .align2d_kernel import gather_windows
 from .sparse_align_mega import (CWIN, MAX_ITER, PATCH, SLACK, STOP_STEP, _HALF, _distortion,
                                 frozen_h0, level_passes)
@@ -27,21 +25,7 @@ _NPIX = PATCH * PATCH
 # K9 v1's launch geometry (csrc/sparse_align_fused.cu).
 V1_THREADS = 256               # a CTA's threads
 V1_POINTS_PER_CTA = 32         # one round of the pixel loop of a 256-thread CTA
-MAX_CLUSTER = 8                # the portable cluster size
 V1_STAMPS = 4 + 4 * (MAX_ITER + 1)   # `level_gn(stamps=)`'s length
-
-
-class Partition(NamedTuple):
-    """How one K9 v1 launch spreads N points over its cluster."""
-    cluster: int     # CTAs, all in one cluster (the grid)
-    per_cta: int     # CTA r takes points [r * per_cta, min(N, (r + 1) * per_cta))
-
-
-def level_partition(n: int, points_per_cta: int = V1_POINTS_PER_CTA) -> Partition:
-    """K9 v1's partition of n points: a CTA per `points_per_cta` points up
-    to MAX_CLUSTER, in contiguous ranges of equal size but the last."""
-    cluster = max(1, min(MAX_CLUSTER, -(-n // points_per_cta)))
-    return Partition(cluster, -(-n // cluster))
 
 
 def level_gn_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level,
@@ -123,10 +107,10 @@ def _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0):
 
 
 def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level, *,
-             stamps: torch.Tensor | None = None, points_per_cta: int = V1_POINTS_PER_CTA):
+             stamps: torch.Tensor | None = None):
     """K9 v1 on the card, its plain version on the CPU; arguments as for
     `level_gn_plain`.  The launch spreads the points over a cluster of
-    `level_partition(N, points_per_cta)`.
+    `cluster_partition(N, V1_POINTS_PER_CTA)` CTAs.
 
     `stamps`, an int64 tensor [V1_STAMPS] on the card set to 0, receives
     from thread 0 of CTA 0 the global timer (ns) and SM clock at the
@@ -141,7 +125,7 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
     if stamps is not None:
         require(stamps, "stamps", torch.int64, (V1_STAMPS,), dev)
     out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
-    part = level_partition(N, points_per_cta)
+    part = cluster_partition(N, V1_POINTS_PER_CTA)
     launch("sparse_align_fused", "level_align_v1_launch",
            [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, I, P, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),

@@ -9,13 +9,12 @@ one launch of K1 here, or beforehand by the caller (K6 through
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
-from .align2d_kernel import gather_windows_levels
+from .align2d_kernel import gather_windows_levels, level_consts
 
 # Geometry of the TPU kernel (ops/pallas/sparse_align_fused.py), kept here.
 CWIN = 16                      # cached window side
@@ -43,23 +42,6 @@ class MegaWindows(NamedTuple):
     oy: torch.Tensor       # [L, N] int32
     pc0: torch.Tensor      # [N, 3] reference points in the init camera
     px0_l0: torch.Tensor   # [N, 2] their level-0 pixels
-
-
-def level_consts(shapes, device, sub: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
-    """For a pyramid whose levels have these [H_l, W_l] shapes: each level's
-    scale 2^-l [L, 1] and (W_l - sub, H_l - sub) [L, 2], float32 tensors on
-    `device`, made once per pyramid geometry (no host-to-device copy per
-    frame)."""
-    return _level_consts(tuple((int(h), int(w)) for h, w in shapes), str(device), float(sub))
-
-
-@functools.lru_cache(maxsize=64)
-def _level_consts(shapes, device: str, sub: float):
-    scale = torch.tensor([[0.5 ** li] for li in range(len(shapes))], dtype=torch.float32,
-                         device=device)
-    wh = torch.tensor([[W - sub, H - sub] for H, W in shapes], dtype=torch.float32,
-                      device=device)
-    return scale, wh
 
 
 def mega_window_origins(cur_pyr, p_ref, R0, t0, cam, distorted: bool, n_levels: int):

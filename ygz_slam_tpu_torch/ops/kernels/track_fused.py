@@ -13,12 +13,11 @@ map points are spread over it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from ..interp import in_bounds
-from . import Fl, I, P, _gn6, launch, launched, on_card, require, stream
+from . import (MAX_CLUSTER, Fl, I, P, Partition, _gn6, cluster_partition, launch, launched,
+               on_card, require, stream)
 from .align2d_fused import Align2DPrep, a2d_gn_plain, a2d_window_origins
 from .align2d_kernel import CACHE_SLACK, CACHE_WIN, PATCH as A2D_PATCH, gather_windows
 from .pose_ba_fused import CHI2_2D, pose_ba_gn_plain
@@ -34,21 +33,12 @@ _MAX_DRIFT = min(A2D_PATCH * 2.0, float(CACHE_SLACK))  # 11 px from the start
 # The kernel's launch geometry (csrc/track_fused.cu).
 THREADS = 512                  # K3's and K5's block, whatever N is
 WARPS = THREADS // 32          # stage 2 aligns a point per warp
-MAX_CLUSTER = 8                # the portable cluster size (no non-portable attribute is set)
-
-
-class Partition(NamedTuple):
-    """How one K11 launch spreads N2 map points over its cluster."""
-    cluster: int     # CTAs, all in one cluster (the grid)
-    per_cta: int     # CTA r aligns points [r * per_cta, min(N2, (r + 1) * per_cta))
 
 
 def track_partition(n2: int) -> Partition:
     """K11's partition of n2 map points: a CTA for every WARPS points (a
-    warp per point) up to MAX_CLUSTER, in contiguous ranges of equal
-    size but the last."""
-    cluster = max(1, min(MAX_CLUSTER, -(-n2 // WARPS)))
-    return Partition(cluster, -(-n2 // cluster))
+    warp per point) up to MAX_CLUSTER."""
+    return cluster_partition(n2, WARPS)
 
 
 def track_gn_plain(wins, refp, jac, p_sp, lvis, ox, oy, pose0, cam, distorted, H0, W0,

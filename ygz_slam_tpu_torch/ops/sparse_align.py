@@ -27,11 +27,10 @@ from ..geometry import jacobians as jac
 from ..geometry.se3 import SE3
 from .interp import in_bounds
 from .kernels.align2d_fused import A2DWindows, a2d_window_origins
-from .kernels.align2d_kernel import (CACHE_WIN, _bilinear_mix, gather_windows_grouped,
-                                     gather_windows_levels)
+from .kernels.align2d_kernel import (CACHE_WIN, bilinear_patches_levels,
+                                     gather_windows_grouped, level_consts)
 from .kernels.sparse_align_fused import level_align_fused, level_align_fused_v2
-from .kernels.sparse_align_mega import (CWIN, MegaWindows, level_consts, mega_window_origins,
-                                        sparse_align_mega)
+from .kernels.sparse_align_mega import CWIN, MegaWindows, mega_window_origins, sparse_align_mega
 
 PATCH_HALF = 2
 PATCH = 2 * PATCH_HALF          # 4x4 patches (SparseImageAlign.h)
@@ -62,28 +61,6 @@ class ReferencePrep(NamedTuple):
     mega_jl: torch.Tensor    # [L, N, 16, 6]: J of every level, stacked
 
 
-def _bilinear_level_patches(ref_pyr, px_ref: torch.Tensor, size: int) -> torch.Tensor:
-    """`bilinear_patches(ref_pyr[l], px_ref * 2^-l, size)` for every level
-    l of `ref_pyr` -> [L, N, size, size], the (size+1)-windows of every
-    level gathered in one launch of K1.  Per element the same operations
-    as the per-level call, so the same bits."""
-    L = len(ref_pyr)
-    shapes = [img.shape for img in ref_pyr]
-    scale, hi_c = level_consts(shapes, px_ref.device, 1.0)         # (W_l - 1, H_l - 1)
-    _, hi_o = level_consts(shapes, px_ref.device, size + 1.0)      # (W_l - win, H_l - win)
-    half = (size - 1) / 2.0
-    u = torch.nan_to_num(px_ref * scale[:, :, None])                 # [L, N, 2]
-    c = torch.minimum(torch.clamp(u, min=0.0), hi_c[:, None, :])
-    o = torch.minimum(torch.clamp(torch.floor(c - half), min=0), hi_o[:, None, :])
-    oi = o.to(torch.int32).permute(2, 0, 1).contiguous()
-    w = gather_windows_levels(tuple(ref_pyr), oi[0], oi[1], size + 1)
-    N = px_ref.shape[0]
-    p = _bilinear_mix(w.reshape(L * N, size + 1, size + 1), c[..., 0].reshape(-1),
-                      c[..., 1].reshape(-1), o[..., 0].reshape(-1), o[..., 1].reshape(-1),
-                      half, size)
-    return p.reshape(L, N, size, size)
-
-
 def prepare_reference(ref_pyr, cam, px_ref, depth_ref, mask,
                       max_level: int | None = None, distorted: bool = True) -> ReferencePrep:
     """Everything sparse_image_align needs from the reference frame
@@ -96,7 +73,8 @@ def prepare_reference(ref_pyr, cam, px_ref, depth_ref, mask,
     L = max_level + 1
     p_ref = cam.pixel_to_camera(px_ref, depth_ref, distorted=distorted)
     visible0 = mask & (depth_ref > 1e-3)
-    p6 = _bilinear_level_patches(ref_pyr[:L], px_ref, PATCH + 2)       # [L, N, 6, 6]
+    scales, _ = level_consts([img.shape for img in ref_pyr[:L]], px_ref.device)   # [L, 1]
+    p6 = bilinear_patches_levels(ref_pyr[:L], px_ref * scales[:, :, None], PATCH + 2)
     ref_patch = p6[:, :, 1:5, 1:5].reshape(L, -1, PATCH_AREA)
     dx = (0.5 * (p6[:, :, 1:5, 2:6] - p6[:, :, 1:5, 0:4])).reshape(L, -1, PATCH_AREA)
     dy = (0.5 * (p6[:, :, 2:6, 1:5] - p6[:, :, 0:4, 1:5])).reshape(L, -1, PATCH_AREA)
