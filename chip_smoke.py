@@ -8,8 +8,8 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11); a spill in K3, K5, K9 v1 or K11
-   fails the run at the end.
+   kernels (K3, K5, K8, K9 v1/v2, K11) and K4, per template instance; a
+   spill in K3, K4, K5, K9 v1, K9 v2 or K11 fails the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
    bits.  Kernel times are medians of per-launch CUDA-event intervals with
@@ -35,16 +35,22 @@ Phases, each raising (and so exiting non-zero) on failure:
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
       that frame 10 of the VO path gives them (K1's two pyramid launches,
       N=256 with masked rows for K3, 512 rows on the three-level pyramid
-      stack for K2, K4 and K5), recorded from the step itself.
-   e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2) against
-      their plain versions on the three per-level launches that frame 12
+      stack for K2, K4 and K5), recorded from the step itself; K4's
+      iterations before freezing (the plain version's count: the largest,
+      the mean and the histogram) on path 1's, the VO's and the batch's
+      arguments, and K4's sweep of lanes per point and window reads, each
+      form held to the plain version and timed on the three.
+   e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2, which
+      builds and factors H0 itself) against their plain versions (pose,
+      chi2 and H: v2's H0) on the three per-level launches that frame 12
       of main path 4 makes under FUSED_VARIANT 1 and 2 (recorded from
       `System.track_monocular`), on level 0 with no usable point (the
       pose must not move) and with an init pose shifted so that windows
       clamp at the border; per-launch times, bounds and plain times; K9
       v1's cluster and the split of its passes (pixel steps, block
       reduction, cluster exchange, solve and retraction; CTA 0's SM clock
-      marks) per level.
+      marks) per level; K9 v2's sweep of one CTA against clusters of 2, 4
+      and 8, each form held to the plain version and timed per level.
    f. K11 (track_step_fused, the whole step in one kernel) against its
       plain version on the arguments that frame 1 of main path 5 gives it
       (recorded from `fused_track_step`), at 512 landmarks, with ten
@@ -104,7 +110,8 @@ Phases, each raising (and so exiting non-zero) on failure:
    frame (the three sparse levels, the align2d cache) and no other kernel.  Frames/s beside path 1's, the two run
    in turns (1, 5, 5, 1).
 6. A short torch.profiler window over each main path (path 4 under
-   variants 2 and 1, frames 30-49, keyframes in the window): device busy
+   variants 2 and 1, frames 30-49, keyframes in the window; under
+   variant 2 no operator named cholesky may run): device busy
    share and the kernels that take the most device time; then each
    kernel's device µs per launch in the profiler beside its CUDA-event
    time from phase 2 (whose intervals include the gap between launches),
@@ -163,9 +170,15 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
                  ("pose_ba_fused_batch", "pose_ba_fused_batch_kernel"),
                  ("sparse_align_fused", "level_align_v1_kernel"),
                  ("sparse_align_fused", "level_align_v2_kernel"),
-                 ("track_fused", "track_fused_kernel"))
+                 ("track_fused", "track_fused_kernel"),
+                 ("align2d_fused", "align2d_fused_kernel"))
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
-            "track_fused_kernel", "level_align_v1_kernel")
+            "track_fused_kernel", "level_align_v1_kernel", "level_align_v2_kernel",
+            "align2d_fused_kernel")
+# The one-time sweeps of this tree's K4 and K9 v2 forms: (lanes per point,
+# windows read in place) and K9 v2's CTAs per cluster (0: one CTA of 512).
+K4_SWEEP = ((8, True), (8, False), (16, True), (16, False), (32, True), (32, False))
+K9V2_SWEEP = (0, 2, 4, 8)
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
 
@@ -242,9 +255,10 @@ def _check_repeat(first, second, label):
         raise AssertionError(f"main path 4 is not repeatable on the card ({label})")
 
 
-def _profile(torch, fn, n, label):
+def _profile(torch, fn, n, label, ops=None):
     """Device busy share and top kernels of fn() (n frames) under
-    torch.profiler; returns {kernel name: (device µs, launches)}."""
+    torch.profiler; returns {kernel name: (device µs, launches)}.  `ops`, a
+    set if given, receives the names of every event (host operators too)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -255,6 +269,8 @@ def _profile(torch, fn, n, label):
         wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
+        if ops is not None:
+            ops.add(e.key)
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue                     # device-side events only: no double count
         dt = getattr(e, "self_device_time_total", None)
@@ -319,15 +335,18 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t_start:.2f} s for {len(_build.sources())} sources "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
     # ptxas's registers, stack, spills and shared memory of the chained kernels.
+    # A template kernel reports once per instance (its mangled name).
     spills, smem_static = {}, {}
     for src, kernel in PTXAS_KERNELS:
         for name, r in _build.kernel_resources(src).items():
             if kernel in name:
-                spills[kernel] = r["spill_stores"] + r["spill_loads"]
+                spills[kernel] = spills.get(kernel, 0) + r["spill_stores"] + r["spill_loads"]
                 smem_static[kernel] = r["smem"]
-                print(f"ptxas {src}.cu {kernel}: {r['registers']} registers, {r['stack']} bytes "
-                      f"stack, {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes "
-                      f"spill loads, {r['smem']} bytes static shared memory", flush=True)
+                inst = name[name.index(kernel) + len(kernel):].split("EEv")[0]
+                inst = f" {inst}" if inst.startswith("I") else ""
+                print(f"ptxas {src}.cu {kernel}{inst}: {r['registers']} registers, {r['stack']} "
+                      f"bytes stack, {r['spill_stores']} bytes spill stores, {r['spill_loads']} "
+                      f"bytes spill loads, {r['smem']} bytes static shared memory", flush=True)
     dev = torch.device("cuda")
     L = tr.N_LEVELS
 
@@ -437,9 +456,10 @@ def main() -> int:
             raise AssertionError("K3 disagrees with its plain version")
         return err, stats
 
-    def check_k4(k4_in, tag):
+    def check_k4(k4_in, tag, **form):
         a4, proj, inb0, H, W = k4_in
-        out = k4.a2d_gn(*a4)
+        out = k4.a2d_gn(*a4, **form)
+        same_launch("K4", [out], [k4.a2d_gn(*a4, **form)], tag)
         ref = k4.a2d_gn_plain(*a4)
         ma, mb = (accepted(o[:, :2], o[:, 3], proj, inb0, H, W) for o in (out, ref))
         agree = float((ma == mb).float().mean())
@@ -471,6 +491,15 @@ def main() -> int:
             raise AssertionError("K5 disagrees with its plain version")
         return err, stats
 
+    def k4_ops(a):
+        """K4's operations on arguments a: per point, each iteration it runs
+        before it freezes (the plain version's count) and the final
+        residual, each 64 pixels of sample, residual and sums (~15) plus the
+        update (~30)."""
+        stats = {}
+        k4.a2d_gn_plain(*a, stats=stats)
+        return int((stats["iterations"] + 1).sum()) * (64 * 15 + 30)
+
     T_init = SE3.from_params7(T_gt7[0])
     g1, a3, a4, a5 = frame_inputs(state, frames[1], T_init)
     torch.cuda.synchronize()
@@ -501,7 +530,7 @@ def main() -> int:
     k4_ms = _time_kernel(torch, lambda: k4.a2d_gn(*a4[0]))
     k4_plain = _time_host(torch, lambda: k4.a2d_gn_plain(*a4[0]))
     k4_bytes = N * (1024 * 4 + 3 * 64 * 4 + 36 + 8 + 8 + 16)
-    k4_flops = N * 11 * (64 * 15 + 30)          # 10 iterations + final residual
+    k4_flops = k4_ops(a4[0])
     report["K4"] = dict(ms=k4_ms, plain=k4_plain, lib=None, err=e4,
                         bound=_bound(k4_bytes, k4_flops))
     k5_ms = _time_kernel(torch, lambda: k5.pose_ba_gn(*a5))
@@ -828,7 +857,8 @@ def main() -> int:
     # Substituted inits (PATCH + 2, PATCH + 2) are the out-of-bounds ones,
     # which `align2d` never accepts; every other init is the path's center.
     xy0v = a4v[7]
-    check_k4((a4v, xy0v, (xy0v != k1.PATCH + 2.0).any(dim=1), *vframes.shape[1:]), tagv)
+    k4v_in = (a4v, xy0v, (xy0v != k1.PATCH + 2.0).any(dim=1), *vframes.shape[1:])
+    check_k4(k4v_in, tagv)
     _, st5v = check_k5(a5v, tagv)
     for a, b in d10v:
         check_exact("K10 hamming distance_matrix", [k10.distance_matrix(a, b)],
@@ -847,6 +877,32 @@ def main() -> int:
           f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 {k5v_ms:.4f} ms "
           f"({_k5_links(st5v['normal_eqs'])} reductions, "
           f"{k5v_ms * 1e3 / _k5_links(st5v['normal_eqs']):.2f} us per link)", flush=True)
+    # K4's forms, swept once: lanes per point and the window read in place
+    # or staged in shared memory, each held to the plain version and timed
+    # on path 1's (N=200), the VO's (512 rows) and the batch's (1600 rows)
+    # arguments, beside the iterations the points run before they freeze
+    # (a warp runs to its slowest point's count).
+    k4_sets = (("path 1 frame 1", a4), ("VO frame 10", k4v_in), ("S=8 batch frame 1", a4b))
+    for name, k4_in in k4_sets:
+        stats = {}
+        k4.a2d_gn_plain(*k4_in[0], stats=stats)
+        its = stats["iterations"]
+        print(f"K4 {name}, {its.shape[0]} rows: iterations before freezing, largest "
+              f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
+              f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
+    sweep4 = {}
+    for lanes, ldg in K4_SWEEP:
+        row = []
+        for name, k4_in in k4_sets:
+            check_k4(k4_in, f"{name}, {lanes} lanes per point, "
+                     f"{'read in place' if ldg else 'staged'}", lanes=lanes, ldg=ldg)
+            row.append(_time_kernel(torch, lambda a=k4_in[0]: k4.a2d_gn(*a, lanes=lanes,
+                                                                        ldg=ldg)))
+        sweep4[(lanes, ldg)] = row
+    print("K4 sweep, CUDA-event us per launch at N = 200 / 512 / 1600:", flush=True)
+    for (lanes, ldg), row in sweep4.items():
+        print(f"  {lanes:2d} lanes per point, {'read in place' if ldg else 'staged':13s}: "
+              f"{' / '.join(f'{t * 1e3:.2f}' for t in row)}", flush=True)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
@@ -862,28 +918,24 @@ def main() -> int:
     print(f"mono workload: {mw.N_FRAMES} frames {mw.W}x{mw.H}, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    def check_k9(args, lfac, tag):
-        """K9 v1 (lfac None) or v2 against its plain version; returns
-        (max |R,t diff|, plain passes, kernel output)."""
+    def check_k9(args, v2, tag, **form):
+        """K9 v1 or v2 against its plain version (pose, chi2, and H: v1's at
+        the last accepted state, v2's H0); returns (max |R,t diff|, plain
+        passes, kernel output)."""
         stats = {}
-        if lfac is None:
-            out, ref = k9.level_gn(*args), k9.level_gn_plain(*args, stats=stats)
-            name = "K9 level_align_fused (v1)"
-            same_launch("K9 v1", [out], [k9.level_gn(*args)], tag)
-            h_err = float((out[13:] - ref[13:]).abs().max() / ref[13:].abs().max().clamp(min=1e-30))
-        else:
-            v2 = args[:8] + (lfac,) + args[8:]
-            out, ref = k9.level_gn_v2(*v2), k9.level_gn_v2_plain(*v2, stats=stats)
-            name = "K9 level_align_fused_v2"
-            same_launch("K9 v2", [out], [k9.level_gn_v2(*v2)], tag)
-            h_err = 0.0
+        fn, plain = (k9.level_gn_v2, k9.level_gn_v2_plain) if v2 else \
+            (k9.level_gn, k9.level_gn_plain)
+        name = "K9 level_align_fused_v2" if v2 else "K9 level_align_fused (v1)"
+        out, ref = fn(*args, **form), plain(*args, stats=stats)
+        same_launch(name, [out], [fn(*args, **form)], tag)
+        h_err = float((out[13:] - ref[13:]).abs().max() / ref[13:].abs().max().clamp(min=1e-30))
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
         err = float((out[:12] - ref[:12]).abs().max())
         c_err = abs(float(out[12]) - float(ref[12])) / max(abs(float(ref[12])), 1e-6)
         print(f"{name} {tag}: pose distance {d:.3e} (tolerance {TOL_POSE}), max |R,t diff| "
               f"{err:.3e}, chi2 {float(out[12]):.4f} vs {float(ref[12]):.4f} (relative "
-              f"{c_err:.1e}, tolerance {TOL_REL}), H relative {h_err:.1e}, passes "
-              f"{stats['passes']}")
+              f"{c_err:.1e}, tolerance {TOL_REL}), {'H0' if v2 else 'H'} relative {h_err:.1e}, "
+              f"passes {stats['passes']}")
         if not (d <= TOL_POSE and c_err <= TOL_REL and h_err <= TOL_REL):
             raise AssertionError(f"{name} disagrees with its plain version")
         return err, stats["passes"], out
@@ -892,11 +944,12 @@ def main() -> int:
         """Bytes: windows, patches, Jacobians, points, masks, origins, pose
         read once, the output written once; operations: per point and
         residual pass the projection (~40) and 16 pixels of bilinear sample,
-        residual, gradient and chi2 (~22), plus v1's 21 Hessian products."""
+        residual, gradient and chi2 (~22), plus the 21 Hessian products
+        (~42 per pixel) in every pass of v1 and the first of v2."""
         n = args[0].shape[0]
-        nbytes = n * (16 * 16 + 16 + 96 + 3 + 1 + 2) * 4 + 12 * 4 + (34 if v1 else 13) * 4
-        per_pass = 40 + 16 * (22 + (42 if v1 else 0))
-        return _bound(nbytes, n * per_pass * passes)
+        nbytes = n * (16 * 16 + 16 + 96 + 3 + 1 + 2) * 4 + 12 * 4 + 34 * 4
+        ops = n * ((40 + 16 * 22) * passes + 16 * 42 * (passes if v1 else 1))
+        return _bound(nbytes, ops)
 
     def k9_split(a, reps=REPS):
         """K9 v1's pass split: medians over reps launches of the µs per pass
@@ -943,39 +996,50 @@ def main() -> int:
         if [a[-1] for a in k9_calls] != list(range(L - 1, -1, -1)):
             raise AssertionError(f"K9 levels {[a[-1] for a in k9_calls]}")
         errs, times, plains, bounds, passes = [], [], [], [], []
+        plain_fn = k9.level_gn_plain if variant == 1 else k9.level_gn_v2_plain
         for a in k9_calls:
-            lfac = a[8] if variant == 2 else None
-            args = a if variant == 1 else a[:8] + a[9:]
-            tag = (f"variant {variant}, frame {E2_FRAME}, level {args[12]}, N={args[0].shape[0]} "
-                   f"({int((args[4] < 0.5).sum())} invisible)")
-            e, p, _ = check_k9(args, lfac, tag)
+            tag = (f"variant {variant}, frame {E2_FRAME}, level {a[12]}, N={a[0].shape[0]} "
+                   f"({int((a[4] < 0.5).sum())} invisible)")
+            e, p, _ = check_k9(a, variant == 2, tag)
             errs.append(e)
             passes.append(p)
             times.append(_time_kernel(torch, lambda a=a: fn(*a)))
-            plains.append(_time_host(torch, lambda a=a: (k9.level_gn_plain(*a) if variant == 1
-                                                         else k9.level_gn_v2_plain(*a))))
-            bounds.append(k9_bound(args, p, variant == 1))
+            plains.append(_time_host(torch, lambda a=a: plain_fn(*a)))
+            bounds.append(k9_bound(a, p, variant == 1))
         # Edge cases on level 0's arguments.
-        a0 = k9_calls[-1] if variant == 1 else k9_calls[-1][:8] + k9_calls[-1][9:]
+        a0 = k9_calls[-1]
         zero_vis = a0[:4] + (torch.zeros_like(a0[4]),) + a0[5:]
-        lfac0 = k9.frozen_factor(torch.zeros((6, 6), device=dev)) if variant == 2 else None
-        _, _, out = check_k9(zero_vis, lfac0, f"variant {variant}, level 0, no usable point")
+        _, _, out = check_k9(zero_vis, variant == 2, f"variant {variant}, level 0, no usable "
+                             f"point")
         if not (torch.equal(out[:12], a0[7]) and float(out[12]) == 0.0):
             raise AssertionError("K9 moved the pose on a level with no usable point")
         lr0 = sparse_align.LevelRef(vis=a0[4] > 0.5, ref_patch=a0[1], J=a0[2])
         R0, t0_ = a0[7][:9].reshape(3, 3), a0[7][9:]
         side = torch.tensor([0.2, 0.15, 0.0], device=dev)
-        bargs, pc0, px0 = k9.level_args(level_imgs[-1], lr0, a0[3], R0, t0_ + side, a0[8], 0,
-                                        a0[9])
+        bargs = k9.level_args(level_imgs[-1], lr0, a0[3], R0, t0_ + side, a0[8], 0, a0[9])[0]
         Hl, Wl = level_imgs[-1].shape
         clamped = ((bargs[5] == 0) | (bargs[5] == Wl - k9.CWIN) | (bargs[6] == 0)
                    | (bargs[6] == Hl - k9.CWIN)) & lr0.vis
         if int(clamped.sum()) == 0:
             raise AssertionError("the shifted pose clamps no window")
-        lfacb = (k9.frozen_factor(k3.frozen_h0(lr0.J, lr0.vis, pc0, px0, Hl, Wl))
-                 if variant == 2 else None)
-        check_k9(bargs, lfacb, f"variant {variant}, level 0, init pose shifted by "
+        check_k9(bargs, variant == 2, f"variant {variant}, level 0, init pose shifted by "
                  f"{side.tolist()}: {int(clamped.sum())} visible points' windows clamped")
+        if variant == 2:
+            # K9 v2's launch forms, swept once: one CTA of 512 threads or a
+            # cluster of C CTAs of 256, each held to the plain version and
+            # timed at every level of the frame.
+            sweep9 = {}
+            for c in K9V2_SWEEP:
+                form = "one CTA of 512" if c == 0 else f"a cluster of {c} CTAs of 256"
+                for a in k9_calls:
+                    check_k9(a, True, f"level {a[12]}, {form}", cluster=c)
+                sweep9[form] = [_time_kernel(torch, lambda a=a: k9.level_gn_v2(*a, cluster=c))
+                                for a in k9_calls]
+            print(f"K9v2 sweep, CUDA-event us per launch at frame {E2_FRAME}'s levels 2, 1, 0 "
+                  f"(N={k9_calls[0][0].shape[0]}; passes {passes}):", flush=True)
+            for form, row in sweep9.items():
+                print(f"  {form:28s}: {' / '.join(f'{t * 1e3:.2f}' for t in row)}, per frame "
+                      f"{sum(row) * 1e3:.2f}", flush=True)
         key = "K9v1" if variant == 1 else "K9v2"
         b_ms = sum(b[0] for b in bounds)
         report[key] = dict(ms=sum(times), plain=sum(plains), lib=None, err=max(errs),
@@ -1502,15 +1566,20 @@ def main() -> int:
         for k in range(P4_PROFILE[0]):
             sysm.track_monocular(frames_m[k], float(k))
         n_kf0 = sysm.vo.stats["keyframes"]
+        ops4 = set()
         prof[f"4v{variant}"] = _profile(
             torch, lambda: [sysm.track_monocular(frames_m[k], float(k))
                             for k in range(*P4_PROFILE)],
             P4_PROFILE[1] - P4_PROFILE[0], f"main path 4, FUSED_VARIANT {variant} (frames "
-            f"{P4_PROFILE[0]}-{P4_PROFILE[1] - 1})")
+            f"{P4_PROFILE[0]}-{P4_PROFILE[1] - 1})", ops=ops4)
         n_kf_win = sysm.vo.stats["keyframes"] - n_kf0
-        print(f"main path 4 profile window: {n_kf_win} keyframes in it")
+        chol = sorted(k for k in ops4 if "cholesky" in k)
+        print(f"main path 4 profile window: {n_kf_win} keyframes in it; operators named "
+              f"cholesky: {chol or 'none'}")
         if n_kf_win < 1:
             raise AssertionError("main path 4's profile window holds no keyframe")
+        if variant == 2 and chol:
+            raise AssertionError("K9 v2's H0 was factored outside the kernel")
         del sysm
     sparse_align.FUSED_VARIANT = 3
     # Each kernel's device time per launch in the profiler, in the window

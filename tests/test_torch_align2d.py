@@ -15,6 +15,7 @@ from ygz_slam_tpu_torch.ops import align as talign
 from ygz_slam_tpu_torch.ops.interp import sample_patches
 from ygz_slam_tpu_torch.ops.kernels import align2d_fused as tk4
 from ygz_slam_tpu_torch.ops.kernels.align2d_kernel import CACHE_SLACK
+from ygz_slam_tpu_torch.ops.align import substitute_inits
 
 from _torch_port import jax_kernels_interpreted, np32, workload
 
@@ -104,3 +105,23 @@ def test_drift_beyond_cache_is_rejected():
     res = talign.align2d(img, sample_patches(img, xy, 10), init)
     drift = torch.linalg.norm(res.xy - init, dim=1)
     assert bool((drift[res.converged] < float(CACHE_SLACK)).all())
+
+
+def test_exit_per_point_is_exact(case):
+    """K4 leaves a warp's loop once its points are frozen.  The plain
+    version with the same exit (each iteration takes only the points not yet
+    frozen, the loop ends once none is left) gives the full ten-iteration
+    loop's outputs bit for bit on the recorded inputs, which hold points
+    that freeze early, late and never."""
+    img = case["img"]
+    xy0, _ = substitute_inits(case["proj"], *img.shape)
+    args = tk4.a2d_args(img, tk4.align2d_prepare(case["patches"]), xy0)
+    stats = {}
+    full = tk4.a2d_gn_plain(*args, stats=stats)
+    its = stats["iterations"]
+    print(f"iterations before freezing: {torch.bincount(its).tolist()} (index = count)")
+    assert int(its.min()) <= 3 and int((its == 10).sum()) > 0
+    exit_stats = {}
+    assert torch.equal(tk4.a2d_gn_plain(*args, exit_frozen=True, stats=exit_stats), full)
+    assert torch.equal(exit_stats["iterations"], its)
+    assert torch.equal(tk4.a2d_gn(*args), full)

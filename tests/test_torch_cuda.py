@@ -7,12 +7,16 @@ and masked points, K6 with eight requests, K8 with one sequence fully
 masked beside normal ones, K10 with an empty side and with one row, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
 on windows clamped at the border, K9 v1 from 1 to 1500 points (one to
-eight CTAs of its cluster), without spills and with its pass marks on; K11 on frame 1 of the fused path and with
+eight CTAs of its cluster), without spills and with its pass marks on; K9
+v2 from 1 to 1500 points, with a rank-deficient H0 (the identity factor),
+and building H0 inside the kernel (no cholesky_ex or einsum on the card);
+K4 from 1 to 1600 points (partial groups of points in a warp), K4 and K9
+v2 without spills; K11 on frame 1 of the fused path and with
 ten landmarks masked, from 1 to 1500 map points (one to eight CTAs, the
 last range cut at N) with its stage 1 against K3 and its stage 3 against
 K5 bit for bit, and with its stage marks on; K3 and K5 from 1 to 1500 points and K3 with every
 point masked, K8 at 16 sequences, K5, K8 and K11 refusing a float mask,
-and second launches of K3, K5, K8, K9 and K11 (the same bits); five frames of the single-sequence step, ten of
+and second launches of K3, K4, K5, K8, K9 and K11 (the same bits); five frames of the single-sequence step, ten of
 the fused step, three of the batch step, twelve of the VO slice (with one
 keyframe cycle) and forty of the monocular System from raw frames on the
 card against the CPU, and that System run twice on the card (the same
@@ -443,21 +447,18 @@ def _level_case(dev, motion, n_max=256):
     return cam, prep, pyramid.build_pyramid(cur, 3)
 
 
-def _k9_agree(args, lfac=None):
-    """K9 v1 (lfac None) or v2 against its plain version on `args`."""
+def _k9_agree(args, v2=False):
+    """K9 v1 or v2 against its plain version on `args`; H (v1: at the last
+    accepted state, v2: H0) relative."""
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
 
-    if lfac is None:
-        n0 = tk9.level_gn.launches
-        out, ref = tk9.level_gn(*args), tk9.level_gn_plain(*args)
-        assert tk9.level_gn.launches == n0 + 1
-        torch.testing.assert_close(out[13:], ref[13:], rtol=1e-4, atol=1e-4 * float(
-            ref[13:].abs().max()))
-    else:
-        v2 = args[:8] + (lfac,) + args[8:]
-        n0 = tk9.level_gn_v2.launches
-        out, ref = tk9.level_gn_v2(*v2), tk9.level_gn_v2_plain(*v2)
-        assert tk9.level_gn_v2.launches == n0 + 1
+    fn, plain = (tk9.level_gn_v2, tk9.level_gn_v2_plain) if v2 else \
+        (tk9.level_gn, tk9.level_gn_plain)
+    n0 = fn.launches
+    out, ref = fn(*args), plain(*args)
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(out[13:], ref[13:], rtol=1e-4, atol=1e-4 * float(
+        ref[13:].abs().max()))
     assert float(tse3.distance(_pose(out), _pose(ref))) <= TOL_POSE
     assert abs(float(out[12]) - float(ref[12])) <= 1e-4 * max(abs(float(ref[12])), 1e-6)
     return out
@@ -477,32 +478,28 @@ def test_level_align_kernels_match_plain(cuda_device, motion):
     R0 = torch.eye(3, device=cuda_device)
     t0 = torch.zeros(3, device=cuda_device)
     for level in range(3):
-        lr = prep.levels[level]
-        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t0, cam, level, False)
+        args = tk9.level_args(cur[level], prep.levels[level], prep.p_ref, R0, t0, cam, level,
+                              False)[0]
         _k9_agree(args)
-        H0 = tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[level].shape)
-        _k9_agree(args, tk9.frozen_factor(H0))
+        _k9_agree(args, v2=True)
     lr = prep.levels[0]._replace(vis=torch.zeros_like(prep.levels[0].vis))
-    args, pc0, px0 = tk9.level_args(cur[0], lr, prep.p_ref, R0, t0, cam, 0, False)
-    H0 = tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[0].shape)
-    assert float(H0.abs().max()) == 0.0
-    for lfac in (None, tk9.frozen_factor(H0)):
-        out = _k9_agree(args, lfac)
+    args = tk9.level_args(cur[0], lr, prep.p_ref, R0, t0, cam, 0, False)[0]
+    for v2 in (False, True):
+        out = _k9_agree(args, v2)
         torch.testing.assert_close(out[:12], args[7], rtol=0, atol=0)
-        assert float(out[12]) == 0.0
+        assert float(out[12]) == 0.0 and float(out[13:].abs().max()) == 0.0
     # A 0.5 m sideways shift of the init pose: a third of the projections
     # leave the image, and the windows of those near its edge are clamped.
     t_side = torch.tensor([0.5, 0.3, 0.0], device=cuda_device)
     for level in range(3):
         lr = prep.levels[level]
-        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t_side, cam, level,
-                                        False)
+        args = tk9.level_args(cur[level], lr, prep.p_ref, R0, t_side, cam, level, False)[0]
         Hl, Wl = cur[level].shape
         ox, oy = args[5], args[6]
         clamped = (ox == 0) | (ox == Wl - tk9.CWIN) | (oy == 0) | (oy == Hl - tk9.CWIN)
         assert int((clamped & lr.vis).sum()) > 0
         _k9_agree(args)
-        _k9_agree(args, tk9.frozen_factor(tk3.frozen_h0(lr.J, lr.vis, pc0, px0, Hl, Wl)))
+        _k9_agree(args, v2=True)
 
 
 def test_mono_system_card_matches_cpu(cuda_device, monkeypatch):
@@ -702,12 +699,10 @@ def test_level_align_and_track_fused_repeat(cuda_device):
     cam, prep, cur = _level_case(cuda_device, [0.03, -0.02, 0.01, 0.002, -0.004, 0.002])
     R0, t0 = torch.eye(3, device=cuda_device), torch.zeros(3, device=cuda_device)
     for level in range(3):
-        lr = prep.levels[level]
-        args, pc0, px0 = tk9.level_args(cur[level], lr, prep.p_ref, R0, t0, cam, level, False)
+        args = tk9.level_args(cur[level], prep.levels[level], prep.p_ref, R0, t0, cam, level,
+                              False)[0]
         assert torch.equal(tk9.level_gn(*args), tk9.level_gn(*args))
-        lfac = tk9.frozen_factor(tk3.frozen_h0(lr.J, lr.vis, pc0, px0, *cur[level].shape))
-        v2 = args[:8] + (lfac,) + args[8:]
-        assert torch.equal(tk9.level_gn_v2(*v2), tk9.level_gn_v2(*v2))
+        assert torch.equal(tk9.level_gn_v2(*args), tk9.level_gn_v2(*args))
     (cam, *_, frames, T_gt7), st = _sized(cuda_device, 200)
     T0 = TSE3.from_params7(T_gt7[0])
     args = tk11.track_args(pyramid.build_pyramid(frames[1], 3), st.ref_prep.levels,
@@ -867,3 +862,123 @@ def test_level_align_v1_stamps(cuda_device):
     marks = [m for m in s[4:] if m]
     assert len(marks) % 4 == 0 and marks == sorted(marks)
     assert s[0] < s[2] and s[1] <= marks[0] and marks[-1] <= s[3]
+
+
+# -- K9 v2 (H0 and its factor in the kernel) and K4 (G lanes per point) -----
+
+@pytest.mark.parametrize("n", [1, 31, 100, 256, 1500])
+def test_level_align_v2_sizes(cuda_device, n):
+    """K9 v2 against its plain version (pose, chi2 and H0) from 1 to 1500
+    points at levels 2 and 0, a second launch giving the same bits; with no
+    usable point H0 is 0 and the pose does not move."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    for level in (2, 0):
+        args = _k9_args(cuda_device, n, level)
+        out = _k9_agree(args, v2=True)
+        assert torch.equal(tk9.level_gn_v2(*args), out)
+    zero = args[:4] + (torch.zeros_like(args[4]),) + args[5:]
+    out = _k9_agree(zero, v2=True)
+    assert torch.equal(out[:12], zero[7]) and float(out[12]) == 0.0
+    assert float(out[13:].abs().max()) == 0.0
+
+
+def test_level_align_v2_rank_deficient_h0(cuda_device):
+    """A rank-deficient H0 takes the identity factor in the kernel as in the
+    plain version: every Jacobian row 0 but columns 4 and 5 of one usable
+    point's 16 pixels, both 1, so H0 is 16 on that 2x2 block and the last
+    pivot 16 - 4 * 4 = 0 in any order of operations.  With the identity
+    factor the step is b itself."""
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    from ygz_slam_tpu_torch.ops.kernels import _gn6
+
+    args = _k9_args(cuda_device, 200, 0)
+    wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, _ = args
+    usable, _ = tk3.level_passes(wins, refp, jac, vis > 0.5, ox, oy, p_ref, cam, distorted, Hl,
+                                 Wl, 1.0)
+    i = int(torch.nonzero(usable(*_gn6.pose_from_tensor(pose0))[0])[0, 0])
+    jac = torch.zeros_like(args[2])
+    jac[i, :, 4:] = 1.0
+    args = args[:2] + (jac,) + args[3:]
+    out = _k9_agree(args, v2=True)
+    H0 = tk9._sym6(out[13:])
+    expect = torch.zeros(6, 6, device=cuda_device)
+    expect[4:, 4:] = 16.0
+    assert torch.equal(H0, expect)
+    assert torch.equal(tk9.frozen_factor(H0), torch.eye(6, device=cuda_device)[
+        tuple(torch.tril_indices(6, 6, device=cuda_device))])
+
+
+def test_level_align_fused_v2_builds_h0_in_the_kernel(cuda_device):
+    """On the card `level_align_fused_v2` launches K1 and K9 v2 and assembles
+    and factors no H0 outside the kernel: the profiler records no
+    `cholesky_ex` and no `einsum`, and one K9 v2 kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
+
+    cam, prep, cur = _level_case(cuda_device, [0.03, -0.02, 0.01, 0.002, -0.004, 0.002])
+    R0, t0 = torch.eye(3, device=cuda_device), torch.zeros(3, device=cuda_device)
+    tk9.level_align_fused_v2(cur[1], prep.levels[1], prep.p_ref, R0, t0, cam, 1, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tk9.level_align_fused_v2(cur[1], prep.levels[1], prep.p_ref, R0, t0, cam, 1, False)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()]
+    print(f"level_align_fused_v2 on the card: {keys}")
+    assert not any("cholesky" in k or "einsum" in k for k in keys)
+    assert sum(e.count for e in prof.key_averages() if "level_align_v2_kernel" in e.key) == 1
+
+
+def _k4_args(dev, n):
+    """K4's arguments on frame 1 of the tracking workload with n landmarks,
+    from their projections at frame 0's pose (inits off the image
+    substituted, as `align2d` does), and the acceptance inputs."""
+    from ygz_slam_tpu_torch.ops.align import substitute_inits
+
+    (cam, *_, frames, T_gt7), st = _sized(dev, n)
+    proj = cam.world_to_pixel(st.pts_w, TSE3.from_params7(T_gt7[0]), distorted=False)
+    H, W = frames.shape[1:]
+    xy0, inb0 = substitute_inits(proj, H, W)
+    return tk4.a2d_args(frames[1], st.a2d_prep, xy0), proj, inb0, H, W
+
+
+@pytest.mark.parametrize("n", [1, 3, 200, 512, 1600])
+def test_align2d_sizes(cuda_device, n):
+    """K4 against its plain version from 1 to 1600 points (N = 1 and 3 leave
+    a partial group of points in a warp and lanes past N): the positions of
+    points both accept within 1e-3 px on 98% of them and 0.05 px on all,
+    the acceptance masks agreeing on 98%, and a second launch giving the
+    same bits."""
+    from ygz_slam_tpu_torch.ops.align import accepted
+
+    args, proj, inb0, H, W = _k4_args(cuda_device, n)
+    out = tk4.a2d_gn(*args)
+    stats = {}
+    ref = tk4.a2d_gn_plain(*args, stats=stats)
+    ma, mb = (accepted(o[:, :2], o[:, 3], proj, inb0, H, W) for o in (out, ref))
+    both = ma & mb
+    dxy = torch.linalg.norm(out[both, :2] - ref[both, :2], dim=1)
+    print(f"K4 N={n}: {int(both.sum())} accepted by both, max |xy diff| "
+          f"{float(dxy.max()) if dxy.numel() else 0.0:.3e}, masks agree "
+          f"{float((ma == mb).float().mean()):.4f}, iterations before freezing "
+          f"{torch.bincount(stats['iterations']).tolist()}")
+    assert bool(torch.isfinite(out).all())
+    assert float((ma == mb).float().mean()) >= 0.98
+    assert not dxy.numel() or (float((dxy <= 1e-3).float().mean()) >= 0.98
+                               and float(dxy.max()) <= 0.05)
+    assert torch.equal(tk4.a2d_gn(*args), out)
+
+
+def test_align2d_and_level_v2_do_not_spill(cuda_device):
+    """ptxas's report on K4 and K9 v2 (the build's log): no spill stores or
+    loads."""
+    from ygz_slam_tpu_torch import _build
+
+    res = {k: r for src, name in (("align2d_fused", "align2d_fused_kernel"),
+                                  ("sparse_align_fused", "level_align_v2_kernel"))
+           for k, r in _build.kernel_resources(src).items() if name in k}
+    print(f"K4 and K9 v2 ptxas: {res}")
+    assert len(res) >= 2
+    assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in res.values())

@@ -20,7 +20,7 @@ from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry.camera import PinholeCamera as TCam
 from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
 from ygz_slam_tpu_torch.ops import fast, pyramid as tpyr, sparse_align as tsa
-from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as k9
+from ygz_slam_tpu_torch.ops.kernels import _gn6, sparse_align_fused as k9
 from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
 
 from _torch_port import jax_camera, jax_kernels_interpreted, jax_prep_from_port, np32
@@ -110,18 +110,39 @@ def test_singular_level_keeps_pose():
         assert float(chi2) == 0.0 and float(H.abs().max()) == 0.0
 
 
-def test_frozen_factor_rule():
-    """cholesky(H0 + 1e-8 I) where it succeeds; the identity where H0 is
-    not positive definite or not finite."""
+def _h0_cases():
+    """H0s for the factor rule: positive definite; rank-deficient (two equal
+    columns of 1s at one point's 16 pixels, the rest 0: the last pivot is
+    16 - 4 * 4 = 0 exactly in any order of operations); 0 (no usable
+    point: 1e-4 I); negative definite; NaN."""
     A = torch.randn(6, 6, generator=torch.Generator().manual_seed(0))
-    H = A @ A.T + torch.eye(6)
+    J = torch.zeros(16, 6)
+    J[:, 4:] = 1.0
+    return {"positive definite": A @ A.T + torch.eye(6), "rank-deficient": J.T @ J,
+            "zero": torch.zeros(6, 6), "negative definite": -(A @ A.T + torch.eye(6)),
+            "nan": torch.full((6, 6), float("nan"))}
+
+
+@pytest.mark.parametrize("case", list(_h0_cases()))
+def test_frozen_factor_rule(case):
+    """cholesky(H0 + 1e-8 I) where it succeeds; the identity where H0 + 1e-8 I
+    is not positive definite or not finite.  The kernel's factor
+    (common.cuh::chol6_frozen, through its float32 twin `_gn6.chol6_frozen`)
+    follows `frozen_factor`, the plain version's, on each case."""
+    H = _h0_cases()[case]
     lf = k9.frozen_factor(H)
     il, jl = torch.tril_indices(6, 6)
     Lm = torch.zeros(6, 6).index_put((il, jl), lf)
-    assert torch.allclose(Lm @ Lm.T, H + 1e-8 * torch.eye(6), atol=1e-4)
-    ident = torch.eye(6)[il, jl]
-    assert torch.equal(k9.frozen_factor(-H), ident)
-    assert torch.equal(k9.frozen_factor(torch.full((6, 6), float("nan"))), ident)
+    twin = torch.tensor(np.array(_gn6.chol6_frozen(_gn6.upper21(H)), np.float32))
+    eye = torch.eye(6)
+    if case == "positive definite":
+        assert torch.allclose(Lm @ Lm.T, H + 1e-8 * eye, atol=1e-4)
+        torch.testing.assert_close(twin, Lm, rtol=1e-5, atol=1e-6)
+    elif case == "zero":
+        torch.testing.assert_close(Lm, 1e-4 * eye, rtol=1e-6, atol=0.0)
+        assert torch.equal(twin, Lm)
+    else:
+        assert torch.equal(Lm, eye) and torch.equal(twin, eye)
 
 
 @pytest.mark.parametrize("variant", [1, 2])

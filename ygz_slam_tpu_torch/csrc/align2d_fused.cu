@@ -3,48 +3,64 @@
 //
 // Replaces ygz_slam_tpu/ops/pallas/align2d_fused.py::align2d_fused
 // (_fused_kernel, default path: DELTA_ROLLS on, EARLY_EXIT off).  Same
-// math, in align2d.cuh (shared with K11), with steps clamped to +-1 px.
-// The TPU's lane-flattened windows and bit-masked roll chains are gone:
-// the window sits in shared memory and each lane reads its two pixels'
-// bilinear taps directly.  The 256-row grid the TPU needed for N > 256
-// is not needed: the grid covers any N.
+// math, with steps clamped to +-1 px.  The TPU's lane-flattened windows
+// and bit-masked roll chains are gone: each lane reads its pixels'
+// bilinear taps directly.  The 256-row grid the TPU needed for N > 256 is
+// not needed: the grid covers any N.
 //
 // Bound: neither bytes nor operations.  A frame moves ~1 MB (windows
 // plus reference patches and gradients; ~0.3 us at 3.35 TB/s) and does
-// ~0.3 MFLOP; the time is the launch and the 10 dependent iterations,
-// each a warp-wide reduction.  So one warp owns one point: its window
-// (4 KB) is loaded once into shared memory, every lane holds two of the
-// 64 pixels' reference values and gradients in registers, and an
-// iteration costs three warp shuffles-reductions and no block barrier.
+// ~0.3 MFLOP; the time is the launch and the chain of at most 10
+// dependent iterations of the slowest warp, each a sample of the window
+// and a reduction of three sums.  The design (align2d.cuh::align_group):
+//   - G lanes per point, 32 / G points per warp: the three sums of an
+//     iteration take log2(G) shuffle steps, side by side in one chain;
+//   - a warp leaves the loop once every point it holds is frozen (the
+//     JAX package's EARLY_EXIT was a barrier over all points; this exit is
+//     per warp, and exact: a frozen point no longer moves);
+//   - the window read in place through the read-only path, or first
+//     staged in shared memory (kLdg false: a warp copies its points'
+//     windows, 4 KB each, then syncs).
 #include "align2d.cuh"
 
 using namespace ygz::align2d;
 
 namespace {
 
-constexpr int kWarps = 4;  // points per block
+constexpr int kPointsPerBlock = 8;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// Block b takes points [8 b, 8 b + 8), G lanes each.
+template <int G, bool kLdg>
+__global__ void __launch_bounds__(kPointsPerBlock * G)
 align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ ref,
                      const float* __restrict__ jx, const float* __restrict__ jy,
                      const float* __restrict__ hinv, const int* __restrict__ ox,
                      const int* __restrict__ oy, const float* __restrict__ xy0,
                      float* __restrict__ out, int N, int n_iter, float eps2) {
-  __shared__ float sw[kWarps][kWin * kWin];
-  const int warp = threadIdx.x >> 5;
+  constexpr int P = 32 / G;            // points per warp
   const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= N) return;  // whole warps leave; no block barrier below
-  float* w = sw[warp];
-  const float* src = wins + (size_t)n * kWin * kWin;
-  for (int k = lane; k < kWin * kWin; k += 32) w[k] = src[k];
-  __syncwarp();
-
-  const Result r = align_point<true>(w, ref + (size_t)n * 64, jx + (size_t)n * 64,
-                                     jy + (size_t)n * 64, hinv + (size_t)n * 9,
-                                     (float)ox[n], (float)oy[n], xy0[2 * n], xy0[2 * n + 1],
-                                     n_iter, eps2);
-  if (lane == 0) {
+  const int slot = threadIdx.x / G;    // the lane's point in the block
+  const int n = (int)blockIdx.x * kPointsPerBlock + slot;
+  const bool live = n < N;
+  const int m = live ? n : N - 1;      // a lane past N reads point N - 1
+  const float* w = wins + (size_t)m * kWin * kWin;
+  if constexpr (!kLdg) {
+    __shared__ float4 sw[kPointsPerBlock][kWin * kWin / 4];
+    const int first = (threadIdx.x >> 5) * P;      // the warp's first slot
+#pragma unroll 4
+    for (int k = lane; k < P * kWin * kWin / 4; k += 32) {
+      const int q = k / (kWin * kWin / 4), j = k % (kWin * kWin / 4);
+      const int src = min((int)blockIdx.x * kPointsPerBlock + first + q, N - 1);
+      sw[first + q][j] = reinterpret_cast<const float4*>(wins + (size_t)src * kWin * kWin)[j];
+    }
+    __syncwarp();
+    w = reinterpret_cast<const float*>(sw[slot]);
+  }
+  const Result r = align_group<G, kLdg, true>(w, ref + (size_t)m * 64, jx + (size_t)m * 64,
+                                              jy + (size_t)m * 64, hinv + (size_t)m * 9,
+                                              (float)ox[m], (float)oy[m], xy0[2 * m],
+                                              xy0[2 * m + 1], live, n_iter, eps2);
+  if (live && (lane & (G - 1)) == 0) {
     out[4 * n] = r.x;
     out[4 * n + 1] = r.y;
     out[4 * n + 2] = r.mean;
@@ -52,15 +68,31 @@ align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ r
   }
 }
 
+template <int G, bool kLdg>
+int launch(const float* wins, const float* ref, const float* jx, const float* jy,
+           const float* hinv, const int* ox, const int* oy, const float* xy0, float* out, int N,
+           int n_iter, float eps2, cudaStream_t stream) {
+  const int blocks = (N + kPointsPerBlock - 1) / kPointsPerBlock;
+  align2d_fused_kernel<G, kLdg><<<blocks, kPointsPerBlock * G, 0, stream>>>(
+      wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// lanes: lanes per point (8, 16 or 32); ldg: 1 to read the windows in
+// place, 0 to stage them in shared memory.
 extern "C" int align2d_fused_launch(const float* wins, const float* ref, const float* jx,
                                     const float* jy, const float* hinv, const int* ox,
                                     const int* oy, const float* xy0, float* out, int N,
-                                    int n_iter, float eps2, cudaStream_t stream) {
+                                    int n_iter, float eps2, int lanes, int ldg,
+                                    cudaStream_t stream) {
   if (N <= 0) return 0;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  align2d_fused_kernel<<<blocks, kWarps * 32, 0, stream>>>(wins, ref, jx, jy, hinv, ox, oy,
-                                                           xy0, out, N, n_iter, eps2);
-  return (int)cudaGetLastError();
+#define K4_LAUNCH(G, L) \
+  if (lanes == G && ldg == L) \
+    return launch<G, L>(wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2, stream);
+  K4_LAUNCH(8, true) K4_LAUNCH(8, false) K4_LAUNCH(16, true) K4_LAUNCH(16, false)
+  K4_LAUNCH(32, true) K4_LAUNCH(32, false)
+#undef K4_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Device helpers shared by the Gauss-Newton kernels (K3, K5, K8, K9,
 // K11): block-wide sums whose totals every thread receives bit for bit
-// alike, a damped 6x6 Cholesky solve with a non-finite guard, and the
+// alike, a damped 6x6 Cholesky solve with a non-finite guard (and K9 v2's
+// factor rule), and the
 // Taylor-series SE(3) exponential of the JAX kernels (same coefficients,
 // same 1.2 rad trust clamp); and the launch of a thread-block cluster (K9
 // v1, K11).
@@ -171,6 +172,43 @@ __device__ __forceinline__ void chol6(const float h[21], float L[6][6]) {
       L[i][j] = s / ljj;
     }
   }
+}
+
+// K9 v2's factor of the frozen H0, the rule of the JAX package's v2
+// (ops/kernels/sparse_align_fused.py::frozen_factor): cholesky(H0 + 1e-8 I)
+// with no pivot floor; the identity when a pivot is not positive (or NaN),
+// and any non-finite entry replaced by the identity's.
+__device__ __forceinline__ void chol6_frozen(const float h[21], float L[6][6]) {
+  float A[6][6];
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a)
+#pragma unroll
+    for (int b = a; b < 6; ++b) { A[a][b] = h[k]; A[b][a] = h[k]; ++k; }
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float d = A[j][j] + 1e-8f;
+#pragma unroll
+    for (int q = 0; q < j; ++q) d -= L[j][q] * L[j][q];
+    ok = ok && d > 0.f;                  // false for NaN
+    const float ljj = sqrtf(d);
+    L[j][j] = ljj;
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
+      float s = A[i][j];
+#pragma unroll
+      for (int q = 0; q < j; ++q) s -= L[i][q] * L[j][q];
+      L[i][j] = s / ljj;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int q = 0; q <= i; ++q) {
+      const float id = i == q ? 1.f : 0.f;
+      L[i][q] = ok && isfinite(L[i][q]) ? L[i][q] : id;
+    }
 }
 
 // Forward/back substitution L L^T dx = b.  A step with any non-finite or

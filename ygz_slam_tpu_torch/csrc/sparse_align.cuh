@@ -3,9 +3,10 @@
 // level geometry, the projection and masks of a point at a pose, the
 // pixel-per-lane pass over every usable point's 4x4 patch (sampled
 // bilinearly from its 16x16 window with ordinary indexed loads), the
-// block-reduced normal equations of one pass, and the coarse-to-fine loop
-// over every level (K3 and K11).  K9 v1 runs the same pass over a
-// thread-block cluster (sparse_align_fused.cu).
+// block-reduced normal equations of one pass, one level's loop on a frozen
+// Hessian (K9 v2) and the coarse-to-fine loop over every level (K3 and
+// K11).  K9 v1 runs the same pass over a thread-block cluster
+// (sparse_align_fused.cu).
 #pragma once
 
 #include "common.cuh"
@@ -142,10 +143,11 @@ __device__ __forceinline__ float pixel(const Level& lv, int i, int p, float fx, 
 // pose (R, t).  The sums accumulate by explicit fused multiply-adds (the
 // build contracts nothing else): their order differs from the plain
 // version's in any case, and a per-pixel value never decides alone.
+template <class Red>
 __device__ __forceinline__ void residual_pass(const float R[9], const float t[3],
                                               const float* pref, int N, const Cam& c,
                                               const Level& lv, float bv[6], float& chi2,
-                                              Reducer& red) {
+                                              Red& red) {
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
@@ -188,12 +190,14 @@ __device__ __forceinline__ void normal_partials(const float R[9], const float t[
 }
 
 // H (21 upper-triangular sums), b = -sum J r and chi2 = sum r^2 /
-// max(#pixels used, 1) at pose (R, t), in one pass and one 29-value block
-// reduction (each level's first pass in mega_levels).
+// max(#pixels used, 1) at pose (R, t), in one pass and one 29-value
+// reduction (each level's first pass in level_loop).  `red` is a Reducer,
+// or anything with its sum<K>() (K9 v2 sums over a cluster).
+template <class Red>
 __device__ __forceinline__ void normal_eqs(const float R[9], const float t[3],
                                            const float* pref, int N, const Cam& c,
                                            const Level& lv, float (&h)[21], float bv[6],
-                                           float& chi2, Reducer& red) {
+                                           float& chi2, Red& red) {
   float acc[29];
   normal_partials(R, t, pref, N, c, lv, acc);
   red.sum(acc);
@@ -218,15 +222,64 @@ __device__ __forceinline__ void retract_right(const float R[9], const float t[3]
   }
 }
 
-// Every level's Gauss-Newton loop, coarse (L - 1) to fine (0), by the
-// whole CTA (K3, and the first stage of K11): per level the Hessian frozen
-// at the level-init pose (computed in the level's first residual pass) and
-// factored once, then up to n_iter
-// substitution-only iterations with rollback on a chi2 increase and a stop
-// at max|dx| < eps.  (R, t) is refined in place, identical in every
-// thread; chi2 is the finest level's.  wins [L, N, 16, 16], refp [L, N,
-// 16], jac [L, N, 16, 6], lvis / ox / oy [L, N]; every block reduction
+// How a level factors its frozen Hessian.
+struct DampedFactor {      // K3 and K11's stage 1: chol6, pivot floor 1e-20
+  __device__ __forceinline__ static void factor(const float h[21], float L[6][6]) {
+    chol6(h, L);
+  }
+};
+struct FrozenFactor {      // K9 v2: the JAX package's v2 rule, chol6_frozen
+  __device__ __forceinline__ static void factor(const float h[21], float L[6][6]) {
+    chol6_frozen(h, L);
+  }
+};
+
+// One level's Gauss-Newton loop from the level-init pose (R, t): the
+// Hessian frozen there (computed with the first residuals in the level's
+// first pass; its 21 upper-triangular sums are left in h) and factored
+// once by Factor, then up to n_iter substitution-only iterations with
+// rollback on a chi2 increase and a stop at max|dx| < eps.  (R, t) and
+// chi2 are refined in place, identical in every thread; every reduction
 // goes through `red`.
+template <class Factor, class Red>
+__device__ __forceinline__ void level_loop(float R[9], float t[3], float& chi2, float (&h)[21],
+                                           const float* __restrict__ pref, int N,
+                                           const Cam& cam, const Level& lv, int n_iter,
+                                           float eps, Red& red) {
+  float Lc[6][6], bv[6];
+  normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, red);
+  Factor::factor(h, Lc);
+  bool stop = false;
+  for (int it = 0; !stop && it < n_iter; ++it) {
+    float dx[6];
+    subst6(Lc, bv, dx);
+    float amax = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) amax = fmaxf(amax, fabsf(dx[k]));
+    const bool conv = amax < eps;
+    float Rn[9], tn[3];
+    retract_right(R, t, dx, Rn, tn);
+    float bn[6], chi2n;
+    residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, red);
+    const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
+    if (!worse) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t[k] = tn[k];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) bv[k] = bn[k];
+      chi2 = chi2n;
+    }
+    stop = worse || conv;
+  }
+}
+
+// Every level's Gauss-Newton loop (level_loop with chol6), coarse (L - 1)
+// to fine (0), by the whole CTA (K3, and the first stage of K11).  (R, t)
+// is refined in place, identical in every thread; chi2 is the finest
+// level's.  wins [L, N, 16, 16], refp [L, N, 16], jac [L, N, 16, 6], lvis
+// / ox / oy [L, N]; every block reduction goes through `red`.
 __device__ __forceinline__ void mega_levels(
     float R[9], float t[3], float& chi2, const float* __restrict__ wins,
     const float* __restrict__ refp, const float* __restrict__ jac, const float* __restrict__ pref,
@@ -246,36 +299,8 @@ __device__ __forceinline__ void mega_levels(
     lv.scale = 1.f / (float)(1 << li);
     lv.Hl = (float)Hl;
     lv.Wl = (float)Wl;
-
-    // The frozen Hessian and the first residuals, both at the level-init
-    // pose: one pass.
-    float h[21], Lc[6][6], bv[6];
-    normal_eqs(R, t, pref, N, cam, lv, h, bv, chi2, red);
-    chol6(h, Lc);
-    bool stop = false;
-    for (int it = 0; !stop && it < n_iter; ++it) {
-      float dx[6];
-      subst6(Lc, bv, dx);
-      float amax = 0.f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) amax = fmaxf(amax, fabsf(dx[k]));
-      const bool conv = amax < eps;
-      float Rn[9], tn[3];
-      retract_right(R, t, dx, Rn, tn);
-      float bn[6], chi2n;
-      residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, red);
-      const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
-      if (!worse) {
-#pragma unroll
-        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) t[k] = tn[k];
-#pragma unroll
-        for (int k = 0; k < 6; ++k) bv[k] = bn[k];
-        chi2 = chi2n;
-      }
-      stop = worse || conv;
-    }
+    float h[21];
+    level_loop<DampedFactor>(R, t, chi2, h, pref, N, cam, lv, n_iter, eps, red);
   }
 }
 

@@ -14,9 +14,14 @@
 //      trial pose and refactors H each iteration (damped Cholesky, 1e-8 on
 //      the diagonal, pivot floor 1e-20); it returns the pose, chi2 and the
 //      21 H entries of the last accepted state.
-//   v2 runs substitutions only, against the Cholesky factor of the frozen
-//      H0 that the caller computes (ops/kernels/sparse_align_fused.py); it
-//      returns the pose and chi2.
+//   v2 freezes H0 at the level-init pose (the level's first pass, at the
+//      level-init visibility), factors it once by the JAX v2 rule
+//      (cholesky(H0 + 1e-8 I), the identity where that fails or is not
+//      finite: common.cuh::chol6_frozen), then runs substitutions only; it
+//      returns the pose, chi2 and H0.  The JAX wrapper assembled and
+//      factored H0 in XLA because its TPU kernel took the factor; here the
+//      kernel does it on K3's level body (sparse_align.cuh::level_loop),
+//      which saves the glue's small launches (masks, product, factor).
 // The TPU layout (lane-packed windows, 8 bit-masked power-of-two rolls
 // standing in for a per-point dynamic slice, [1,1] splat scalars) is gone:
 // a lane reads its pixel's 2x2 support with ordinary indexed loads.  The
@@ -30,11 +35,11 @@
 // 3.35 TB/s) and does ~1 MFLOP per iteration; the time is the serial chain
 // of dependent iterations, each one pass over the points and one
 // reduction.
-//   v2 runs the chain in one CTA of 512 threads on K3's per-pass body
-//      (sparse_align.cuh: a pixel per lane, transposed warp reductions
-//      whose sums every thread receives in the same order); each thread
-//      solves the 6x6 system redundantly in registers (no broadcast, the
-//      pose never leaves registers).
+//   v2 runs the chain in one CTA of 512 threads on K3's level body
+//      (sparse_align.cuh::level_loop: a pixel per lane, transposed warp
+//      reductions whose sums every thread receives in the same order);
+//      each thread factors H0 and substitutes redundantly in registers (no
+//      broadcast, the pose never leaves registers).
 //   v1 spreads each pass over a thread-block cluster of up to 8 CTAs of
 //      256 threads (the wrapper's partition: a CTA per 32 points, so one
 //      round of the pixel loop per CTA where one CTA took N / 32 rounds).
@@ -99,26 +104,49 @@ constexpr int kSums = 29;            // 21 H, 6 b, chi2 numerator, pixel count
 // through distributed shared memory, in rank order) and a shuffle hands
 // each lane all of them.  A slot is written again two exchanges later,
 // after a barrier that every CTA passes only once it has read it.
-__device__ __forceinline__ void cluster_sum(float (&v)[kSums], float (*slots)[32], int& flip,
+template <int K>
+__device__ __forceinline__ void cluster_sum(float (&v)[K], float (*slots)[32], int& flip,
                                             int C) {
+  static_assert(K <= 32, "at most 32 values per exchange");
   const int lane = threadIdx.x & 31;
   float* mine = slots[flip];
   flip ^= 1;
   float x = 0.f;
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) x = lane == k ? v[k] : x;
-  if (threadIdx.x < kSums) mine[threadIdx.x] = x;
+  for (int k = 0; k < K; ++k) x = lane == k ? v[k] : x;
+  if (threadIdx.x < K) mine[threadIdx.x] = x;
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
   cg::cluster_group cluster = cg::this_cluster();
-  const int k = lane < kSums ? lane : 0;
+  const int k = lane < K ? lane : 0;
   float tot = *cluster.map_shared_rank(mine + k, 0);
 #pragma unroll
   for (int r = 1; r < kMaxCluster; ++r)
     if (r < C) tot += *cluster.map_shared_rank(mine + k, r);
 #pragma unroll
-  for (int q = 0; q < kSums; ++q) v[q] = __shfl_sync(kFull, tot, q);
+  for (int q = 0; q < K; ++q) v[q] = __shfl_sync(kFull, tot, q);
 }
+
+// A CTA's block sums (Reducer), then the cluster's (cluster_sum): the sums
+// of a K9 v2 pass over a cluster, the same bits in every thread of every
+// CTA.
+class ClusterReducer {
+ public:
+  __device__ ClusterReducer(float* smem, float (*slots)[32], int C)
+      : red_(smem), slots_(slots), C_(C) {}
+
+  template <int K>
+  __device__ __forceinline__ void sum(float (&v)[K]) {
+    red_.sum(v);
+    cluster_sum(v, slots_, flip_, C_);
+  }
+
+ private:
+  Reducer red_;
+  float (*slots_)[32];
+  int flip_ = 0;
+  int C_;
+};
 
 // Thread 0 of rank 0, when stamps is given: SM clock at mark k of pass p
 // (0 after the pixel steps, 1 after the block reduction, 2 after the
@@ -224,55 +252,51 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
   v1_time(stamps, 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K9 v2: level_loop with K9 v2's factor rule on one level.  kCluster
+// false: one CTA of kThreads takes every point (per_cta = N); true: the
+// grid is one cluster of CTAs of kV1Threads, CTA r taking points
+// [r * per_cta, min(N, (r + 1) * per_cta)), each pass summed over the
+// cluster.  out [34]: R, t, chi2, then H0's 21 upper-triangular sums (the
+// level's first pass, at the level-init pose).
+template <bool kCluster>
+__global__ void __launch_bounds__(kCluster ? kV1Threads : kThreads, 1)
 level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
                       const float* __restrict__ vis, const int* __restrict__ ox,
                       const int* __restrict__ oy, const float* __restrict__ pose0,
-                      const float* __restrict__ lfac, float* __restrict__ out, int N, int Hl,
-                      int Wl, float scale, Cam cam, int n_iter, float eps) {
+                      float* __restrict__ out, int N, int Hl, int Wl, float scale, Cam cam,
+                      int n_iter, float eps, int per_cta) {
   __shared__ float smem[kRedFloats];
-  Reducer red(smem);
-  const Level lv = make_level(wins, refp, jac, vis, ox, oy, scale, Hl, Wl);
-  float R[9], t[3], Lc[6][6];
+  const int n0 = min(N, (int)blockIdx.x * per_cta);
+  const int n = min(N, n0 + per_cta) - n0;
+  const Level lv = make_level(wins + (size_t)n0 * kCwin * kCwin, refp + (size_t)n0 * kNpix,
+                              jac + (size_t)n0 * kNpix * 6, vis + n0, ox + n0, oy + n0, scale,
+                              Hl, Wl);
+  float R[9], t[3], chi2, h[21];
 #pragma unroll
   for (int k = 0; k < 9; ++k) R[k] = pose0[k];
 #pragma unroll
   for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
-  // The factor's 21 lower-triangular entries, row-major (tril_indices(6)).
-  int k = 0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-#pragma unroll
-    for (int q = 0; q <= i; ++q) Lc[i][q] = lfac[k++];
-  float bv[6], chi2;
-  residual_pass(R, t, pref, N, cam, lv, bv, chi2, red);
-  bool stop = false;
-  for (int it = 0; !stop && it < n_iter; ++it) {
-    float dx[6];
-    subst6(Lc, bv, dx);
-    const bool conv = max_abs6(dx) < eps;
-    float Rn[9], tn[3], bn[6], chi2n;
-    retract_right(R, t, dx, Rn, tn);
-    residual_pass(Rn, tn, pref, N, cam, lv, bn, chi2n, red);
-    const bool worse = !(chi2n <= chi2);  // a NaN trial counts as worse
-    if (!worse) {
-#pragma unroll
-      for (int q = 0; q < 9; ++q) R[q] = Rn[q];
-#pragma unroll
-      for (int q = 0; q < 3; ++q) t[q] = tn[q];
-#pragma unroll
-      for (int q = 0; q < 6; ++q) bv[q] = bn[q];
-      chi2 = chi2n;
-    }
-    stop = worse || conv;
+  if constexpr (kCluster) {
+    __shared__ float slots[2][32];
+    ClusterReducer red(smem, slots, gridDim.x);
+    level_loop<FrozenFactor>(R, t, chi2, h, pref + 3 * (size_t)n0, n, cam, lv, n_iter, eps,
+                             red);
+    // No CTA leaves (and frees its slots) before every CTA has read them.
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  } else {
+    Reducer red(smem);
+    level_loop<FrozenFactor>(R, t, chi2, h, pref, n, cam, lv, n_iter, eps, red);
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
 #pragma unroll
     for (int q = 0; q < 9; ++q) out[q] = R[q];
 #pragma unroll
     for (int q = 0; q < 3; ++q) out[9 + q] = t[q];
     out[12] = chi2;
+#pragma unroll
+    for (int q = 0; q < 21; ++q) out[13 + q] = h[q];
   }
 }
 
@@ -297,16 +321,24 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
                              cam, n_iter, eps, per_cta, stamps);
 }
 
+// One launch of K9 v2: cluster 0 runs one CTA of kThreads over every
+// point, cluster C in 1..8 one cluster of C CTAs of kV1Threads, CTA r
+// taking points [r * per_cta, min(N, (r + 1) * per_cta)).  Returns the
+// CUDA error of the launch.
 extern "C" int level_align_v2_launch(const float* wins, const float* refp, const float* jac,
                                      const float* pref, const float* vis, const int* ox,
-                                     const int* oy, const float* pose0, const float* lfac,
-                                     float* out, int N, int Hl, int Wl, float scale, float fx,
-                                     float fy, float cx, float cy, float k1, float k2,
-                                     float p1, float p2, int n_iter, float eps,
+                                     const int* oy, const float* pose0, float* out, int N,
+                                     int Hl, int Wl, float scale, float fx, float fy, float cx,
+                                     float cy, float k1, float k2, float p1, float p2,
+                                     int n_iter, float eps, int cluster, int per_cta,
                                      cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  level_align_v2_kernel<<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy, pose0,
-                                                   lfac, out, N, Hl, Wl, scale, cam, n_iter,
-                                                   eps);
+  if (cluster > 0)
+    return (int)launch_cluster(level_align_v2_kernel<true>, cluster, per_cta, N, kV1Threads,
+                               stream, wins, refp, jac, pref, vis, ox, oy, pose0, out, N, Hl,
+                               Wl, scale, cam, n_iter, eps, per_cta);
+  level_align_v2_kernel<false><<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy,
+                                                          pose0, out, N, Hl, Wl, scale, cam,
+                                                          n_iter, eps, N);
   return (int)cudaGetLastError();
 }

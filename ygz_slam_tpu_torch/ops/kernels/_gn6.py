@@ -1,4 +1,4 @@
-"""Pose-level scalar math of the Gauss-Newton twins (K3, K5), in float32.
+"""Pose-level scalar math of the Gauss-Newton twins (K3, K5, K9), in float32.
 
 The CUDA kernels solve each 6x6 system and apply each retraction in
 registers, entry by entry.  The twins do the same on the host with
@@ -43,6 +43,39 @@ def chol6(h21: list) -> list:
             for q in range(j):
                 s = s - L[i][q] * L[j][q]
             L[i][j] = s / ljj
+    return L
+
+
+def chol6_frozen(h21: list) -> list:
+    """K9 v2's factor (common.cuh::chol6_frozen): the Cholesky of the 6x6
+    plus 1e-8 on the diagonal with no pivot floor; the identity when a
+    pivot is not positive (or NaN), and any non-finite entry replaced by
+    the identity's."""
+    A = [[None] * 6 for _ in range(6)]
+    k = 0
+    for a in range(6):
+        for b in range(a, 6):
+            A[a][b] = A[b][a] = F(h21[k])
+            k += 1
+    L = [[_ZERO] * 6 for _ in range(6)]
+    ok = True
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for j in range(6):
+            d = A[j][j] + F(1e-8)
+            for q in range(j):
+                d = d - L[j][q] * L[j][q]
+            ok = ok and bool(d > _ZERO)          # False for NaN
+            ljj = np.sqrt(d)
+            L[j][j] = ljj
+            for i in range(j + 1, 6):
+                s = A[i][j]
+                for q in range(j):
+                    s = s - L[i][q] * L[j][q]
+                L[i][j] = s / ljj
+    for i in range(6):
+        for q in range(i + 1):
+            if not (ok and np.isfinite(L[i][q])):
+                L[i][q] = _ONE if i == q else _ZERO
     return L
 
 

@@ -66,13 +66,19 @@ def a2d_window_origins(center_xy: torch.Tensor, H, W):
 
 
 def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
-                 clamp_step: bool = True):
+                 clamp_step: bool = True, exit_frozen: bool = False,
+                 stats: dict | None = None):
     """Plain version of K4 (clamp_step True: each step clamped to +-1 px)
     and of K11's second stage (clamp_step False: the unclamped loop of
     ops/pallas/track_fused.py).
 
     wins [N, 32, 32], ref/jx/jy [N, 8, 8], hinv [N, 3, 3], ox/oy [N] int32,
-    xy0 [N, 2].  Returns [N, 4]: x, y, mean offset, final mean |r|."""
+    xy0 [N, 2].  Returns [N, 4]: x, y, mean offset, final mean |r|.  Every
+    point runs n_iter iterations, its updates gated off once it is frozen;
+    with `exit_frozen` each iteration takes only the points not yet frozen
+    and the loop ends once all are (K4's exit), which must give the same
+    bits.  `stats`, if given, receives "iterations" [N]: the iterations each
+    point ran before it froze (n_iter if it never did)."""
     N = xy0.shape[0]
     dev = wins.device
     oxf, oyf = ox.to(torch.float32), oy.to(torch.float32)
@@ -81,48 +87,59 @@ def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
     jy = jy.reshape(N, -1)
     h = hinv.reshape(N, 9)
     ar = torch.arange(PATCH + 1, device=dev)
-    rows_n = torch.arange(N, device=dev)[:, None, None]
 
-    def residual(x, y, mean):
-        fx = torch.clamp(x - _HALF - oxf, 0.0, _LIM)
-        fy = torch.clamp(y - _HALF - oyf, 0.0, _LIM)
+    def residual(i, x, y, mean):
+        """Residuals [len(i), 64] of the points i at (x, y, mean) [len(i)]."""
+        fx = torch.clamp(x - _HALF - oxf[i], 0.0, _LIM)
+        fy = torch.clamp(y - _HALF - oyf[i], 0.0, _LIM)
         x0 = torch.floor(fx)
         y0 = torch.floor(fy)
         ax = (fx - x0)[:, None, None]
         ay = (fy - y0)[:, None, None]
-        sub = wins[rows_n, (y0.long()[:, None] + ar)[:, :, None],
-                   (x0.long()[:, None] + ar)[:, None, :]]           # [N, 9, 9]
+        sub = wins[i[:, None, None], (y0.long()[:, None] + ar)[:, :, None],
+                   (x0.long()[:, None] + ar)[:, None, :]]           # [n, 9, 9]
         cur = ((1 - ax) * (1 - ay) * sub[:, :PATCH, :PATCH] + ax * (1 - ay) * sub[:, :PATCH, 1:]
                + (1 - ax) * ay * sub[:, 1:, :PATCH] + ax * ay * sub[:, 1:, 1:])
-        return cur.reshape(N, -1) - ref + mean[:, None]
+        return cur.reshape(len(i), -1) - ref[i] + mean[:, None]
 
     x, y = xy0[:, 0].clone(), xy0[:, 1].clone()
     mean = torch.zeros(N, dtype=torch.float32, device=dev)
     frozen = torch.zeros(N, dtype=torch.bool, device=dev)
-    for _ in range(n_iter):
-        e = residual(x, y, mean)
-        gx = torch.sum(e * jx, dim=1)
-        gy = torch.sum(e * jy, dim=1)
+    iters = torch.full((N,), n_iter, dtype=torch.int64, device=dev)
+    every = torch.arange(N, device=dev)
+    for it in range(n_iter):
+        i = torch.nonzero(~frozen)[:, 0] if exit_frozen else every
+        if len(i) == 0:
+            break
+        e = residual(i, x[i], y[i], mean[i])
+        gx = torch.sum(e * jx[i], dim=1)
+        gy = torch.sum(e * jy[i], dim=1)
         gm = torch.sum(e, dim=1)
-        du = h[:, 0] * gx + h[:, 1] * gy + h[:, 2] * gm
-        dv = h[:, 3] * gx + h[:, 4] * gy + h[:, 5] * gm
-        dm = h[:, 6] * gx + h[:, 7] * gy + h[:, 8] * gm
+        hi = h[i]
+        du = hi[:, 0] * gx + hi[:, 1] * gy + hi[:, 2] * gm
+        dv = hi[:, 3] * gx + hi[:, 4] * gy + hi[:, 5] * gm
+        dm = hi[:, 6] * gx + hi[:, 7] * gy + hi[:, 8] * gm
         small = du * du + dv * dv < conv_eps * conv_eps
         if clamp_step:                       # <= 1 px per iteration
             du = torch.clamp(du, -1.0, 1.0)
             dv = torch.clamp(dv, -1.0, 1.0)
-        act = ~small & ~frozen               # a step that freezes is not applied
-        x = torch.where(act, x - du, x)
-        y = torch.where(act, y - dv, y)
-        mean = torch.where(act, mean - dm, mean)
-        frozen = frozen | small
-    err = torch.sum(torch.abs(residual(x, y, mean)), dim=1) / float(PATCH * PATCH)
+        act = ~small & ~frozen[i]            # a step that freezes is not applied
+        x[i] = torch.where(act, x[i] - du, x[i])
+        y[i] = torch.where(act, y[i] - dv, y[i])
+        mean[i] = torch.where(act, mean[i] - dm, mean[i])
+        iters[i] = torch.where(small & ~frozen[i], it + 1, iters[i])
+        frozen[i] = frozen[i] | small
+    if stats is not None:
+        stats["iterations"] = iters
+    err = torch.sum(torch.abs(residual(every, x, y, mean)), dim=1) / float(PATCH * PATCH)
     return torch.stack([x, y, mean, err], dim=1)
 
 
-def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
+def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03, *,
+           lanes: int = 16, ldg: bool = True):
     """K4 on the card, its plain version on the CPU; arguments as for
-    `a2d_gn_plain`."""
+    `a2d_gn_plain`.  `lanes` lanes per point (8, 16 or 32); `ldg` reads
+    the windows in place, else stages them in shared memory."""
     if not on_card(wins):
         return a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     N = xy0.shape[0]
@@ -135,10 +152,10 @@ def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
     require(oy, "oy", torch.int32, (N,), dev)
     require(xy0, "xy0", torch.float32, (N, 2), dev)
     out = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, P],
+    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, I, I, P],
            wins.data_ptr(), ref.data_ptr(), jx.data_ptr(), jy.data_ptr(), hinv.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), xy0.data_ptr(), out.data_ptr(), N, n_iter,
-           conv_eps * conv_eps, stream(dev))
+           conv_eps * conv_eps, lanes, int(ldg), stream(dev))
     launched(a2d_gn, wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     return out
 

@@ -4,7 +4,8 @@ variants (counterpart of ygz_slam_tpu/ops/pallas/sparse_align_fused.py).
 The CUDA kernels (csrc/sparse_align_fused.cu) replace `_kernel` (v1: the
 normal equations recomputed and refactored every iteration) and
 `_kernel_v2` (v2: substitutions only, against the Cholesky factor of H0,
-the Hessian frozen at the level-init pose).  `level_gn` / `level_gn_v2` are
+the Hessian frozen at the level-init pose; the JAX wrapper builds and
+factors H0 in XLA, K9 v2 in the kernel).  `level_gn` / `level_gn_v2` are
 their wrappers, `level_gn_plain` / `level_gn_v2_plain` their plain
 versions, and `level_align_fused` / `level_align_fused_v2` the JAX
 package's entry points: windows gathered by K1 around the level-init
@@ -19,7 +20,7 @@ import torch
 from . import Fl, I, P, _gn6, cluster_partition, launch, launched, on_card, require, stream
 from .align2d_kernel import gather_windows
 from .sparse_align_mega import (CWIN, MAX_ITER, PATCH, SLACK, STOP_STEP, _HALF, _distortion,
-                                frozen_h0, level_passes)
+                                frozen_hessian, level_passes)
 
 _NPIX = PATCH * PATCH
 # K9 v1's launch geometry (csrc/sparse_align_fused.cu).
@@ -59,21 +60,23 @@ def level_gn_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, H
     return torch.cat([out, torch.tensor(h, dtype=torch.float32, device=wins.device)])
 
 
-def level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, distorted, Hl,
-                      Wl, level, stats: dict | None = None):
-    """Plain version of K9 v2: arguments as for `level_gn_plain` plus lfac
-    [21], the lower-triangular Cholesky factor of the frozen H0, row-major.
-    Returns [13]: R, t, chi2."""
-    _, residuals = level_passes(wins, refp, jac, vis > 0.5, ox, oy, p_ref, cam, distorted,
-                                Hl, Wl, 1.0 / float(2 ** level))
-    lf = [_gn6.F(v) for v in lfac.detach().cpu().numpy()]
+def level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
+                      level, stats: dict | None = None):
+    """Plain version of K9 v2; arguments as for `level_gn_plain`.  H0 is
+    frozen at the level-init pose `pose0` over the points usable there and
+    factored by `frozen_factor`.  Returns [34]: R, t, chi2 and H0's 21
+    upper-triangular entries."""
+    usable, residuals = level_passes(wins, refp, jac, vis > 0.5, ox, oy, p_ref, cam, distorted,
+                                     Hl, Wl, 1.0 / float(2 ** level))
+    R, t = _gn6.pose_from_tensor(pose0)
+    H0 = frozen_hessian(jac, usable, R, t)
+    lf = [_gn6.F(v) for v in frozen_factor(H0).cpu().numpy()]
     Lc = [[_gn6.F(0.0)] * 6 for _ in range(6)]
     k = 0
     for i in range(6):
         for q in range(i + 1):
             Lc[i][q] = lf[k]
             k += 1
-    R, t = _gn6.pose_from_tensor(pose0)
     _, bv, chi2 = residuals(R, t)
     passes = 1
     for _ in range(MAX_ITER):
@@ -89,7 +92,9 @@ def level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, dis
             break
     if stats is not None:
         stats["passes"] = passes
-    return _gn6.pose_to_tensor(R, t, chi2, wins.device)
+    out = _gn6.pose_to_tensor(R, t, chi2, wins.device)
+    h0 = torch.tensor(_gn6.upper21(H0), dtype=torch.float32, device=wins.device)
+    return torch.cat([out, h0])
 
 
 def _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0):
@@ -141,24 +146,25 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
 level_gn.launches = 0
 
 
-def level_gn_v2(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, distorted, Hl, Wl,
-                level):
+def level_gn_v2(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level, *,
+                cluster: int = 0):
     """K9 v2 on the card, its plain version on the CPU; arguments as for
-    `level_gn_v2_plain`."""
+    `level_gn_v2_plain`.  `cluster` 0 launches one CTA over every point, C
+    in 1..8 a cluster of C CTAs."""
     if not on_card(wins):
-        return level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam,
-                                 distorted, Hl, Wl, level)
+        return level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl,
+                                 Wl, level)
     N, dev = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
-    require(lfac, "lfac", torch.float32, (21,), dev)
-    out = torch.empty(13, dtype=torch.float32, device=dev)
+    out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
+    per_cta = -(-N // cluster) if cluster else N
     launch("sparse_align_fused", "level_align_v2_launch",
-           [P] * 10 + [I] * 3 + [Fl] * 9 + [I, Fl, P],
+           [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, I, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
-           ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), lfac.data_ptr(), out.data_ptr(), N,
-           Hl, Wl, 1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy,
-           *_distortion(cam, distorted), MAX_ITER, STOP_STEP, stream(dev))
-    launched(level_gn_v2, wins, refp, jac, p_ref, vis, ox, oy, pose0, lfac, cam, distorted, Hl,
-             Wl, level)
+           ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(), N, Hl, Wl,
+           1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy, *_distortion(cam, distorted),
+           MAX_ITER, STOP_STEP, cluster, per_cta, stream(dev))
+    launched(level_gn_v2, wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
+             level)
     return out
 
 
@@ -168,9 +174,9 @@ level_gn_v2.launches = 0
 def frozen_factor(H0: torch.Tensor) -> torch.Tensor:
     """The v2 factor of the JAX package: cholesky(H0 + 1e-8 I) with no pivot
     floor, the identity where the factorization failed, and any non-finite
-    entry replaced by the identity's (sparse_align_fused.py:648-649).
-    `cholesky_ex` neither raises nor waits for the device.  Returns the 21
-    lower-triangular entries, row-major."""
+    entry replaced by the identity's (sparse_align_fused.py:648-649; the
+    kernel's is common.cuh::chol6_frozen, its twin `_gn6.chol6_frozen`).
+    Returns the 21 lower-triangular entries, row-major."""
     eye = torch.eye(6, dtype=H0.dtype, device=H0.device)
     Lm, info = torch.linalg.cholesky_ex(H0 + 1e-8 * eye)
     Lm = torch.where((info == 0) & torch.isfinite(Lm), Lm, eye)
@@ -179,7 +185,7 @@ def frozen_factor(H0: torch.Tensor) -> torch.Tensor:
 
 
 def level_args(cur_img, level_ref, p_ref, R0, t0, cam, level: int, distorted: bool):
-    """K9's inputs for one level (everything but v2's factor): the points
+    """K9's inputs for one level: the points
     projected at the level-init pose (R0, t0), each one's 16x16 window
     gathered by K1 with its origin SLACK px up-left of the support and
     clamped inside the image, and the keyframe constants.  Returns (args
@@ -223,11 +229,9 @@ def level_align_fused(cur_img, level_ref, p_ref, R0, t0, cam, level: int,
 def level_align_fused_v2(cur_img, level_ref, p_ref, R0, t0, cam, level: int,
                          distorted: bool = True):
     """`level_align_fused` with the frozen-Hessian kernel: H0 assembled at
-    the level-init visibility and factored once here (`frozen_factor`),
-    substitutions only in the kernel.  Returns (R, t, chi2, H0)."""
-    args, pc0, px0 = level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted)
-    Hl, Wl = cur_img.shape
-    H0 = frozen_h0(level_ref.J, level_ref.vis, pc0, px0, Hl, Wl)
-    out = level_gn_v2(*args[:8], frozen_factor(H0), *args[8:])
+    the level-init pose and visibility and factored once inside the kernel,
+    substitutions only.  Returns (R, t, chi2, H0)."""
+    args, _, _ = level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted)
+    out = level_gn_v2(*args)
     R, t, chi2 = _unpack(out)
-    return R, t, chi2, H0
+    return R, t, chi2, _sym6(out[13:34])

@@ -82,6 +82,14 @@ def frozen_h0(J, vis, pc0, px0, Hl: int, Wl: int) -> torch.Tensor:
     return torch.einsum("npa,npb->ab", J0, J0)
 
 
+def frozen_hessian(J_l: torch.Tensor, usable, R: list, t: list) -> torch.Tensor:
+    """A level's frozen Hessian as the kernels compute it: J^T J over the
+    points `usable(R, t)` (a `level_passes` mask) at the level-init pose
+    (R, t).  Masked rows are never read."""
+    J0 = used_rows(J_l, usable(R, t)[0])
+    return torch.einsum("npa,npb->ab", J0, J0)
+
+
 def project_points(R: list, t: list, p: torch.Tensor, cam, distorted: bool,
                    scale: float = 1.0):
     """Pixels (u, v) on the level of `scale` and depths z of points p [N, 3]
@@ -170,8 +178,7 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
                                          oy[li], p_ref, cam, distorted, Hl, Wl,
                                          1.0 / float(2 ** li))
         # Hessian frozen at the level-init pose and visibility.
-        J0 = used_rows(jac[li], usable(R, t)[0])
-        Lc = _gn6.chol6(_gn6.upper21(torch.einsum("npa,npb->ab", J0, J0)))
+        Lc = _gn6.chol6(_gn6.upper21(frozen_hessian(jac[li], usable, R, t)))
         _, bv, chi2 = residuals(R, t)
         passes.append(1)
         for _ in range(n_iter):
