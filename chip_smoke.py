@@ -177,8 +177,8 @@ NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not sp
             "align2d_fused_kernel")
 # The one-time sweeps of this tree's K4 and K9 v2 forms: (lanes per point,
 # windows read in place) and K9 v2's CTAs per cluster (0: one CTA of 512).
-K4_SWEEP = ((8, True), (8, False), (16, True), (16, False), (32, True), (32, False))
-K9V2_SWEEP = (0, 2, 4, 8)
+K4_SWEEP = ((0, False, 4), (32, False, 8), (32, False, 4), (32, False, 1), (32, True, 8),
+            (32, True, 4), (32, True, 1), (16, False, 4), (16, True, 4), (16, True, 1))
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
 
@@ -891,18 +891,23 @@ def main() -> int:
               f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
               f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
     sweep4 = {}
-    for lanes, ldg in K4_SWEEP:
-        row = []
-        for name, k4_in in k4_sets:
-            check_k4(k4_in, f"{name}, {lanes} lanes per point, "
-                     f"{'read in place' if ldg else 'staged'}", lanes=lanes, ldg=ldg)
-            row.append(_time_kernel(torch, lambda a=k4_in[0]: k4.a2d_gn(*a, lanes=lanes,
-                                                                        ldg=ldg)))
-        sweep4[(lanes, ldg)] = row
-    print("K4 sweep, CUDA-event us per launch at N = 200 / 512 / 1600:", flush=True)
-    for (lanes, ldg), row in sweep4.items():
-        print(f"  {lanes:2d} lanes per point, {'read in place' if ldg else 'staged':13s}: "
-              f"{' / '.join(f'{t * 1e3:.2f}' for t in row)}", flush=True)
+    for rnd in range(2):                 # two rounds, forms in turn
+        for lanes, ldg, warps in K4_SWEEP:
+            form = ("the previous body (a warp per point, no exit), staged, 4 warps per block"
+                    if lanes == 0 else f"{lanes} lanes per point, "
+                    f"{'read in place' if ldg else 'staged'}, {warps} warps per block")
+            row = []
+            for name, k4_in in k4_sets:
+                if rnd == 0:
+                    check_k4(k4_in, f"{name}, {form}", lanes=lanes, ldg=ldg, warps=warps)
+                row.append(_time_kernel(torch, lambda a=k4_in[0]: k4.a2d_gn(
+                    *a, lanes=lanes, ldg=ldg, warps=warps)))
+            sweep4.setdefault(form, []).append(row)
+    print("K4 sweep, CUDA-event us per launch at N = 200 / 512 / 1600 (two rounds):",
+          flush=True)
+    for form, rows in sweep4.items():
+        print(f"  {form}: " + "; ".join(' / '.join(f'{t * 1e3:.2f}' for t in row)
+                                        for row in rows), flush=True)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
@@ -1016,7 +1021,7 @@ def main() -> int:
         lr0 = sparse_align.LevelRef(vis=a0[4] > 0.5, ref_patch=a0[1], J=a0[2])
         R0, t0_ = a0[7][:9].reshape(3, 3), a0[7][9:]
         side = torch.tensor([0.2, 0.15, 0.0], device=dev)
-        bargs = k9.level_args(level_imgs[-1], lr0, a0[3], R0, t0_ + side, a0[8], 0, a0[9])[0]
+        bargs = k9.level_args(level_imgs[-1], lr0, a0[3], R0, t0_ + side, a0[8], 0, a0[9])
         Hl, Wl = level_imgs[-1].shape
         clamped = ((bargs[5] == 0) | (bargs[5] == Wl - k9.CWIN) | (bargs[6] == 0)
                    | (bargs[6] == Hl - k9.CWIN)) & lr0.vis
@@ -1024,22 +1029,6 @@ def main() -> int:
             raise AssertionError("the shifted pose clamps no window")
         check_k9(bargs, variant == 2, f"variant {variant}, level 0, init pose shifted by "
                  f"{side.tolist()}: {int(clamped.sum())} visible points' windows clamped")
-        if variant == 2:
-            # K9 v2's launch forms, swept once: one CTA of 512 threads or a
-            # cluster of C CTAs of 256, each held to the plain version and
-            # timed at every level of the frame.
-            sweep9 = {}
-            for c in K9V2_SWEEP:
-                form = "one CTA of 512" if c == 0 else f"a cluster of {c} CTAs of 256"
-                for a in k9_calls:
-                    check_k9(a, True, f"level {a[12]}, {form}", cluster=c)
-                sweep9[form] = [_time_kernel(torch, lambda a=a: k9.level_gn_v2(*a, cluster=c))
-                                for a in k9_calls]
-            print(f"K9v2 sweep, CUDA-event us per launch at frame {E2_FRAME}'s levels 2, 1, 0 "
-                  f"(N={k9_calls[0][0].shape[0]}; passes {passes}):", flush=True)
-            for form, row in sweep9.items():
-                print(f"  {form:28s}: {' / '.join(f'{t * 1e3:.2f}' for t in row)}, per frame "
-                      f"{sum(row) * 1e3:.2f}", flush=True)
         key = "K9v1" if variant == 1 else "K9v2"
         b_ms = sum(b[0] for b in bounds)
         report[key] = dict(ms=sum(times), plain=sum(plains), lib=None, err=max(errs),
@@ -1050,11 +1039,11 @@ def main() -> int:
             # CUDA-event interval of one launch.
             splits = []
             for a, t_ms in zip(k9_calls, times):
-                part = kernels.cluster_partition(a[0].shape[0], k9.V1_POINTS_PER_CTA)
+                part = kernels.cluster_partition(a[0].shape[0], k9.POINTS_PER_CTA)
                 pix, red_, clu, sol, body, n_pass = k9_split(a)
                 splits.append((part, pix, red_, clu, sol, body, n_pass))
                 print(f"K9v1 level {a[12]}: a cluster of {part.cluster} CTAs x "
-                      f"{k9.V1_THREADS} threads, {part.per_cta} points per CTA; per pass "
+                      f"{k9.CTA_THREADS} threads, {part.per_cta} points per CTA; per pass "
                       f"(medians of {REPS} launches, CTA 0) pixel steps {pix:.2f} us, block "
                       f"reduction {red_:.2f}, cluster exchange {clu:.2f}, solve and retraction "
                       f"{sol:.2f}; {int(n_pass)} passes, body {body:.2f} us on the global timer, "

@@ -479,11 +479,11 @@ def test_level_align_kernels_match_plain(cuda_device, motion):
     t0 = torch.zeros(3, device=cuda_device)
     for level in range(3):
         args = tk9.level_args(cur[level], prep.levels[level], prep.p_ref, R0, t0, cam, level,
-                              False)[0]
+                              False)
         _k9_agree(args)
         _k9_agree(args, v2=True)
     lr = prep.levels[0]._replace(vis=torch.zeros_like(prep.levels[0].vis))
-    args = tk9.level_args(cur[0], lr, prep.p_ref, R0, t0, cam, 0, False)[0]
+    args = tk9.level_args(cur[0], lr, prep.p_ref, R0, t0, cam, 0, False)
     for v2 in (False, True):
         out = _k9_agree(args, v2)
         torch.testing.assert_close(out[:12], args[7], rtol=0, atol=0)
@@ -493,7 +493,7 @@ def test_level_align_kernels_match_plain(cuda_device, motion):
     t_side = torch.tensor([0.5, 0.3, 0.0], device=cuda_device)
     for level in range(3):
         lr = prep.levels[level]
-        args = tk9.level_args(cur[level], lr, prep.p_ref, R0, t_side, cam, level, False)[0]
+        args = tk9.level_args(cur[level], lr, prep.p_ref, R0, t_side, cam, level, False)
         Hl, Wl = cur[level].shape
         ox, oy = args[5], args[6]
         clamped = (ox == 0) | (ox == Wl - tk9.CWIN) | (oy == 0) | (oy == Hl - tk9.CWIN)
@@ -700,7 +700,7 @@ def test_level_align_and_track_fused_repeat(cuda_device):
     R0, t0 = torch.eye(3, device=cuda_device), torch.zeros(3, device=cuda_device)
     for level in range(3):
         args = tk9.level_args(cur[level], prep.levels[level], prep.p_ref, R0, t0, cam, level,
-                              False)[0]
+                              False)
         assert torch.equal(tk9.level_gn(*args), tk9.level_gn(*args))
         assert torch.equal(tk9.level_gn_v2(*args), tk9.level_gn_v2(*args))
     (cam, *_, frames, T_gt7), st = _sized(cuda_device, 200)
@@ -815,7 +815,7 @@ def _k9_args(dev, n, level):
     T0 = TSE3.from_params7(T_gt7[0])
     cur = pyramid.build_pyramid(frames[1], 3)
     return tk9.level_args(cur[level], st.ref_prep.levels[level], st.ref_prep.p_ref, T0.R, T0.t,
-                          cam, level, False)[0]
+                          cam, level, False)
 
 
 @pytest.mark.parametrize("n", [1, 31, 100, 256, 1500])
@@ -827,7 +827,7 @@ def test_level_align_v1_sizes(cuda_device, n):
     does not move."""
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
 
-    part = kernels.cluster_partition(n, tk9.V1_POINTS_PER_CTA)
+    part = kernels.cluster_partition(n, tk9.POINTS_PER_CTA)
     assert part.cluster == {1: 1, 31: 1, 100: 4, 256: 8, 1500: 8}[n]
     assert part.cluster * part.per_cta >= n > (part.cluster - 1) * part.per_cta
     for level in (2, 0):

@@ -27,17 +27,17 @@ using namespace ygz::align2d;
 
 namespace {
 
-constexpr int kPointsPerBlock = 8;
-
-// Block b takes points [8 b, 8 b + 8), G lanes each.
-template <int G, bool kLdg>
-__global__ void __launch_bounds__(kPointsPerBlock * G)
+// Block b takes points [b P, b P + P), P = W * 32 / G: W warps of 32 / G
+// points, G lanes each.
+template <int G, bool kLdg, int W>
+__global__ void __launch_bounds__(W * 32)
 align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ ref,
                      const float* __restrict__ jx, const float* __restrict__ jy,
                      const float* __restrict__ hinv, const int* __restrict__ ox,
                      const int* __restrict__ oy, const float* __restrict__ xy0,
                      float* __restrict__ out, int N, int n_iter, float eps2) {
   constexpr int P = 32 / G;            // points per warp
+  constexpr int kPointsPerBlock = W * P;
   const int lane = threadIdx.x & 31;
   const int slot = threadIdx.x / G;    // the lane's point in the block
   const int n = (int)blockIdx.x * kPointsPerBlock + slot;
@@ -68,31 +68,68 @@ align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ r
   }
 }
 
-template <int G, bool kLdg>
+// The previous body, a warp per point through align_point, 4 points per
+// block, each window staged in shared memory (compared in the sweep).
+__global__ void __launch_bounds__(128)
+align2d_point_kernel(const float* __restrict__ wins, const float* __restrict__ ref,
+                     const float* __restrict__ jx, const float* __restrict__ jy,
+                     const float* __restrict__ hinv, const int* __restrict__ ox,
+                     const int* __restrict__ oy, const float* __restrict__ xy0,
+                     float* __restrict__ out, int N, int n_iter, float eps2) {
+  __shared__ float sw[4][kWin * kWin];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * 4 + warp;
+  if (n >= N) return;
+  float* w = sw[warp];
+  const float* src = wins + (size_t)n * kWin * kWin;
+  for (int k = lane; k < kWin * kWin; k += 32) w[k] = src[k];
+  __syncwarp();
+  const Result r = align_point<true>(w, ref + (size_t)n * 64, jx + (size_t)n * 64,
+                                     jy + (size_t)n * 64, hinv + (size_t)n * 9,
+                                     (float)ox[n], (float)oy[n], xy0[2 * n], xy0[2 * n + 1],
+                                     n_iter, eps2);
+  if (lane == 0) {
+    out[4 * n] = r.x;
+    out[4 * n + 1] = r.y;
+    out[4 * n + 2] = r.mean;
+    out[4 * n + 3] = r.err;
+  }
+}
+
+template <int G, bool kLdg, int W>
 int launch(const float* wins, const float* ref, const float* jx, const float* jy,
            const float* hinv, const int* ox, const int* oy, const float* xy0, float* out, int N,
            int n_iter, float eps2, cudaStream_t stream) {
+  constexpr int kPointsPerBlock = W * 32 / G;
   const int blocks = (N + kPointsPerBlock - 1) / kPointsPerBlock;
-  align2d_fused_kernel<G, kLdg><<<blocks, kPointsPerBlock * G, 0, stream>>>(
+  align2d_fused_kernel<G, kLdg, W><<<blocks, W * 32, 0, stream>>>(
       wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// lanes: lanes per point (8, 16 or 32); ldg: 1 to read the windows in
-// place, 0 to stage them in shared memory.
+// lanes: lanes per point (16 or 32; 0: the previous body); ldg: 1 to read
+// the windows in place, 0 to stage them in shared memory; warps: warps per
+// block.
 extern "C" int align2d_fused_launch(const float* wins, const float* ref, const float* jx,
                                     const float* jy, const float* hinv, const int* ox,
                                     const int* oy, const float* xy0, float* out, int N,
-                                    int n_iter, float eps2, int lanes, int ldg,
+                                    int n_iter, float eps2, int lanes, int ldg, int warps,
                                     cudaStream_t stream) {
   if (N <= 0) return 0;
-#define K4_LAUNCH(G, L) \
-  if (lanes == G && ldg == L) \
-    return launch<G, L>(wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2, stream);
-  K4_LAUNCH(8, true) K4_LAUNCH(8, false) K4_LAUNCH(16, true) K4_LAUNCH(16, false)
-  K4_LAUNCH(32, true) K4_LAUNCH(32, false)
+  if (lanes == 0) {
+    align2d_point_kernel<<<(N + 3) / 4, 128, 0, stream>>>(wins, ref, jx, jy, hinv, ox, oy, xy0,
+                                                         out, N, n_iter, eps2);
+    return (int)cudaGetLastError();
+  }
+#define K4_LAUNCH(G, L, W) \
+  if (lanes == G && ldg == L && warps == W) \
+    return launch<G, L, W>(wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2, stream);
+  K4_LAUNCH(32, false, 8) K4_LAUNCH(32, false, 4) K4_LAUNCH(32, false, 1)
+  K4_LAUNCH(32, true, 8) K4_LAUNCH(32, true, 4) K4_LAUNCH(32, true, 1)
+  K4_LAUNCH(16, false, 4) K4_LAUNCH(16, true, 4) K4_LAUNCH(16, true, 1)
 #undef K4_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

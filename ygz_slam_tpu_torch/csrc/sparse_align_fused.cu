@@ -35,11 +35,15 @@
 // 3.35 TB/s) and does ~1 MFLOP per iteration; the time is the serial chain
 // of dependent iterations, each one pass over the points and one
 // reduction.
-//   v2 runs the chain in one CTA of 512 threads on K3's level body
-//      (sparse_align.cuh::level_loop: a pixel per lane, transposed warp
-//      reductions whose sums every thread receives in the same order);
-//      each thread factors H0 and substitutes redundantly in registers (no
-//      broadcast, the pose never leaves registers).
+//   v2 runs K3's level body (sparse_align.cuh::level_loop: a pixel per
+//      lane, transposed warp reductions whose sums every thread receives
+//      in the same order) over v1's cluster below, each pass's sums (29 in
+//      the first, 8 in each trial) added across the CTAs by v1's exchange
+//      (ClusterReducer); every thread factors H0 and substitutes
+//      redundantly in registers (no broadcast, the pose never leaves
+//      registers).  One CTA of 512 threads was timed against clusters of
+//      2, 4 and 8 CTAs of 256 at N=256: 8 cut a launch by ~17% (PERF.md,
+//      PR 9).
 //   v1 spreads each pass over a thread-block cluster of up to 8 CTAs of
 //      256 threads (the wrapper's partition: a CTA per 32 points, so one
 //      round of the pixel loop per CTA where one CTA took N / 32 rounds).
@@ -86,8 +90,6 @@ __device__ __forceinline__ Level make_level(const float* wins, const float* refp
   return lv;
 }
 
-constexpr int kThreads = 512;
-
 __device__ __forceinline__ float max_abs6(const float dx[6]) {
   float m = 0.f;
 #pragma unroll
@@ -95,7 +97,7 @@ __device__ __forceinline__ float max_abs6(const float dx[6]) {
   return m;
 }
 
-constexpr int kV1Threads = 256;
+constexpr int kCtaThreads = 256;
 constexpr int kSums = 29;            // 21 H, 6 b, chi2 numerator, pixel count
 
 // The cluster's sums of v: each CTA's block sums (identical in all its
@@ -197,7 +199,7 @@ __device__ __forceinline__ void v1_accept(float* __restrict__ out, const float R
 
 // The grid is one cluster of C CTAs; CTA r takes points
 // [r * per_cta, min(N, (r + 1) * per_cta)).
-__global__ void __launch_bounds__(kV1Threads)
+__global__ void __launch_bounds__(kCtaThreads)
 level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
                       const float* __restrict__ vis, const int* __restrict__ ox,
@@ -252,14 +254,12 @@ level_align_v1_kernel(const float* __restrict__ wins, const float* __restrict__ 
   v1_time(stamps, 1);
 }
 
-// K9 v2: level_loop with K9 v2's factor rule on one level.  kCluster
-// false: one CTA of kThreads takes every point (per_cta = N); true: the
-// grid is one cluster of CTAs of kV1Threads, CTA r taking points
-// [r * per_cta, min(N, (r + 1) * per_cta)), each pass summed over the
-// cluster.  out [34]: R, t, chi2, then H0's 21 upper-triangular sums (the
-// level's first pass, at the level-init pose).
-template <bool kCluster>
-__global__ void __launch_bounds__(kCluster ? kV1Threads : kThreads, 1)
+// K9 v2: level_loop with K9 v2's factor rule on one level.  The grid is
+// one cluster of C CTAs; CTA r takes points [r * per_cta, min(N, (r + 1) *
+// per_cta)), and each pass's sums (29 in the first, 8 after) are added
+// over the cluster.  out [34]: R, t, chi2, then H0's 21 upper-triangular
+// sums (the level's first pass, at the level-init pose).
+__global__ void __launch_bounds__(kCtaThreads, 1)
 level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ refp,
                       const float* __restrict__ jac, const float* __restrict__ pref,
                       const float* __restrict__ vis, const int* __restrict__ ox,
@@ -267,6 +267,8 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
                       float* __restrict__ out, int N, int Hl, int Wl, float scale, Cam cam,
                       int n_iter, float eps, int per_cta) {
   __shared__ float smem[kRedFloats];
+  __shared__ float slots[2][32];
+  ClusterReducer red(smem, slots, gridDim.x);
   const int n0 = min(N, (int)blockIdx.x * per_cta);
   const int n = min(N, n0 + per_cta) - n0;
   const Level lv = make_level(wins + (size_t)n0 * kCwin * kCwin, refp + (size_t)n0 * kNpix,
@@ -277,18 +279,7 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
   for (int k = 0; k < 9; ++k) R[k] = pose0[k];
 #pragma unroll
   for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
-  if constexpr (kCluster) {
-    __shared__ float slots[2][32];
-    ClusterReducer red(smem, slots, gridDim.x);
-    level_loop<FrozenFactor>(R, t, chi2, h, pref + 3 * (size_t)n0, n, cam, lv, n_iter, eps,
-                             red);
-    // No CTA leaves (and frees its slots) before every CTA has read them.
-    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-  } else {
-    Reducer red(smem);
-    level_loop<FrozenFactor>(R, t, chi2, h, pref, n, cam, lv, n_iter, eps, red);
-  }
+  level_loop<FrozenFactor>(R, t, chi2, h, pref + 3 * (size_t)n0, n, cam, lv, n_iter, eps, red);
   if (threadIdx.x == 0 && blockIdx.x == 0) {
 #pragma unroll
     for (int q = 0; q < 9; ++q) out[q] = R[q];
@@ -298,6 +289,9 @@ level_align_v2_kernel(const float* __restrict__ wins, const float* __restrict__ 
 #pragma unroll
     for (int q = 0; q < 21; ++q) out[13 + q] = h[q];
   }
+  // No CTA leaves (and frees its slots) before every CTA has read them.
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
 }
 
 }  // namespace
@@ -316,15 +310,13 @@ extern "C" int level_align_v1_launch(const float* wins, const float* refp, const
                                      int n_iter, float eps, int cluster, int per_cta,
                                      unsigned long long* stamps, cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  return (int)launch_cluster(level_align_v1_kernel, cluster, per_cta, N, kV1Threads, stream,
+  return (int)launch_cluster(level_align_v1_kernel, cluster, per_cta, N, kCtaThreads, stream,
                              wins, refp, jac, pref, vis, ox, oy, pose0, out, N, Hl, Wl, scale,
                              cam, n_iter, eps, per_cta, stamps);
 }
 
-// One launch of K9 v2: cluster 0 runs one CTA of kThreads over every
-// point, cluster C in 1..8 one cluster of C CTAs of kV1Threads, CTA r
-// taking points [r * per_cta, min(N, (r + 1) * per_cta)).  Returns the
-// CUDA error of the launch.
+// One launch of K9 v2 as a single cluster of `cluster` CTAs (1..8), as K9
+// v1's.  Returns the CUDA error of the launch.
 extern "C" int level_align_v2_launch(const float* wins, const float* refp, const float* jac,
                                      const float* pref, const float* vis, const int* ox,
                                      const int* oy, const float* pose0, float* out, int N,
@@ -333,12 +325,7 @@ extern "C" int level_align_v2_launch(const float* wins, const float* refp, const
                                      int n_iter, float eps, int cluster, int per_cta,
                                      cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  if (cluster > 0)
-    return (int)launch_cluster(level_align_v2_kernel<true>, cluster, per_cta, N, kV1Threads,
-                               stream, wins, refp, jac, pref, vis, ox, oy, pose0, out, N, Hl,
-                               Wl, scale, cam, n_iter, eps, per_cta);
-  level_align_v2_kernel<false><<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, vis, ox, oy,
-                                                          pose0, out, N, Hl, Wl, scale, cam,
-                                                          n_iter, eps, N);
-  return (int)cudaGetLastError();
+  return (int)launch_cluster(level_align_v2_kernel, cluster, per_cta, N, kCtaThreads, stream,
+                             wins, refp, jac, pref, vis, ox, oy, pose0, out, N, Hl, Wl, scale,
+                             cam, n_iter, eps, per_cta);
 }

@@ -136,10 +136,11 @@ def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
 
 
 def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03, *,
-           lanes: int = 16, ldg: bool = True):
+           lanes: int = 32, ldg: bool = False, warps: int = 4):
     """K4 on the card, its plain version on the CPU; arguments as for
-    `a2d_gn_plain`.  `lanes` lanes per point (8, 16 or 32); `ldg` reads
-    the windows in place, else stages them in shared memory."""
+    `a2d_gn_plain`.  `lanes` lanes per point (16 or 32; 0: the previous
+    body); `ldg` reads the windows in place, else stages them in shared
+    memory; `warps` warps per block."""
     if not on_card(wins):
         return a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     N = xy0.shape[0]
@@ -152,10 +153,10 @@ def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03, *,
     require(oy, "oy", torch.int32, (N,), dev)
     require(xy0, "xy0", torch.float32, (N, 2), dev)
     out = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, I, I, P],
+    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, I, I, I, P],
            wins.data_ptr(), ref.data_ptr(), jx.data_ptr(), jy.data_ptr(), hinv.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), xy0.data_ptr(), out.data_ptr(), N, n_iter,
-           conv_eps * conv_eps, lanes, int(ldg), stream(dev))
+           conv_eps * conv_eps, lanes, int(ldg), warps, stream(dev))
     launched(a2d_gn, wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     return out
 

@@ -10,8 +10,8 @@ their wrappers, `level_gn_plain` / `level_gn_v2_plain` their plain
 versions, and `level_align_fused` / `level_align_fused_v2` the JAX
 package's entry points: windows gathered by K1 around the level-init
 projection, then one launch.  `ops.sparse_align` runs them level by level
-under FUSED_VARIANT 1 and 2.  K9 v1 runs as one thread-block cluster of
-`cluster_partition(N, V1_POINTS_PER_CTA)` CTAs.
+under FUSED_VARIANT 1 and 2.  Both run as one thread-block cluster of
+`cluster_partition(N, POINTS_PER_CTA)` CTAs.
 """
 from __future__ import annotations
 
@@ -23,9 +23,9 @@ from .sparse_align_mega import (CWIN, MAX_ITER, PATCH, SLACK, STOP_STEP, _HALF, 
                                 frozen_hessian, level_passes)
 
 _NPIX = PATCH * PATCH
-# K9 v1's launch geometry (csrc/sparse_align_fused.cu).
-V1_THREADS = 256               # a CTA's threads
-V1_POINTS_PER_CTA = 32         # one round of the pixel loop of a 256-thread CTA
+# K9's launch geometry (csrc/sparse_align_fused.cu), v1 and v2.
+CTA_THREADS = 256              # a CTA's threads
+POINTS_PER_CTA = 32            # one round of the pixel loop of a 256-thread CTA
 V1_STAMPS = 4 + 4 * (MAX_ITER + 1)   # `level_gn(stamps=)`'s length
 
 
@@ -115,7 +115,7 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
              stamps: torch.Tensor | None = None):
     """K9 v1 on the card, its plain version on the CPU; arguments as for
     `level_gn_plain`.  The launch spreads the points over a cluster of
-    `cluster_partition(N, V1_POINTS_PER_CTA)` CTAs.
+    `cluster_partition(N, POINTS_PER_CTA)` CTAs.
 
     `stamps`, an int64 tensor [V1_STAMPS] on the card set to 0, receives
     from thread 0 of CTA 0 the global timer (ns) and SM clock at the
@@ -130,7 +130,7 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
     if stamps is not None:
         require(stamps, "stamps", torch.int64, (V1_STAMPS,), dev)
     out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
-    part = cluster_partition(N, V1_POINTS_PER_CTA)
+    part = cluster_partition(N, POINTS_PER_CTA)
     launch("sparse_align_fused", "level_align_v1_launch",
            [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, I, P, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
@@ -146,23 +146,22 @@ def level_gn(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
 level_gn.launches = 0
 
 
-def level_gn_v2(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level, *,
-                cluster: int = 0):
+def level_gn_v2(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl, level):
     """K9 v2 on the card, its plain version on the CPU; arguments as for
-    `level_gn_v2_plain`.  `cluster` 0 launches one CTA over every point, C
-    in 1..8 a cluster of C CTAs."""
+    `level_gn_v2_plain`.  The launch spreads the points over a cluster of
+    `cluster_partition(N, POINTS_PER_CTA)` CTAs, as K9 v1's."""
     if not on_card(wins):
         return level_gn_v2_plain(wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl,
                                  Wl, level)
     N, dev = _check_level_args(wins, refp, jac, p_ref, vis, ox, oy, pose0)
     out = torch.empty(13 + 21, dtype=torch.float32, device=dev)
-    per_cta = -(-N // cluster) if cluster else N
+    part = cluster_partition(N, POINTS_PER_CTA)
     launch("sparse_align_fused", "level_align_v2_launch",
            [P] * 9 + [I] * 3 + [Fl] * 9 + [I, Fl, I, I, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(), vis.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(), N, Hl, Wl,
            1.0 / float(2 ** level), cam.fx, cam.fy, cam.cx, cam.cy, *_distortion(cam, distorted),
-           MAX_ITER, STOP_STEP, cluster, per_cta, stream(dev))
+           MAX_ITER, STOP_STEP, part.cluster, part.per_cta, stream(dev))
     launched(level_gn_v2, wins, refp, jac, p_ref, vis, ox, oy, pose0, cam, distorted, Hl, Wl,
              level)
     return out
@@ -185,12 +184,11 @@ def frozen_factor(H0: torch.Tensor) -> torch.Tensor:
 
 
 def level_args(cur_img, level_ref, p_ref, R0, t0, cam, level: int, distorted: bool):
-    """K9's inputs for one level: the points
-    projected at the level-init pose (R0, t0), each one's 16x16 window
-    gathered by K1 with its origin SLACK px up-left of the support and
-    clamped inside the image, and the keyframe constants.  Returns (args
-    of `level_gn`, the level-init camera points pc0 [N, 3], their level
-    pixels px0 [N, 2])."""
+    """K9's inputs for one level (the args of `level_gn` and
+    `level_gn_v2`): the points projected at the level-init pose (R0, t0),
+    each one's 16x16 window gathered by K1 with its origin SLACK px up-left
+    of the support and clamped inside the image, and the keyframe
+    constants."""
     Hl, Wl = cur_img.shape
     pc0 = p_ref @ R0.T + t0
     px0 = torch.nan_to_num(cam.camera_to_pixel(pc0, distorted=distorted) / (2.0 ** level))
@@ -198,9 +196,8 @@ def level_args(cur_img, level_ref, p_ref, R0, t0, cam, level: int, distorted: bo
     oy = torch.clamp(torch.floor(px0[:, 1] - _HALF) - SLACK, 0, Hl - CWIN).to(torch.int32)
     wins = gather_windows(cur_img, ox, oy, CWIN)
     pose0 = torch.cat([R0.reshape(9), t0.reshape(3)]).to(torch.float32).contiguous()
-    args = (wins, level_ref.ref_patch, level_ref.J, p_ref.contiguous(),
+    return (wins, level_ref.ref_patch, level_ref.J, p_ref.contiguous(),
             level_ref.vis.to(torch.float32), ox, oy, pose0, cam, distorted, Hl, Wl, level)
-    return args, pc0, px0
 
 
 def _unpack(out):
@@ -220,8 +217,7 @@ def level_align_fused(cur_img, level_ref, p_ref, R0, t0, cam, level: int,
     reference patches, Jacobians), p_ref [N, 3] reference-camera points,
     (R0, t0) the init T_cur_ref.  Returns (R, t, chi2, H [6, 6] at the
     last accepted state)."""
-    args, _, _ = level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted)
-    out = level_gn(*args)
+    out = level_gn(*level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted))
     R, t, chi2 = _unpack(out)
     return R, t, chi2, _sym6(out[13:34])
 
@@ -231,7 +227,6 @@ def level_align_fused_v2(cur_img, level_ref, p_ref, R0, t0, cam, level: int,
     """`level_align_fused` with the frozen-Hessian kernel: H0 assembled at
     the level-init pose and visibility and factored once inside the kernel,
     substitutions only.  Returns (R, t, chi2, H0)."""
-    args, _, _ = level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted)
-    out = level_gn_v2(*args)
+    out = level_gn_v2(*level_args(cur_img, level_ref, p_ref, R0, t0, cam, level, distorted))
     R, t, chi2 = _unpack(out)
     return R, t, chi2, _sym6(out[13:34])
