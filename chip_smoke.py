@@ -35,11 +35,10 @@ Phases, each raising (and so exiting non-zero) on failure:
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
       that frame 10 of the VO path gives them (K1's two pyramid launches,
       N=256 with masked rows for K3, 512 rows on the three-level pyramid
-      stack for K2, K4 and K5), recorded from the step itself; K4's
-      iterations before freezing (the plain version's count: the largest,
-      the mean and the histogram) on path 1's, the VO's and the batch's
-      arguments, and K4's sweep of lanes per point and window reads, each
-      form held to the plain version and timed on the three.
+      stack for K2, K4 and K5), recorded from the step itself; the
+      iterations K4's points run up to the one that freezes them (the
+      plain version's count: the largest, the mean and the histogram) on
+      path 1's, the VO's and the batch's arguments.
    e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2, which
       builds and factors H0 itself) against their plain versions (pose,
       chi2 and H: v2's H0) on the three per-level launches that frame 12
@@ -49,8 +48,7 @@ Phases, each raising (and so exiting non-zero) on failure:
       clamp at the border; per-launch times, bounds and plain times; K9
       v1's cluster and the split of its passes (pixel steps, block
       reduction, cluster exchange, solve and retraction; CTA 0's SM clock
-      marks) per level; K9 v2's sweep of one CTA against clusters of 2, 4
-      and 8, each form held to the plain version and timed per level.
+      marks) per level, and K9 v2's cluster per level.
    f. K11 (track_step_fused, the whole step in one kernel) against its
       plain version on the arguments that frame 1 of main path 5 gives it
       (recorded from `fused_track_step`), at 512 landmarks, with ten
@@ -175,10 +173,6 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
             "track_fused_kernel", "level_align_v1_kernel", "level_align_v2_kernel",
             "align2d_fused_kernel")
-# The one-time sweeps of this tree's K4 and K9 v2 forms: (lanes per point,
-# windows read in place) and K9 v2's CTAs per cluster (0: one CTA of 512).
-K4_SWEEP = ((0, False, 4), (32, False, 8), (32, False, 4), (32, False, 1), (32, True, 8),
-            (32, True, 4), (32, True, 1), (16, False, 4), (16, True, 4), (16, True, 1))
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
 
@@ -877,37 +871,18 @@ def main() -> int:
           f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 {k5v_ms:.4f} ms "
           f"({_k5_links(st5v['normal_eqs'])} reductions, "
           f"{k5v_ms * 1e3 / _k5_links(st5v['normal_eqs']):.2f} us per link)", flush=True)
-    # K4's forms, swept once: lanes per point and the window read in place
-    # or staged in shared memory, each held to the plain version and timed
-    # on path 1's (N=200), the VO's (512 rows) and the batch's (1600 rows)
-    # arguments, beside the iterations the points run before they freeze
-    # (a warp runs to its slowest point's count).
+    # The iterations K4's points run before they freeze on path 1's
+    # (N=200), the VO's (512 rows) and the batch's (1600 rows) arguments:
+    # each warp leaves at its point's count, and the slowest sets the time.
     k4_sets = (("path 1 frame 1", a4), ("VO frame 10", k4v_in), ("S=8 batch frame 1", a4b))
     for name, k4_in in k4_sets:
         stats = {}
         k4.a2d_gn_plain(*k4_in[0], stats=stats)
         its = stats["iterations"]
-        print(f"K4 {name}, {its.shape[0]} rows: iterations before freezing, largest "
+        print(f"K4 {name}, {its.shape[0]} rows: iterations up to the one that freezes a point "
+              f"(10: froze at the last or never), largest "
               f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
               f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
-    sweep4 = {}
-    for rnd in range(2):                 # two rounds, forms in turn
-        for lanes, ldg, warps in K4_SWEEP:
-            form = ("the previous body (a warp per point, no exit), staged, 4 warps per block"
-                    if lanes == 0 else f"{lanes} lanes per point, "
-                    f"{'read in place' if ldg else 'staged'}, {warps} warps per block")
-            row = []
-            for name, k4_in in k4_sets:
-                if rnd == 0:
-                    check_k4(k4_in, f"{name}, {form}", lanes=lanes, ldg=ldg, warps=warps)
-                row.append(_time_kernel(torch, lambda a=k4_in[0]: k4.a2d_gn(
-                    *a, lanes=lanes, ldg=ldg, warps=warps)))
-            sweep4.setdefault(form, []).append(row)
-    print("K4 sweep, CUDA-event us per launch at N = 200 / 512 / 1600 (two rounds):",
-          flush=True)
-    for form, rows in sweep4.items():
-        print(f"  {form}: " + "; ".join(' / '.join(f'{t * 1e3:.2f}' for t in row)
-                                        for row in rows), flush=True)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
@@ -1049,7 +1024,9 @@ def main() -> int:
                       f"{sol:.2f}; {int(n_pass)} passes, body {body:.2f} us on the global timer, "
                       f"CUDA-event interval {t_ms * 1e3:.2f} us", flush=True)
             e2_report[key]["splits"] = splits
-        print(f"{key} per launch (levels 2, 1, 0): kernel "
+        parts = [kernels.cluster_partition(a[0].shape[0], k9.POINTS_PER_CTA) for a in k9_calls]
+        print(f"{key} per launch (levels 2, 1, 0; clusters of "
+              f"{[p.cluster for p in parts]} CTAs x {k9.CTA_THREADS} threads): kernel "
               f"{[round(t, 4) for t in times]} ms, plain {[round(t, 3) for t in plains]} ms, "
               f"bound {[f'{b[0]:.6f} ({b[1]})' for b in bounds]} ms, passes {passes}; per "
               f"frame (3 launches) kernel {sum(times):.4f} ms, plain {sum(plains):.3f} ms, "

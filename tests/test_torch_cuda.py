@@ -10,8 +10,7 @@ on windows clamped at the border, K9 v1 from 1 to 1500 points (one to
 eight CTAs of its cluster), without spills and with its pass marks on; K9
 v2 from 1 to 1500 points, with a rank-deficient H0 (the identity factor),
 and building H0 inside the kernel (no cholesky_ex or einsum on the card);
-K4 from 1 to 1600 points (partial groups of points in a warp), K4 and K9
-v2 without spills; K11 on frame 1 of the fused path and with
+K4 from 1 to 1600 points, K4 and K9 v2 without spills; K11 on frame 1 of the fused path and with
 ten landmarks masked, from 1 to 1500 map points (one to eight CTAs, the
 last range cut at N) with its stage 1 against K3 and its stage 3 against
 K5 bit for bit, and with its stage marks on; K3 and K5 from 1 to 1500 points and K3 with every
@@ -864,15 +863,18 @@ def test_level_align_v1_stamps(cuda_device):
     assert s[0] < s[2] and s[1] <= marks[0] and marks[-1] <= s[3]
 
 
-# -- K9 v2 (H0 and its factor in the kernel) and K4 (G lanes per point) -----
+# -- K9 v2 (H0 and its factor in the kernel) and K4 (exit once frozen) ------
 
 @pytest.mark.parametrize("n", [1, 31, 100, 256, 1500])
 def test_level_align_v2_sizes(cuda_device, n):
     """K9 v2 against its plain version (pose, chi2 and H0) from 1 to 1500
-    points at levels 2 and 0, a second launch giving the same bits; with no
-    usable point H0 is 0 and the pose does not move."""
+    points at levels 2 and 0, over K9 v1's cluster partition (one to eight
+    CTAs), a second launch giving the same bits; with no usable point H0
+    is 0 and the pose does not move."""
     from ygz_slam_tpu_torch.ops.kernels import sparse_align_fused as tk9
 
+    part = kernels.cluster_partition(n, tk9.POINTS_PER_CTA)
+    assert part.cluster == {1: 1, 31: 1, 100: 4, 256: 8, 1500: 8}[n]
     for level in (2, 0):
         args = _k9_args(cuda_device, n, level)
         out = _k9_agree(args, v2=True)
@@ -946,11 +948,11 @@ def _k4_args(dev, n):
 
 @pytest.mark.parametrize("n", [1, 3, 200, 512, 1600])
 def test_align2d_sizes(cuda_device, n):
-    """K4 against its plain version from 1 to 1600 points (N = 1 and 3 leave
-    a partial group of points in a warp and lanes past N): the positions of
-    points both accept within 1e-3 px on 98% of them and 0.05 px on all,
-    the acceptance masks agreeing on 98%, and a second launch giving the
-    same bits."""
+    """K4 against its plain version from 1 to 1600 points (a block of one
+    warp per point, each leaving its loop once its point is frozen): the
+    positions of points both accept within 1e-3 px on 98% of them and 0.05
+    px on all, the acceptance masks agreeing on 98%, and a second launch
+    giving the same bits."""
     from ygz_slam_tpu_torch.ops.align import accepted
 
     args, proj, inb0, H, W = _k4_args(cuda_device, n)

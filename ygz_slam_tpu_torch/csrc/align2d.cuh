@@ -1,17 +1,21 @@
-// The per-point bodies of 8x8 inverse-compositional patch alignment (du,
-// dv, mean) inside a 32x32 cached window: align_point (a warp per point)
-// runs the second stage of K11 (track_fused.cu: unclamped steps, as
-// ygz_slam_tpu/ops/pallas/track_fused.py runs them); align_group (G lanes
-// per point, the warp leaving once its points are frozen) runs K4
-// (align2d_fused.cu: steps clamped to +-1 px, DELTA_ROLLS's contract).
+// The per-point body of 8x8 inverse-compositional patch alignment (du, dv,
+// mean) inside a 32x32 cached window, run by one warp, shared by K4
+// (align2d_fused.cu: steps clamped to +-1 px, DELTA_ROLLS's contract,
+// windows read through the read-only path) and the second stage of K11
+// (track_fused.cu: unclamped steps, as ygz_slam_tpu/ops/pallas/track_fused.py
+// runs them).
 //
 // Math of the JAX kernels: the sampling lattice clamped to [0, 23] inside
 // the window, residual cur - ref + mean, update [du, dv, dm] = hinv [sum r
 // jx, sum r jy, sum r], a point freezes once du^2 + dv^2 < eps^2 (that step
 // is not applied), n_iter iterations, final err = mean |r| over the 64
-// pixels.  In align_point lane l owns pixels l (rows 0-3) and l + 32 (rows
-// 4-7), so every iteration costs three warp shuffle-reductions and no
-// block barrier.
+// pixels.  Lane l owns pixels l (rows 0-3) and l + 32 (rows 4-7); the
+// three sums of an iteration go through one butterfly whose every step
+// shuffles all three, and no block barrier.  The loop ends once the point
+// is frozen: its x, y and mean never change again and its error is
+// sampled at the final x, so the result is the full loop's bit for bit
+// (the JAX package's EARLY_EXIT was a barrier over all points; this exit
+// is per point, and exact).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,33 +34,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// A window value: through the read-only data path (kLdg, device memory)
-// or an ordinary load (shared or device memory).
-template <bool kLdg>
-__device__ __forceinline__ float tap(const float* p) {
-  if constexpr (kLdg) {
-    return __ldg(p);
-  } else {
-    return *p;
-  }
-}
-
-template <bool kLdg = false>
-__device__ __forceinline__ float sample(const float* w, int y0, int x0, int r, int c,
-                                        float ax, float ay) {
-  const float* s = w + (y0 + r) * kWin + (x0 + c);
-  return (1.f - ax) * (1.f - ay) * tap<kLdg>(s) + ax * (1.f - ay) * tap<kLdg>(s + 1) +
-         (1.f - ax) * ay * tap<kLdg>(s + kWin) + ax * ay * tap<kLdg>(s + kWin + 1);
-}
-
-// a, b and c summed over each aligned group of G lanes (G a power of two
-// <= 32), every lane of a group receiving the same bits (a + b == b + a):
-// one butterfly of log2(G) steps, each shuffling the three values side by
-// side, so the three sums are one chain and not three.
-template <int G>
-__device__ __forceinline__ void group_sum3(float& a, float& b, float& c) {
+// warp_sum of a, b and c at once: each of the five butterfly steps shuffles
+// the three values side by side (the same operations per value, so the
+// same bits), one chain of shuffles and not three.
+__device__ __forceinline__ void warp_sum3(float& a, float& b, float& c) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) {
+  for (int o = 16; o > 0; o >>= 1) {
     const float a2 = __shfl_xor_sync(0xffffffffu, a, o);
     const float b2 = __shfl_xor_sync(0xffffffffu, b, o);
     const float c2 = __shfl_xor_sync(0xffffffffu, c, o);
@@ -66,11 +49,23 @@ __device__ __forceinline__ void group_sum3(float& a, float& b, float& c) {
   }
 }
 
-template <int G>
-__device__ __forceinline__ float group_sum(float a) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-  return a;
+// A window value: through the read-only data path (kLdg) or an ordinary
+// load.
+template <bool kLdg>
+__device__ __forceinline__ float tap(const float* p) {
+  if constexpr (kLdg) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+template <bool kLdg>
+__device__ __forceinline__ float sample(const float* w, int y0, int x0, int r, int c,
+                                        float ax, float ay) {
+  const float* s = w + (y0 + r) * kWin + (x0 + c);
+  return (1.f - ax) * (1.f - ay) * tap<kLdg>(s) + ax * (1.f - ay) * tap<kLdg>(s + 1) +
+         (1.f - ax) * ay * tap<kLdg>(s + kWin) + ax * ay * tap<kLdg>(s + kWin + 1);
 }
 
 struct Result {
@@ -78,10 +73,11 @@ struct Result {
 };
 
 // Aligns one point by the whole warp (all 32 lanes active; every lane
-// returns the same result).  w: its 32x32 window (shared or device memory)
-// whose origin is (oxf, oyf); rp / gxp / gyp: its 64 reference values and
-// gradients; h: its row-major 3x3 inverse normal matrix; (x, y): the init.
-template <bool kClampStep>
+// returns the same result).  w: its 32x32 window in device memory whose
+// origin is (oxf, oyf), read through the read-only path when kLdg; rp /
+// gxp / gyp: its 64 reference values and gradients; h: its row-major 3x3
+// inverse normal matrix; (x, y): the init.
+template <bool kClampStep, bool kLdg>
 __device__ __forceinline__ Result align_point(const float* w, const float* __restrict__ rp,
                                               const float* __restrict__ gxp,
                                               const float* __restrict__ gyp,
@@ -97,129 +93,40 @@ __device__ __forceinline__ Result align_point(const float* w, const float* __res
 #pragma unroll
   for (int k = 0; k < 9; ++k) h[k] = hp[k];
   float mean = 0.f;
-  bool frozen = false;
 
   for (int it = 0; it < n_iter; ++it) {
     const float fx = fminf(fmaxf(x - kHalf - oxf, 0.f), kLim);
     const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
     const float x0 = floorf(fx), y0 = floorf(fy);
     const float ax = fx - x0, ay = fy - y0;
-    const float e0 = sample(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
-    const float e1 = sample(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
-    const float gx = warp_sum(e0 * jx0 + e1 * jx1);
-    const float gy = warp_sum(e0 * jy0 + e1 * jy1);
-    const float gm = warp_sum(e0 + e1);
+    const float e0 = sample<kLdg>(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
+    const float e1 = sample<kLdg>(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
+    float gx = e0 * jx0 + e1 * jx1;
+    float gy = e0 * jy0 + e1 * jy1;
+    float gm = e0 + e1;
+    warp_sum3(gx, gy, gm);
     float du = h[0] * gx + h[1] * gy + h[2] * gm;
     float dv = h[3] * gx + h[4] * gy + h[5] * gm;
     const float dm = h[6] * gx + h[7] * gy + h[8] * gm;
-    const bool small = du * du + dv * dv < eps2;
+    // Frozen: this step is not applied and the point no longer moves.  The
+    // sums are the same bits in every lane, so the whole warp leaves.
+    if (du * du + dv * dv < eps2) break;
     if (kClampStep) {
       du = fminf(fmaxf(du, -1.f), 1.f);
       dv = fminf(fmaxf(dv, -1.f), 1.f);
     }
-    if (!small && !frozen) {
-      x -= du;
-      y -= dv;
-      mean -= dm;
-    }
-    frozen = frozen || small;
+    x -= du;
+    y -= dv;
+    mean -= dm;
   }
   const float fx = fminf(fmaxf(x - kHalf - oxf, 0.f), kLim);
   const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
   const float x0 = floorf(fx), y0 = floorf(fy);
   const float ax = fx - x0, ay = fy - y0;
-  const float e0 = sample(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
-  const float e1 = sample(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
+  const float e0 = sample<kLdg>(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
+  const float e1 = sample<kLdg>(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
   const float err = warp_sum(fabsf(e0) + fabsf(e1)) / 64.f;
   return Result{x, y, mean, err};
-}
-
-// Aligns the point of this lane's group of G lanes (G in {8, 16, 32}: 32 /
-// G points per warp, all 32 lanes active), by align_point's math: lane s
-// of a group holds pixels s + G k, k < 64 / G (row s / 8 + k G / 8, column
-// s % 8), and the three sums of an iteration take log2(G) shuffle steps.
-// Every lane of a group returns its point's result.  A point that is not
-// `live` (a lane past N, handed some valid point's arguments) counts as
-// frozen from the start.  The warp leaves the loop once every point it
-// holds is frozen: a frozen point's x, y and mean never change again and
-// its error is sampled at the final x, so the result is the full loop's
-// bit for bit.  w: the point's window (kLdg: in device memory, read
-// through the read-only path; else shared memory); the other arguments as
-// for align_point.
-template <int G, bool kLdg, bool kClampStep>
-__device__ __forceinline__ Result align_group(const float* w, const float* __restrict__ rp,
-                                              const float* __restrict__ gxp,
-                                              const float* __restrict__ gyp,
-                                              const float* __restrict__ hp, float oxf,
-                                              float oyf, float x, float y, bool live,
-                                              int n_iter, float eps2) {
-  static_assert(G == 8 || G == 16 || G == 32, "8, 16 or 32 lanes per point");
-  constexpr int K = 64 / G;            // pixels per lane
-  constexpr int kRowStep = G / 8;      // rows between a lane's pixels
-  const int s = threadIdx.x & (G - 1);
-  const int r0 = s >> 3, c0 = s & 7;
-  float ref[K], jx[K], jy[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    ref[k] = rp[s + G * k];
-    jx[k] = gxp[s + G * k];
-    jy[k] = gyp[s + G * k];
-  }
-  float h[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) h[k] = hp[k];
-  float mean = 0.f;
-  bool frozen = !live;
-
-  for (int it = 0; it < n_iter; ++it) {
-    if (__all_sync(0xffffffffu, frozen)) break;
-    const float fx = fminf(fmaxf(x - kHalf - oxf, 0.f), kLim);
-    const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
-    const float x0 = floorf(fx), y0 = floorf(fy);
-    const float ax = fx - x0, ay = fy - y0;
-    float gx, gy, gm;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float e = sample<kLdg>(w, (int)y0, (int)x0, r0 + k * kRowStep, c0, ax, ay) -
-                      ref[k] + mean;
-      if (k == 0) {
-        gx = e * jx[0];
-        gy = e * jy[0];
-        gm = e;
-      } else {
-        gx = gx + e * jx[k];
-        gy = gy + e * jy[k];
-        gm = gm + e;
-      }
-    }
-    group_sum3<G>(gx, gy, gm);
-    float du = h[0] * gx + h[1] * gy + h[2] * gm;
-    float dv = h[3] * gx + h[4] * gy + h[5] * gm;
-    const float dm = h[6] * gx + h[7] * gy + h[8] * gm;
-    const bool small = du * du + dv * dv < eps2;
-    if (kClampStep) {
-      du = fminf(fmaxf(du, -1.f), 1.f);
-      dv = fminf(fmaxf(dv, -1.f), 1.f);
-    }
-    if (!small && !frozen) {
-      x -= du;
-      y -= dv;
-      mean -= dm;
-    }
-    frozen = frozen || small;
-  }
-  const float fx = fminf(fmaxf(x - kHalf - oxf, 0.f), kLim);
-  const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
-  const float x0 = floorf(fx), y0 = floorf(fy);
-  const float ax = fx - x0, ay = fy - y0;
-  float ea;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float e = sample<kLdg>(w, (int)y0, (int)x0, r0 + k * kRowStep, c0, ax, ay) -
-                    ref[k] + mean;
-    ea = k == 0 ? fabsf(e) : ea + fabsf(e);
-  }
-  return Result{x, y, mean, group_sum<G>(ea) / 64.f};
 }
 
 }  // namespace align2d

@@ -11,125 +11,51 @@
 // Bound: neither bytes nor operations.  A frame moves ~1 MB (windows
 // plus reference patches and gradients; ~0.3 us at 3.35 TB/s) and does
 // ~0.3 MFLOP; the time is the launch and the chain of at most 10
-// dependent iterations of the slowest warp, each a sample of the window
-// and a reduction of three sums.  The design (align2d.cuh::align_group):
-//   - G lanes per point, 32 / G points per warp: the three sums of an
-//     iteration take log2(G) shuffle steps, side by side in one chain;
-//   - a warp leaves the loop once every point it holds is frozen (the
-//     JAX package's EARLY_EXIT was a barrier over all points; this exit is
-//     per warp, and exact: a frozen point no longer moves);
-//   - the window read in place through the read-only path, or first
-//     staged in shared memory (kLdg false: a warp copies its points'
-//     windows, 4 KB each, then syncs).
+// dependent iterations of the slowest point, each a sample of the window
+// and a warp reduction of three sums.  The design (align2d.cuh): a warp
+// per point, a block per warp (the warps spread over the SMs), the
+// window read in place through the read-only path (no staging round
+// before the first iteration), the three sums of an iteration in one
+// butterfly, and the loop left once the point is frozen.  A sweep of 8,
+// 16 and 32 lanes per point (several points per warp), 1, 4 and 8 warps
+// per block and windows staged in shared memory or read in place chose
+// this form: fewer lanes per point cost a lane more pixels than the
+// shuffle steps they save, and every launch holds points that never
+// freeze, so the slowest warp runs all 10 iterations (PERF.md, PR 9).
 #include "align2d.cuh"
 
 using namespace ygz::align2d;
 
 namespace {
 
-// Block b takes points [b P, b P + P), P = W * 32 / G: W warps of 32 / G
-// points, G lanes each.
-template <int G, bool kLdg, int W>
-__global__ void __launch_bounds__(W * 32)
+// Block n aligns point n.
+__global__ void __launch_bounds__(32)
 align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ ref,
                      const float* __restrict__ jx, const float* __restrict__ jy,
                      const float* __restrict__ hinv, const int* __restrict__ ox,
                      const int* __restrict__ oy, const float* __restrict__ xy0,
-                     float* __restrict__ out, int N, int n_iter, float eps2) {
-  constexpr int P = 32 / G;            // points per warp
-  constexpr int kPointsPerBlock = W * P;
-  const int lane = threadIdx.x & 31;
-  const int slot = threadIdx.x / G;    // the lane's point in the block
-  const int n = (int)blockIdx.x * kPointsPerBlock + slot;
-  const bool live = n < N;
-  const int m = live ? n : N - 1;      // a lane past N reads point N - 1
-  const float* w = wins + (size_t)m * kWin * kWin;
-  if constexpr (!kLdg) {
-    __shared__ float4 sw[kPointsPerBlock][kWin * kWin / 4];
-    const int first = (threadIdx.x >> 5) * P;      // the warp's first slot
-#pragma unroll 4
-    for (int k = lane; k < P * kWin * kWin / 4; k += 32) {
-      const int q = k / (kWin * kWin / 4), j = k % (kWin * kWin / 4);
-      const int src = min((int)blockIdx.x * kPointsPerBlock + first + q, N - 1);
-      sw[first + q][j] = reinterpret_cast<const float4*>(wins + (size_t)src * kWin * kWin)[j];
-    }
-    __syncwarp();
-    w = reinterpret_cast<const float*>(sw[slot]);
-  }
-  const Result r = align_group<G, kLdg, true>(w, ref + (size_t)m * 64, jx + (size_t)m * 64,
-                                              jy + (size_t)m * 64, hinv + (size_t)m * 9,
-                                              (float)ox[m], (float)oy[m], xy0[2 * m],
-                                              xy0[2 * m + 1], live, n_iter, eps2);
-  if (live && (lane & (G - 1)) == 0) {
+                     float* __restrict__ out, int n_iter, float eps2) {
+  const int n = blockIdx.x;
+  const Result r = align_point<true, true>(wins + (size_t)n * kWin * kWin, ref + (size_t)n * 64,
+                                           jx + (size_t)n * 64, jy + (size_t)n * 64,
+                                           hinv + (size_t)n * 9, (float)ox[n], (float)oy[n],
+                                           xy0[2 * n], xy0[2 * n + 1], n_iter, eps2);
+  if (threadIdx.x == 0) {
     out[4 * n] = r.x;
     out[4 * n + 1] = r.y;
     out[4 * n + 2] = r.mean;
     out[4 * n + 3] = r.err;
   }
-}
-
-// The previous body, a warp per point through align_point, 4 points per
-// block, each window staged in shared memory (compared in the sweep).
-__global__ void __launch_bounds__(128)
-align2d_point_kernel(const float* __restrict__ wins, const float* __restrict__ ref,
-                     const float* __restrict__ jx, const float* __restrict__ jy,
-                     const float* __restrict__ hinv, const int* __restrict__ ox,
-                     const int* __restrict__ oy, const float* __restrict__ xy0,
-                     float* __restrict__ out, int N, int n_iter, float eps2) {
-  __shared__ float sw[4][kWin * kWin];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * 4 + warp;
-  if (n >= N) return;
-  float* w = sw[warp];
-  const float* src = wins + (size_t)n * kWin * kWin;
-  for (int k = lane; k < kWin * kWin; k += 32) w[k] = src[k];
-  __syncwarp();
-  const Result r = align_point<true>(w, ref + (size_t)n * 64, jx + (size_t)n * 64,
-                                     jy + (size_t)n * 64, hinv + (size_t)n * 9,
-                                     (float)ox[n], (float)oy[n], xy0[2 * n], xy0[2 * n + 1],
-                                     n_iter, eps2);
-  if (lane == 0) {
-    out[4 * n] = r.x;
-    out[4 * n + 1] = r.y;
-    out[4 * n + 2] = r.mean;
-    out[4 * n + 3] = r.err;
-  }
-}
-
-template <int G, bool kLdg, int W>
-int launch(const float* wins, const float* ref, const float* jx, const float* jy,
-           const float* hinv, const int* ox, const int* oy, const float* xy0, float* out, int N,
-           int n_iter, float eps2, cudaStream_t stream) {
-  constexpr int kPointsPerBlock = W * 32 / G;
-  const int blocks = (N + kPointsPerBlock - 1) / kPointsPerBlock;
-  align2d_fused_kernel<G, kLdg, W><<<blocks, W * 32, 0, stream>>>(
-      wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// lanes: lanes per point (16 or 32; 0: the previous body); ldg: 1 to read
-// the windows in place, 0 to stage them in shared memory; warps: warps per
-// block.
 extern "C" int align2d_fused_launch(const float* wins, const float* ref, const float* jx,
                                     const float* jy, const float* hinv, const int* ox,
                                     const int* oy, const float* xy0, float* out, int N,
-                                    int n_iter, float eps2, int lanes, int ldg, int warps,
-                                    cudaStream_t stream) {
+                                    int n_iter, float eps2, cudaStream_t stream) {
   if (N <= 0) return 0;
-  if (lanes == 0) {
-    align2d_point_kernel<<<(N + 3) / 4, 128, 0, stream>>>(wins, ref, jx, jy, hinv, ox, oy, xy0,
-                                                         out, N, n_iter, eps2);
-    return (int)cudaGetLastError();
-  }
-#define K4_LAUNCH(G, L, W) \
-  if (lanes == G && ldg == L && warps == W) \
-    return launch<G, L, W>(wins, ref, jx, jy, hinv, ox, oy, xy0, out, N, n_iter, eps2, stream);
-  K4_LAUNCH(32, false, 8) K4_LAUNCH(32, false, 4) K4_LAUNCH(32, false, 1)
-  K4_LAUNCH(32, true, 8) K4_LAUNCH(32, true, 4) K4_LAUNCH(32, true, 1)
-  K4_LAUNCH(16, false, 4) K4_LAUNCH(16, true, 4) K4_LAUNCH(16, true, 1)
-#undef K4_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  align2d_fused_kernel<<<N, 32, 0, stream>>>(wins, ref, jx, jy, hinv, ox, oy, xy0, out, n_iter,
+                                             eps2);
+  return (int)cudaGetLastError();
 }

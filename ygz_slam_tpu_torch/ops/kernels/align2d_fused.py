@@ -74,11 +74,12 @@ def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
 
     wins [N, 32, 32], ref/jx/jy [N, 8, 8], hinv [N, 3, 3], ox/oy [N] int32,
     xy0 [N, 2].  Returns [N, 4]: x, y, mean offset, final mean |r|.  Every
-    point runs n_iter iterations, its updates gated off once it is frozen;
-    with `exit_frozen` each iteration takes only the points not yet frozen
-    and the loop ends once all are (K4's exit), which must give the same
-    bits.  `stats`, if given, receives "iterations" [N]: the iterations each
-    point ran before it froze (n_iter if it never did)."""
+    point runs n_iter iterations, its updates gated off once it is frozen,
+    as the JAX kernel runs them; with `exit_frozen` each iteration takes
+    only the points not yet frozen and the loop ends once all are (the
+    kernels leave a point's loop once it is frozen), which must give the
+    same bits.  `stats`, if given, receives "iterations" [N]: the iterations
+    each point ran up to the one that froze it (n_iter if none did)."""
     N = xy0.shape[0]
     dev = wins.device
     oxf, oyf = ox.to(torch.float32), oy.to(torch.float32)
@@ -135,12 +136,9 @@ def a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03,
     return torch.stack([x, y, mean, err], dim=1)
 
 
-def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03, *,
-           lanes: int = 32, ldg: bool = False, warps: int = 4):
+def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03):
     """K4 on the card, its plain version on the CPU; arguments as for
-    `a2d_gn_plain`.  `lanes` lanes per point (16 or 32; 0: the previous
-    body); `ldg` reads the windows in place, else stages them in shared
-    memory; `warps` warps per block."""
+    `a2d_gn_plain`."""
     if not on_card(wins):
         return a2d_gn_plain(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     N = xy0.shape[0]
@@ -153,10 +151,10 @@ def a2d_gn(wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter=10, conv_eps=0.03, *,
     require(oy, "oy", torch.int32, (N,), dev)
     require(xy0, "xy0", torch.float32, (N, 2), dev)
     out = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, I, I, I, P],
+    launch("align2d_fused", "align2d_fused_launch", [P] * 9 + [I, I, Fl, P],
            wins.data_ptr(), ref.data_ptr(), jx.data_ptr(), jy.data_ptr(), hinv.data_ptr(),
            ox.data_ptr(), oy.data_ptr(), xy0.data_ptr(), out.data_ptr(), N, n_iter,
-           conv_eps * conv_eps, lanes, int(ldg), warps, stream(dev))
+           conv_eps * conv_eps, stream(dev))
     launched(a2d_gn, wins, ref, jx, jy, hinv, ox, oy, xy0, n_iter, conv_eps)
     return out
 
