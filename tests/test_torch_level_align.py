@@ -78,6 +78,13 @@ def test_level_plain_matches_jax_kernel(scene, variant, monkeypatch):
     R0, t0 = torch.eye(3), torch.zeros(3)
     port = (k9.level_align_fused_v2 if variant == 2 else k9.level_align_fused)(
         cp[level], lr, prep.p_ref, R0, t0, cam, level, distorted=False)
+    if variant == 2:
+        # On the CPU the entry point is the plain version, which takes the
+        # kernel's arguments (no factor) and returns H0 beside the pose.
+        plain = k9.level_gn_v2_plain(*k9.level_args(cp[level], lr, prep.p_ref, R0, t0, cam,
+                                                    level, False))
+        assert torch.equal(torch.cat([port[0].reshape(9), port[1], port[2].reshape(1)]),
+                           plain[:13]) and torch.equal(port[3], k9._sym6(plain[13:]))
     jimg, jcam = jnp.asarray(np32(cp[level])), jax_camera(cam)
     with jax_kernels_interpreted():
         if variant == 2:

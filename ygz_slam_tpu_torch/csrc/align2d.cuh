@@ -1,9 +1,8 @@
 // The per-point body of 8x8 inverse-compositional patch alignment (du, dv,
 // mean) inside a 32x32 cached window, run by one warp, shared by K4
-// (align2d_fused.cu: steps clamped to +-1 px, DELTA_ROLLS's contract,
-// windows read through the read-only path) and the second stage of K11
-// (track_fused.cu: unclamped steps, as ygz_slam_tpu/ops/pallas/track_fused.py
-// runs them).
+// (align2d_fused.cu: steps clamped to +-1 px, DELTA_ROLLS's contract) and
+// the second stage of K11 (track_fused.cu: unclamped steps, as
+// ygz_slam_tpu/ops/pallas/track_fused.py runs them).
 //
 // Math of the JAX kernels: the sampling lattice clamped to [0, 23] inside
 // the window, residual cur - ref + mean, update [du, dv, dm] = hinv [sum r
@@ -49,23 +48,13 @@ __device__ __forceinline__ void warp_sum3(float& a, float& b, float& c) {
   }
 }
 
-// A window value: through the read-only data path (kLdg) or an ordinary
-// load.
-template <bool kLdg>
-__device__ __forceinline__ float tap(const float* p) {
-  if constexpr (kLdg) {
-    return __ldg(p);
-  } else {
-    return *p;
-  }
-}
-
-template <bool kLdg>
+// The bilinear sample at (x0 + c + ax, y0 + r + ay) of a window in device
+// memory, its taps read through the read-only data path.
 __device__ __forceinline__ float sample(const float* w, int y0, int x0, int r, int c,
                                         float ax, float ay) {
   const float* s = w + (y0 + r) * kWin + (x0 + c);
-  return (1.f - ax) * (1.f - ay) * tap<kLdg>(s) + ax * (1.f - ay) * tap<kLdg>(s + 1) +
-         (1.f - ax) * ay * tap<kLdg>(s + kWin) + ax * ay * tap<kLdg>(s + kWin + 1);
+  return (1.f - ax) * (1.f - ay) * __ldg(s) + ax * (1.f - ay) * __ldg(s + 1) +
+         (1.f - ax) * ay * __ldg(s + kWin) + ax * ay * __ldg(s + kWin + 1);
 }
 
 struct Result {
@@ -73,11 +62,11 @@ struct Result {
 };
 
 // Aligns one point by the whole warp (all 32 lanes active; every lane
-// returns the same result).  w: its 32x32 window in device memory whose
-// origin is (oxf, oyf), read through the read-only path when kLdg; rp /
-// gxp / gyp: its 64 reference values and gradients; h: its row-major 3x3
-// inverse normal matrix; (x, y): the init.
-template <bool kClampStep, bool kLdg>
+// returns the same result).  w: its 32x32 window in device memory (read
+// only) whose origin is (oxf, oyf); rp / gxp / gyp: its 64 reference values
+// and gradients; h: its row-major 3x3 inverse normal matrix; (x, y): the
+// init.
+template <bool kClampStep>
 __device__ __forceinline__ Result align_point(const float* w, const float* __restrict__ rp,
                                               const float* __restrict__ gxp,
                                               const float* __restrict__ gyp,
@@ -99,8 +88,8 @@ __device__ __forceinline__ Result align_point(const float* w, const float* __res
     const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
     const float x0 = floorf(fx), y0 = floorf(fy);
     const float ax = fx - x0, ay = fy - y0;
-    const float e0 = sample<kLdg>(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
-    const float e1 = sample<kLdg>(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
+    const float e0 = sample(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
+    const float e1 = sample(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
     float gx = e0 * jx0 + e1 * jx1;
     float gy = e0 * jy0 + e1 * jy1;
     float gm = e0 + e1;
@@ -123,8 +112,8 @@ __device__ __forceinline__ Result align_point(const float* w, const float* __res
   const float fy = fminf(fmaxf(y - kHalf - oyf, 0.f), kLim);
   const float x0 = floorf(fx), y0 = floorf(fy);
   const float ax = fx - x0, ay = fy - y0;
-  const float e0 = sample<kLdg>(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
-  const float e1 = sample<kLdg>(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
+  const float e0 = sample(w, (int)y0, (int)x0, r0, c0, ax, ay) - ref0 + mean;
+  const float e1 = sample(w, (int)y0, (int)x0, r1, c0, ax, ay) - ref1 + mean;
   const float err = warp_sum(fabsf(e0) + fabsf(e1)) / 64.f;
   return Result{x, y, mean, err};
 }

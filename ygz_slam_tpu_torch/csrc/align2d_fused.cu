@@ -36,7 +36,7 @@ align2d_fused_kernel(const float* __restrict__ wins, const float* __restrict__ r
                      const int* __restrict__ oy, const float* __restrict__ xy0,
                      float* __restrict__ out, int n_iter, float eps2) {
   const int n = blockIdx.x;
-  const Result r = align_point<true, true>(wins + (size_t)n * kWin * kWin, ref + (size_t)n * 64,
+  const Result r = align_point<true>(wins + (size_t)n * kWin * kWin, ref + (size_t)n * 64,
                                            jx + (size_t)n * 64, jy + (size_t)n * 64,
                                            hinv + (size_t)n * 9, (float)ox[n], (float)oy[n],
                                            xy0[2 * n], xy0[2 * n + 1], n_iter, eps2);

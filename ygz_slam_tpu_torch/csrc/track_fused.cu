@@ -11,7 +11,7 @@
 //    (fetched at the frame-init pose with 11 px of slack) from its
 //    projection at stage 1's pose, by K4's per-point body (align2d.cuh,
 //    which leaves a point's loop once it is frozen) WITHOUT K4's +-1 px
-//    step clamp and with ordinary loads; then the gates, in the kernel: in
+//    step clamp; then the gates, in the kernel: in
 //    bounds at margin 6 with z > 0.05 at the start, at margin 5 at the end,
 //    err < max_err, drift from the start < 11 px, the landmark's mask.
 // 3. Pose-only BA (pose_ba.cuh::pose_ba_cta, K5's body) on stage 2's
@@ -163,7 +163,7 @@ track_fused_kernel(SparseIn sp, MapIn mp, const float* __restrict__ pose0,
     const float yd = yn * radial + cam.p1 * (r2 + 2.f * yn * yn) + 2.f * cam.p2 * xn * yn;
     const float xi = cam.fx * xd + cam.cx;
     const float yi = cam.fy * yd + cam.cy;
-    const ygz::align2d::Result r = ygz::align2d::align_point<false, false>(
+    const ygz::align2d::Result r = ygz::align2d::align_point<false>(
         mp.wins + (size_t)n * 1024, mp.ref + (size_t)n * 64, mp.jx + (size_t)n * 64,
         mp.jy + (size_t)n * 64, mp.hinv + (size_t)n * 9, (float)mp.ox[n], (float)mp.oy[n], xi,
         yi, caps.a2d_iter, caps.a2d_eps2);
