@@ -8,8 +8,8 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11) and K4, per template instance; a
-   spill in K3, K4, K5, K9 v1, K9 v2 or K11 fails the run at the end.
+   kernels (K3, K5, K8, K9 v1/v2, K11) and K4; a spill in K3, K4, K5,
+   K9 v1, K9 v2 or K11 fails the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
    bits.  Kernel times are medians of per-launch CUDA-event intervals with
@@ -329,18 +329,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t_start:.2f} s for {len(_build.sources())} sources "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
     # ptxas's registers, stack, spills and shared memory of the chained kernels.
-    # A template kernel reports once per instance (its mangled name).
     spills, smem_static = {}, {}
     for src, kernel in PTXAS_KERNELS:
         for name, r in _build.kernel_resources(src).items():
             if kernel in name:
-                spills[kernel] = spills.get(kernel, 0) + r["spill_stores"] + r["spill_loads"]
+                spills[kernel] = r["spill_stores"] + r["spill_loads"]
                 smem_static[kernel] = r["smem"]
-                inst = name[name.index(kernel) + len(kernel):].split("EEv")[0]
-                inst = f" {inst}" if inst.startswith("I") else ""
-                print(f"ptxas {src}.cu {kernel}{inst}: {r['registers']} registers, {r['stack']} "
-                      f"bytes stack, {r['spill_stores']} bytes spill stores, {r['spill_loads']} "
-                      f"bytes spill loads, {r['smem']} bytes static shared memory", flush=True)
+                print(f"ptxas {src}.cu {kernel}: {r['registers']} registers, {r['stack']} bytes "
+                      f"stack, {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes "
+                      f"spill loads, {r['smem']} bytes static shared memory", flush=True)
     dev = torch.device("cuda")
     L = tr.N_LEVELS
 
@@ -450,10 +447,10 @@ def main() -> int:
             raise AssertionError("K3 disagrees with its plain version")
         return err, stats
 
-    def check_k4(k4_in, tag, **form):
+    def check_k4(k4_in, tag):
         a4, proj, inb0, H, W = k4_in
-        out = k4.a2d_gn(*a4, **form)
-        same_launch("K4", [out], [k4.a2d_gn(*a4, **form)], tag)
+        out = k4.a2d_gn(*a4)
+        same_launch("K4", [out], [k4.a2d_gn(*a4)], tag)
         ref = k4.a2d_gn_plain(*a4)
         ma, mb = (accepted(o[:, :2], o[:, 3], proj, inb0, H, W) for o in (out, ref))
         agree = float((ma == mb).float().mean())
@@ -898,7 +895,7 @@ def main() -> int:
     print(f"mono workload: {mw.N_FRAMES} frames {mw.W}x{mw.H}, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    def check_k9(args, v2, tag, **form):
+    def check_k9(args, v2, tag):
         """K9 v1 or v2 against its plain version (pose, chi2, and H: v1's at
         the last accepted state, v2's H0); returns (max |R,t diff|, plain
         passes, kernel output)."""
@@ -906,8 +903,8 @@ def main() -> int:
         fn, plain = (k9.level_gn_v2, k9.level_gn_v2_plain) if v2 else \
             (k9.level_gn, k9.level_gn_plain)
         name = "K9 level_align_fused_v2" if v2 else "K9 level_align_fused (v1)"
-        out, ref = fn(*args, **form), plain(*args, stats=stats)
-        same_launch(name, [out], [fn(*args, **form)], tag)
+        out, ref = fn(*args), plain(*args, stats=stats)
+        same_launch(name, [out], [fn(*args)], tag)
         h_err = float((out[13:] - ref[13:]).abs().max() / ref[13:].abs().max().clamp(min=1e-30))
         d = float(se3.distance(SE3(*_pose_of(out)), SE3(*_pose_of(ref))))
         err = float((out[:12] - ref[:12]).abs().max())

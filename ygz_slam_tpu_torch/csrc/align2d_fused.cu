@@ -21,7 +21,7 @@
 // per block and windows staged in shared memory or read in place chose
 // this form: fewer lanes per point cost a lane more pixels than the
 // shuffle steps they save, and every launch holds points that never
-// freeze, so the slowest warp runs all 10 iterations (PERF.md, PR 9).
+// freeze, so the slowest warp runs all 10 iterations (PERF.md).
 #include "align2d.cuh"
 
 using namespace ygz::align2d;

@@ -42,8 +42,8 @@
 //      (ClusterReducer); every thread factors H0 and substitutes
 //      redundantly in registers (no broadcast, the pose never leaves
 //      registers).  One CTA of 512 threads was timed against clusters of
-//      2, 4 and 8 CTAs of 256 at N=256: 8 cut a launch by ~17% (PERF.md,
-//      PR 9).
+//      2, 4 and 8 CTAs of 256 at N=256: 8 cut a launch by ~17%
+//      (PERF.md).
 //   v1 spreads each pass over a thread-block cluster of up to 8 CTAs of
 //      256 threads (the wrapper's partition: a CTA per 32 points, so one
 //      round of the pixel loop per CTA where one CTA took N / 32 rounds).
