@@ -24,14 +24,20 @@ Phases, each raising (and so exiting non-zero) on failure:
       image, per image and for the pyramid.
    b. The batch path's kernels (K6 gather_windows_grouped, K3 on K6's
       windows, K2 gather_windows_multi, K4 over all S*N rows, K8
-      pose_ba_fused_batch) on that path's frame-1 inputs at S=8; K2, K6
-      and K8 again at S=16; K2 and K6 with origins off the image, K6 with
-      a request list that names one image twice.
+      pose_ba_fused_batch) on that path's frame-1 inputs at S=8 (K6's and
+      K3's recorded from `batched_sparse_align`: every sequence's levels
+      in one K6 launch); K2, K6 and K8 again at S=16 (K6: 48 requests in
+      one launch); K2 and K6 with origins off the image, K6 with a request
+      list that names one image twice; K6 timed per batched frame beside
+      the S launches of one sequence's levels that it replaced.
    c. K10 (Hamming distance matrix) against its plain version, exactly, at
-      the keyframe cycle's two shapes (128 x 256 and 256 x 3072, on frame-0
-      descriptors of the VO workload), at 2560 x 3072, at a ragged
+      the keyframe cycle's two shapes (128 x 512: both triangulation
+      neighbours stacked, and 256 x 3072, on frame-0 descriptors of the VO
+      workload), at 128 x 256 (one neighbour), at 2560 x 3072, at a ragged
       130 x 77 and with all-ones and sign-bit-only words; `match_nn` and
-      the tie-breaking argmins on the card against the CPU, exactly.
+      the tie-breaking argmins on the card against the CPU, exactly; each
+      form of the kernel (tensor cores or CUDA cores, tile shapes) exact and
+      timed in turns.
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
       that frame 10 of the VO path gives them (K1's two pyramid launches,
       N=256 with masked rows for K3, 512 rows on the three-level pyramid
@@ -75,8 +81,8 @@ Phases, each raising (and so exiting non-zero) on failure:
    windows) and the batch kernels and K11 never.
 4. Main path 2: bench_batch.py's workload, S=8 sequences x 60 frames,
    through `batch.track_batch_frames`, every sequence's every frame held
-   to the gate; the counters must show K6 and K3 S times per frame, K2,
-   K4 and K8 once per frame, K1 and K5 never.  Aggregate frames/s is the
+   to the gate; the counters must show K3 S times per frame, K6, K2, K4
+   and K8 once per frame, K1 and K5 never.  Aggregate frames/s is the
    median of 3 further runs.
 5. Main path 3: the VO's map-tracking step and keyframe cycle, 240 frames
    640x480 on a map of K=10 keyframes x F=256 features and L=3072 landmark
@@ -85,9 +91,9 @@ Phases, each raising (and so exiting non-zero) on failure:
    on; every frame held to `vo_gate`.  The counters must show, per frame,
    K3, K2, K4 and K5 once and K1 twice (the three reference-patch levels
    in one launch, the three window levels in another: the reference is
-   the previous frame, prepared anew each frame); per keyframe K10 three
-   times (two triangulation
-   neighbours and the fusion with the map); K6 and K8 never.
+   the previous frame, prepared anew each frame); per keyframe K10 twice
+   (both triangulation neighbours in one launch, then the fusion with the
+   map); K6 and K8 never.
 5b. Main path 4: the monocular System from raw frames
    (`models/mono_workload.py`: 160 frames 640x480, 3 levels, map K=10 x
    F=256 x L=3072, NS=256, NSV=512) through `System.track_monocular`,
@@ -98,7 +104,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    levels, then once for the three 16x16 window levels under 3 or once
    per level (before each K9 launch) under 1 and 2; K3 once under 3, the
    variant's K9 entry three times under 1 or 2; K10
-   three times per keyframe; K6 and K8 never.  Then, from a fresh System,
+   twice per keyframe; K6 and K8 never.  Then, from a fresh System,
    synchronised times of the init step, `track`, the keyframe cycle and
    the mapping pass; that second run must equal the first bit for bit
    (statuses, trajectory, keyframe poses, landmarks).
@@ -572,23 +578,21 @@ def main() -> int:
     # -- 2b. batch kernels versus plain versions -----------------------------
     def batch_frame_inputs(bst, imgs, T7):
         """Each batch kernel's inputs on one frame of the batch path, from
-        that path's own stages: (K6 request lists per sequence, K3 args per
-        sequence, K2 args, K4 inputs, K8 args)."""
+        that path's own stages: (K6's request list, recorded from
+        `batched_sparse_align`: every sequence's levels in one launch; K3
+        args per sequence, recorded after it; K2 args, K4 inputs, K8
+        args)."""
         cur_pyrs = pyramid.build_pyramid(imgs, L)
         H, W = imgs.shape[1:]
-        g6, a3s = [], []
-        for s, prep in enumerate(bst.ref_preps):
-            cp = tuple(c[s] for c in cur_pyrs)
-            T0 = SE3.from_params7(T7[s])
-            _, _, ox_l, oy_l = k3.mega_window_origins(cp, prep.p_ref, T0.R, T0.t, bst.cam,
-                                                      bt.DISTORTED, L)
-            g6.append([(cp[li], ox_l[li], oy_l[li], k3.CWIN) for li in range(L)])
-            fw = sparse_align.gather_frame_windows(cp, bst.cam, prep, T0, distorted=bt.DISTORTED)
-            a3s.append(k3.mega_args(cp, prep.levels, prep.p_ref, T0.R, T0.t, bst.cam,
-                                    bt.DISTORTED, L, prep.mega_refp, prep.mega_jl,
-                                    pregathered=fw.mega_wins)[0])
-        T = bt.batched_sparse_align(bst.ref_pyrs, cur_pyrs, bst.cam, bst.px, bst.depth,
-                                    bst.mask, SE3.from_params7(T7), bst.ref_preps)
+        S = imgs.shape[0]
+        with kernels.record_launches() as rec:
+            T = bt.batched_sparse_align(bst.ref_pyrs, cur_pyrs, bst.cam, bst.px, bst.depth,
+                                        bst.mask, SE3.from_params7(T7), bst.ref_preps)
+        names = [f.__name__ for f, _ in rec]
+        if names != ["gather_windows_grouped"] + ["mega_gn"] * S:
+            raise AssertionError(f"batched_sparse_align launched {names}")
+        g6 = rec[0][1][0]
+        a3s = [a for f, a in rec[1:]]
         proj = bt.project_landmarks(bst.cam, bst.pts_w, T)
         a2, xy0, xy0s, inb0 = bt.batched_align2d_inputs(cur_pyrs[0], proj)
         a4b = k4.a2d_args(cur_pyrs[0][0], bst.a2d_prep, xy0s,
@@ -616,17 +620,23 @@ def main() -> int:
         return e
 
     def check_k6(g6, a2, tag):
-        e = check_exact("K6 gather_windows_grouped", k1.gather_windows_grouped(g6[0]),
-                        k1.gather_windows_grouped_plain(g6[0]), tag)
-        # Level 0 named twice (its 16^2 windows and the a2d 32^2 cache of
-        # the same frame), every origin list partly off the image.
-        img0 = g6[0][0][0]
-        twice = [(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g6[0]]
+        """K6 on the batched frame's request list (every sequence's levels),
+        in one launch, then on the same list with sequence 0's level 0
+        named again for the a2d 32^2 cache and every origin list partly off
+        the image."""
+        n0 = k1.gather_windows_grouped.launches
+        e = check_exact("K6 gather_windows_grouped", k1.gather_windows_grouped(g6),
+                        k1.gather_windows_grouped_plain(g6),
+                        f"{tag}, {len(g6)} requests in one launch")
+        if k1.gather_windows_grouped.launches != n0 + 1:
+            raise AssertionError("K6 took more than one launch for a batched frame")
+        img0 = g6[0][0]
+        twice = [(img, *off_image(ox, oy, *img.shape, win), win) for img, ox, oy, win in g6]
         twice.append((img0, *off_image(a2[2][:200], a2[3][:200], *img0.shape, k1.CACHE_WIN),
                       k1.CACHE_WIN))
         check_exact("K6 gather_windows_grouped", k1.gather_windows_grouped(twice),
                     k1.gather_windows_grouped_plain(twice),
-                    tag + ", level 0 named twice, origins off the image")
+                    f"{tag}, {len(twice)} requests, level 0 named twice, origins off the image")
         return e
 
     def check_k8(a8, tag):
@@ -673,13 +683,25 @@ def main() -> int:
                           [lib2[1], lib2[2], lib2[3]])
     report["K2"] = dict(ms=k2_ms, plain=k2_plain, lib=k2_lib, err=e2,
                         bound=_bound(Nb * (2 * 32 * 32 * 4 + 12), 0.0))
-    k6_ms = _time_kernel(torch, lambda: k1.gather_windows_grouped(g6[0]))
-    k6_plain = _time_host(torch, lambda: k1.gather_windows_grouped_plain(g6[0]))
-    g6_lib = [(img, oy.long(), ox.long(), win) for img, ox, oy, win in g6[0]]
+    def k6_times(g6, S):
+        """K6 per batched frame (one launch of all S x L requests), the S
+        launches of L requests each that the path made before, and the
+        bound of the frame's windows."""
+        one = _time_kernel(torch, lambda: k1.gather_windows_grouped(g6))
+        per_seq = [g6[s * L:(s + 1) * L] for s in range(S)]
+        seq = _time_kernel(torch, lambda: [k1.gather_windows_grouped(g) for g in per_seq])
+        bound = _bound(sum(g[1].shape[0] * (2 * g[3] * g[3] * 4 + 8) for g in g6), 0.0)
+        print(f"K6 S={S}, per batched frame: one launch of {len(g6)} requests {one:.4f} ms; "
+              f"{S} launches of {L} requests (the per-sequence form) {seq:.4f} ms; bound "
+              f"{bound[0]:.6f} ms ({bound[1]})", flush=True)
+        return one, bound
+
+    k6_ms, k6_bound = k6_times(g6, S_BATCH)
+    k6_plain = _time_host(torch, lambda: k1.gather_windows_grouped_plain(g6))
+    g6_lib = [(img, oy.long(), ox.long(), win) for img, ox, oy, win in g6]
     k6_lib = sum(_time_kernel(torch, lambda g=g: g[0].unfold(0, g[3], 1).unfold(1, g[3], 1)
                               [g[1], g[2]]) for g in g6_lib)
-    report["K6"] = dict(ms=k6_ms, plain=k6_plain, lib=k6_lib, err=e6,
-                        bound=_bound(sum(N * (2 * g[3] * g[3] * 4 + 8) for g in g6[0]), 0.0))
+    report["K6"] = dict(ms=k6_ms, plain=k6_plain, lib=k6_lib, err=e6, bound=k6_bound)
     k8_ms = _time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8))
     k8_plain = _time_host(torch, lambda: k8.pose_ba_batch_gn_plain(*a8))
     k8_bytes = S_BATCH * (N * (12 + 8 + 4) + 48 + N * 4 + 52)
@@ -706,6 +728,7 @@ def main() -> int:
                                                    T_gt16[0][None].repeat(S_BIG, 1))
     tag16 = f"S={S_BIG}"
     check_k6(g6_16, a2_16, tag16)
+    k6_times(g6_16, S_BIG)
     check_k2(a2_16, tag16)
     check_k8(a8_16, tag16)
     print(f"S={S_BIG}: K2 {_time_kernel(torch, lambda: k1.gather_windows_multi(*a2_16)):.4f} ms "
@@ -736,11 +759,15 @@ def main() -> int:
     edge_a, edge_b = words(130), words(77)
     for t in (edge_a, edge_b):
         t[0], t[1], t[2] = -1, -2 ** 31, 0            # all ones, sign bits only, zero
+    nbrs2 = all_feat[:2 * vo_opts.map_F]          # slot 0's rows, then slot 1's (random)
     k10_cases = [
-        (f"{Fn_vo} x {vo_opts.map_F} (triangulation, frame-0 descriptors)", feat0[:Fn_vo], feat0),
+        (f"{Fn_vo} x {2 * vo_opts.map_F} (triangulation, both neighbours stacked: frame-0 "
+         f"descriptors and random words)", feat0[:Fn_vo], nbrs2),
         (f"{vo_opts.map_F} x {vo_opts.map_L} (fusion, frame-0 map)", feat0, m0.pt_desc),
         (f"{all_feat.shape[0]} x {vo_opts.map_L} (all map features x all landmark rows)",
          all_feat, all_pt),
+        (f"{Fn_vo} x {vo_opts.map_F} (triangulation against one neighbour)", feat0[:Fn_vo],
+         feat0),
         ("130 x 77 (ragged)", words(130), words(77)),
         ("130 x 77 with all-ones, sign-bit-only and zero words", edge_a, edge_b),
     ]
@@ -773,8 +800,9 @@ def main() -> int:
         if not same:
             raise AssertionError("match_nn or an argmin chooses differently on the card")
     # Time and bound per launch at the path's two shapes, and per keyframe:
-    # two triangulation matrices and one fusion matrix.  The `kernels` line
-    # carries the per-keyframe sums (as K1's row carries a frame's launches).
+    # one triangulation matrix (both neighbours) and one fusion matrix.  The
+    # `kernels` line carries the per-keyframe sums (as K1's row carries a
+    # frame's launches).
     def k10_bound(a, b):
         n, m = a.shape[0], b.shape[0]
         return _bound((n + m) * 32 + n * m * 4, n * m * 8 * 3)      # xor, popc, add per word
@@ -788,7 +816,7 @@ def main() -> int:
         return ((w[:, :, None] >> shifts) & 1).reshape(w.shape[0], 256).to(torch.float32)
 
     per_launch = []
-    for tag, a, b in k10_cases[:3]:
+    for tag, a, b in k10_cases[:4]:
         ms = _time_kernel(torch, lambda: k10.distance_matrix(a, b))
         plain = _time_host(torch, lambda: k10.distance_matrix_plain(a, b))
         ab, bb = unpack_bits(a), unpack_bits(b)
@@ -801,14 +829,48 @@ def main() -> int:
               f"{lib:.4f} ms (torch.cdist p=0 on the bits unpacked beforehand, equal), bound "
               f"{per_launch[-1][2][0]:.6f} ms ({per_launch[-1][2][1]})", flush=True)
     tri, fus = per_launch[0], per_launch[1]
-    report["K10"] = dict(ms=2 * tri[0] + fus[0], plain=2 * tri[1] + fus[1],
-                         lib=2 * tri[3] + fus[3], err=e10,
-                         bound=(2 * tri[2][0] + fus[2][0], fus[2][1]))
+    report["K10"] = dict(ms=tri[0] + fus[0], plain=tri[1] + fus[1], lib=tri[3] + fus[3],
+                         err=e10, bound=(tri[2][0] + fus[2][0], fus[2][1]))
     r = report["K10"]
-    print(f"K10 per keyframe (2 x {Fn_vo}x{vo_opts.map_F} + {vo_opts.map_F}x{vo_opts.map_L}, the "
+    print(f"K10 per keyframe ({Fn_vo}x{2 * vo_opts.map_F} + {vo_opts.map_F}x{vo_opts.map_L}, the "
           f"sums of the launches above): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
           f"library {r['lib']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})",
           flush=True)
+    # The sweep of K10's forms (csrc/hamming.cu `hamming_launch_variant`):
+    # A on the tensor cores (warp tile, warps per block), B on the CUDA
+    # cores (a 4 x 4 micro-tile per lane); each exact first, then timed in
+    # two rounds in turns at 128 x 256, 128 x 512, 256 x 3072 and
+    # 2560 x 3072, and per keyframe (128 x 512 + 256 x 3072).
+    forms = ("A 16x32 warp tiles, 4 warps/block", "A 16x32, 1 warp", "A 16x16, 1 warp",
+             "A 16x64, 2 warps", "B 4x4 per lane, 4 warps/block", "B 4x4 per lane, 1 warp")
+
+    def k10_form(a, b, v):
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)
+        kernels.launch("hamming", "hamming_launch_variant",
+                       [kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.I,
+                        kernels.P], a.data_ptr(), b.data_ptr(), a.shape[0], b.shape[0],
+                       out.data_ptr(), v, kernels.stream(dev))
+        return out
+
+    sweep = [("128x256", feat0[:Fn_vo], feat0), ("128x512", feat0[:Fn_vo], nbrs2),
+             ("256x3072", feat0, m0.pt_desc), ("2560x3072", all_feat, all_pt),
+             ("130x77 edge words", edge_a, edge_b)]
+    times = {}
+    for v in range(len(forms)):
+        for tag, a, b in sweep:
+            if not torch.equal(k10_form(a, b, v), k10.distance_matrix_plain(a, b)):
+                raise AssertionError(f"K10 form {forms[v]} disagrees at {tag}")
+    for rnd, order in enumerate((range(len(forms)), reversed(range(len(forms))))):
+        for v in order:
+            times[v, rnd] = [_time_kernel(torch, lambda a=a, b=b: k10_form(a, b, v))
+                             for _, a, b in sweep[:4]]
+    for v, name in enumerate(forms):
+        t0_, t1_ = times[v, 0], times[v, 1]
+        print(f"K10 form {v} ({name}), exact at every shape; us per launch, rounds 1 / 2: "
+              + ", ".join(f"{tag} {a * 1e3:.2f} / {b * 1e3:.2f}"
+                          for (tag, _, _), a, b in zip(sweep, t0_, t1_))
+              + f"; per keyframe {(t0_[1] + t0_[2]) * 1e3:.2f} / {(t1_[1] + t1_[2]) * 1e3:.2f}",
+              flush=True)
 
     # -- 2d. the VO path's kernels on the inputs that path gives them ---------
     # Frame 10 through the entry point (`track`, then the keyframe cycle) with
@@ -822,7 +884,7 @@ def main() -> int:
         vw.track_vo_frames(st9, vframes[10:11])
     ref_win = sparse_align.PATCH + 3                  # a 6x6 bilinear patch needs 7x7 pixels
     want_rec = (["gather_windows_levels"] * 2 + ["mega_gn", "gather_windows_multi", "a2d_gn",
-                                                 "pose_ba_gn"] + ["distance_matrix"] * 3)
+                                                 "pose_ba_gn"] + ["distance_matrix"] * 2)
     if [fn.__name__ for fn, _ in rec] != want_rec:
         raise AssertionError(f"VO frame 10 launched {[fn.__name__ for fn, _ in rec]}, "
                              f"expected {want_rec}")
@@ -1279,7 +1341,7 @@ def main() -> int:
     if not ok:
         raise AssertionError("main path 2 failed the per-frame accuracy gate")
     want2 = {"gather_windows_levels": 0, "gather_windows": 0,
-             "gather_windows_grouped": S_BATCH * F_BATCH,
+             "gather_windows_grouped": F_BATCH,
              "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
              "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH,
              "distance_matrix": 0, "track_gn": 0}
@@ -1352,7 +1414,7 @@ def main() -> int:
     want3 = {"gather_windows_levels": 2 * n_f, "gather_windows": 0,
              "gather_windows_grouped": 0,
              "gather_windows_multi": n_f, "mega_gn": n_f, "a2d_gn": n_f, "pose_ba_gn": n_f,
-             "pose_ba_batch_gn": 0, "distance_matrix": 3 * n_kf, "track_gn": 0}
+             "pose_ba_batch_gn": 0, "distance_matrix": 2 * n_kf, "track_gn": 0}
     if launches3 != want3:
         raise AssertionError(f"launch counts {launches3}, expected {want3}")
     # Synchronised times of the two steps over 60 frames (6 keyframes), twice
@@ -1458,7 +1520,7 @@ def main() -> int:
                  "gather_windows_grouped": 0,
                  "gather_windows_multi": n_track, "mega_gn": n_track if variant == 3 else 0,
                  "a2d_gn": n_track, "pose_ba_gn": n_track, "pose_ba_batch_gn": 0,
-                 "distance_matrix": 3 * n_kf, "track_gn": 0,
+                 "distance_matrix": 2 * n_kf, "track_gn": 0,
                  "level_gn": 3 * n_track if variant == 1 else 0,
                  "level_gn_v2": 3 * n_track if variant == 2 else 0}
         if got != want4:
@@ -1548,12 +1610,12 @@ def main() -> int:
     # Each kernel's device time per launch in the profiler, in the window
     # whose shapes its phase-2 CUDA-event time was taken at, beside that
     # time (per frame for K1 and K9: 2 and 3 launches; per keyframe for
-    # K10: 3): the difference is the gap between back-to-back launches.
+    # K10: 2): the difference is the gap between back-to-back launches.
     prof_rows = (("K1", 1, "gather_levels_kernel", 2), ("K2", 2, "gather_windows_multi_kernel", 1),
                  ("K3", 1, "sparse_align_mega_kernel", 1), ("K4", 1, "align2d_fused_kernel", 1),
                  ("K5", 1, "pose_ba_fused_kernel", 1),
                  ("K6", 2, "gather_windows_grouped_kernel", 1),
-                 ("K8", 2, "pose_ba_fused_batch_kernel", 1), ("K10", 3, "hamming_kernel", 3),
+                 ("K8", 2, "pose_ba_fused_batch_kernel", 1), ("K10", 3, "hamming_mma_kernel", 2),
                  ("K9v1", "4v1", "level_align_v1_kernel", 3),
                  ("K9v2", "4v2", "level_align_v2_kernel", 3), ("K11", 5, "track_fused_kernel", 1))
     for k, window, sym, per_unit in prof_rows:

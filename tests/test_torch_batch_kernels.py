@@ -114,6 +114,33 @@ def test_gather_windows_grouped_exact(off_image):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("n_req", [24, 48])
+def test_gather_windows_grouped_many_requests(n_req):
+    """K6's plain version against the JAX kernel on a batched frame's worth
+    of requests (S=8 and S=16 sequences of three levels: 24 and 48): three
+    image sizes, windows 7, 16 and 32 in turn, a third of the origins off
+    the image, the first image named in every third request."""
+    rng = np.random.default_rng(26 + n_req)
+    imgs = [rng.uniform(0, 255, s).astype(np.float32) for s in ((240, 320), (120, 160),
+                                                                 (60, 80))]
+    spec = [(0 if k % 3 == 0 else k % 3, (7, 16, 32)[k % 3], 6 + k % 5) for k in range(n_req)]
+    groups_np = [(imgs[i], *_origins(rng, n, *imgs[i].shape, win, k % 3 == 1), win)
+                 for k, (i, win, n) in enumerate(spec)]
+    with jax_kernels_interpreted():
+        jimgs = [jnp.asarray(a) for a in imgs]
+        ref = jak.gather_windows_grouped(
+            [(jimgs[i], jnp.asarray(xi), jnp.asarray(yi), win)
+             for (i, _, _), (_, xi, yi, win) in zip(spec, groups_np)])
+    timgs = [torch.tensor(a) for a in imgs]
+    out = tak.gather_windows_grouped(
+        [(timgs[i], torch.tensor(xi), torch.tensor(yi), win)
+         for (i, _, _), (_, xi, yi, win) in zip(spec, groups_np)])
+    assert len(out) == len(ref) == n_req <= tak.MAX_GROUPS
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert any((np.asarray(b) == 0).all(axis=(1, 2)).any() for b in ref)
+
+
 def test_gather_windows_grouped_takes_at_most_eight():
     img = torch.zeros(40, 40)
     o = torch.zeros(2, dtype=torch.int32)

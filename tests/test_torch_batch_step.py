@@ -24,6 +24,7 @@ from ygz_slam_tpu_torch import convert
 from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
 from ygz_slam_tpu_torch.models import batch as tbm
+from ygz_slam_tpu_torch.ops import pyramid as tpyr
 from ygz_slam_tpu_torch.ops import sparse_align as tsa
 from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as tk3
 from ygz_slam_tpu_torch.ops.kernels.align2d_fused import align2d_prepare
@@ -156,6 +157,108 @@ def test_frame_windows_carry_their_origins(problem):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert fw.mega_wins.wins.shape == (len(cp), p["N"], tk3.CWIN, tk3.CWIN)
     assert fw.a2d is None
+
+
+def _per_sequence_windows(cps, cam, preps, T0s, centers=None):
+    """Each sequence's frame windows gathered on its own (one K6 request
+    list per sequence)."""
+    return [tsa.gather_frame_windows(cp, cam, prep, T0, distorted=True,
+                                     a2d_centers=None if centers is None else centers[s])
+            for s, (cp, prep, T0) in enumerate(zip(cps, preps, T0s))]
+
+
+def _assert_windows_equal(fws, ref):
+    assert len(fws) == len(ref)
+    for fw, rw in zip(fws, ref):
+        for a, b in zip(fw.mega_wins, rw.mega_wins):
+            assert torch.equal(a, b)
+        assert (fw.a2d is None) == (rw.a2d is None)
+        if fw.a2d is not None:
+            for a, b in zip(fw.a2d, rw.a2d):
+                assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def batch8():
+    """Frame 1 of the port's batch workload at S=8 (bench_batch.py's
+    sequences), its keyframe preps and per-sequence init poses ~0.01 off
+    the truth."""
+    S = 8
+    cam, px, depth, mask, pts_w, patches, ref_pyrs, frames, T_gt7 = \
+        tbm.make_batch_workload(S, 2, device="cpu")
+    state = tbm.make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches)
+    cur_pyrs = tpyr.build_pyramid(frames[1], len(ref_pyrs))
+    rng = np.random.default_rng(11)
+    T0s = [TSE3.from_params7(T_gt7[0]).compose(tse3.exp(torch.tensor(
+        rng.uniform(-0.01, 0.01, 6), dtype=torch.float32))) for _ in range(S)]
+    cps = [tuple(c[s] for c in cur_pyrs) for s in range(S)]
+    centers = [px[s] + torch.tensor(rng.uniform(-2, 2, (px.shape[1], 2)), dtype=torch.float32)
+               for s in range(S)]
+    return dict(S=S, cam=cam, state=state, cps=cps, T0s=T0s, centers=centers)
+
+
+@pytest.mark.parametrize("with_a2d", [False, True], ids=["levels", "levels_and_a2d"])
+def test_gather_frames_windows_equals_per_sequence(batch8, with_a2d):
+    """All eight sequences' windows in one request list (24 requests, or
+    32 with align2d's cache windows) equal each sequence gathered on its
+    own, bit for bit."""
+    b = batch8
+    centers = b["centers"] if with_a2d else None
+    fws = tsa.gather_frames_windows(b["cps"], b["cam"], b["state"].ref_preps, b["T0s"],
+                                    distorted=True, a2d_centers=centers)
+    _assert_windows_equal(fws, _per_sequence_windows(b["cps"], b["cam"], b["state"].ref_preps,
+                                                     b["T0s"], centers))
+    assert all((fw.a2d is not None) == with_a2d for fw in fws)
+
+
+@pytest.mark.parametrize("cap", [5, 24, tsa.MAX_GROUPS])
+def test_gather_frames_windows_splits_long_lists(batch8, monkeypatch, cap):
+    """A request list longer than MAX_GROUPS goes to K6 in launches of at
+    most MAX_GROUPS requests, in order; the windows do not change.  At S=8
+    (24 requests) the batch path's list is one launch."""
+    b = batch8
+    calls = []
+    grouped = tsa.gather_windows_grouped
+
+    def counting(groups):
+        calls.append(len(groups))
+        return grouped(groups)
+
+    monkeypatch.setattr(tsa, "gather_windows_grouped", counting)
+    monkeypatch.setattr(tsa, "MAX_GROUPS", cap)
+    fws = tsa.gather_frames_windows(b["cps"], b["cam"], b["state"].ref_preps, b["T0s"],
+                                    distorted=True)
+    n_req = 3 * b["S"]
+    assert calls == [cap] * (n_req // cap) + ([n_req % cap] if n_req % cap else [])
+    monkeypatch.setattr(tsa, "gather_windows_grouped", grouped)
+    _assert_windows_equal(fws, _per_sequence_windows(b["cps"], b["cam"], b["state"].ref_preps,
+                                                     b["T0s"]))
+
+
+def test_batched_sparse_align_same_bits(problem):
+    """`batched_sparse_align` (every sequence's windows in one K6 request
+    list, then the S alignments) gives the poses of the per-sequence route
+    (each sequence's windows gathered on its own before its alignment), bit
+    for bit."""
+    p = problem
+    st = p["state"]
+    cur = tuple(torch.tensor(lv) for lv in p["cur_pyrs"])
+    T0 = TSE3.from_params7(torch.tensor(np.array([[1.0, 0.0, 0.0, 0.0, 0.01, -0.004, 0.003],
+                                                  [1.0, 0.0, 0.0, 0.0, -0.006, 0.005, 0.0]],
+                                                 np.float32)))
+    T = tbt.batched_sparse_align(st.ref_pyrs, cur, p["cam"], st.px, st.depth, st.mask, T0,
+                                 st.ref_preps)
+    T7_in = T0.params7()
+    for s, prep in enumerate(st.ref_preps):
+        cp = tuple(c[s] for c in cur)
+        T0s = TSE3.from_params7(T7_in[s])
+        fw = tsa.gather_frame_windows(cp, p["cam"], prep, T0s, distorted=True)
+        one = tsa.sparse_image_align(tuple(r[s] for r in st.ref_pyrs), cp, p["cam"], st.px[s],
+                                     st.depth[s], st.mask[s], T0s, distorted=True,
+                                     ref_prep=prep, frame_windows=fw)
+        assert torch.equal(T.params7()[s], one.T_cur_ref.params7())
+    assert float(_dist(np32(T.params7()), np.broadcast_to(p["T_gt7"], (p["S"], 7))).max()) \
+        < TOL_TRUTH
 
 
 def test_batched_align2d_matches_jax(problem):

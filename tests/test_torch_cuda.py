@@ -3,8 +3,11 @@ inputs the main paths do not give them: K1 with origins outside the
 image, on one image and over a pyramid of one and three levels (windows
 7, 16 and 32, 1 to 512 points, every windows-per-block setting; nine
 levels refused), K2 with an image index past its stack, K5 with planted outliers
-and masked points, K6 with eight requests, K8 with one sequence fully
-masked beside normal ones, K10 with an empty side and with one row, K9 v1
+and masked points, K6 with 8, 24 and 48 requests and on a batched frame's
+windows at 8, 16 and 22 sequences (one launch, one, two), K8 with one
+sequence fully masked beside normal ones, K10 with an empty side, with one
+row and from 1 x 1 to 2560 x 3072 with all-ones, sign-bit-only and zero
+words, K9 v1
 and v2 at every level of a frame pair, on a level with no usable point and
 on windows clamped at the border, K9 v1 from 1 to 1500 points (one to
 eight CTAs of its cluster), without spills and with its pass marks on; K9
@@ -245,6 +248,64 @@ def test_gather_windows_grouped_eight_groups(cuda_device):
         torch.testing.assert_close(o, ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_req", [24, 48])
+def test_gather_windows_grouped_many_requests(cuda_device, n_req):
+    """K6 on a batched frame's worth of requests (S=8 and S=16 sequences of
+    three levels): three image sizes, windows 7, 16 and 32, the first image
+    named in every third request, a third of the origins off the image,
+    one request empty; one launch, equal to the plain version."""
+    rng = np.random.default_rng(17 + n_req)
+    imgs = [torch.tensor(rng.uniform(0, 255, s), dtype=torch.float32, device=cuda_device)
+            for s in ((480, 640), (240, 320), (120, 160))]
+    groups = []
+    for k in range(n_req):
+        img, win, n = imgs[0 if k % 3 == 0 else k % 3], (7, 16, 32)[k % 3], 200 - 7 * (k % 5)
+        n = 0 if k == 5 else n
+        H, W = img.shape
+        x, y = rng.integers(0, W - win + 1, n), rng.integers(0, H - win + 1, n)
+        x[:n // 3], y[:n // 3] = rng.integers(-40, W + 11, n // 3), rng.integers(-40, H + 11, n // 3)
+        groups.append((img, torch.tensor(x, dtype=torch.int32, device=cuda_device),
+                       torch.tensor(y, dtype=torch.int32, device=cuda_device), win))
+    n0 = tk1.gather_windows_grouped.launches
+    out = tk1.gather_windows_grouped(groups)
+    assert tk1.gather_windows_grouped.launches == n0 + 1
+    for o, ref in zip(out, tk1.gather_windows_grouped_plain(groups)):
+        assert torch.equal(o, ref)
+
+
+@pytest.mark.parametrize("S,launches", [(8, 1), (16, 1), (22, 2)])
+def test_gather_frames_windows_launches(cuda_device, S, launches):
+    """Every sequence's sparse-align windows of a batched frame in one K6
+    launch up to 21 sequences (63 requests), in two at 22; equal bit for
+    bit to the CPU's gathering of the same frame (the plain version), and
+    the batch path's own stage (`batched_sparse_align`) launches K6 as
+    often."""
+    from ygz_slam_tpu_torch.ops import pyramid, sparse_align
+    from ygz_slam_tpu_torch.parallel import batch_tracking as bt
+
+    cam, px, depth, mask, pts_w, patches, ref_pyrs, frames, T_gt7 = \
+        bm.make_batch_workload(S, 2, cuda_device)
+    state = bm.make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches)
+    cur = pyramid.build_pyramid(frames[1], len(ref_pyrs))
+    T0 = TSE3.from_params7(T_gt7[0][None].repeat(S, 1))
+    T0s = [TSE3.from_params7(T_gt7[0]) for _ in range(S)]
+    cps = [tuple(c[s] for c in cur) for s in range(S)]
+    n0 = tk1.gather_windows_grouped.launches
+    fws = sparse_align.gather_frames_windows(cps, cam, state.ref_preps, T0s)
+    assert tk1.gather_windows_grouped.launches == n0 + launches
+    cpu = sparse_align.gather_frames_windows(
+        [tuple(lv.cpu() for lv in cp) for cp in cps], cam,
+        [_to(p, "cpu") for p in state.ref_preps],
+        [TSE3.from_params7(T_gt7[0].cpu()) for _ in range(S)])
+    for fw, fc in zip(fws, cpu):
+        for a, b in zip(fw.mega_wins, fc.mega_wins):
+            assert torch.equal(a.cpu(), b)
+    n0 = tk1.gather_windows_grouped.launches
+    bt.batched_sparse_align(state.ref_pyrs, cur, cam, state.px, state.depth, state.mask, T0,
+                            state.ref_preps)
+    assert tk1.gather_windows_grouped.launches == n0 + launches
+
+
 def test_gather_windows_multi_bad_index_stops(cuda_device):
     """K2 given an image index past its stack stops on its device-side
     assert instead of reading past the stack.  The assert leaves the CUDA
@@ -306,7 +367,7 @@ def test_batch_step_card_matches_cpu(cuda_device):
     before = [c.launches for c in counters]
     T7, inl = bm.track_batch_frames(state, frames, TSE3.identity((S,), device=cuda_device)
                                     .params7())
-    assert [c.launches - b for c, b in zip(counters, before)] == [0, S * F, S * F, F, F, F]
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, F, S * F, F, F, F]
     assert bm.batch_gate(T7, inl, T_gt7)[2]
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in out]
     state_c = bm.make_batch_state(cam, [lv.cpu() for lv in ref_pyrs], *cpu[1:6])
@@ -332,6 +393,26 @@ def test_hamming_edge_shapes(cuda_device, n, m):
     assert tk10.distance_matrix.launches - before == (1 if n and m else 0)
     assert out.dtype == torch.int32 and tuple(out.shape) == (n, m)
     assert torch.equal(out.cpu(), tk10.distance_matrix_plain(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (15, 9), (16, 8), (17, 9), (130, 77), (128, 256),
+                                 (128, 512), (256, 3072), (2560, 3072)])
+def test_hamming_sizes(cuda_device, n, m):
+    """K10 exact against its plain version from one pair to 2560 x 3072,
+    across and one past its 16 x 8 tensor-core tiles, with all-ones,
+    sign-bit-only and zero words planted in both sides."""
+    a, b = _words(n, 3 + n, cuda_device), _words(m, 4 + m, cuda_device)
+    for t in (a, b):
+        t[0] = -1
+        if t.shape[0] > 2:
+            t[1], t[2] = -2 ** 31, 0
+    before = tk10.distance_matrix.launches
+    out = tham.distance_matrix(a, b)
+    assert tk10.distance_matrix.launches == before + 1
+    assert torch.equal(out, tk10.distance_matrix_plain(a, b))
+    assert int(out[0, 0]) == 0
+    if n > 2 and m > 2:
+        assert (int(out[0, 2]), int(out[1, 2]), int(out[0, 1])) == (256, 8, 248)
 
 
 def test_hamming_refuses_what_the_kernel_does_not_take(cuda_device):
@@ -363,7 +444,7 @@ def test_vo_slice_card_matches_cpu(cuda_device):
                 tk3.mega_gn, tk4.a2d_gn, tk5.pose_ba_gn, tk10.distance_matrix)
     before = [c.launches for c in counters]
     st, T7, inl, log = vw.track_vo_frames(state, frames[1:])
-    assert [c.launches - b for c, b in zip(counters, before)] == [24, 0, 12, 12, 12, 12, 3]
+    assert [c.launches - b for c, b in zip(counters, before)] == [24, 0, 12, 12, 12, 12, 2]
     assert vw.vo_gate(T7, inl, T_gt7[1:])[2]
     # The CPU run, frame by frame, keeping the state each frame started from.
     st_c, starts, T7c, inl_c, log_c = _to(state, "cpu"), [], [], [], []
@@ -412,10 +493,12 @@ def test_recorded_launches_are_the_steps_own(cuda_device):
     names = [fn.__name__ for fn, _ in rec]
     assert names == (["gather_windows_levels"] * 2 + ["mega_gn", "gather_windows_multi",
                                                       "a2d_gn", "pose_ba_gn"]
-                     + ["distance_matrix"] * 3)
+                     + ["distance_matrix"] * 2)
     assert [(len(a[0]), a[3]) for fn, a in rec[:2]] == [(3, 7), (3, 16)]
+    # Both triangulation neighbours' 256 descriptors stacked (here both are
+    # the bootstrap keyframe), then the fusion with every landmark row.
     assert [tuple(a[0].shape) + tuple(a[1].shape) for fn, a in rec[6:]] == \
-        [(128, 8, 256, 8), (128, 8, 256, 8), (256, 8, 3072, 8)]
+        [(128, 8, 512, 8), (256, 8, 3072, 8)]
     plain = {tk1.gather_windows_levels: tk1.gather_windows_levels_plain,
              tk1.gather_windows_multi: tk1.gather_windows_multi_plain,
              tk10.distance_matrix: tk10.distance_matrix_plain}

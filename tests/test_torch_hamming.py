@@ -85,6 +85,99 @@ class TestDistanceMatrix:
         np.testing.assert_array_equal(np32(tham.hamming_distance(t32(a), t32(b))), want)
 
 
+class TestTensorCoreForm:
+    """The arithmetic of K10's tensor-core form (csrc/hamming.cu), which
+    only the card runs: popc(a ^ b) from popc(a & b), and a lane-by-lane
+    model of its fragments, shuffles and stores."""
+
+    def test_and_popcount_identity(self):
+        """popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b) on every pair of
+        int32 words, all-ones, sign-bit-only and zero words among them;
+        summed over the 8 words it is K10's plain distance."""
+        rng = np.random.default_rng(5)
+        a, b = t32(edge_words(rng, 37)), t32(edge_words(rng, 29))
+        x, y = a[:, None, :], b[None, :, :]
+        pc = thk.popcount_i32
+        lhs = pc(x ^ y)
+        rhs = pc(x) + pc(y) - 2 * pc(x & y)
+        assert torch.equal(lhs, rhs)
+        assert int(lhs[0, 2, 0]) == 32 and int(lhs[1, 2, 0]) == 1 and int(lhs[0, 1, 0]) == 31
+        assert torch.equal(torch.sum(rhs, dim=-1, dtype=torch.int32),
+                           thk.distance_matrix_plain(a, b))
+
+    @staticmethod
+    def _mma_model(a, b, n_b, warps):
+        """K10's tensor-core kernel, lane by lane: block (bx, by), warp w,
+        lane (g, t) = (lane // 4, lane % 4) loads words 2t, 2t + 1 of a's
+        rows n0 + g, n0 + g + 8 and of b's column m0 + 8j + g; the single-bit
+        MMA is applied to the matrices its fragments stand for in the PTX
+        layout of m16n8k256 (a0: row g, k-word t; a1: row g + 8, k-word t;
+        a2, a3: k-word t + 4; b0: k-word t, column g; b1: k-word t + 4; c0,
+        c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8)."""
+        def popc(v):
+            return bin(int(v) & 0xFFFFFFFF).count("1")
+
+        N, M = len(a), len(b)
+        out = np.full((N, M), -1, np.int64)
+        zero = (0, 0)
+        for by in range(-(-N // 16)):
+            for bx in range(-(-M // (8 * n_b * warps))):
+                for w in range(warps):
+                    n0, m0 = 16 * by, (bx * warps + w) * 8 * n_b
+                    if m0 >= M:
+                        continue
+                    x0 = [tuple(a[n0 + l // 4, 2 * (l % 4):2 * (l % 4) + 2]) if n0 + l // 4 < N
+                          else zero for l in range(32)]
+                    x1 = [tuple(a[n0 + l // 4 + 8, 2 * (l % 4):2 * (l % 4) + 2])
+                          if n0 + l // 4 + 8 < N else zero for l in range(32)]
+                    af = [(x0[l][0], x1[l][0], x0[l][1], x1[l][1]) for l in range(32)]
+
+                    def group_sum(v):
+                        return [sum(v[4 * (l // 4):4 * (l // 4) + 4]) for l in range(32)]
+
+                    pa0 = group_sum([popc(x0[l][0]) + popc(x0[l][1]) for l in range(32)])
+                    pa1 = group_sum([popc(x1[l][0]) + popc(x1[l][1]) for l in range(32)])
+                    A = np.zeros((16, 8), np.int64)
+                    for l in range(32):
+                        g, t = l // 4, l % 4
+                        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = af[l]
+                    for j in range(n_b):
+                        y = [tuple(b[m0 + 8 * j + l // 4, 2 * (l % 4):2 * (l % 4) + 2])
+                             if m0 + 8 * j + l // 4 < M else zero for l in range(32)]
+                        pb = group_sum([popc(y[l][0]) + popc(y[l][1]) for l in range(32)])
+                        B = np.zeros((8, 8), np.int64)
+                        for l in range(32):
+                            B[l % 4, l // 4], B[l % 4 + 4, l // 4] = y[l]
+                        D = [[sum(popc(A[r, k] & B[k, c]) for k in range(8)) for c in range(8)]
+                             for r in range(16)]
+                        for l in range(32):
+                            g, t = l // 4, l % 4
+                            pb0, pb1 = pb[8 * t], pb[8 * t + 4]
+                            c = (D[g][2 * t], D[g][2 * t + 1], D[g + 8][2 * t],
+                                 D[g + 8][2 * t + 1])
+                            v = (pa0[l] + pb0 - 2 * c[0], pa0[l] + pb1 - 2 * c[1],
+                                 pa1[l] + pb0 - 2 * c[2], pa1[l] + pb1 - 2 * c[3])
+                            col = m0 + 8 * j + 2 * t
+                            for h, r in enumerate((n0 + g, n0 + g + 8)):
+                                for e in range(2):
+                                    if r < N and col + e < M:
+                                        assert out[r, col + e] == -1, "stored twice"
+                                        out[r, col + e] = v[2 * h + e]
+        return out
+
+    @pytest.mark.parametrize("shape", [(16, 8), (17, 9), (33, 45), (5, 70)])
+    @pytest.mark.parametrize("n_b,warps", [(4, 4), (2, 1)])
+    def test_mma_lane_model(self, shape, n_b, warps):
+        """Every output written once, and equal to the plain version: the K
+        order permuted alike in a and b, the popcounts summed over a lane
+        group and fetched from the lanes that hold columns 2t and 2t + 1,
+        ragged edges loaded as zeros and left unstored."""
+        rng = np.random.default_rng(6)
+        a, b = edge_words(rng, shape[0]), edge_words(rng, shape[1])
+        got = self._mma_model(a, b, n_b, warps)
+        np.testing.assert_array_equal(got, np32(thk.distance_matrix_plain(t32(a), t32(b))))
+
+
 def _noisy_copies(rng, base, flips):
     """Copies of `base` rows with `flips[i]` random bits flipped in row i."""
     out = base.copy()

@@ -305,6 +305,67 @@ class TestLocalMapping:
         np.testing.assert_allclose(np32(pos_t)[good], np.asarray(pos_j)[good], atol=1e-3)
         np.testing.assert_allclose(np32(pos_t)[good], pts[perm][good], atol=0.3)
 
+    def test_two_neighbours_from_one_matrix(self):
+        """The keyframe cycle's triangulation against two neighbour
+        keyframes from one Hamming matrix over both neighbours' descriptors
+        (`visual_odometry.neighbour_distances`: a column block each) gives
+        each neighbour's (pos_world, good, ref_idx) bit for bit as its own
+        `match_new_features_for_triangulation` call does."""
+        rng = np.random.default_rng(12)
+        n, F = 48, 64
+        pts = np.c_[rng.uniform(-1, 1, n), rng.uniform(-0.7, 0.7, n), rng.uniform(2, 5, n)]
+        pts = pts.astype(np.float32)
+        T_new7 = pose7(rng, 0.02)
+        m = tms.empty_map(3, F, 8, device="cpu")
+        desc_base = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+        for slot, shift in ((1, [0.25, 0.02, 0.0]), (2, [-0.15, 0.2, 0.0])):
+            T7 = pose7(rng, 0.02)
+            T7[4:] += np.float32(shift)
+            perm = rng.permutation(n)
+            px = np.asarray(JCAM.world_to_pixel(jnp.asarray(pts[perm]),
+                                                JSE3.from_params7(jnp.asarray(T7))))
+            desc = np.zeros((F, 8), np.uint32)
+            desc[:n] = desc_base[perm]
+            desc[:n, 3] ^= rng.integers(0, 2 ** 8, n).astype(np.uint32)
+            valid = np.zeros(F, bool)
+            valid[:n] = rng.random(n) > 0.1
+            fp = np.full(F, -1, np.int32)
+            fp[:5] = 2                                 # linked: not a triangulation partner
+            ang = np.zeros(F, np.float32)
+            ang[:n] = 0.3 + rng.normal(0, 0.01, n)        # one rotation bin: all kept
+            m = m._replace(
+                kf_pose7=tms.set_row(m.kf_pose7, slot, tt(T7)),
+                kf_valid=tms.set_row(m.kf_valid, slot, True),
+                feat_px=tms.set_row(m.feat_px, slot, tt(np.r_[px, np.zeros((F - n, 2))]
+                                                         .astype(np.float32))),
+                feat_desc=tms.set_row(m.feat_desc, slot, tt(desc.view(np.int32))),
+                feat_valid=tms.set_row(m.feat_valid, slot, tt(valid)),
+                feat_point=tms.set_row(m.feat_point, slot, tt(fp)),
+                feat_angle=tms.set_row(m.feat_angle, slot, tt(ang)))
+        px_new = np.asarray(JCAM.world_to_pixel(jnp.asarray(pts),
+                                                JSE3.from_params7(jnp.asarray(T_new7))))
+        px_new = (px_new + rng.normal(0, 0.3, px_new.shape)).astype(np.float32)
+        desc_new = desc_base.copy()
+        desc_new[:, 6] ^= rng.integers(0, 2 ** 6, n).astype(np.uint32)
+        valid_new = rng.random(n) > 0.05
+        ang_new = np.zeros(n, np.float32)
+        dnew = tt(desc_new.view(np.int32))
+        dists = tvo.neighbour_distances(m, dnew, [1, 2])
+        assert [tuple(d.shape) for d in dists] == [(n, F)] * 2
+        n_good = []
+        for slot, d in zip((1, 2), dists):
+            one = tvo.triangulate(CAM, m, tt(px_new), dnew, tt(valid_new), tt(ang_new),
+                                  tt(T_new7), slot, dist=d)
+            ref_free = m.feat_valid[slot] & (m.feat_point[slot] < 0)
+            alone = tlm.match_new_features_for_triangulation(
+                CAM, dnew, tt(px_new), tt(valid_new), TSE3.from_params7(tt(T_new7)),
+                m.feat_desc[slot], m.feat_px[slot], ref_free, m.kf_pose(slot),
+                angle_new=tt(ang_new), angle_ref=m.feat_angle[slot])
+            for a, b in zip(one, alone):
+                assert torch.equal(a, b)
+            n_good.append(int(one[1].sum()))
+        assert min(n_good) >= 10, n_good
+
     @pytest.mark.parametrize("seed", [9, 10])
     def test_culling(self, seed):
         jm = random_map(seed)

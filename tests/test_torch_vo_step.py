@@ -25,6 +25,7 @@ from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
 from ygz_slam_tpu_torch.models import frontend as tfe
 from ygz_slam_tpu_torch.models import visual_odometry as tvo
 from ygz_slam_tpu_torch.models import vo_workload as vw
+from ygz_slam_tpu_torch.ops import hamming as tham
 from ygz_slam_tpu_torch.ops import kernels
 
 from _torch_port import jax_camera, jax_kernels_interpreted, np32
@@ -216,6 +217,31 @@ class TestKeyframeCycle:
         st2, counts = vw.insert_vo_keyframe(st, pyr, tm)
         assert counts["slot"] == slot and counts["evicted"]
         assert st2.kf_used[-1] == slot and st2.kf_used.count(slot) == 1 and len(st2.kf_used) == 4
+
+
+class TestTriangulationMatrices:
+    def test_kf_cycle_computes_two_matrices(self, setup, monkeypatch):
+        """With keyframes at frames 2 and 4 beside the bootstrap one, the
+        cycle at frame 6 computes two Hamming matrices: its detections
+        against both neighbours' descriptors stacked, then the keyframe's
+        features against every landmark row."""
+        state, frames, _, _ = setup
+        st, _, _, log = vw.track_vo_frames(state, frames[1:6], kf_every=2)
+        assert [c["slot"] for c in log] == [1, 2]
+        st, pyr, tm = vw.track_vo_frame(st, frames[6])
+        assert st.last_kf_slot != st.kf_used[0]
+        shapes = []
+        dm = tham.distance_matrix
+
+        def recording(a, b):
+            shapes.append((a.shape[0], b.shape[0]))
+            return dm(a, b)
+
+        monkeypatch.setattr(tham, "distance_matrix", recording)
+        monkeypatch.setattr(tvo, "distance_matrix", recording)
+        vw.insert_vo_keyframe(st, pyr, tm)
+        Fn = OPTS.map_F - FL
+        assert shapes == [(Fn, 2 * OPTS.map_F), (OPTS.map_F, OPTS.map_L)]
 
 
 class TestEntryPoints:

@@ -6,56 +6,185 @@
 // The TPU kernel pads both sides to 128-row tiles and counts bits with a
 // SWAR reduction, because Mosaic wants tile-aligned blocks and the TPU has
 // no popcount instruction.  Neither is carried over: the grid covers ragged
-// edges with bounds checks, and __popc is one instruction.
+// edges with predicated loads and guarded stores.
 //
-// Layout: a 2-D grid of [kTileN, kTileM] output tiles.  Each thread owns one
-// column m of the tile and keeps b[m] (8 words) in registers; the block
-// stages the tile's kTileN rows of `a` in shared memory, which every thread
-// reads at the same address (a broadcast, no bank conflict).  For each row
-// the threads of a warp write 32 consecutive ints of out[n, :], so the
-// stores are coalesced along M.
+// Bound.  Bytes: (N + M) * 32 in, N * M * 4 out; the output dominates (the
+// keyframe cycle's fusion matrix, 256 x 3072: 3.1 MB, ~0.94 us at 3.35
+// TB/s).  Operations: 8 XOR + popcount + add per output.  On CUDA cores
+// __popc issues at 16 per SM per clock, an eighth of the float32 rate, so
+// 256 x 3072 x 8 = 6.3 M popcounts take ~1.5 us over the 132 SMs: longer
+// than the bytes.  The tensor cores count bits far faster: a descriptor is
+// 256 bits, the K of one single-bit MMA,
+//   mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc,
+// which gives c = popc(a & b) for a 16 x 8 tile of pairs in one
+// instruction, and popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b), exact
+// in int32.  Both operands stay as stored: "row.col" with K contiguous is
+// the [N, 8] and [M, 8] rows as they lie.  So what is left is the output's
+// bytes and the launch.
 //
-// Bound: bytes.  (N + M) * 32 bytes in, N * M * 4 bytes out; the output
-// dominates (256 x 3072: 3.1 MB), a microsecond at the card's memory rate.
+// Design (tensor cores): a warp computes a 16 x (8 kNB) tile, kWarps warps
+// side by side along M per block.  Lane (g, t) = (lane / 4, lane % 4)
+// holds a's rows g and g + 8 and b's column g of each n8 block, two words
+// each: words 2t and 2t + 1 of the row, one 8-byte load, so a warp's load
+// covers 8 whole 32-byte rows.  The MMA's K order is permuted alike in a
+// and b (its k-words t and t + 4 are our words 2t and 2t + 1), which a sum
+// over all 256 bits does not see.  popc(a) and popc(b) per row: the lane's
+// two words, summed over the 4 lanes of a group with two shuffles.  The
+// accumulator fragment gives lane (g, t) the outputs (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1): one 8-byte store per row, so each store of
+// the warp writes 8 whole 32-byte sectors (rows of 8 outputs).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWords = 8;
-constexpr int kTileM = 128;   // columns per block = threads per block
-constexpr int kTileN = 32;    // rows per block
+constexpr int kRowsPerBlock = 16;       // the MMA's m
 
-__global__ void hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                               int N, int M, int* __restrict__ out) {
-  __shared__ uint32_t sa[kTileN * kWords];
-  const int n0 = blockIdx.y * kTileN;
-  const int rows = min(kTileN, N - n0);
-  for (int k = threadIdx.x; k < rows * kWords; k += blockDim.x)
-    sa[k] = a[(size_t)n0 * kWords + k];
-  __syncthreads();
-  const int m = blockIdx.x * kTileM + threadIdx.x;
-  if (m >= M) return;
-  uint32_t br[kWords];
+// Design B (CUDA cores, kept for the comparison in PERF.md): each lane a
+// 4 x 4 micro-tile from descriptors held in registers, 8 lanes along M and
+// 4 along N, so a warp's tile is 16 x 32 as in design A.
+template <int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+hamming_popc_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int N, int M,
+                    int* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = blockIdx.y * kRowsPerBlock + (lane >> 3) * 4;
+  const int m0 = (blockIdx.x * kWarps + warp) * 32 + (lane & 7) * 4;
+  if (m0 >= M) return;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  uint4 ar[4][2], br[4][2];
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) br[w] = b[(size_t)m * kWords + w];
-  for (int r = 0; r < rows; ++r) {
-    int d = 0;
+  for (int i = 0; i < 4; ++i) {
+    const bool rin = n0 + i < N, cin = m0 + i < M;
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) d += __popc(sa[r * kWords + w] ^ br[w]);
-    out[(size_t)(n0 + r) * M + m] = d;
+    for (int h = 0; h < 2; ++h) {
+      ar[i][h] = rin ? __ldg(a + (size_t)(n0 + i) * 2 + h) : z;
+      br[i][h] = cin ? __ldg(b + (size_t)(m0 + i) * 2 + h) : z;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (n0 + i >= N) break;
+    int d[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      d[j] = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        d[j] += __popc(ar[i][h].x ^ br[j][h].x) + __popc(ar[i][h].y ^ br[j][h].y)
+              + __popc(ar[i][h].z ^ br[j][h].z) + __popc(ar[i][h].w ^ br[j][h].w);
+    }
+    int* row = out + (size_t)(n0 + i) * M + m0;
+    if (M % 4 == 0) {
+      *reinterpret_cast<int4*>(row) = make_int4(d[0], d[1], d[2], d[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m0 + j < M) row[j] = d[j];
+    }
+  }
+}
+
+// c += popc(a & b) over K = 256 for the 16 x 8 tile: a's fragment (rows g,
+// g + 8 at k-words t, then t + 4), b's (column g at k-words t, t + 4).
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Sum over the 4 lanes of a group (lanes 4g .. 4g + 3).
+__device__ __forceinline__ int group_sum(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Design A (tensor cores).  Every lane of a warp takes part in each MMA
+// and shuffle, so a warp past M returns as a whole and the ragged edges
+// load zeros.
+template <int kNB, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
+hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int N, int M,
+                   int* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.y * kRowsPerBlock;
+  const int m0 = (blockIdx.x * kWarps + warp) * (8 * kNB);
+  if (m0 >= M) return;
+  const uint2 z = make_uint2(0u, 0u);
+  const int r0 = n0 + g, r1 = n0 + g + 8;
+  const uint2 x0 = r0 < N ? __ldg(a + (size_t)r0 * 4 + t) : z;
+  const uint2 x1 = r1 < N ? __ldg(a + (size_t)r1 * 4 + t) : z;
+  uint2 y[kNB];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    const int col = m0 + 8 * j + g;
+    y[j] = col < M ? __ldg(b + (size_t)col * 4 + t) : z;
+  }
+  const uint32_t af[4] = {x0.x, x1.x, x0.y, x1.y};
+  const int pa0 = group_sum(__popc(x0.x) + __popc(x0.y));
+  const int pa1 = group_sum(__popc(x1.x) + __popc(x1.y));
+  const bool vec = M % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    const int pb = group_sum(__popc(y[j].x) + __popc(y[j].y));     // column 8j + g
+    const int pb0 = __shfl_sync(0xffffffffu, pb, 8 * t);           // column 8j + 2t
+    const int pb1 = __shfl_sync(0xffffffffu, pb, 8 * t + 4);       // column 8j + 2t + 1
+    int c[4] = {0, 0, 0, 0};
+    const uint32_t bf[2] = {y[j].x, y[j].y};
+    mma_and_popc(c, af, bf);
+    const int col = m0 + 8 * j + 2 * t;
+    const int v[4] = {pa0 + pb0 - 2 * c[0], pa0 + pb1 - 2 * c[1],
+                      pa1 + pb0 - 2 * c[2], pa1 + pb1 - 2 * c[3]};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0;
+      if (r >= N || col >= M) continue;
+      int* dst = out + (size_t)r * M + col;
+      if (vec) {
+        *reinterpret_cast<int2*>(dst) = make_int2(v[2 * h], v[2 * h + 1]);
+      } else {
+        dst[0] = v[2 * h];
+        if (col + 1 < M) dst[1] = v[2 * h + 1];
+      }
+    }
   }
 }
 
 }  // namespace
 
+// The forms compared in PERF.md: 0 = A with 16 x 32 warp tiles, 4 warps
+// per block; 1 = A, 16 x 32, 1 warp; 2 = A, 16 x 16, 1 warp; 3 = A, 16 x 64,
+// 2 warps; 4 = B, 4 warps; 5 = B, 1 warp.
+extern "C" int hamming_launch_variant(const int* a, const int* b, int N, int M, int* out,
+                                      int variant, cudaStream_t stream) {
+  if (N <= 0 || M <= 0) return 0;
+  if ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const auto* a2 = reinterpret_cast<const uint2*>(a);
+  const auto* b2 = reinterpret_cast<const uint2*>(b);
+  const auto* a4 = reinterpret_cast<const uint4*>(a);
+  const auto* b4 = reinterpret_cast<const uint4*>(b);
+  const int row_blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (row_blocks > 65535) return (int)cudaErrorInvalidValue;
+  auto grid = [&](int cols) { return dim3((M + cols - 1) / cols, row_blocks); };
+  switch (variant) {
+    case 0: hamming_mma_kernel<4, 4><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
+    case 1: hamming_mma_kernel<4, 1><<<grid(32), 32, 0, stream>>>(a2, b2, N, M, out); break;
+    case 2: hamming_mma_kernel<2, 1><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
+    case 3: hamming_mma_kernel<8, 2><<<grid(128), 64, 0, stream>>>(a2, b2, N, M, out); break;
+    case 4: hamming_popc_kernel<4><<<grid(128), 128, 0, stream>>>(a4, b4, N, M, out); break;
+    case 5: hamming_popc_kernel<1><<<grid(32), 32, 0, stream>>>(a4, b4, N, M, out); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int hamming_launch(const int* a, const int* b, int N, int M, int* out,
                               cudaStream_t stream) {
-  if (N <= 0 || M <= 0) return 0;
-  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  hamming_kernel<<<grid, kTileM, 0, stream>>>(reinterpret_cast<const uint32_t*>(a),
-                                              reinterpret_cast<const uint32_t*>(b), N, M, out);
-  return (int)cudaGetLastError();
+  return hamming_launch_variant(a, b, N, M, out, 0, stream);
 }

@@ -21,16 +21,18 @@ def match_new_features_for_triangulation(
         cam, desc_new, px_new, valid_new, T_new: SE3,
         desc_ref, px_ref, valid_ref, T_ref: SE3,
         max_dist: int = 50, epipolar_sigma: float = 1.5,
-        min_parallax_cos: float = 0.9998, angle_new=None, angle_ref=None):
+        min_parallax_cos: float = 0.9998, angle_new=None, angle_ref=None, dist=None):
     """Descriptor-match unlinked features of a new keyframe against a
     neighbour keyframe, gate by the known epipolar geometry, and triangulate
     (Matcher::SearchForTriangulation + the core of CreateNewMapPoints; the
-    all-pairs Hamming matrix stands in for the BoW gating).
+    all-pairs Hamming matrix stands in for the BoW gating).  `dist`, if
+    given, is that matrix, `hamming.distance_matrix(desc_new, desc_ref)`,
+    computed by the caller.
 
     Returns (pos_world [N, 3], good [N], ref_idx [N]) for the new
     keyframe's feature rows."""
     idx, ok = hamming.match_nn(desc_new, desc_ref, valid_new, valid_ref,
-                               max_dist=max_dist, ratio=0.9)
+                               max_dist=max_dist, ratio=0.9, d=dist)
     idx_safe = torch.clamp(idx, 0, px_ref.shape[0] - 1).long()
     if angle_new is not None and angle_ref is not None:
         ok = hamming.rotation_consistency(angle_new, angle_ref[idx_safe], ok)

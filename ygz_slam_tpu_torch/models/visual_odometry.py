@@ -16,12 +16,12 @@ handling with a retry and a reset.  Its host syncs (`int(...)`,
 `bool(...)`) are the JAX package's own.
 
 Per frame (`track`): sparse-direct alignment of NS selected landmarks
-against the previous frame (K1 x 6, K3), the NSV best visible landmarks'
+against the previous frame (K1 x 2, K3), the NSV best visible landmarks'
 affine-warped reference patches from the keyframe images, their patch
 search on the pyramid stack (K2, K4), pose-only BA (K5), and the landmark
 statistics.  Per keyframe (`kf_cycle`): slot allocation or eviction,
-detection, triangulation against two neighbour keyframes and fusion with the
-map (K10 x 3), insertion.  Everything stays on the device: selections that
+detection, triangulation against two neighbour keyframes (their two Hamming
+matrices in one K10 launch) and fusion with the map (K10), insertion.  Everything stays on the device: selections that
 the JAX version makes with `jnp.where` are `torch.where` here, and slots are
 0-d tensors.
 """
@@ -40,7 +40,7 @@ from ..map import state as ms
 from ..map.memory import MapServer, refresh_covisibility
 from ..ops import orb
 from ..ops.align import klt_pyramidal
-from ..ops.hamming import hamming_distance
+from ..ops.hamming import distance_matrix, hamming_distance
 from ..ops.select import top_k
 from ..solvers import ba as bam
 from ..solvers import initializer as init_mod
@@ -189,16 +189,26 @@ def track(cam, o: VOOptions, prev_pyr, cur_pyr, prev_T_cw7, T_pred7, mstate: ms.
 
 
 def triangulate(cam, mstate: ms.MapState, feats_px, feats_desc, feats_valid, feats_angle,
-                T_new7, nbr_slot):
+                T_new7, nbr_slot, dist=None):
     """Match the new keyframe's detections against the unlinked features of
     keyframe `nbr_slot` and triangulate: (pos_world [N, 3], good [N],
-    ref_idx [N])."""
+    ref_idx [N]).  `dist`, if given, is the detections' Hamming distance
+    matrix against that keyframe's F descriptors."""
     ref_free = ms.row(mstate.feat_valid, nbr_slot) & (ms.row(mstate.feat_point, nbr_slot) < 0)
     return lm.match_new_features_for_triangulation(
         cam, feats_desc, feats_px, feats_valid, SE3.from_params7(T_new7),
         ms.row(mstate.feat_desc, nbr_slot), ms.row(mstate.feat_px, nbr_slot), ref_free,
         mstate.kf_pose(nbr_slot), angle_new=feats_angle,
-        angle_ref=ms.row(mstate.feat_angle, nbr_slot))
+        angle_ref=ms.row(mstate.feat_angle, nbr_slot), dist=dist)
+
+
+def neighbour_distances(mstate: ms.MapState, feats_desc, nbr_slots):
+    """The detections' Hamming distances against each neighbour keyframe's
+    F descriptors, from one K10 launch over the neighbours' rows stacked:
+    a [N, F] column block of one [N, F * len(nbr_slots)] matrix each."""
+    F = mstate.feat_desc.shape[1]
+    d = distance_matrix(feats_desc, torch.cat([ms.row(mstate.feat_desc, s) for s in nbr_slots]))
+    return [d[:, k * F:(k + 1) * F] for k in range(len(nbr_slots))]
 
 
 def free_rows(pt_valid: torch.Tensor, want: int):
@@ -236,12 +246,16 @@ def assemble_keyframe(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px
                                  lm_px, lm_ok)
     new_px, new_valid, new_desc = feats.px[:Fn], feats.valid[:Fn], feats.desc[:Fn]
     new_level, new_angle = feats.level[:Fn], feats.angle[:Fn]
+    # Both neighbours' matrices in one launch: they read the map before the
+    # keyframe is inserted.
+    nbrs = [last_kf_slot] if nbr2_slot is None else [last_kf_slot, nbr2_slot]
+    dists = neighbour_distances(mstate, new_desc, nbrs)
     pos_w, good, _ = triangulate(cam, mstate, new_px, new_desc, new_valid, new_angle, T_cw7,
-                                 last_kf_slot)
+                                 last_kf_slot, dist=dists[0])
     if nbr2_slot is not None:
         # Where both baselines pass, the longer one wins.
         pos_w2, good2, _ = triangulate(cam, mstate, new_px, new_desc, new_valid, new_angle,
-                                       T_cw7, nbr2_slot)
+                                       T_cw7, nbr2_slot, dist=dists[1])
         pos_w = torch.where(good2[:, None], pos_w2, pos_w)
         good = good | good2
     ar_n = torch.arange(Fn, dtype=torch.int32, device=dev)

@@ -37,13 +37,17 @@ def best_two(d: torch.Tensor):
 
 def match_nn(desc_a: torch.Tensor, desc_b: torch.Tensor, mask_a: torch.Tensor,
              mask_b: torch.Tensor, max_dist: int = 50, ratio: float = 0.9,
-             cross_check: bool = True):
+             cross_check: bool = True, d: torch.Tensor | None = None):
     """Nearest-neighbour descriptor matching with Lowe ratio test and
     mutual cross-check (best distance at most `max_dist` and below `ratio`
     times the second best, Matcher.cpp:250-283, for all rows at once).
+    `d`, if given, is `distance_matrix(desc_a, desc_b)` computed by the
+    caller (a column block of a wider matrix), and the descriptors are not
+    read.
 
     Returns (idx [N] int32, index into b or -1; valid [N] bool)."""
-    d = distance_matrix(desc_a, desc_b)
+    if d is None:
+        d = distance_matrix(desc_a, desc_b)
     d = torch.where(mask_b[None, :], d, BIG)
     best_idx, best, second = best_two(d)
     ok = mask_a & (best <= max_dist) & (best.float() < ratio * second.float())

@@ -9,7 +9,10 @@ not carried over.  Every gather returns the window of the zero-padded
 image at the requested origin, as the JAX kernels do: pixels outside the
 image are 0.  K1 also takes every level of a pyramid in one launch
 (`gather_windows_levels`); `gather_windows` is its one-level case, and
-`bilinear_patches` the one-level case of `bilinear_patches_levels`.
+`bilinear_patches` the one-level case of `bilinear_patches_levels`.  K1
+and K6 copy a window with one warp (the body they share); K6 takes up to
+MAX_GROUPS requests per launch, enough for every level of 21 sequences of
+three levels (the batch path's whole frame at S <= 21).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ PATCH = 8
 # clamps (the caller rejects such points).
 CACHE_WIN = 32
 CACHE_SLACK = (CACHE_WIN - PATCH - 1) // 2  # 11 px
-MAX_GROUPS = 8          # K6 requests per launch (csrc/gather_windows.cu)
+MAX_GROUPS = 64         # K6 requests per launch (csrc/gather_windows.cu kMaxGroups)
 MAX_LEVELS = 8          # K1 levels per launch (csrc/gather_windows.cu)
 
 

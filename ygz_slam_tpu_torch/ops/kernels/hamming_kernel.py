@@ -2,7 +2,10 @@
 
 Counterpart of ygz_slam_tpu/ops/pallas/hamming_kernel.py.  The CUDA kernel
 (csrc/hamming.cu) replaces `distance_matrix_pallas`; `distance_matrix` is
-its wrapper and `distance_matrix_plain` its plain version.  Descriptors are
+its wrapper and `distance_matrix_plain` its plain version.  The kernel
+counts bits on the tensor cores (a single-bit MMA gives popc(a & b), and
+popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b)); its loads want both
+sides 16-byte aligned, as every tensor PyTorch allocates is.  Descriptors are
 8 x 32-bit words stored as int32 (PyTorch has next to no arithmetic on
 uint32); only the bit pattern matters.
 """
@@ -13,7 +16,7 @@ import torch
 from . import I, P, launch, launched, on_card, require, stream
 
 WORDS = 8           # 256-bit descriptors
-MAX_ROWS = 65535 * 32   # the kernel's grid covers this many rows of `a`
+MAX_ROWS = 65535 * 16   # the kernel's grid covers this many rows of `a`
 
 
 def popcount_i32(v: torch.Tensor) -> torch.Tensor:
@@ -54,6 +57,8 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if N > MAX_ROWS:
         raise ValueError(f"K10 takes at most {MAX_ROWS} rows of a, got {N}")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("K10 takes descriptors that start on a 16-byte boundary")
     launch("hamming", "hamming_launch", [P, P, I, I, P, P],
            a.data_ptr(), b.data_ptr(), N, M, out.data_ptr(), stream(a.device))
     launched(distance_matrix, a, b)

@@ -10,9 +10,10 @@ constant FUSED_VARIANT says when the call is made:
     against the level-init Hessian) on windows gathered by K1 at that
     level's init pose, the coarser level's result;
   1 the same with K9 v1 (the Hessian recomputed every iteration).
-`gather_frame_windows` fetches a frame's level windows (and optionally
-align2d's cache windows) in one launch of K6, for callers that hand them
-to `sparse_image_align(frame_windows=)`, as the batch path does; variants 1
+`gather_frames_windows` fetches several sequences' frame windows (every
+level's, and optionally align2d's cache windows) in one launch of K6, for
+callers that hand them to `sparse_image_align(frame_windows=)`, as the
+batch path does (`gather_frame_windows` is its one-sequence case); variants 1
 and 2 ignore them, as the JAX package does.  The JAX package's
 `gauss_newton` fallback (`USE_FUSED_LEVEL`) is not ported: off the card
 the port runs the kernels' plain versions.
@@ -27,7 +28,7 @@ from ..geometry import jacobians as jac
 from ..geometry.se3 import SE3
 from .interp import in_bounds
 from .kernels.align2d_fused import A2DWindows, a2d_window_origins
-from .kernels.align2d_kernel import (CACHE_WIN, bilinear_patches_levels,
+from .kernels.align2d_kernel import (CACHE_WIN, MAX_GROUPS, bilinear_patches_levels,
                                      gather_windows_grouped, level_consts)
 from .kernels.sparse_align_fused import level_align_fused, level_align_fused_v2
 from .kernels.sparse_align_mega import CWIN, MegaWindows, mega_window_origins, sparse_align_mega
@@ -93,10 +94,46 @@ def prepare_reference(ref_pyr, cam, px_ref, depth_ref, mask,
 
 
 class FrameWindows(NamedTuple):
-    """One frame's window fetches, done by one launch of K6 at the
-    frame-init pose (`gather_frame_windows`)."""
+    """One frame's window fetches, done by K6 at the frame-init pose
+    (`gather_frame_windows`, `gather_frames_windows`)."""
     mega_wins: MegaWindows     # every level's windows, their origins, the init projection
     a2d: A2DWindows | None     # align2d's cache windows, if requested
+
+
+def gather_frames_windows(cur_pyrs, cam, ref_preps, T_inits, distorted: bool = True,
+                          a2d_centers=None) -> list:
+    """The window fetches of several sequences' frames: for sequence s,
+    every level of `cur_pyrs[s]`'s sparse-align windows at the frame-init
+    pose `T_inits[s]` (SE3) with `ref_preps[s]` and, given
+    `a2d_centers[s] [M, 2]` (predicted patch centers on level 0), align2d's
+    32x32 cache windows around them.  Every sequence's origins first, then
+    all the requests in one launch of K6; a list of more than MAX_GROUPS
+    requests goes in launches of MAX_GROUPS, in order (one launch up to 21
+    sequences of three levels).  Returns a FrameWindows per sequence."""
+    reqs, spans = [], []
+    for s, (cur_pyr, prep, T_init) in enumerate(zip(cur_pyrs, ref_preps, T_inits)):
+        n_levels = len(cur_pyr)
+        pc0, px0_l0, ox_l, oy_l = mega_window_origins(cur_pyr, prep.p_ref, T_init.R, T_init.t,
+                                                      cam, distorted, n_levels)
+        first = len(reqs)
+        reqs += [(cur_pyr[li], ox_l[li], oy_l[li], CWIN) for li in range(n_levels)]
+        a2d = None
+        if a2d_centers is not None:
+            img0 = cur_pyr[0]
+            a2d = a2d_window_origins(torch.nan_to_num(a2d_centers[s].to(img0.dtype)),
+                                     *img0.shape)
+            reqs.append((img0, *a2d, CACHE_WIN))
+        spans.append((first, MegaWindows(None, ox_l, oy_l, pc0, px0_l0), a2d))
+    outs = []
+    for k in range(0, len(reqs), MAX_GROUPS):
+        outs += gather_windows_grouped(reqs[k:k + MAX_GROUPS])
+    fws = []
+    for first, mw, a2d in spans:
+        n_levels = mw.ox.shape[0]
+        fws.append(FrameWindows(
+            mega_wins=mw._replace(wins=torch.stack(outs[first:first + n_levels])),
+            a2d=None if a2d is None else A2DWindows(outs[first + n_levels], *a2d)))
+    return fws
 
 
 def gather_frame_windows(cur_pyr, cam, ref_prep: ReferencePrep, T_init: SE3,
@@ -104,19 +141,10 @@ def gather_frame_windows(cur_pyr, cam, ref_prep: ReferencePrep, T_init: SE3,
                          a2d_centers: torch.Tensor | None = None) -> FrameWindows:
     """Every level's sparse-align windows at the frame-init pose and,
     given `a2d_centers [M, 2]` (predicted patch centers on level 0),
-    align2d's 32x32 cache windows around them, in one launch of K6."""
-    n_levels = len(cur_pyr)
-    pc0, px0_l0, ox_l, oy_l = mega_window_origins(cur_pyr, ref_prep.p_ref, T_init.R, T_init.t,
-                                                  cam, distorted, n_levels)
-    reqs = [(cur_pyr[li], ox_l[li], oy_l[li], CWIN) for li in range(n_levels)]
-    if a2d_centers is not None:
-        img0 = cur_pyr[0]
-        ox, oy = a2d_window_origins(torch.nan_to_num(a2d_centers.to(img0.dtype)), *img0.shape)
-        reqs.append((img0, ox, oy, CACHE_WIN))
-    outs = gather_windows_grouped(reqs)
-    a2d = None if a2d_centers is None else A2DWindows(wins=outs[n_levels], ox=ox, oy=oy)
-    return FrameWindows(mega_wins=MegaWindows(torch.stack(outs[:n_levels]), ox_l, oy_l, pc0,
-                                              px0_l0), a2d=a2d)
+    align2d's 32x32 cache windows around them, in one launch of K6:
+    `gather_frames_windows` on one sequence."""
+    return gather_frames_windows([cur_pyr], cam, [ref_prep], [T_init], distorted,
+                                 None if a2d_centers is None else [a2d_centers])[0]
 
 
 def sparse_image_align(ref_pyr, cur_pyr, cam, px_ref, depth_ref, mask, T_init: SE3,

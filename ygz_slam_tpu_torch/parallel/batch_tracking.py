@@ -2,8 +2,8 @@
 (counterpart of ygz_slam_tpu/parallel/batch_tracking.py, its kernel path
 only).
 
-Per frame: for each sequence, every level's sparse-align windows in one
-launch of K6, then that sequence's coarse-to-fine alignment in one launch
+Per frame: every level's sparse-align windows of all S sequences in one
+launch of K6, then each sequence's coarse-to-fine alignment in one launch
 of K3; then the map patches of all S*N points in one launch each of K2
 (windows from the [S, H, W] frame stack) and K4; then the S pose-only BAs
 in one launch of K8.  `batched_track_step` is those three stages in a row:
@@ -36,17 +36,19 @@ def batched_sparse_align(ref_pyrs, cur_pyrs, cam, px_ref: torch.Tensor,
 
     ref_pyrs / cur_pyrs: per level [S, h, w]; px_ref [S, N, 2], depth_ref
     and mask [S, N]; T_init batched [S]; `ref_preps`, one ReferencePrep per
-    sequence (keyframe constants).  Returns the refined poses, SE3 batched
-    [S]."""
+    sequence (keyframe constants).  Every sequence's windows are gathered
+    first, in one launch of K6 (`gather_frames_windows`), then the S
+    alignments run.  Returns the refined poses, SE3 batched [S]."""
     T7_in = T_init.params7()
+    S = len(ref_preps)
+    T0s = [SE3.from_params7(T7_in[s]) for s in range(S)]
+    cps = [tuple(c[s] for c in cur_pyrs) for s in range(S)]
+    fws = sa.gather_frames_windows(cps, cam, ref_preps, T0s, distorted=DISTORTED)
     T7s = []
     for s, prep in enumerate(ref_preps):
         rp = tuple(r[s] for r in ref_pyrs)
-        cp = tuple(c[s] for c in cur_pyrs)
-        T0 = SE3.from_params7(T7_in[s])
-        fw = sa.gather_frame_windows(cp, cam, prep, T0, distorted=DISTORTED)
-        st = sa.sparse_image_align(rp, cp, cam, px_ref[s], depth_ref[s], mask[s], T0,
-                                   distorted=DISTORTED, ref_prep=prep, frame_windows=fw)
+        st = sa.sparse_image_align(rp, cps[s], cam, px_ref[s], depth_ref[s], mask[s], T0s[s],
+                                   distorted=DISTORTED, ref_prep=prep, frame_windows=fws[s])
         T7s.append(st.T_cur_ref.params7())
     return SE3.from_params7(torch.stack(T7s))
 
