@@ -842,7 +842,8 @@ def main() -> int:
     # two rounds in turns at 128 x 256, 128 x 512, 256 x 3072 and
     # 2560 x 3072, and per keyframe (128 x 512 + 256 x 3072).
     forms = ("A 16x32 warp tiles, 4 warps/block", "A 16x32, 1 warp", "A 16x16, 1 warp",
-             "A 16x64, 2 warps", "B 4x4 per lane, 4 warps/block", "B 4x4 per lane, 1 warp")
+             "A 16x64, 2 warps", "B 4x4 per lane, 4 warps/block", "B 4x4 per lane, 1 warp",
+             "A on xor.popc, 16x32, 4 warps", "A on xor.popc, 16x16, 1 warp")
 
     def k10_form(a, b, v):
         out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)

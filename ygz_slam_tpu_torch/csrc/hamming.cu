@@ -86,15 +86,24 @@ hamming_popc_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, in
   }
 }
 
-// c += popc(a & b) over K = 256 for the 16 x 8 tile: a's fragment (rows g,
-// g + 8 at k-words t, then t + 4), b's (column g at k-words t, t + 4).
-__device__ __forceinline__ void mma_and_popc(int (&c)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// c += popc(a & b) (kXor: popc(a ^ b)) over K = 256 for the 16 x 8 tile:
+// a's fragment (rows g, g + 8 at k-words t, then t + 4), b's (column g at
+// k-words t, t + 4).
+template <bool kXor>
+__device__ __forceinline__ void mma_popc(int (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  if constexpr (kXor)
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.xor.popc "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Sum over the 4 lanes of a group (lanes 4g .. 4g + 3).
@@ -106,7 +115,7 @@ __device__ __forceinline__ int group_sum(int v) {
 // Design A (tensor cores).  Every lane of a warp takes part in each MMA
 // and shuffle, so a warp past M returns as a whole and the ragged edges
 // load zeros.
-template <int kNB, int kWarps>
+template <int kNB, int kWarps, bool kXor>
 __global__ void __launch_bounds__(32 * kWarps)
 hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int N, int M,
                    int* __restrict__ out) {
@@ -136,10 +145,10 @@ hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int
     const int pb1 = __shfl_sync(0xffffffffu, pb, 8 * t + 4);       // column 8j + 2t + 1
     int c[4] = {0, 0, 0, 0};
     const uint32_t bf[2] = {y[j].x, y[j].y};
-    mma_and_popc(c, af, bf);
+    mma_popc<kXor>(c, af, bf);
     const int col = m0 + 8 * j + 2 * t;
-    const int v[4] = {pa0 + pb0 - 2 * c[0], pa0 + pb1 - 2 * c[1],
-                      pa1 + pb0 - 2 * c[2], pa1 + pb1 - 2 * c[3]};
+    const int v[4] = {kXor ? c[0] : pa0 + pb0 - 2 * c[0], kXor ? c[1] : pa0 + pb1 - 2 * c[1],
+                      kXor ? c[2] : pa1 + pb0 - 2 * c[2], kXor ? c[3] : pa1 + pb1 - 2 * c[3]};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = h ? r1 : r0;
@@ -159,7 +168,8 @@ hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int
 
 // The forms compared in PERF.md: 0 = A with 16 x 32 warp tiles, 4 warps
 // per block; 1 = A, 16 x 32, 1 warp; 2 = A, 16 x 16, 1 warp; 3 = A, 16 x 64,
-// 2 warps; 4 = B, 4 warps; 5 = B, 1 warp.
+// 2 warps; 4 = B, 4 warps; 5 = B, 1 warp; 6 and 7 = forms 0 and 2 on
+// .xor.popc (the MMA gives popc(a ^ b) itself).
 extern "C" int hamming_launch_variant(const int* a, const int* b, int N, int M, int* out,
                                       int variant, cudaStream_t stream) {
   if (N <= 0 || M <= 0) return 0;
@@ -173,12 +183,14 @@ extern "C" int hamming_launch_variant(const int* a, const int* b, int N, int M, 
   if (row_blocks > 65535) return (int)cudaErrorInvalidValue;
   auto grid = [&](int cols) { return dim3((M + cols - 1) / cols, row_blocks); };
   switch (variant) {
-    case 0: hamming_mma_kernel<4, 4><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
-    case 1: hamming_mma_kernel<4, 1><<<grid(32), 32, 0, stream>>>(a2, b2, N, M, out); break;
-    case 2: hamming_mma_kernel<2, 1><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
-    case 3: hamming_mma_kernel<8, 2><<<grid(128), 64, 0, stream>>>(a2, b2, N, M, out); break;
+    case 0: hamming_mma_kernel<4, 4, false><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
+    case 1: hamming_mma_kernel<4, 1, false><<<grid(32), 32, 0, stream>>>(a2, b2, N, M, out); break;
+    case 2: hamming_mma_kernel<2, 1, false><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
+    case 3: hamming_mma_kernel<8, 2, false><<<grid(128), 64, 0, stream>>>(a2, b2, N, M, out); break;
     case 4: hamming_popc_kernel<4><<<grid(128), 128, 0, stream>>>(a4, b4, N, M, out); break;
     case 5: hamming_popc_kernel<1><<<grid(32), 32, 0, stream>>>(a4, b4, N, M, out); break;
+    case 6: hamming_mma_kernel<4, 4, true><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
+    case 7: hamming_mma_kernel<2, 1, true><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
