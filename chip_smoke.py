@@ -35,9 +35,7 @@ Phases, each raising (and so exiting non-zero) on failure:
       neighbours stacked, and 256 x 3072, on frame-0 descriptors of the VO
       workload), at 128 x 256 (one neighbour), at 2560 x 3072, at a ragged
       130 x 77 and with all-ones and sign-bit-only words; `match_nn` and
-      the tie-breaking argmins on the card against the CPU, exactly; each
-      form of the kernel (tensor cores or CUDA cores, tile shapes) exact and
-      timed in turns.
+      the tie-breaking argmins on the card against the CPU, exactly.
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
       that frame 10 of the VO path gives them (K1's two pyramid launches,
       N=256 with masked rows for K3, 512 rows on the three-level pyramid
@@ -194,11 +192,17 @@ def _run(cmd):
 
 def _time_kernel(torch, fn, reps=REPS):
     """Median device time (ms) of one launch of fn(): events between
-    consecutive launches, the host's enqueue hidden behind a sleep."""
+    consecutive launches, the host's enqueue hidden behind a sleep that
+    outlasts the enqueue of all reps (twice one call's host time each, at
+    2e9 SM cycles per second: the H100's clock is at most 1.98 GHz)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     evs = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(20_000_000)
+    torch.cuda._sleep(max(20_000_000, int(2 * reps * host_s * 2e9)))
     evs[0].record()
     for i in range(reps):
         fn()
@@ -836,42 +840,6 @@ def main() -> int:
           f"sums of the launches above): kernel {r['ms']:.4f} ms, plain {r['plain']:.4f} ms, "
           f"library {r['lib']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})",
           flush=True)
-    # The sweep of K10's forms (csrc/hamming.cu `hamming_launch_variant`):
-    # A on the tensor cores (warp tile, warps per block), B on the CUDA
-    # cores (a 4 x 4 micro-tile per lane); each exact first, then timed in
-    # two rounds in turns at 128 x 256, 128 x 512, 256 x 3072 and
-    # 2560 x 3072, and per keyframe (128 x 512 + 256 x 3072).
-    forms = ("A 16x32 warp tiles, 4 warps/block", "A 16x32, 1 warp", "A 16x16, 1 warp",
-             "A 16x64, 2 warps", "B 4x4 per lane, 4 warps/block", "B 4x4 per lane, 1 warp",
-             "A on xor.popc, 16x32, 4 warps", "A on xor.popc, 16x16, 1 warp")
-
-    def k10_form(a, b, v):
-        out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.int32, device=dev)
-        kernels.launch("hamming", "hamming_launch_variant",
-                       [kernels.P, kernels.P, kernels.I, kernels.I, kernels.P, kernels.I,
-                        kernels.P], a.data_ptr(), b.data_ptr(), a.shape[0], b.shape[0],
-                       out.data_ptr(), v, kernels.stream(dev))
-        return out
-
-    sweep = [("128x256", feat0[:Fn_vo], feat0), ("128x512", feat0[:Fn_vo], nbrs2),
-             ("256x3072", feat0, m0.pt_desc), ("2560x3072", all_feat, all_pt),
-             ("130x77 edge words", edge_a, edge_b)]
-    times = {}
-    for v in range(len(forms)):
-        for tag, a, b in sweep:
-            if not torch.equal(k10_form(a, b, v), k10.distance_matrix_plain(a, b)):
-                raise AssertionError(f"K10 form {forms[v]} disagrees at {tag}")
-    for rnd, order in enumerate((range(len(forms)), reversed(range(len(forms))))):
-        for v in order:
-            times[v, rnd] = [_time_kernel(torch, lambda a=a, b=b: k10_form(a, b, v))
-                             for _, a, b in sweep[:4]]
-    for v, name in enumerate(forms):
-        t0_, t1_ = times[v, 0], times[v, 1]
-        print(f"K10 form {v} ({name}), exact at every shape; us per launch, rounds 1 / 2: "
-              + ", ".join(f"{tag} {a * 1e3:.2f} / {b * 1e3:.2f}"
-                          for (tag, _, _), a, b in zip(sweep, t0_, t1_))
-              + f"; per keyframe {(t0_[1] + t0_[2]) * 1e3:.2f} / {(t1_[1] + t1_[2]) * 1e3:.2f}",
-              flush=True)
 
     # -- 2d. the VO path's kernels on the inputs that path gives them ---------
     # Frame 10 through the entry point (`track`, then the keyframe cycle) with

@@ -165,16 +165,17 @@ class TestTensorCoreForm:
                                         out[r, col + e] = v[2 * h + e]
         return out
 
-    @pytest.mark.parametrize("shape", [(16, 8), (17, 9), (33, 45), (5, 70)])
-    @pytest.mark.parametrize("n_b,warps", [(4, 4), (2, 1)])
-    def test_mma_lane_model(self, shape, n_b, warps):
-        """Every output written once, and equal to the plain version: the K
+    @pytest.mark.parametrize("shape", [(4, 4), (15, 9), (16, 8), (17, 9), (33, 45), (5, 70),
+                                       (64, 129), (130, 77)])
+    def test_mma_lane_model(self, shape):
+        """With the kernel's tiling (16 x 32 warp tiles, 4 warps per block):
+        every output written once, and equal to the plain version; the K
         order permuted alike in a and b, the popcounts summed over a lane
         group and fetched from the lanes that hold columns 2t and 2t + 1,
         ragged edges loaded as zeros and left unstored."""
         rng = np.random.default_rng(6)
         a, b = edge_words(rng, shape[0]), edge_words(rng, shape[1])
-        got = self._mma_model(a, b, n_b, warps)
+        got = self._mma_model(a, b, n_b=4, warps=4)
         np.testing.assert_array_equal(got, np32(thk.distance_matrix_plain(t32(a), t32(b))))
 
 

@@ -22,8 +22,9 @@
 // the [N, 8] and [M, 8] rows as they lie.  So what is left is the output's
 // bytes and the launch.
 //
-// Design (tensor cores): a warp computes a 16 x (8 kNB) tile, kWarps warps
-// side by side along M per block.  Lane (g, t) = (lane / 4, lane % 4)
+// Design: a warp computes a 16 x 32 tile (four 16 x 8 MMAs), kWarps warps
+// side by side along M per block (a 16 x 128 block tile: 16 blocks of 4
+// warps at 128 x 256, 384 at 256 x 3072).  Lane (g, t) = (lane / 4, lane % 4)
 // holds a's rows g and g + 8 and b's column g of each n8 block, two words
 // each: words 2t and 2t + 1 of the row, one 8-byte load, so a warp's load
 // covers 8 whole 32-byte rows.  The MMA's K order is permuted alike in a
@@ -33,6 +34,12 @@
 // accumulator fragment gives lane (g, t) the outputs (g, 2t), (g, 2t + 1),
 // (g + 8, 2t), (g + 8, 2t + 1): one 8-byte store per row, so each store of
 // the warp writes 8 whole 32-byte sectors (rows of 8 outputs).
+//
+// Measured on the H100 against the forms it was chosen from (PERF.md):
+// warp tiles of 16 x 16 and 16 x 64, 1 and 2 warps per block, the same MMA
+// on .xor.popc (which ptxas takes for sm_90a; no faster), and a CUDA-core
+// form (a 4 x 4 micro-tile per lane from descriptors in registers, __popc)
+// that is slower at every shape timed.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -40,70 +47,19 @@
 namespace {
 
 constexpr int kRowsPerBlock = 16;       // the MMA's m
+constexpr int kNB = 4;                  // n8 blocks per warp: a 16 x 32 warp tile
+constexpr int kWarps = 4;               // warps per block, side by side along M
+constexpr int kColsPerBlock = 8 * kNB * kWarps;
 
-// Design B (CUDA cores, kept for the comparison in PERF.md): each lane a
-// 4 x 4 micro-tile from descriptors held in registers, 8 lanes along M and
-// 4 along N, so a warp's tile is 16 x 32 as in design A.
-template <int kWarps>
-__global__ void __launch_bounds__(32 * kWarps)
-hamming_popc_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b, int N, int M,
-                    int* __restrict__ out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.y * kRowsPerBlock + (lane >> 3) * 4;
-  const int m0 = (blockIdx.x * kWarps + warp) * 32 + (lane & 7) * 4;
-  if (m0 >= M) return;
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  uint4 ar[4][2], br[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool rin = n0 + i < N, cin = m0 + i < M;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ar[i][h] = rin ? __ldg(a + (size_t)(n0 + i) * 2 + h) : z;
-      br[i][h] = cin ? __ldg(b + (size_t)(m0 + i) * 2 + h) : z;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (n0 + i >= N) break;
-    int d[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      d[j] = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        d[j] += __popc(ar[i][h].x ^ br[j][h].x) + __popc(ar[i][h].y ^ br[j][h].y)
-              + __popc(ar[i][h].z ^ br[j][h].z) + __popc(ar[i][h].w ^ br[j][h].w);
-    }
-    int* row = out + (size_t)(n0 + i) * M + m0;
-    if (M % 4 == 0) {
-      *reinterpret_cast<int4*>(row) = make_int4(d[0], d[1], d[2], d[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (m0 + j < M) row[j] = d[j];
-    }
-  }
-}
-
-// c += popc(a & b) (kXor: popc(a ^ b)) over K = 256 for the 16 x 8 tile:
-// a's fragment (rows g, g + 8 at k-words t, then t + 4), b's (column g at
-// k-words t, t + 4).
-template <bool kXor>
-__device__ __forceinline__ void mma_popc(int (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  if constexpr (kXor)
-    asm volatile(
-        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.xor.popc "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// c += popc(a & b) over K = 256 for the 16 x 8 tile: a's fragment (rows g,
+// g + 8 at k-words t, then t + 4), b's (column g at k-words t, t + 4).
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Sum over the 4 lanes of a group (lanes 4g .. 4g + 3).
@@ -112,10 +68,8 @@ __device__ __forceinline__ int group_sum(int v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Design A (tensor cores).  Every lane of a warp takes part in each MMA
-// and shuffle, so a warp past M returns as a whole and the ragged edges
-// load zeros.
-template <int kNB, int kWarps, bool kXor>
+// Every lane of a warp takes part in each MMA and shuffle, so a warp past
+// M returns as a whole and the ragged edges load zeros.
 __global__ void __launch_bounds__(32 * kWarps)
 hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int N, int M,
                    int* __restrict__ out) {
@@ -145,10 +99,10 @@ hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int
     const int pb1 = __shfl_sync(0xffffffffu, pb, 8 * t + 4);       // column 8j + 2t + 1
     int c[4] = {0, 0, 0, 0};
     const uint32_t bf[2] = {y[j].x, y[j].y};
-    mma_popc<kXor>(c, af, bf);
+    mma_and_popc(c, af, bf);
     const int col = m0 + 8 * j + 2 * t;
-    const int v[4] = {kXor ? c[0] : pa0 + pb0 - 2 * c[0], kXor ? c[1] : pa0 + pb1 - 2 * c[1],
-                      kXor ? c[2] : pa1 + pb0 - 2 * c[2], kXor ? c[3] : pa1 + pb1 - 2 * c[3]};
+    const int v[4] = {pa0 + pb0 - 2 * c[0], pa0 + pb1 - 2 * c[1],
+                      pa1 + pb0 - 2 * c[2], pa1 + pb1 - 2 * c[3]};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = h ? r1 : r0;
@@ -166,37 +120,17 @@ hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int
 
 }  // namespace
 
-// The forms compared in PERF.md: 0 = A with 16 x 32 warp tiles, 4 warps
-// per block; 1 = A, 16 x 32, 1 warp; 2 = A, 16 x 16, 1 warp; 3 = A, 16 x 64,
-// 2 warps; 4 = B, 4 warps; 5 = B, 1 warp; 6 and 7 = forms 0 and 2 on
-// .xor.popc (the MMA gives popc(a ^ b) itself).
-extern "C" int hamming_launch_variant(const int* a, const int* b, int N, int M, int* out,
-                                      int variant, cudaStream_t stream) {
+// a [N, 8] and b [M, 8] words, both 16-byte aligned -> out [N, M].
+extern "C" int hamming_launch(const int* a, const int* b, int N, int M, int* out,
+                              cudaStream_t stream) {
   if (N <= 0 || M <= 0) return 0;
   if ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const auto* a2 = reinterpret_cast<const uint2*>(a);
-  const auto* b2 = reinterpret_cast<const uint2*>(b);
-  const auto* a4 = reinterpret_cast<const uint4*>(a);
-  const auto* b4 = reinterpret_cast<const uint4*>(b);
-  const int row_blocks = (N + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (row_blocks > 65535) return (int)cudaErrorInvalidValue;
-  auto grid = [&](int cols) { return dim3((M + cols - 1) / cols, row_blocks); };
-  switch (variant) {
-    case 0: hamming_mma_kernel<4, 4, false><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
-    case 1: hamming_mma_kernel<4, 1, false><<<grid(32), 32, 0, stream>>>(a2, b2, N, M, out); break;
-    case 2: hamming_mma_kernel<2, 1, false><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
-    case 3: hamming_mma_kernel<8, 2, false><<<grid(128), 64, 0, stream>>>(a2, b2, N, M, out); break;
-    case 4: hamming_popc_kernel<4><<<grid(128), 128, 0, stream>>>(a4, b4, N, M, out); break;
-    case 5: hamming_popc_kernel<1><<<grid(32), 32, 0, stream>>>(a4, b4, N, M, out); break;
-    case 6: hamming_mma_kernel<4, 4, true><<<grid(128), 128, 0, stream>>>(a2, b2, N, M, out); break;
-    case 7: hamming_mma_kernel<2, 1, true><<<grid(16), 32, 0, stream>>>(a2, b2, N, M, out); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock,
+                  (N + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  hamming_mma_kernel<<<grid, 32 * kWarps, 0, stream>>>(reinterpret_cast<const uint2*>(a),
+                                                       reinterpret_cast<const uint2*>(b), N, M,
+                                                       out);
   return (int)cudaGetLastError();
-}
-
-extern "C" int hamming_launch(const int* a, const int* b, int N, int M, int* out,
-                              cudaStream_t stream) {
-  return hamming_launch_variant(a, b, N, M, out, 0, stream);
 }

@@ -193,11 +193,12 @@ def triangulate(cam, mstate: ms.MapState, feats_px, feats_desc, feats_valid, fea
     """Match the new keyframe's detections against the unlinked features of
     keyframe `nbr_slot` and triangulate: (pos_world [N, 3], good [N],
     ref_idx [N]).  `dist`, if given, is the detections' Hamming distance
-    matrix against that keyframe's F descriptors."""
+    matrix against that keyframe's F descriptors, which are then not read."""
     ref_free = ms.row(mstate.feat_valid, nbr_slot) & (ms.row(mstate.feat_point, nbr_slot) < 0)
+    desc_ref = None if dist is not None else ms.row(mstate.feat_desc, nbr_slot)
     return lm.match_new_features_for_triangulation(
         cam, feats_desc, feats_px, feats_valid, SE3.from_params7(T_new7),
-        ms.row(mstate.feat_desc, nbr_slot), ms.row(mstate.feat_px, nbr_slot), ref_free,
+        desc_ref, ms.row(mstate.feat_px, nbr_slot), ref_free,
         mstate.kf_pose(nbr_slot), angle_new=feats_angle,
         angle_ref=ms.row(mstate.feat_angle, nbr_slot), dist=dist)
 
