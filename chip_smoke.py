@@ -8,8 +8,8 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11) and K4; a spill in K3, K4, K5,
-   K9 v1, K9 v2 or K11 fails the run at the end.
+   kernels (K3, K5, K8, K9 v1/v2, K11), K4, K6 and K10; a spill in K3,
+   K4, K5, K9 v1, K9 v2 or K11 fails the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
    bits.  Kernel times are medians of per-launch CUDA-event intervals with
@@ -173,7 +173,9 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
                  ("sparse_align_fused", "level_align_v1_kernel"),
                  ("sparse_align_fused", "level_align_v2_kernel"),
                  ("track_fused", "track_fused_kernel"),
-                 ("align2d_fused", "align2d_fused_kernel"))
+                 ("align2d_fused", "align2d_fused_kernel"),
+                 ("gather_windows", "gather_windows_grouped_kernel"),
+                 ("hamming", "hamming_mma_kernel"))
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
             "track_fused_kernel", "level_align_v1_kernel", "level_align_v2_kernel",
             "align2d_fused_kernel")

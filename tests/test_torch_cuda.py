@@ -263,7 +263,8 @@ def test_gather_windows_grouped_many_requests(cuda_device, n_req):
         n = 0 if k == 5 else n
         H, W = img.shape
         x, y = rng.integers(0, W - win + 1, n), rng.integers(0, H - win + 1, n)
-        x[:n // 3], y[:n // 3] = rng.integers(-40, W + 11, n // 3), rng.integers(-40, H + 11, n // 3)
+        k = n // 3
+        x[:k], y[:k] = rng.integers(-40, W + 11, k), rng.integers(-40, H + 11, k)
         groups.append((img, torch.tensor(x, dtype=torch.int32, device=cuda_device),
                        torch.tensor(y, dtype=torch.int32, device=cuda_device), win))
     n0 = tk1.gather_windows_grouped.launches

@@ -21,9 +21,9 @@ affine-warped reference patches from the keyframe images, their patch
 search on the pyramid stack (K2, K4), pose-only BA (K5), and the landmark
 statistics.  Per keyframe (`kf_cycle`): slot allocation or eviction,
 detection, triangulation against two neighbour keyframes (their two Hamming
-matrices in one K10 launch) and fusion with the map (K10), insertion.  Everything stays on the device: selections that
-the JAX version makes with `jnp.where` are `torch.where` here, and slots are
-0-d tensors.
+matrices in one K10 launch) and fusion with the map (K10), insertion.
+Everything stays on the device: selections that the JAX version makes with
+`jnp.where` are `torch.where` here, and slots are 0-d tensors.
 """
 from __future__ import annotations
 
