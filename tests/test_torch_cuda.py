@@ -397,11 +397,12 @@ def test_hamming_edge_shapes(cuda_device, n, m):
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (15, 9), (16, 8), (17, 9), (130, 77), (128, 256),
-                                 (128, 512), (256, 3072), (2560, 3072)])
+                                 (128, 512), (256, 3072), (2560, 3072), (65535 * 32 + 17, 9)])
 def test_hamming_sizes(cuda_device, n, m):
     """K10 exact against its plain version from one pair to 2560 x 3072,
     across and one past its 16 x 8 tensor-core tiles, with all-ones,
-    sign-bit-only and zero words planted in both sides."""
+    sign-bit-only and zero words planted in both sides; and more row tiles
+    than a grid's y dimension holds (65535), on its one-dimensional grid."""
     a, b = _words(n, 3 + n, cuda_device), _words(m, 4 + m, cuda_device)
     for t in (a, b):
         t[0] = -1

@@ -107,8 +107,9 @@ class TestTensorCoreForm:
 
     @staticmethod
     def _mma_model(a, b, n_b, warps):
-        """K10's tensor-core kernel, lane by lane: block (bx, by), warp w,
-        lane (g, t) = (lane // 4, lane % 4) loads words 2t, 2t + 1 of a's
+        """K10's tensor-core kernel, lane by lane: block i of the 1-D grid
+        (column tile bx = i % col_tiles, row tile by = i // col_tiles), warp
+        w, lane (g, t) = (lane // 4, lane % 4) loads words 2t, 2t + 1 of a's
         rows n0 + g, n0 + g + 8 and of b's column m0 + 8j + g; the single-bit
         MMA is applied to the matrices its fragments stand for in the PTX
         layout of m16n8k256 (a0: row g, k-word t; a1: row g + 8, k-word t;
@@ -120,49 +121,50 @@ class TestTensorCoreForm:
         N, M = len(a), len(b)
         out = np.full((N, M), -1, np.int64)
         zero = (0, 0)
-        for by in range(-(-N // 16)):
-            for bx in range(-(-M // (8 * n_b * warps))):
-                for w in range(warps):
-                    n0, m0 = 16 * by, (bx * warps + w) * 8 * n_b
-                    if m0 >= M:
-                        continue
-                    x0 = [tuple(a[n0 + l // 4, 2 * (l % 4):2 * (l % 4) + 2]) if n0 + l // 4 < N
-                          else zero for l in range(32)]
-                    x1 = [tuple(a[n0 + l // 4 + 8, 2 * (l % 4):2 * (l % 4) + 2])
-                          if n0 + l // 4 + 8 < N else zero for l in range(32)]
-                    af = [(x0[l][0], x1[l][0], x0[l][1], x1[l][1]) for l in range(32)]
+        col_tiles = -(-M // (8 * n_b * warps))
+        for i in range(-(-N // 16) * col_tiles):
+            by, bx = divmod(i, col_tiles)
+            for w in range(warps):
+                n0, m0 = 16 * by, (bx * warps + w) * 8 * n_b
+                if m0 >= M:
+                    continue
+                x0 = [tuple(a[n0 + l // 4, 2 * (l % 4):2 * (l % 4) + 2]) if n0 + l // 4 < N
+                      else zero for l in range(32)]
+                x1 = [tuple(a[n0 + l // 4 + 8, 2 * (l % 4):2 * (l % 4) + 2])
+                      if n0 + l // 4 + 8 < N else zero for l in range(32)]
+                af = [(x0[l][0], x1[l][0], x0[l][1], x1[l][1]) for l in range(32)]
 
-                    def group_sum(v):
-                        return [sum(v[4 * (l // 4):4 * (l // 4) + 4]) for l in range(32)]
+                def group_sum(v):
+                    return [sum(v[4 * (l // 4):4 * (l // 4) + 4]) for l in range(32)]
 
-                    pa0 = group_sum([popc(x0[l][0]) + popc(x0[l][1]) for l in range(32)])
-                    pa1 = group_sum([popc(x1[l][0]) + popc(x1[l][1]) for l in range(32)])
-                    A = np.zeros((16, 8), np.int64)
+                pa0 = group_sum([popc(x0[l][0]) + popc(x0[l][1]) for l in range(32)])
+                pa1 = group_sum([popc(x1[l][0]) + popc(x1[l][1]) for l in range(32)])
+                A = np.zeros((16, 8), np.int64)
+                for l in range(32):
+                    g, t = l // 4, l % 4
+                    A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = af[l]
+                for j in range(n_b):
+                    y = [tuple(b[m0 + 8 * j + l // 4, 2 * (l % 4):2 * (l % 4) + 2])
+                         if m0 + 8 * j + l // 4 < M else zero for l in range(32)]
+                    pb = group_sum([popc(y[l][0]) + popc(y[l][1]) for l in range(32)])
+                    B = np.zeros((8, 8), np.int64)
+                    for l in range(32):
+                        B[l % 4, l // 4], B[l % 4 + 4, l // 4] = y[l]
+                    D = [[sum(popc(A[r, k] & B[k, c]) for k in range(8)) for c in range(8)]
+                         for r in range(16)]
                     for l in range(32):
                         g, t = l // 4, l % 4
-                        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = af[l]
-                    for j in range(n_b):
-                        y = [tuple(b[m0 + 8 * j + l // 4, 2 * (l % 4):2 * (l % 4) + 2])
-                             if m0 + 8 * j + l // 4 < M else zero for l in range(32)]
-                        pb = group_sum([popc(y[l][0]) + popc(y[l][1]) for l in range(32)])
-                        B = np.zeros((8, 8), np.int64)
-                        for l in range(32):
-                            B[l % 4, l // 4], B[l % 4 + 4, l // 4] = y[l]
-                        D = [[sum(popc(A[r, k] & B[k, c]) for k in range(8)) for c in range(8)]
-                             for r in range(16)]
-                        for l in range(32):
-                            g, t = l // 4, l % 4
-                            pb0, pb1 = pb[8 * t], pb[8 * t + 4]
-                            c = (D[g][2 * t], D[g][2 * t + 1], D[g + 8][2 * t],
-                                 D[g + 8][2 * t + 1])
-                            v = (pa0[l] + pb0 - 2 * c[0], pa0[l] + pb1 - 2 * c[1],
-                                 pa1[l] + pb0 - 2 * c[2], pa1[l] + pb1 - 2 * c[3])
-                            col = m0 + 8 * j + 2 * t
-                            for h, r in enumerate((n0 + g, n0 + g + 8)):
-                                for e in range(2):
-                                    if r < N and col + e < M:
-                                        assert out[r, col + e] == -1, "stored twice"
-                                        out[r, col + e] = v[2 * h + e]
+                        pb0, pb1 = pb[8 * t], pb[8 * t + 4]
+                        c = (D[g][2 * t], D[g][2 * t + 1], D[g + 8][2 * t],
+                             D[g + 8][2 * t + 1])
+                        v = (pa0[l] + pb0 - 2 * c[0], pa0[l] + pb1 - 2 * c[1],
+                             pa1[l] + pb0 - 2 * c[2], pa1[l] + pb1 - 2 * c[3])
+                        col = m0 + 8 * j + 2 * t
+                        for h, r in enumerate((n0 + g, n0 + g + 8)):
+                            for e in range(2):
+                                if r < N and col + e < M:
+                                    assert out[r, col + e] == -1, "stored twice"
+                                    out[r, col + e] = v[2 * h + e]
         return out
 
     @pytest.mark.parametrize("shape", [(4, 4), (15, 9), (16, 8), (17, 9), (33, 45), (5, 70),

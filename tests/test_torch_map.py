@@ -354,8 +354,8 @@ class TestLocalMapping:
         assert [tuple(d.shape) for d in dists] == [(n, F)] * 2
         n_good = []
         for slot, d in zip((1, 2), dists):
-            one = tvo.triangulate(CAM, m, tt(px_new), dnew, tt(valid_new), tt(ang_new),
-                                  tt(T_new7), slot, dist=d)
+            one = tvo.triangulate(CAM, m, tt(px_new), tt(valid_new), tt(ang_new),
+                                  tt(T_new7), slot, d)
             ref_free = m.feat_valid[slot] & (m.feat_point[slot] < 0)
             alone = tlm.match_new_features_for_triangulation(
                 CAM, dnew, tt(px_new), tt(valid_new), TSE3.from_params7(tt(T_new7)),

@@ -24,7 +24,9 @@
 //
 // Design: a warp computes a 16 x 32 tile (four 16 x 8 MMAs), kWarps warps
 // side by side along M per block (a 16 x 128 block tile: 16 blocks of 4
-// warps at 128 x 256, 384 at 256 x 3072).  Lane (g, t) = (lane / 4, lane % 4)
+// warps at 128 x 256, 384 at 256 x 3072).  The grid is one-dimensional,
+// the column tiles of a row tile consecutive, so neither side is held to
+// grid.y's 65535.  Lane (g, t) = (lane / 4, lane % 4)
 // holds a's rows g and g + 8 and b's column g of each n8 block, two words
 // each: words 2t and 2t + 1 of the row, one 8-byte load, so a warp's load
 // covers 8 whole 32-byte rows.  The MMA's K order is permuted alike in a
@@ -75,8 +77,9 @@ hamming_mma_kernel(const uint2* __restrict__ a, const uint2* __restrict__ b, int
                    int* __restrict__ out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.y * kRowsPerBlock;
-  const int m0 = (blockIdx.x * kWarps + warp) * (8 * kNB);
+  const int col_tiles = (M + kColsPerBlock - 1) / kColsPerBlock;
+  const int n0 = (blockIdx.x / col_tiles) * kRowsPerBlock;
+  const int m0 = (blockIdx.x % col_tiles * kWarps + warp) * (8 * kNB);
   if (m0 >= M) return;
   const uint2 z = make_uint2(0u, 0u);
   const int r0 = n0 + g, r1 = n0 + g + 8;
@@ -126,10 +129,10 @@ extern "C" int hamming_launch(const int* a, const int* b, int N, int M, int* out
   if (N <= 0 || M <= 0) return 0;
   if ((reinterpret_cast<size_t>(a) | reinterpret_cast<size_t>(b)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock,
-                  (N + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  hamming_mma_kernel<<<grid, 32 * kWarps, 0, stream>>>(reinterpret_cast<const uint2*>(a),
+  const long long blocks = (long long)((M + kColsPerBlock - 1) / kColsPerBlock) *
+                           ((N + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (blocks > 0x7fffffffLL || N > 0x7fffffff - kRowsPerBlock) return (int)cudaErrorInvalidValue;
+  hamming_mma_kernel<<<(unsigned)blocks, 32 * kWarps, 0, stream>>>(reinterpret_cast<const uint2*>(a),
                                                        reinterpret_cast<const uint2*>(b), N, M,
                                                        out);
   return (int)cudaGetLastError();

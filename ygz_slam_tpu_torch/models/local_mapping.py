@@ -27,7 +27,8 @@ def match_new_features_for_triangulation(
     (Matcher::SearchForTriangulation + the core of CreateNewMapPoints; the
     all-pairs Hamming matrix stands in for the BoW gating).  `dist`, if
     given, is that matrix, `hamming.distance_matrix(desc_new, desc_ref)`,
-    computed by the caller; the descriptors are then not read.
+    computed by the caller; the descriptors are then not read (and may be
+    None).
 
     Returns (pos_world [N, 3], good [N], ref_idx [N]) for the new
     keyframe's feature rows."""

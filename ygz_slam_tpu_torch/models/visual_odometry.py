@@ -188,17 +188,17 @@ def track(cam, o: VOOptions, prev_pyr, cur_pyr, prev_T_cw7, T_pred7, mstate: ms.
     return tm, mstate, tr.ok
 
 
-def triangulate(cam, mstate: ms.MapState, feats_px, feats_desc, feats_valid, feats_angle,
-                T_new7, nbr_slot, dist=None):
+def triangulate(cam, mstate: ms.MapState, feats_px, feats_valid, feats_angle, T_new7,
+                nbr_slot, dist):
     """Match the new keyframe's detections against the unlinked features of
     keyframe `nbr_slot` and triangulate: (pos_world [N, 3], good [N],
-    ref_idx [N]).  `dist`, if given, is the detections' Hamming distance
-    matrix against that keyframe's F descriptors, which are then not read."""
+    ref_idx [N]).  `dist` is the detections' Hamming distance matrix against
+    that keyframe's F descriptors (`neighbour_distances`), so neither side's
+    descriptors are read."""
     ref_free = ms.row(mstate.feat_valid, nbr_slot) & (ms.row(mstate.feat_point, nbr_slot) < 0)
-    desc_ref = None if dist is not None else ms.row(mstate.feat_desc, nbr_slot)
     return lm.match_new_features_for_triangulation(
-        cam, feats_desc, feats_px, feats_valid, SE3.from_params7(T_new7),
-        desc_ref, ms.row(mstate.feat_px, nbr_slot), ref_free,
+        cam, None, feats_px, feats_valid, SE3.from_params7(T_new7),
+        None, ms.row(mstate.feat_px, nbr_slot), ref_free,
         mstate.kf_pose(nbr_slot), angle_new=feats_angle,
         angle_ref=ms.row(mstate.feat_angle, nbr_slot), dist=dist)
 
@@ -251,12 +251,12 @@ def assemble_keyframe(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px
     # keyframe is inserted.
     nbrs = [last_kf_slot] if nbr2_slot is None else [last_kf_slot, nbr2_slot]
     dists = neighbour_distances(mstate, new_desc, nbrs)
-    pos_w, good, _ = triangulate(cam, mstate, new_px, new_desc, new_valid, new_angle, T_cw7,
-                                 last_kf_slot, dist=dists[0])
+    pos_w, good, _ = triangulate(cam, mstate, new_px, new_valid, new_angle, T_cw7,
+                                 last_kf_slot, dists[0])
     if nbr2_slot is not None:
         # Where both baselines pass, the longer one wins.
-        pos_w2, good2, _ = triangulate(cam, mstate, new_px, new_desc, new_valid, new_angle,
-                                       T_cw7, nbr2_slot, dist=dists[1])
+        pos_w2, good2, _ = triangulate(cam, mstate, new_px, new_valid, new_angle, T_cw7,
+                                       nbr2_slot, dists[1])
         pos_w = torch.where(good2[:, None], pos_w2, pos_w)
         good = good | good2
     ar_n = torch.arange(Fn, dtype=torch.int32, device=dev)
