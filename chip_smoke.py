@@ -8,7 +8,7 @@ Phases, each raising (and so exiting non-zero) on failure:
 1. Header: the card's name and power limit, torch and CUDA versions, the
    nvcc build of every kernel in ygz_slam_tpu_torch/csrc, and ptxas's
    registers, stack, spills and static shared memory of the chained
-   kernels (K3, K5, K8, K9 v1/v2, K11), K4, K6 and K10; a spill in K3,
+   kernels (K3, K5, K8, K9 v1/v2, K11), K2, K4, K6 and K10; a spill in K3,
    K4, K5, K9 v1, K9 v2 or K11 fails the run at the end.
 2. Kernel versus plain version, at the stated tolerances, and for K3, K5,
    K8, K9 and K11 a second launch on the same inputs giving the same
@@ -29,7 +29,9 @@ Phases, each raising (and so exiting non-zero) on failure:
       in one K6 launch); K2, K6 and K8 again at S=16 (K6: 48 requests in
       one launch); K2 and K6 with origins off the image, K6 with a request
       list that names one image twice; K6 timed per batched frame beside
-      the S launches of one sequence's levels that it replaced.
+      the S launches of one sequence's levels that it replaced; K2's
+      CUDA-event ms, profiler µs per launch, plain and library ms and
+      bound at S=8 and S=16.
    c. K10 (Hamming distance matrix) against its plain version, exactly, at
       the keyframe cycle's two shapes (128 x 512: both triangulation
       neighbours stacked, and 256 x 3072, on frame-0 descriptors of the VO
@@ -38,11 +40,15 @@ Phases, each raising (and so exiting non-zero) on failure:
       the tie-breaking argmins on the card against the CPU, exactly.
    d. K1, K3, K2, K4 and K5 against their plain versions on the inputs
       that frame 10 of the VO path gives them (K1's two pyramid launches,
-      N=256 with masked rows for K3, 512 rows on the three-level pyramid
-      stack for K2, K4 and K5), recorded from the step itself; the
-      iterations K4's points run up to the one that freezes them (the
-      plain version's count: the largest, the mean and the histogram) on
-      path 1's, the VO's and the batch's arguments.
+      N=256 with masked rows for K3, 512 rows for K2, K4 and K5: K2 reads
+      the three levels in place, as a table of images), recorded from the
+      step itself; K2 on that table against K2 on the levels' zero-padded
+      stack (the formulation it replaced, built here as a check), and both
+      ways on a 61x83 frame whose level 2 (16x21) is smaller than the
+      window, with the VO's own origins there; K2's times at the VO's
+      shape; the iterations K4's points run up to the one that freezes
+      them (the plain version's count: the largest, the mean and the
+      histogram) on path 1's, the VO's and the batch's arguments.
    e. K9 v1 (level_align_fused) and v2 (level_align_fused_v2, which
       builds and factors H0 itself) against their plain versions (pose,
       chi2 and H: v2's H0) on the three per-level launches that frame 12
@@ -126,6 +132,7 @@ or the package is not beside it.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -175,6 +182,8 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
                  ("track_fused", "track_fused_kernel"),
                  ("align2d_fused", "align2d_fused_kernel"),
                  ("gather_windows", "gather_windows_grouped_kernel"),
+                 ("gather_windows", "gather_windows_multi_kernel"),
+                 ("gather_windows", "gather_windows_multi_tma_kernel"),
                  ("hamming", "hamming_mma_kernel"))
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
             "track_fused_kernel", "level_align_v1_kernel", "level_align_v2_kernel",
@@ -224,6 +233,27 @@ def _time_host(torch, fn, reps=PLAIN_REPS):
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+def _profile_us(torch, fn, sym, n=30):
+    """Device µs per launch of the kernels whose name holds `sym`, in a
+    torch.profiler window over n calls of fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = []
+    for e in prof.key_averages():
+        if sym in e.key and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dt = getattr(e, "self_device_time_total", None)
+            hits.append((getattr(e, "self_cuda_time_total", 0.0) if dt is None else dt, e.count))
+    if not hits or not sum(h[1] for h in hits):
+        raise AssertionError(f"the profiler saw no {sym}")
+    return sum(h[0] for h in hits) / sum(h[1] for h in hits)
 
 
 def _k5_links(normal_eqs, rounds=4):
@@ -615,15 +645,111 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with its plain version")
         return err
 
+    def k2_extent(imgs):
+        """The (H, W) that bounds K2's images: the stack's, or the table's
+        level 0 (the largest level of a pyramid)."""
+        return tuple(imgs.shape[1:]) if isinstance(imgs, torch.Tensor) else tuple(imgs[0].shape)
+
+    def k2_stack(levels):
+        """The zero-padded [levels, H, W] stack of a pyramid: the formulation
+        K2's table replaced on the VO path, built here as a check only."""
+        H, W = levels[0].shape
+        stack = torch.zeros((len(levels), H, W), dtype=torch.float32, device=dev)
+        for l, img in enumerate(levels):
+            stack[l, :img.shape[0], :img.shape[1]] = img
+        return stack
+
     def check_k2(a2, tag):
         imgs, idx, ox, oy, win = a2
-        H, W = imgs.shape[1:]
+        H, W = k2_extent(imgs)
         e = check_exact("K2 gather_windows_multi", [k1.gather_windows_multi(*a2)],
                         [k1.gather_windows_multi_plain(*a2)], tag)
         off = (imgs, idx, *off_image(ox, oy, H, W, win), win)
         check_exact("K2 gather_windows_multi", [k1.gather_windows_multi(*off)],
                     [k1.gather_windows_multi_plain(*off)], tag + ", origins off the image")
         return e
+
+    def k2_times(a2, tag):
+        """K2's CUDA-event ms, profiler µs per launch, plain and library ms
+        and bound on K2's arguments a2.  Library: one unfold-and-index on
+        the stack (for a table, on its zero-padded stack, built beforehand
+        and left out of its time)."""
+        imgs, idx, ox, oy, win = a2
+        stack = imgs if isinstance(imgs, torch.Tensor) else k2_stack(imgs)
+        lib = (stack, idx.long(), oy.long(), ox.long())
+        n = idx.shape[0]
+        r = dict(ms=_time_kernel(torch, lambda: k1.gather_windows_multi(*a2)),
+                 us=_profile_us(torch, lambda: k1.gather_windows_multi(*a2),
+                                "gather_windows_multi_kernel"),
+                 plain=_time_host(torch, lambda: k1.gather_windows_multi_plain(*a2)),
+                 lib=_time_kernel(torch, lambda: lib[0].unfold(1, win, 1).unfold(2, win, 1)
+                                  [lib[1], lib[2], lib[3]]),
+                 bound=_bound(n * (2 * win * win * 4 + 12), 0.0))
+        print(f"K2 {tag}, {n} windows of {win}^2: kernel {r['ms']:.4f} ms, profiler "
+              f"{r['us']:.2f} us per launch, plain {r['plain']:.4f} ms, library {r['lib']:.4f} "
+              f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+        return r
+
+    def k2_form_b(a2, in_flight):
+        """Form B of K2 (the sweep's): a TMA load per window, of the box of
+        win + 4 columns from the window's 16-byte-aligned column, on a
+        tensor map per image (encoded on every call); the window's warp
+        stores it from shared memory."""
+        imgs, idx, ox, oy, win = a2
+        stacked = isinstance(imgs, torch.Tensor)
+        table = [imgs] if stacked else list(imgs)
+        descs = (k1._LevelImage * len(table))(
+            *(k1._LevelImage(im.data_ptr(), *im.shape[-2:]) for im in table))
+        out = torch.empty((idx.shape[0], win, win), dtype=torch.float32, device=dev)
+        kernels.launch("gather_windows", "gather_windows_multi_tma_launch",
+                       [kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
+                        kernels.I, kernels.I, kernels.P, kernels.I, kernels.P],
+                       ctypes.addressof(descs), imgs.shape[0] if stacked else len(imgs),
+                       int(stacked), idx.data_ptr(), ox.data_ptr(), oy.data_ptr(),
+                       idx.shape[0], win, out.data_ptr(), in_flight, kernels.stream(dev))
+        return out
+
+    def host_us(fn, n=100):
+        """Host µs per call of fn() (its enqueue), over n calls."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    def k2_sweep(*shapes):
+        """K2's forms at the three shapes (S=8, S=16, VO frame 10), in
+        turns: A (a warp per window), B with 2, 4 and 8 windows in flight
+        per block; each B checked against A bit for bit first."""
+        names = ("S=8", f"S={S_BIG}", "VO frame 10")
+        forms = [("A", lambda a2: k1.gather_windows_multi(*a2), "gather_windows_multi_kernel")]
+        forms += [(f"B{f}", lambda a2, f=f: k2_form_b(a2, f), "gather_windows_multi_tma_kernel")
+                  for f in (2, 4, 8)]
+        for name, a2 in zip(names, shapes):
+            for off in (False, True):
+                a = a2 if not off else (a2[0], a2[1],
+                                        *off_image(a2[2], a2[3], *k2_extent(a2[0]), a2[4]),
+                                        a2[4])
+                ref = k1.gather_windows_multi(*a)
+                for form, fn, _ in forms[1:]:
+                    if not torch.equal(fn(a), ref):
+                        raise AssertionError(f"K2 form {form} differs from form A at {name}"
+                                             f"{', origins off the image' if off else ''}")
+            print(f"K2 sweep {name}: forms B2, B4, B8 equal form A bit for bit (and with "
+                  f"origins off the image)", flush=True)
+        for rnd in range(2):
+            for name, a2 in zip(names, shapes):
+                cells = []
+                for form, fn, sym in (forms if rnd == 0 else forms[::-1]):
+                    ms = _time_kernel(torch, lambda: fn(a2))
+                    us = _profile_us(torch, lambda: fn(a2), sym)
+                    cells.append(f"{form} {ms * 1e3:.2f} / {us:.2f} / "
+                                 f"{host_us(lambda: fn(a2)):.2f}")
+                print(f"K2 sweep round {rnd + 1}, {name} (CUDA-event us / profiler us / host us "
+                      f"per call): " + "; ".join(cells), flush=True)
 
     def check_k6(g6, a2, tag):
         """K6 on the batched frame's request list (every sequence's levels),
@@ -682,13 +808,7 @@ def main() -> int:
     e8, st8 = check_k8(a8, tag)
 
     Nb = S_BATCH * N
-    k2_ms = _time_kernel(torch, lambda: k1.gather_windows_multi(*a2))
-    k2_plain = _time_host(torch, lambda: k1.gather_windows_multi_plain(*a2))
-    lib2 = (a2[0], a2[1].long(), a2[3].long(), a2[2].long(), a2[4])
-    k2_lib = _time_kernel(torch, lambda: lib2[0].unfold(1, lib2[4], 1).unfold(2, lib2[4], 1)
-                          [lib2[1], lib2[2], lib2[3]])
-    report["K2"] = dict(ms=k2_ms, plain=k2_plain, lib=k2_lib, err=e2,
-                        bound=_bound(Nb * (2 * 32 * 32 * 4 + 12), 0.0))
+    report["K2"] = dict(k2_times(a2, tag), err=e2)
     def k6_times(g6, S):
         """K6 per batched frame (one launch of all S x L requests), the S
         launches of L requests each that the path made before, and the
@@ -737,10 +857,10 @@ def main() -> int:
     k6_times(g6_16, S_BIG)
     check_k2(a2_16, tag16)
     check_k8(a8_16, tag16)
-    print(f"S={S_BIG}: K2 {_time_kernel(torch, lambda: k1.gather_windows_multi(*a2_16)):.4f} ms "
-          f"over {S_BIG * N} windows, K8 {_time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8_16)):.4f} "
-          f"ms", flush=True)
-    del frames16, bst16, g6_16, a2_16, a8_16
+    k2_times(a2_16, tag16)
+    print(f"S={S_BIG}: K8 {_time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8_16)):.4f} ms",
+          flush=True)
+    del frames16, bst16, g6_16, a8_16
 
     # -- 2c. K10 versus its plain version ------------------------------------
     t0 = time.perf_counter()
@@ -877,7 +997,31 @@ def main() -> int:
              f"this one's")
     _, st3v = check_k3(a3v, tagv)
     tagv = f"VO frame 10, N={a2v[1].shape[0]} ({int(a5v[2].sum())} matched)"
-    check_k2(a2v, tagv + f", {a2v[0].shape[0]}-level stack")
+    check_k2(a2v, tagv + f", a table of the {len(a2v[0])} levels")
+    # The table route against the stack formulation it replaced, on the
+    # recorded arguments, and both ways on a frame whose coarsest level is
+    # smaller than the window (61x83: level 2 is 16x21), with the VO's own
+    # origins there (negative on level 2) and origins off the image.
+    if not torch.equal(k1.gather_windows_multi(*a2v),
+                       k1.gather_windows_multi(k2_stack(a2v[0]), *a2v[1:])):
+        raise AssertionError("K2 on the VO's levels differs from K2 on their stack")
+    print(f"K2 {tagv}: the table of levels equals the zero-padded stack, bit for bit",
+          flush=True)
+    tiny = pyramid.build_pyramid(torch.rand((61, 83), generator=gen, device=dev) * 255, L)
+    n_t = 512
+    lvl_t = torch.randint(0, L, (n_t,), generator=gen, device=dev, dtype=torch.int32)
+    sc_t = 2.0 ** lvl_t.float()
+    c_t = torch.stack([torch.rand(n_t, generator=gen, device=dev) * 93 - 5,
+                       torch.rand(n_t, generator=gen, device=dev) * 71 - 5], dim=1) / sc_t[:, None]
+    ox_t, oy_t = k4.a2d_window_origins(c_t, 61 / sc_t, 83 / sc_t)
+    a2t = (tuple(tiny), lvl_t, ox_t, oy_t, k1.CACHE_WIN)
+    tag_t = (f"a 61x83 frame, levels {[tuple(t.shape) for t in tiny]}, {n_t} windows with the "
+             f"VO's origins ({int((ox_t < 0).sum())} negative)")
+    check_k2(a2t, tag_t + ", table")
+    check_k2((k2_stack(tiny), *a2t[1:]), tag_t + ", stack")
+    if not torch.equal(k1.gather_windows_multi(*a2t),
+                       k1.gather_windows_multi(k2_stack(tiny), *a2t[1:])):
+        raise AssertionError("K2 on a 61x83 frame's levels differs from K2 on their stack")
     # Substituted inits (PATCH + 2, PATCH + 2) are the out-of-bounds ones,
     # which `align2d` never accepts; every other init is the path's center.
     xy0v = a4v[7]
@@ -897,7 +1041,7 @@ def main() -> int:
           f"{k3.CWIN}^2, {n_sel} windows each) kernel {k1v_ms:.4f} ms, plain {k1v_plain:.4f} ms, "
           f"bound {k1v_bound[0]:.6f} ms ({k1v_bound[1]}); K3 {k3v_ms:.4f} ms "
           f"({sum(st3v['passes'])} passes, {k3v_ms * 1e3 / sum(st3v['passes']):.2f} us per link), "
-          f"K2 {_time_kernel(torch, lambda: k1.gather_windows_multi(*a2v)):.4f} ms, K4 "
+          f"K4 "
           f"{_time_kernel(torch, lambda: k4.a2d_gn(*a4v)):.4f} ms, K5 {k5v_ms:.4f} ms "
           f"({_k5_links(st5v['normal_eqs'])} reductions, "
           f"{k5v_ms * 1e3 / _k5_links(st5v['normal_eqs']):.2f} us per link)", flush=True)
@@ -913,7 +1057,9 @@ def main() -> int:
               f"(10: froze at the last or never), largest "
               f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
               f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
-    del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v
+    k2_times(a2v, "VO frame 10, a table of 3 levels")
+    k2_sweep(a2, a2_16, a2v)
+    del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v, a2_16
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
     # The monocular System from raw frames, initialised and tracked to frame

@@ -2,7 +2,11 @@
 inputs the main paths do not give them: K1 with origins outside the
 image, on one image and over a pyramid of one and three levels (windows
 7, 16 and 32, 1 to 512 points, every windows-per-block setting; nine
-levels refused), K2 with an image index past its stack, K5 with planted outliers
+levels refused), K2 on a stack (40 images: no cap) and on a table of a
+pyramid's levels (windows 7 and 32, origins off the image, a 61x83
+pyramid whose level 2 is smaller than the window; the table equal to the
+levels' zero-padded stack; nine images refused) and with an image index
+past its stack or its table, K5 with planted outliers
 and masked points, K6 with 8, 24 and 48 requests and on a batched frame's
 windows at 8, 16 and 22 sequences (one launch, one, two), K8 with one
 sequence fully masked beside normal ones, K10 with an empty side, with one
@@ -315,6 +319,101 @@ def test_gather_windows_multi_bad_index_stops(cuda_device):
         "import torch\n"
         "from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k\n"
         "imgs = torch.zeros(2, 64, 64, device='cuda')\n"
+        "o = torch.zeros(3, dtype=torch.int32, device='cuda')\n"
+        "idx = torch.tensor([0, 1, 2], dtype=torch.int32, device='cuda')\n"
+        "k.gather_windows_multi(imgs, idx, o, o, 16)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "no error" not in r.stdout, (r.stdout, r.stderr)
+    assert "device-side assert" in r.stderr, r.stderr[-2000:]
+
+
+def _k2_problem(dev, way, case, win, n, seed):
+    """K2's arguments: the levels of a 480x640 pyramid (case "inside" or
+    "off_image": a third of the origins off the image) or of a 61x83 one
+    ("tiny": level 2 is 16x21, smaller than the 32-px window, with origins
+    past each level's own edge and off the image), named as a table or as
+    their zero-padded stack."""
+    from ygz_slam_tpu_torch.ops import pyramid
+
+    rng = np.random.default_rng(seed)
+    shape = (61, 83) if case == "tiny" else (480, 640)
+    levels = pyramid.build_pyramid(
+        torch.tensor(rng.uniform(0, 255, shape), dtype=torch.float32, device=dev), 3)
+    H, W = shape
+    idx = rng.integers(0, 3, n)
+    hl = np.array([lv.shape[0] for lv in levels])[idx]
+    wl = np.array([lv.shape[1] for lv in levels])[idx]
+    x = (rng.uniform(0, 1, n) * np.maximum(wl - win + 1, 1)).astype(int)
+    y = (rng.uniform(0, 1, n) * np.maximum(hl - win + 1, 1)).astype(int)
+    if case != "inside":
+        k = max(1, n // 3)
+        x[:k], y[:k] = rng.integers(-40, W + 11, k), rng.integers(-40, H + 11, k)
+    if case == "tiny":
+        x[-k:], y[-k:] = wl[-k:] - win + 1 + rng.integers(0, 20, k), rng.integers(-5, H, k)
+    imgs = tuple(levels)
+    if way == "stack":
+        stack = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
+        for l, img in enumerate(levels):
+            stack[l, :img.shape[0], :img.shape[1]] = img
+        imgs = stack
+    return (imgs, *(torch.tensor(v, dtype=torch.int32, device=dev) for v in (idx, x, y)), win)
+
+
+@pytest.mark.parametrize("case", ["inside", "off_image", "tiny"])
+@pytest.mark.parametrize("win", [7, 32])
+@pytest.mark.parametrize("way", ["stack", "table"])
+def test_gather_windows_multi_both_ways(cuda_device, way, win, case):
+    """K2 on a uniform stack and on a table of images of their own shapes
+    against its plain version bit for bit (windows 7: scalar stores, 32:
+    float4 stores), with origins off the image and, on a 61x83 pyramid, a
+    level smaller than the window; one launch per call."""
+    a2 = _k2_problem(cuda_device, way, case, win, 512, 60 + win)
+    n0 = tk1.gather_windows_multi.launches
+    out = tk1.gather_windows_multi(*a2)
+    assert tk1.gather_windows_multi.launches == n0 + 1
+    assert torch.equal(out, tk1.gather_windows_multi_plain(*a2))
+
+
+@pytest.mark.parametrize("case", ["inside", "tiny"])
+@pytest.mark.parametrize("n", [1, 512, 3000])
+def test_gather_windows_multi_table_equals_stack(cuda_device, n, case):
+    """K2 on a pyramid's levels, read in place, gives K2's windows on their
+    zero-padded stack bit for bit (the VO's route against the one it
+    replaced)."""
+    table = _k2_problem(cuda_device, "table", case, 32, n, 70)
+    stack = _k2_problem(cuda_device, "stack", case, 32, n, 70)
+    assert torch.equal(tk1.gather_windows_multi(*table), tk1.gather_windows_multi(*stack))
+
+
+def test_gather_windows_multi_stack_has_no_cap(cuda_device):
+    """The stack way takes any number of images (40 here, five times the
+    table's cap)."""
+    rng = np.random.default_rng(71)
+    imgs = torch.tensor(rng.uniform(0, 255, (40, 64, 96)), dtype=torch.float32,
+                        device=cuda_device)
+    idx, x, y = rng.integers(0, 40, 400), rng.integers(-10, 80, 400), rng.integers(-10, 50, 400)
+    a2 = (imgs, *(torch.tensor(v, dtype=torch.int32, device=cuda_device) for v in (idx, x, y)),
+          32)
+    assert torch.equal(tk1.gather_windows_multi(*a2), tk1.gather_windows_multi_plain(*a2))
+
+
+def test_gather_windows_multi_table_refuses_nine_images(cuda_device):
+    img = torch.zeros((64, 64), device=cuda_device)
+    o = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="table"):
+        tk1.gather_windows_multi((img,) * 9, o, o, o, 16)
+
+
+def test_gather_windows_multi_table_bad_index_stops(cuda_device):
+    """K2 given an image index past its table stops on its device-side
+    assert, in a child process (see the stack's test above)."""
+    code = (
+        "import torch\n"
+        "from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k\n"
+        "imgs = (torch.zeros(64, 64, device='cuda'), torch.zeros(32, 32, device='cuda'))\n"
         "o = torch.zeros(3, dtype=torch.int32, device='cuda')\n"
         "idx = torch.tensor([0, 1, 2], dtype=torch.int32, device='cuda')\n"
         "k.gather_windows_multi(imgs, idx, o, o, 16)\n"

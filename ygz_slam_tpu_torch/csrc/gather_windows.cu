@@ -4,7 +4,8 @@
 //   K1 gather_windows          one [H, W] image, N windows; here also the L
 //                              levels of one pyramid, N windows each, in
 //                              one launch (gather_windows_levels);
-//   K2 gather_windows_multi    an [S, H, W] stack, an image index per window;
+//   K2 gather_windows_multi    an [S, H, W] stack (here also a table of images
+//                              of their own shapes), an image index per window;
 //   K6 gather_windows_grouped  up to kMaxGroups requests (image, origins,
 //                              window size) with different images and sizes,
 //                              in one launch.
@@ -15,24 +16,25 @@
 // window read is an ordinary indexed load.
 //
 // Bound: bytes.  Each window is read once and written once (K2 on the
-// batch path: 1600 windows of 32x32, 6.6 MB each way), so the byte bound
-// is a few microseconds.  K1's and K6's launches are smaller still (a
-// frame's three levels of 200 16x16 windows: 0.6 MB each way, ~0.2 us at
-// 3.35 TB/s; the batch path's 8 sequences: ~2.9 us), so what such a launch
-// costs is the launch itself, the ramp of its grid and one dependent chain
-// (origin, pixel, store).  Their design for this card:
-//   - one launch for every level of a pyramid (K1), and for every level of
+// batch path: 1600 windows of 32x32, 6.6 MB each way, a ~3.9 us byte bound;
+// on the VO path 512 windows, ~1.25 us).  K1's and K6's launches are
+// smaller still (a frame's three levels of 200 16x16 windows: 0.6 MB each
+// way, ~0.2 us at 3.35 TB/s; the batch path's 8 sequences: ~2.9 us), so
+// what such a launch costs is the launch itself, the ramp of its grid and
+// one dependent chain (origin, pixel, store).  Their design for this card:
+//   - one launch for every level of a pyramid (K1), for every level of
 //     every sequence of a batched frame (K6: up to kMaxGroups requests, the
 //     images, shapes and origins by value in a __grid_constant__ struct),
-//     where a frame took one launch per level or per sequence;
+//     and for every window of a frame whatever its image (K2), where a
+//     frame took one launch per level or per sequence;
 //   - a warp per window, kWindowsPerBlock windows per block, so a frame's
-//     windows are a few hundred blocks; each warp reads its (level or
-//     request, origin) once (1 to 4 windows per block time alike on the
-//     H100, 8 to 32 slower: PERF.md); a K6 warp finds its request by a
-//     binary search over the requests' first windows;
-//   - the warp's lanes across a window row (`warp_window`, the body K1 and
-//     K6 share), so each row is one coalesced read and write, with no
-//     division per pixel: where win % 4 == 0 and the output is 16-byte
+//     windows are a few hundred blocks; each warp reads its (image,
+//     origin) once (1 to 4 windows per block time alike on the H100, 8 to
+//     32 slower: PERF.md); a K6 warp finds its request by a binary search
+//     over the requests' first windows;
+//   - the warp's lanes across a window row (`warp_window`, the one body of
+//     all three gathers), so each row is one coalesced read and write, with
+//     no division per pixel: where win % 4 == 0 and the output is 16-byte
 //     aligned each lane copies 4 pixels of a row and stores them as one
 //     128-bit store (the source rows are not aligned); K6 decides this per
 //     request, so alike for every lane of a warp;
@@ -40,51 +42,25 @@
 //     rows) before its first store, so they wait on one memory latency,
 //     not one per step;
 //   - zero fill outside the image, as before.
-// K2 keeps one block per window, threads over its pixels (`copy_window`).
+// K2 names its images in one of two ways, with one kernel body: a uniform
+// [S, H, W] stack (base pointer and shape, any S: the batch path's
+// sequences), or a table of up to kMaxLevels images of their own shapes
+// passed by value (the VO's pyramid levels, read in place: the window of
+// the zero-padded level is the window of the zero-padded stack that the
+// TPU kernel needed, bit for bit, so no stack is built).
 #include <cassert>
+#include <cstdint>
+#include <cstring>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxGroups = 64;     // ops/kernels/align2d_kernel.py MAX_GROUPS
 
-// K2's body: the block's threads copy the [win, win] window of the
-// zero-padded [H, W] image at origin (x0, y0) into dst.
-__device__ __forceinline__ void copy_window(const float* __restrict__ img, int H, int W,
-                                            int x0, int y0, int win,
-                                            float* __restrict__ dst) {
-  for (int k = threadIdx.x; k < win * win; k += blockDim.x) {
-    const int r = k / win;
-    const int c = k - r * win;
-    const int y = y0 + r;
-    const int x = x0 + c;
-    dst[k] = (y >= 0 && y < H && x >= 0 && x < W) ? img[(size_t)y * W + x] : 0.f;
-  }
-}
-
-int threads_for(int win) {
-  const int pix = win * win;
-  return pix >= 256 ? 256 : ((pix + 31) / 32) * 32;
-}
-
-// An image index outside [0, S) names no image of the stack: the kernel
-// stops on a device-side assert (the caller's next synchronisation raises)
-// instead of reading past the stack.  The plain version raises IndexError.
-__global__ void gather_windows_multi_kernel(const float* __restrict__ imgs, int S, int H,
-                                            int W, const int* __restrict__ img_idx,
-                                            const int* __restrict__ ox,
-                                            const int* __restrict__ oy, int win,
-                                            float* __restrict__ out) {
-  const int n = blockIdx.x;
-  const int s = img_idx[n];
-  assert(s >= 0 && s < S);
-  if (s < 0 || s >= S) return;
-  copy_window(imgs + (size_t)s * H * W, H, W, ox[n], oy[n], win, out + (size_t)n * win * win);
-}
-
-// One window's copy by one warp, the body K1 and K6 share: the [win, win]
+// One window's copy by one warp, the body of K1, K2 and K6: the [win, win]
 // window of the zero-padded [H, W] image at origin (x0, y0) into dst.
 // kVec: win % 4 == 0 and dst 16-byte aligned, each lane copies 4 pixels of
 // a row into one float4.  A row is `units` lane units (a pixel, or 4
@@ -134,6 +110,10 @@ __device__ __forceinline__ void warp_window(const float* __restrict__ img, int H
   }
 }
 
+__host__ __device__ inline bool vectorised(int win, const float* out) {
+  return win % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
+}
+
 }  // namespace
 
 // One K6 request.  The layout is mirrored by a ctypes.Structure in
@@ -173,7 +153,7 @@ gather_windows_grouped_kernel(const __grid_constant__ GroupedArgs a) {
   const GatherGroup& q = a.g[lo];
   const int n = w - a.start[lo];
   float* dst = q.out + (size_t)n * q.win * q.win;
-  if (q.win % 4 == 0 && reinterpret_cast<size_t>(q.out) % 16 == 0)
+  if (vectorised(q.win, q.out))
     warp_window<true>(q.img, q.H, q.W, q.ox[n], q.oy[n], q.win, dst, lane);
   else
     warp_window<false>(q.img, q.H, q.W, q.ox[n], q.oy[n], q.win, dst, lane);
@@ -181,8 +161,9 @@ gather_windows_grouped_kernel(const __grid_constant__ GroupedArgs a) {
 
 }  // namespace
 
-// One level of a K1 launch.  The layout is mirrored by a ctypes.Structure
-// in ops/kernels/align2d_kernel.py: a pointer, then two ints.
+// One image of a K1 launch or of K2's table.  The layout is mirrored by a
+// ctypes.Structure in ops/kernels/align2d_kernel.py: a pointer, then two
+// ints.
 struct LevelImage {
   const float* img;
   int H, W;
@@ -190,12 +171,33 @@ struct LevelImage {
 
 namespace {
 
-constexpr int kMaxLevels = 8;
+constexpr int kMaxLevels = 8;      // ops/kernels/align2d_kernel.py MAX_LEVELS
 
+// K1's levels, and K2's table of images of their own shapes.
 struct LevelsArgs {
   LevelImage lv[kMaxLevels];
   int L;
+  __device__ int count() const { return L; }
+  __device__ LevelImage at(int s) const { return lv[s]; }
 };
+
+// K2's uniform stack: S images of H x W, one after another from `base`.
+struct StackArgs {
+  const float* base;
+  int S, H, W;
+  __device__ int count() const { return S; }
+  __device__ LevelImage at(int s) const {
+    return LevelImage{base + (size_t)s * H * W, H, W};
+  }
+};
+
+LevelsArgs levels_args(const LevelImage* levels, int L) {
+  LevelsArgs a;
+  a.L = L;
+  for (int l = 0; l < L; ++l) a.lv[l] = levels[l];
+  for (int l = L; l < kMaxLevels; ++l) a.lv[l] = LevelImage{nullptr, 0, 0};
+  return a;
+}
 
 // Window g of a K1 launch (level g / N, point g % N) is written by warp g.
 template <bool kVec>
@@ -210,6 +212,159 @@ gather_levels_kernel(const __grid_constant__ LevelsArgs a,
                     threadIdx.x & 31);
 }
 
+// Window n of a K2 launch is written by warp n, from image img_idx[n] of
+// the stack or the table.  An index outside [0, count) names no image: the
+// kernel stops on a device-side assert (the caller's next synchronisation
+// raises) instead of reading past the images.  The plain version raises
+// IndexError.
+template <bool kVec, class Images>
+__global__ void __launch_bounds__(32 * kWindowsPerBlock)
+gather_windows_multi_kernel(const __grid_constant__ Images im, const int* __restrict__ img_idx,
+                            const int* __restrict__ ox, const int* __restrict__ oy, int N,
+                            int win, float* __restrict__ out) {
+  const int n = blockIdx.x * kWindowsPerBlock + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int s = img_idx[n];
+  assert(s >= 0 && s < im.count());
+  if (s < 0 || s >= im.count()) return;
+  const LevelImage q = im.at(s);
+  warp_window<kVec>(q.img, q.H, q.W, ox[n], oy[n], win, out + (size_t)n * win * win,
+                    threadIdx.x & 31);
+}
+
+template <class Images>
+int launch_multi(const Images& im, const int* img_idx, const int* ox, const int* oy, int N,
+                 int win, float* out, cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const int blocks = (N + kWindowsPerBlock - 1) / kWindowsPerBlock;
+  if (vectorised(win, out))
+    gather_windows_multi_kernel<true, Images><<<blocks, 32 * kWindowsPerBlock, 0, stream>>>(
+        im, img_idx, ox, oy, N, win, out);
+  else
+    gather_windows_multi_kernel<false, Images><<<blocks, 32 * kWindowsPerBlock, 0, stream>>>(
+        im, img_idx, ox, oy, N, win, out);
+  return (int)cudaGetLastError();
+}
+
+// ---- Form B of K2 (sweep): a TMA load per window, a warp's copy out. ----
+// Each image is a 3-D tensor map (W, H, depth) whose out-of-bounds boxes
+// fill with zeros.  A TMA box must start on a 16-byte boundary of its
+// inner dimension (a box at x0 % 4 != 0 stops on an illegal instruction on
+// the H100), so a warp's lane 0 loads the box of win + 4 columns from
+// x0 & ~3 into the warp's slot of shared memory on an mbarrier, and the
+// warp stores the window from column x0 - (x0 & ~3) of it, a float4 per
+// lane as in `warp_window`.  kInFlight warps (windows) per block.
+constexpr int kTmaMaps = 3;        // form B takes a table of up to 3 images
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+bool encode_map(CUtensorMap* m, const float* base, int H, int W, int depth, int win) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)H * W * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)win + 4, (cuuint32_t)win, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Each tensor map is a kernel parameter of its own; stacked: m0 is the
+// whole [S, H, W] stack, S = count.
+template <int kInFlight>
+__global__ void __launch_bounds__(32 * kInFlight)
+gather_windows_multi_tma_kernel(const __grid_constant__ CUtensorMap m0,
+                                const __grid_constant__ CUtensorMap m1,
+                                const __grid_constant__ CUtensorMap m2, int count, int stacked,
+                                const int* __restrict__ img_idx, const int* __restrict__ ox,
+                                const int* __restrict__ oy, int N, int win,
+                                float* __restrict__ out) {
+  extern __shared__ unsigned char raw[];      // a slot per warp + 128 B of slack
+  __shared__ __align__(8) uint64_t bar[kInFlight];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kInFlight + warp;
+  if (n >= N) return;
+  const int s = img_idx[n];
+  assert(s >= 0 && s < count);
+  if (s < 0 || s >= count) return;
+  const int bw = win + 4;                     // box columns
+  // A TMA destination starts on a 128-byte boundary.
+  float* slot = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(raw) + 127) &
+                                         ~uintptr_t(127)) + (size_t)warp * bw * win;
+  const uint32_t b = smem_addr(&bar[warp]);
+  const int x0 = ox[n], y0 = oy[n];
+  const int xa = x0 & ~3;
+  if (lane == 0) {
+    const CUtensorMap* m = stacked || s == 0 ? &m0 : s == 1 ? &m1 : &m2;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+                 "r"((uint32_t)(bw * win * 4))
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(slot)),
+        "l"(reinterpret_cast<uint64_t>(m)), "r"(xa), "r"(y0), "r"(stacked ? s : 0), "r"(b)
+        : "memory");
+  }
+  __syncwarp();
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+  const float* src = slot + (x0 - xa);
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * win * win);
+  const int units = win >> 2;                 // float4 per row (win % 4 == 0)
+  const int rows = units <= 32 ? 32 / units : 1;
+  const int dr = units <= 32 ? lane / units : 0;
+  if (dr >= rows) return;
+  const int c0 = lane - dr * (units <= 32 ? units : 0);
+  const int cstep = units <= 32 ? units : 32;
+  for (int c = c0; c < units; c += cstep)
+    for (int r = dr; r < win; r += rows) {
+      const float* q = src + r * bw + 4 * c;
+      dst[(size_t)r * units + c] = make_float4(q[0], q[1], q[2], q[3]);
+    }
+}
+
+template <int kInFlight>
+int launch_tma(const CUtensorMap* m, int count, int stacked, const int* img_idx, const int* ox,
+               const int* oy, int N, int win, float* out, cudaStream_t stream) {
+  const int blocks = (N + kInFlight - 1) / kInFlight;
+  const size_t smem = (size_t)kInFlight * (win + 4) * win * sizeof(float) + 128;
+  gather_windows_multi_tma_kernel<kInFlight><<<blocks, 32 * kInFlight, smem, stream>>>(
+      m[0], m[1], m[2], count, stacked, img_idx, ox, oy, N, win, out);
+  return (int)cudaGetLastError();
+}
+
+bool tma_image_ok(const float* img, int W) {
+  return reinterpret_cast<size_t>(img) % 16 == 0 && W % 4 == 0;
+}
+
 }  // namespace
 
 // K1: the [L, N, win, win] windows of L images (levels[l], origins ox / oy
@@ -219,13 +374,9 @@ extern "C" int gather_windows_levels_launch(const LevelImage* levels, int L, con
                                             cudaStream_t stream) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  LevelsArgs a;
-  a.L = L;
-  for (int l = 0; l < L; ++l) a.lv[l] = levels[l];
-  for (int l = L; l < kMaxLevels; ++l) a.lv[l] = LevelImage{nullptr, 0, 0};
+  const LevelsArgs a = levels_args(levels, L);
   const int blocks = (L * N + kWindowsPerBlock - 1) / kWindowsPerBlock;
-  const bool vec = win % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
-  if (vec)
+  if (vectorised(win, out))
     gather_levels_kernel<true><<<blocks, 32 * kWindowsPerBlock, 0, stream>>>(a, ox, oy, N, win,
                                                                            out);
   else
@@ -234,13 +385,48 @@ extern "C" int gather_windows_levels_launch(const LevelImage* levels, int L, con
   return (int)cudaGetLastError();
 }
 
+// K2 over a uniform [S, H, W] stack: window n of image img_idx[n].
 extern "C" int gather_windows_multi_launch(const float* imgs, int S, int H, int W,
                                            const int* img_idx, const int* ox, const int* oy,
                                            int N, int win, float* out, cudaStream_t stream) {
+  return launch_multi(StackArgs{imgs, S, H, W}, img_idx, ox, oy, N, win, out, stream);
+}
+
+// K2 over a table of L (1..kMaxLevels) images of their own shapes.
+extern "C" int gather_windows_multi_levels_launch(const LevelImage* levels, int L,
+                                                  const int* img_idx, const int* ox,
+                                                  const int* oy, int N, int win, float* out,
+                                                  cudaStream_t stream) {
+  if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
+  return launch_multi(levels_args(levels, L), img_idx, ox, oy, N, win, out, stream);
+}
+
+// Form B of K2 (sweep): `levels` holds the stack's one image (stacked, its
+// H and W, S images deep) or the table's L (<= 3) images.  in_flight
+// windows (warps) per block: 2, 4 or 8.
+extern "C" int gather_windows_multi_tma_launch(const LevelImage* levels, int count, int stacked,
+                                               const int* img_idx, const int* ox, const int* oy,
+                                               int N, int win, float* out, int in_flight,
+                                               cudaStream_t stream) {
   if (N <= 0) return 0;
-  gather_windows_multi_kernel<<<N, threads_for(win), 0, stream>>>(imgs, S, H, W, img_idx, ox,
-                                                                  oy, win, out);
-  return (int)cudaGetLastError();
+  if (count < 1 || (!stacked && count > kTmaMaps) || win % 4 != 0 ||
+      win + 4 > 256 || reinterpret_cast<size_t>(out) % 16 != 0 ||
+      (size_t)in_flight * (win + 4) * win * 4 + 128 > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[kTmaMaps];
+  memset(m, 0, sizeof(m));
+  for (int l = 0; l < (stacked ? 1 : count); ++l) {
+    const LevelImage& q = levels[l];
+    if (!tma_image_ok(q.img, q.W) ||
+        !encode_map(&m[l], q.img, q.H, q.W, stacked ? count : 1, win))
+      return (int)cudaErrorInvalidValue;
+  }
+  switch (in_flight) {
+    case 2: return launch_tma<2>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
+    case 4: return launch_tma<4>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
+    case 8: return launch_tma<8>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K6: G requests (1..kMaxGroups), each request's [N, win, win] windows into

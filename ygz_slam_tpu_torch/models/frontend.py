@@ -12,9 +12,10 @@ ygz_slam_tpu/models/frontend.py).
   the keyframe images (GetWarpAffineMatrix + WarpAffine, Matcher.cpp:420-466)
 
 `track_local_map` has the kernel route only: the cache windows of all
-landmarks come from a zero-padded stack of the pyramid levels in one launch
-of K2 (the search level is the image index), then one launch of K4 and one
-of K5.  The JAX package's per-level fallback for other backends is not
+landmarks come from the pyramid's levels, read in place, in one launch of
+K2 (the search level is the image index), then one launch of K4 and one of
+K5.  The JAX package copies the levels into a zero-padded stack first,
+which only its TPU kernel needs; the windows are the same.  The JAX package's per-level fallback for other backends is not
 ported; off the card the kernels' plain versions run.
 """
 from __future__ import annotations
@@ -116,29 +117,20 @@ class TrackMapResult(NamedTuple):
     obs_px: torch.Tensor      # [L, 2] refined observation pixel
 
 
-def pyramid_stack(cur_pyr) -> torch.Tensor:
-    """[nL, H, W]: every level in the top-left corner of a zero image of
-    level 0's size, so one image index addresses a level."""
-    H, W = cur_pyr[0].shape
-    stack = torch.zeros((len(cur_pyr), H, W), dtype=cur_pyr[0].dtype, device=cur_pyr[0].device)
-    for lv, img in enumerate(cur_pyr):
-        stack[lv, : img.shape[0], : img.shape[1]] = img
-    return stack
-
-
 class LocalMapSearch(NamedTuple):
     """Where `track_local_map` searches each landmark."""
     in_frustum: torch.Tensor   # [L] valid, in front, inside its level's margins, patch ok
     lscale: torch.Tensor       # [L] 2 ** search level
     centers: torch.Tensor      # [L, 2] finite projections at the search level's scale
-    k2_args: tuple             # (pyramid stack, image index = search level, ox, oy, CACHE_WIN)
+    k2_args: tuple             # (pyramid levels, image index = search level, ox, oy, CACHE_WIN)
 
 
 def local_map_search(cur_pyr, cam, T_cw: SE3, pt_pos, pt_valid, patch_ok,
                      search_lvl: torch.Tensor) -> LocalMapSearch:
     """Project the landmarks at T_cw onto their search levels, with K2's
     arguments for their cache windows: origins clamped inside each point's
-    own level of the pyramid stack."""
+    search level (its size taken as level 0's over 2^level, as the JAX
+    package takes it), and the pyramid's levels as K2's table of images."""
     H, W = cur_pyr[0].shape
     pc = T_cw.apply(pt_pos)
     lscale = 2.0 ** search_lvl.to(pc.dtype)
@@ -152,7 +144,7 @@ def local_map_search(cur_pyr, cam, T_cw: SE3, pt_pos, pt_valid, patch_ok,
     return LocalMapSearch(
         in_frustum=pt_valid & (pc[:, 2] > 0.05) & inb_l & patch_ok, lscale=lscale,
         centers=centers,
-        k2_args=(pyramid_stack(cur_pyr), search_lvl.contiguous(), ox, oy, CACHE_WIN))
+        k2_args=(tuple(cur_pyr), search_lvl.contiguous(), ox, oy, CACHE_WIN))
 
 
 def track_local_map(cur_pyr, cam, T_cw_init: SE3, pt_pos, pt_valid, ref_patches, patch_ok,

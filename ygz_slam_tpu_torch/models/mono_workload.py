@@ -7,8 +7,10 @@ fx = fy = 640, cx = 320, cy = 240 (tests/test_vo.py's 240x320 camera,
 doubled).  Trajectory: tests/test_vo.py's smooth sideways and forward
 sweep with a small rotation, its parameter u advancing 1/64 per frame, so
 160 frames reach u = 2.48: about 2-3 px of image motion per frame, the
-plane filling the view throughout, and a keyframe every ~0.11 of u (about
-20 keyframes), so slots are evicted and keyframe culling runs.  Options:
+plane filling the view throughout, and a keyframe every ~0.11 of u (21
+keyframes).  Keyframe culling retires most of them (19 of the 21), which
+holds the active window at about 4 of the map's map_K=10 slots, so no slot
+is ever evicted: eviction needs a scene beyond one plane.  Options:
 tests/test_vo.py's keyframe gates on the port's configuration (no
 vocabulary, depth filter, archive or async mapping).
 """

@@ -9,10 +9,17 @@ not carried over.  Every gather returns the window of the zero-padded
 image at the requested origin, as the JAX kernels do: pixels outside the
 image are 0.  K1 also takes every level of a pyramid in one launch
 (`gather_windows_levels`); `gather_windows` is its one-level case, and
-`bilinear_patches` the one-level case of `bilinear_patches_levels`.  K1
-and K6 copy a window with one warp (the body they share); K6 takes up to
-MAX_GROUPS requests per launch, enough for every level of 21 sequences of
-three levels (the batch path's whole frame at S <= 21).
+`bilinear_patches` the one-level case of `bilinear_patches_levels`.  K1,
+K2 and K6 copy a window with one warp (the body they share); K6 takes up
+to MAX_GROUPS requests per launch, enough for every level of 21
+sequences of three levels (the batch path's whole frame at S <= 21).  K2
+names its images either as one [S, H, W] stack (the batch path's
+sequences; `bilinear_patches_multi`) or as a table of up to MAX_LEVELS
+images of their own shapes (the VO's pyramid levels, read in place).  The
+JAX package hands its kernel a zero-padded [levels, H, W] stack of the
+pyramid, because the TPU kernel keeps the whole stack in VMEM; a level's
+window of the zero-padded level is the same window bit for bit, so the
+port builds no stack.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ PATCH = 8
 CACHE_WIN = 32
 CACHE_SLACK = (CACHE_WIN - PATCH - 1) // 2  # 11 px
 MAX_GROUPS = 64         # K6 requests per launch (csrc/gather_windows.cu kMaxGroups)
-MAX_LEVELS = 8          # K1 levels per launch (csrc/gather_windows.cu)
+MAX_LEVELS = 8          # K1 levels per launch, K2 table images (csrc/gather_windows.cu)
 
 
 def _check_window(win: int, H: int, W: int) -> None:
@@ -65,16 +72,22 @@ class _LevelImage(ctypes.Structure):
     _fields_ = [("img", ctypes.c_void_p), ("H", ctypes.c_int), ("W", ctypes.c_int)]
 
 
-def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor) -> None:
-    """K1 on L = len(imgs) images and origins [L, N] into out [L, N, win, win]."""
-    dev = out.device
-    L, N = xi.shape
-    descs = (_LevelImage * L)()
+def _level_table(imgs, dev: torch.device):
+    """The `LevelImage` descriptors of float32 [H_l, W_l] images on `dev`."""
+    descs = (_LevelImage * len(imgs))()
     for l, img in enumerate(imgs):
         require(img, f"imgs[{l}]", torch.float32, tuple(img.shape), dev)
         if img.dim() != 2:
             raise ValueError(f"imgs[{l}]: expected an [H, W] image, got {tuple(img.shape)}")
         descs[l] = _LevelImage(img.data_ptr(), *img.shape)
+    return descs
+
+
+def _launch_levels(imgs, xi, yi, win: int, out: torch.Tensor) -> None:
+    """K1 on L = len(imgs) images and origins [L, N] into out [L, N, win, win]."""
+    dev = out.device
+    L, N = xi.shape
+    descs = _level_table(imgs, dev)
     require(xi, "xi", torch.int32, (L, N), dev)
     require(yi, "yi", torch.int32, (L, N), dev)
     launch("gather_windows", "gather_windows_levels_launch", [P, I, P, P, I, I, P, P],
@@ -136,39 +149,79 @@ def gather_windows_levels(imgs, xi: torch.Tensor, yi: torch.Tensor,
 gather_windows_levels.launches = 0
 
 
-def gather_windows_multi_plain(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Tensor,
+def _image_count(imgs) -> int:
+    """How many images K2's `imgs` names: S of an [S, H, W] stack, or the
+    table's length (1..MAX_LEVELS)."""
+    if isinstance(imgs, torch.Tensor):
+        if imgs.dim() != 3:
+            raise ValueError(f"imgs: expected an [S, H, W] stack, got {tuple(imgs.shape)}")
+        return imgs.shape[0]
+    if not 1 <= len(imgs) <= MAX_LEVELS:
+        raise ValueError(f"K2 takes a table of 1..{MAX_LEVELS} images, got {len(imgs)}")
+    return len(imgs)
+
+
+def gather_windows_multi_plain(imgs, img_idx: torch.Tensor, xi: torch.Tensor,
                                yi: torch.Tensor, win: int) -> torch.Tensor:
-    """Plain version of K2: [S, H, W] stack + image index and int origins
-    [N] -> [N, win, win] windows of the zero-padded images.  Raises
-    IndexError for an image index outside [0, S)."""
-    S, H, W = imgs.shape
-    if img_idx.numel() and not bool(((img_idx >= 0) & (img_idx < S)).all()):
-        raise IndexError(f"gather_windows_multi: an image index lies outside [0, {S})")
+    """Plain version of K2: an [S, H, W] stack, or a table of [H_l, W_l]
+    images, + image index and int origins [N] -> [N, win, win] windows of
+    the zero-padded images.  Raises IndexError for an image index that
+    names no image."""
+    count = _image_count(imgs)
+    if img_idx.numel() and not bool(((img_idx >= 0) & (img_idx < count)).all()):
+        raise IndexError(f"gather_windows_multi: an image index lies outside [0, {count})")
+    if not isinstance(imgs, torch.Tensor):
+        out = torch.zeros((xi.shape[0], win, win), dtype=imgs[0].dtype, device=xi.device)
+        for l, img in enumerate(imgs):
+            out = torch.where((img_idx == l)[:, None, None],
+                              gather_windows_plain(img, xi, yi, win), out)
+        return out
+    _, H, W = imgs.shape
     r, c, inside = _window_index(H, W, xi, yi, win)
     return torch.where(inside, imgs[img_idx.long()[:, None, None], r, c], 0.0)
 
 
-def gather_windows_multi(imgs: torch.Tensor, img_idx: torch.Tensor, xi: torch.Tensor,
-                         yi: torch.Tensor, win: int) -> torch.Tensor:
-    """Like `gather_windows` over an image stack [S, H, W] float32 with an
-    int32 image index per window.  K2 on the card, the plain version on the
-    CPU.  An index outside [0, S) raises: IndexError on the CPU; on the
-    card the kernel stops on a device-side assert, which the next
-    synchronisation raises (and which leaves the CUDA context unusable)."""
-    S, H, W = imgs.shape
-    _check_window(win, H, W)
-    if not on_card(imgs):
+def gather_windows_multi(imgs, img_idx: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor,
+                         win: int) -> torch.Tensor:
+    """Like `gather_windows` over several images with an int32 image index
+    per window.  `imgs` is an [S, H, W] float32 stack (any S), or a
+    sequence of 1..MAX_LEVELS float32 [H_l, W_l] images of their own
+    shapes, which are read in place (the window of the zero-padded image,
+    for any origin and any image smaller than the window).  The window may
+    be no larger than the stack, or the table's largest height and width.
+    K2 on the card, the plain version on the CPU.  An index that names no
+    image raises: IndexError on the CPU; on the card the kernel stops on a
+    device-side assert, which the next synchronisation raises (and which
+    leaves the CUDA context unusable)."""
+    count = _image_count(imgs)
+    stacked = isinstance(imgs, torch.Tensor)
+    if stacked:
+        _check_window(win, *imgs.shape[1:])
+        first = imgs
+    else:
+        _check_window(win, max(img.shape[0] for img in imgs),
+                      max(img.shape[1] for img in imgs))
+        first = imgs[0]
+    if not on_card(first):
         return gather_windows_multi_plain(imgs, img_idx, xi, yi, win)
     N = xi.shape[0]
-    dev = imgs.device
-    require(imgs, "imgs", torch.float32, (S, H, W), dev)
+    dev = first.device
     require(img_idx, "img_idx", torch.int32, (N,), dev)
     require(xi, "xi", torch.int32, (N,), dev)
     require(yi, "yi", torch.int32, (N,), dev)
     out = torch.empty((N, win, win), dtype=torch.float32, device=dev)
-    launch("gather_windows", "gather_windows_multi_launch", [P, I, I, I, P, P, P, I, I, P, P],
-           imgs.data_ptr(), S, H, W, img_idx.data_ptr(), xi.data_ptr(), yi.data_ptr(), N, win,
-           out.data_ptr(), stream(dev))
+    if stacked:
+        require(imgs, "imgs", torch.float32, tuple(imgs.shape), dev)
+        launch("gather_windows", "gather_windows_multi_launch",
+               [P, I, I, I, P, P, P, I, I, P, P], imgs.data_ptr(), *imgs.shape,
+               img_idx.data_ptr(), xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
+               stream(dev))
+    else:
+        descs = _level_table(imgs, dev)
+        launch("gather_windows", "gather_windows_multi_levels_launch",
+               [P, I, P, P, P, I, I, P, P], ctypes.addressof(descs), count,
+               img_idx.data_ptr(), xi.data_ptr(), yi.data_ptr(), N, win, out.data_ptr(),
+               stream(dev))
     launched(gather_windows_multi, imgs, img_idx, xi, yi, win)
     return out
 
