@@ -132,7 +132,6 @@ or the package is not beside it.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
@@ -183,7 +182,6 @@ PTXAS_KERNELS = (("sparse_align_mega", "sparse_align_mega_kernel"),
                  ("align2d_fused", "align2d_fused_kernel"),
                  ("gather_windows", "gather_windows_grouped_kernel"),
                  ("gather_windows", "gather_windows_multi_kernel"),
-                 ("gather_windows", "gather_windows_multi_tma_kernel"),
                  ("hamming", "hamming_mma_kernel"))
 NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not spill
             "track_fused_kernel", "level_align_v1_kernel", "level_align_v2_kernel",
@@ -690,67 +688,6 @@ def main() -> int:
               f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
         return r
 
-    def k2_form_b(a2, in_flight):
-        """Form B of K2 (the sweep's): a TMA load per window, of the box of
-        win + 4 columns from the window's 16-byte-aligned column, on a
-        tensor map per image (encoded on every call); the window's warp
-        stores it from shared memory."""
-        imgs, idx, ox, oy, win = a2
-        stacked = isinstance(imgs, torch.Tensor)
-        table = [imgs] if stacked else list(imgs)
-        descs = (k1._LevelImage * len(table))(
-            *(k1._LevelImage(im.data_ptr(), *im.shape[-2:]) for im in table))
-        out = torch.empty((idx.shape[0], win, win), dtype=torch.float32, device=dev)
-        kernels.launch("gather_windows", "gather_windows_multi_tma_launch",
-                       [kernels.P, kernels.I, kernels.I, kernels.P, kernels.P, kernels.P,
-                        kernels.I, kernels.I, kernels.P, kernels.I, kernels.P],
-                       ctypes.addressof(descs), imgs.shape[0] if stacked else len(imgs),
-                       int(stacked), idx.data_ptr(), ox.data_ptr(), oy.data_ptr(),
-                       idx.shape[0], win, out.data_ptr(), in_flight, kernels.stream(dev))
-        return out
-
-    def host_us(fn, n=100):
-        """Host µs per call of fn() (its enqueue), over n calls."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-        return t
-
-    def k2_sweep(*shapes):
-        """K2's forms at the three shapes (S=8, S=16, VO frame 10), in
-        turns: A (a warp per window), B with 2, 4 and 8 windows in flight
-        per block; each B checked against A bit for bit first."""
-        names = ("S=8", f"S={S_BIG}", "VO frame 10")
-        forms = [("A", lambda a2: k1.gather_windows_multi(*a2), "gather_windows_multi_kernel")]
-        forms += [(f"B{f}", lambda a2, f=f: k2_form_b(a2, f), "gather_windows_multi_tma_kernel")
-                  for f in (2, 4, 8)]
-        for name, a2 in zip(names, shapes):
-            for off in (False, True):
-                a = a2 if not off else (a2[0], a2[1],
-                                        *off_image(a2[2], a2[3], *k2_extent(a2[0]), a2[4]),
-                                        a2[4])
-                ref = k1.gather_windows_multi(*a)
-                for form, fn, _ in forms[1:]:
-                    if not torch.equal(fn(a), ref):
-                        raise AssertionError(f"K2 form {form} differs from form A at {name}"
-                                             f"{', origins off the image' if off else ''}")
-            print(f"K2 sweep {name}: forms B2, B4, B8 equal form A bit for bit (and with "
-                  f"origins off the image)", flush=True)
-        for rnd in range(2):
-            for name, a2 in zip(names, shapes):
-                cells = []
-                for form, fn, sym in (forms if rnd == 0 else forms[::-1]):
-                    ms = _time_kernel(torch, lambda: fn(a2))
-                    us = _profile_us(torch, lambda: fn(a2), sym)
-                    cells.append(f"{form} {ms * 1e3:.2f} / {us:.2f} / "
-                                 f"{host_us(lambda: fn(a2)):.2f}")
-                print(f"K2 sweep round {rnd + 1}, {name} (CUDA-event us / profiler us / host us "
-                      f"per call): " + "; ".join(cells), flush=True)
-
     def check_k6(g6, a2, tag):
         """K6 on the batched frame's request list (every sequence's levels),
         in one launch, then on the same list with sequence 0's level 0
@@ -1058,7 +995,6 @@ def main() -> int:
               f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
               f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
     k2_times(a2v, "VO frame 10, a table of 3 levels")
-    k2_sweep(a2, a2_16, a2v)
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v, a2_16
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----

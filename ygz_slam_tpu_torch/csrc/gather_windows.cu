@@ -47,13 +47,14 @@
 // sequences), or a table of up to kMaxLevels images of their own shapes
 // passed by value (the VO's pyramid levels, read in place: the window of
 // the zero-padded level is the window of the zero-padded stack that the
-// TPU kernel needed, bit for bit, so no stack is built).
+// TPU kernel needed, bit for bit, so no stack is built).  A form on the
+// card's TMA (a tensor map per image, zero fill out of bounds, one box per
+// window into shared memory) was timed against this body and lost at
+// every shape of the paths (PERF.md); its box must start on a 16-byte
+// column, so it loaded win + 4 columns and still needed the warp's copy.
 #include <cassert>
-#include <cstdint>
-#include <cstring>
 #include <type_traits>
 
-#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -246,125 +247,6 @@ int launch_multi(const Images& im, const int* img_idx, const int* ox, const int*
   return (int)cudaGetLastError();
 }
 
-// ---- Form B of K2 (sweep): a TMA load per window, a warp's copy out. ----
-// Each image is a 3-D tensor map (W, H, depth) whose out-of-bounds boxes
-// fill with zeros.  A TMA box must start on a 16-byte boundary of its
-// inner dimension (a box at x0 % 4 != 0 stops on an illegal instruction on
-// the H100), so a warp's lane 0 loads the box of win + 4 columns from
-// x0 & ~3 into the warp's slot of shared memory on an mbarrier, and the
-// warp stores the window from column x0 - (x0 & ~3) of it, a float4 per
-// lane as in `warp_window`.  kInFlight warps (windows) per block.
-constexpr int kTmaMaps = 3;        // form B takes a table of up to 3 images
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-bool encode_map(CUtensorMap* m, const float* base, int H, int W, int depth, int win) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)H * W * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)win + 4, (cuuint32_t)win, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Each tensor map is a kernel parameter of its own; stacked: m0 is the
-// whole [S, H, W] stack, S = count.
-template <int kInFlight>
-__global__ void __launch_bounds__(32 * kInFlight)
-gather_windows_multi_tma_kernel(const __grid_constant__ CUtensorMap m0,
-                                const __grid_constant__ CUtensorMap m1,
-                                const __grid_constant__ CUtensorMap m2, int count, int stacked,
-                                const int* __restrict__ img_idx, const int* __restrict__ ox,
-                                const int* __restrict__ oy, int N, int win,
-                                float* __restrict__ out) {
-  extern __shared__ unsigned char raw[];      // a slot per warp + 128 B of slack
-  __shared__ __align__(8) uint64_t bar[kInFlight];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kInFlight + warp;
-  if (n >= N) return;
-  const int s = img_idx[n];
-  assert(s >= 0 && s < count);
-  if (s < 0 || s >= count) return;
-  const int bw = win + 4;                     // box columns
-  // A TMA destination starts on a 128-byte boundary.
-  float* slot = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(raw) + 127) &
-                                         ~uintptr_t(127)) + (size_t)warp * bw * win;
-  const uint32_t b = smem_addr(&bar[warp]);
-  const int x0 = ox[n], y0 = oy[n];
-  const int xa = x0 & ~3;
-  if (lane == 0) {
-    const CUtensorMap* m = stacked || s == 0 ? &m0 : s == 1 ? &m1 : &m2;
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-                 "r"((uint32_t)(bw * win * 4))
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(slot)),
-        "l"(reinterpret_cast<uint64_t>(m)), "r"(xa), "r"(y0), "r"(stacked ? s : 0), "r"(b)
-        : "memory");
-  }
-  __syncwarp();
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done) : "r"(b), "r"(0u) : "memory");
-  const float* src = slot + (x0 - xa);
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * win * win);
-  const int units = win >> 2;                 // float4 per row (win % 4 == 0)
-  const int rows = units <= 32 ? 32 / units : 1;
-  const int dr = units <= 32 ? lane / units : 0;
-  if (dr >= rows) return;
-  const int c0 = lane - dr * (units <= 32 ? units : 0);
-  const int cstep = units <= 32 ? units : 32;
-  for (int c = c0; c < units; c += cstep)
-    for (int r = dr; r < win; r += rows) {
-      const float* q = src + r * bw + 4 * c;
-      dst[(size_t)r * units + c] = make_float4(q[0], q[1], q[2], q[3]);
-    }
-}
-
-template <int kInFlight>
-int launch_tma(const CUtensorMap* m, int count, int stacked, const int* img_idx, const int* ox,
-               const int* oy, int N, int win, float* out, cudaStream_t stream) {
-  const int blocks = (N + kInFlight - 1) / kInFlight;
-  const size_t smem = (size_t)kInFlight * (win + 4) * win * sizeof(float) + 128;
-  gather_windows_multi_tma_kernel<kInFlight><<<blocks, 32 * kInFlight, smem, stream>>>(
-      m[0], m[1], m[2], count, stacked, img_idx, ox, oy, N, win, out);
-  return (int)cudaGetLastError();
-}
-
-bool tma_image_ok(const float* img, int W) {
-  return reinterpret_cast<size_t>(img) % 16 == 0 && W % 4 == 0;
-}
-
 }  // namespace
 
 // K1: the [L, N, win, win] windows of L images (levels[l], origins ox / oy
@@ -399,34 +281,6 @@ extern "C" int gather_windows_multi_levels_launch(const LevelImage* levels, int 
                                                   cudaStream_t stream) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   return launch_multi(levels_args(levels, L), img_idx, ox, oy, N, win, out, stream);
-}
-
-// Form B of K2 (sweep): `levels` holds the stack's one image (stacked, its
-// H and W, S images deep) or the table's L (<= 3) images.  in_flight
-// windows (warps) per block: 2, 4 or 8.
-extern "C" int gather_windows_multi_tma_launch(const LevelImage* levels, int count, int stacked,
-                                               const int* img_idx, const int* ox, const int* oy,
-                                               int N, int win, float* out, int in_flight,
-                                               cudaStream_t stream) {
-  if (N <= 0) return 0;
-  if (count < 1 || (!stacked && count > kTmaMaps) || win % 4 != 0 ||
-      win + 4 > 256 || reinterpret_cast<size_t>(out) % 16 != 0 ||
-      (size_t)in_flight * (win + 4) * win * 4 + 128 > 48 * 1024)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap m[kTmaMaps];
-  memset(m, 0, sizeof(m));
-  for (int l = 0; l < (stacked ? 1 : count); ++l) {
-    const LevelImage& q = levels[l];
-    if (!tma_image_ok(q.img, q.W) ||
-        !encode_map(&m[l], q.img, q.H, q.W, stacked ? count : 1, win))
-      return (int)cudaErrorInvalidValue;
-  }
-  switch (in_flight) {
-    case 2: return launch_tma<2>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
-    case 4: return launch_tma<4>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
-    case 8: return launch_tma<8>(m, count, stacked, img_idx, ox, oy, N, win, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // K6: G requests (1..kMaxGroups), each request's [N, win, win] windows into
