@@ -122,8 +122,9 @@ Phases, each raising (and so exiting non-zero) on failure:
    variant 2 no operator named cholesky may run): device busy
    share and the kernels that take the most device time; then each
    kernel's device µs per launch in the profiler beside its CUDA-event
-   time from phase 2 (whose intervals include the gap between launches),
-   K9 v1's pass split beside it.
+   time from phase 2 (whose intervals include the gap between launches;
+   K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
+   pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the five main
    paths), then the last line {"ok": true, "device": {...}}.
 
@@ -994,7 +995,7 @@ def main() -> int:
               f"(10: froze at the last or never), largest "
               f"{int(its.max())}, mean {float(its.float().mean()):.2f}, counts by iterations "
               f"{torch.bincount(its, minlength=11).tolist()}", flush=True)
-    k2_times(a2v, "VO frame 10, a table of 3 levels")
+    report["K2vo"] = k2_times(a2v, "VO frame 10, a table of 3 levels")
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v, a2_16
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
@@ -1665,6 +1666,7 @@ def main() -> int:
     # time (per frame for K1 and K9: 2 and 3 launches; per keyframe for
     # K10: 2): the difference is the gap between back-to-back launches.
     prof_rows = (("K1", 1, "gather_levels_kernel", 2), ("K2", 2, "gather_windows_multi_kernel", 1),
+                 ("K2vo", 3, "gather_windows_multi_kernel", 1),
                  ("K3", 1, "sparse_align_mega_kernel", 1), ("K4", 1, "align2d_fused_kernel", 1),
                  ("K5", 1, "pose_ba_fused_kernel", 1),
                  ("K6", 2, "gather_windows_grouped_kernel", 1),

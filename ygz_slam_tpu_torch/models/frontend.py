@@ -15,8 +15,9 @@ ygz_slam_tpu/models/frontend.py).
 landmarks come from the pyramid's levels, read in place, in one launch of
 K2 (the search level is the image index), then one launch of K4 and one of
 K5.  The JAX package copies the levels into a zero-padded stack first,
-which only its TPU kernel needs; the windows are the same.  The JAX package's per-level fallback for other backends is not
-ported; off the card the kernels' plain versions run.
+which only its TPU kernel needs; the windows are the same.  The JAX
+package's per-level fallback for other backends is not ported; off the
+card the kernels' plain versions run.
 """
 from __future__ import annotations
 
