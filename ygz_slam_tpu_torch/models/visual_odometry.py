@@ -18,7 +18,7 @@ handling with a retry and a reset.  Its host syncs (`int(...)`,
 Per frame (`track`): sparse-direct alignment of NS selected landmarks
 against the previous frame (K1 x 2, K3), the NSV best visible landmarks'
 affine-warped reference patches from the keyframe images, their patch
-search on the pyramid stack (K2, K4), pose-only BA (K5), and the landmark
+search on the pyramid's levels (K2, K4), pose-only BA (K5), and the landmark
 statistics.  Per keyframe (`kf_cycle`): slot allocation or eviction,
 detection, triangulation against two neighbour keyframes (their two Hamming
 matrices in one K10 launch) and fusion with the map (K10), insertion.

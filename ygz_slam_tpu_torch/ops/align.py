@@ -44,7 +44,7 @@ def align2d(cur_img: torch.Tensor, ref_patch_border: torch.Tensor,
     below `max_error`, and it drifted less than min(16, CACHE_SLACK) px
     (beyond that the cached window clamps the sampling).  `pregathered`
     hands over cache windows fetched beforehand around `xy_init` (from a
-    pyramid stack, say) with their origins; K4 then samples those."""
+    pyramid's levels, say) with their origins; K4 then samples those."""
     H, W = cur_img.shape
     xy0s, inb0 = substitute_inits(xy_init.to(cur_img.dtype), H, W)
     if prep is None:

@@ -56,7 +56,7 @@ def align2d_prepare(ref_patch_border: torch.Tensor) -> Align2DPrep:
 def a2d_window_origins(center_xy: torch.Tensor, H, W):
     """Cache-window origins (int32) for patch centers [N, 2] in images of
     H x W pixels: ints, or [N] tensors where each point has an image size
-    of its own (the levels of a pyramid stack)."""
+    of its own (the levels of a pyramid)."""
     def origin(c, size):
         o = torch.clamp(torch.floor(c - _HALF) - CACHE_SLACK, min=0)
         return torch.clamp(o, max=size - CACHE_WIN)      # a number or a tensor bound
