@@ -268,6 +268,27 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _gather_bytes(torch, requests):
+    """The least bytes a launch that gathers windows must move, for its
+    requests (img [H, W], xi [N], yi [N], win): each image pixel that some
+    window covers, read once (an image that several requests name counts
+    once), each window written once, and two int32 origins per window.  A
+    window's pixels off its image are zero-filled and read nothing."""
+    covered = {}
+    nbytes = 0
+    for img, xi, yi, win in requests:
+        H, W = img.shape
+        mask = covered.setdefault((img.data_ptr(), H, W),
+                                  torch.zeros(H * W, dtype=torch.bool, device=img.device))
+        d = torch.arange(win, device=img.device)
+        r = yi.long()[:, None, None] + d[None, :, None]
+        c = xi.long()[:, None, None] + d[None, None, :]
+        inside = (r >= 0) & (r < H) & (c >= 0) & (c < W)
+        mask[(r * W + c)[inside]] = True
+        nbytes += xi.shape[0] * (win * win * 4 + 8)
+    return nbytes + 4 * sum(int(m.sum()) for m in covered.values())
+
+
 def _fingerprint(system, statuses, T7):
     """What a run of main path 4 leaves: its statuses, trajectory and the
     map's keyframe poses and landmarks, as bytes for a bit-for-bit test."""
@@ -549,7 +570,7 @@ def main() -> int:
     g1_lib = [(img, oy.long(), ox.long(), win) for g in g1 for img, ox, oy, win in k1_levels(g)]
     k1_lib = sum(_time_kernel(torch, lambda g=g: g[0].unfold(0, g[3], 1).unfold(1, g[3], 1)
                               [g[1], g[2]]) for g in g1_lib)
-    k1_bytes = sum(N * (2 * g[3] * g[3] * 4 + 8) for g in g1_lib)
+    k1_bytes = sum(_gather_bytes(torch, k1_levels(g)) for g in g1)
     report["K1"] = dict(ms=k1_ms, plain=k1_plain, lib=k1_lib, err=e1,
                         bound=_bound(k1_bytes, 0.0))
     k3_ms = _time_kernel(torch, lambda: k3.mega_gn(*a3))
@@ -672,21 +693,28 @@ def main() -> int:
         """K2's CUDA-event ms, profiler µs per launch, plain and library ms
         and bound on K2's arguments a2.  Library: one unfold-and-index on
         the stack (for a table, on its zero-padded stack, built beforehand
-        and left out of its time)."""
+        and left out of its time).  Bound: the image pixels the windows
+        cover, each read once, the windows written and an index and two
+        origins per window."""
         imgs, idx, ox, oy, win = a2
         stack = imgs if isinstance(imgs, torch.Tensor) else k2_stack(imgs)
         lib = (stack, idx.long(), oy.long(), ox.long())
         n = idx.shape[0]
+        images = [imgs[s] for s in range(imgs.shape[0])] if imgs is stack else imgs
+        nbytes = 4 * n + _gather_bytes(torch, [(img, ox[idx == s], oy[idx == s], win)
+                                               for s, img in enumerate(images)])
         r = dict(ms=_time_kernel(torch, lambda: k1.gather_windows_multi(*a2)),
                  us=_profile_us(torch, lambda: k1.gather_windows_multi(*a2),
                                 "gather_windows_multi_kernel"),
                  plain=_time_host(torch, lambda: k1.gather_windows_multi_plain(*a2)),
                  lib=_time_kernel(torch, lambda: lib[0].unfold(1, win, 1).unfold(2, win, 1)
                                   [lib[1], lib[2], lib[3]]),
-                 bound=_bound(n * (2 * win * win * 4 + 12), 0.0))
+                 bound=_bound(nbytes, 0.0))
         print(f"K2 {tag}, {n} windows of {win}^2: kernel {r['ms']:.4f} ms, profiler "
               f"{r['us']:.2f} us per launch, plain {r['plain']:.4f} ms, library {r['lib']:.4f} "
-              f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+              f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}: {nbytes} B, of which "
+              f"{nbytes - n * (win * win * 4 + 12)} B of image pixels the windows cover, "
+              f"against {n * win * win * 4} B read if every window read its own)", flush=True)
         return r
 
     def check_k6(g6, a2, tag):
@@ -754,7 +782,7 @@ def main() -> int:
         one = _time_kernel(torch, lambda: k1.gather_windows_grouped(g6))
         per_seq = [g6[s * L:(s + 1) * L] for s in range(S)]
         seq = _time_kernel(torch, lambda: [k1.gather_windows_grouped(g) for g in per_seq])
-        bound = _bound(sum(g[1].shape[0] * (2 * g[3] * g[3] * 4 + 8) for g in g6), 0.0)
+        bound = _bound(_gather_bytes(torch, g6), 0.0)
         print(f"K6 S={S}, per batched frame: one launch of {len(g6)} requests {one:.4f} ms; "
               f"{S} launches of {L} requests (the per-sequence form) {seq:.4f} ms; bound "
               f"{bound[0]:.6f} ms ({bound[1]})", flush=True)
@@ -972,7 +1000,7 @@ def main() -> int:
                     f"VO frame 10 keyframe cycle, {a.shape[0]} x {b.shape[0]}")
     k1v_ms = sum(_time_kernel(torch, lambda g=g: k1_call(g)) for g in g1v)
     k1v_plain = sum(_time_host(torch, lambda g=g: k1_call(g, plain=True)) for g in g1v)
-    k1v_bound = _bound(sum(L * n_sel * (2 * g[3] * g[3] * 4 + 8) for g in g1v), 0.0)
+    k1v_bound = _bound(sum(_gather_bytes(torch, k1_levels(g)) for g in g1v), 0.0)
     k3v_ms = _time_kernel(torch, lambda: k3.mega_gn(*a3v))
     k5v_ms = _time_kernel(torch, lambda: k5.pose_ba_gn(*a5v))
     print(f"VO frame 10: K1 per frame (sum over its 2 launches: {L} levels x {ref_win}^2, {L} x "

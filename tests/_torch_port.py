@@ -30,6 +30,16 @@ def jax_kernels_interpreted():
         yield
 
 
+def zero_padded_stack(levels) -> torch.Tensor:
+    """The zero-padded [levels, H, W] stack of a pyramid, on its device, as
+    the JAX package's frontend builds it (ygz_slam_tpu/models/frontend.py)."""
+    H, W = levels[0].shape
+    stack = torch.zeros((len(levels), H, W), dtype=levels[0].dtype, device=levels[0].device)
+    for l, img in enumerate(levels):
+        stack[l, :img.shape[0], :img.shape[1]] = img
+    return stack
+
+
 def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()

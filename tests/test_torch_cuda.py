@@ -64,7 +64,7 @@ from ygz_slam_tpu_torch.ops.kernels import pose_ba_fused_batch as tk8
 from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as tk3
 from ygz_slam_tpu_torch.ops.kernels import track_fused as tk11
 
-from _torch_port import cuda_device  # noqa: F401
+from _torch_port import cuda_device, zero_padded_stack  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -353,12 +353,7 @@ def _k2_problem(dev, way, case, win, n, seed):
         x[:k], y[:k] = rng.integers(-40, W + 11, k), rng.integers(-40, H + 11, k)
     if case == "tiny":
         x[-k:], y[-k:] = wl[-k:] - win + 1 + rng.integers(0, 20, k), rng.integers(-5, H, k)
-    imgs = tuple(levels)
-    if way == "stack":
-        stack = torch.zeros((3, H, W), dtype=torch.float32, device=dev)
-        for l, img in enumerate(levels):
-            stack[l, :img.shape[0], :img.shape[1]] = img
-        imgs = stack
+    imgs = zero_padded_stack(levels) if way == "stack" else tuple(levels)
     return (imgs, *(torch.tensor(v, dtype=torch.int32, device=dev) for v in (idx, x, y)), win)
 
 

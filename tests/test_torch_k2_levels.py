@@ -23,7 +23,7 @@ from ygz_slam_tpu_torch.models import vo_workload as vw
 from ygz_slam_tpu_torch.ops import pyramid as tpyr
 from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as tak
 
-from _torch_port import jax_kernels_interpreted
+from _torch_port import jax_kernels_interpreted, zero_padded_stack
 
 torch.set_num_threads(1)
 
@@ -34,16 +34,6 @@ N_WIN = 60
 def _pyramid(shape, seed):
     img = np.random.default_rng(seed).uniform(0, 255, shape).astype(np.float32)
     return tpyr.build_pyramid(torch.tensor(img), 3)
-
-
-def _stack(levels) -> torch.Tensor:
-    """The zero-padded [levels, H, W] stack of a pyramid, as the JAX
-    package's frontend builds it (ygz_slam_tpu/models/frontend.py)."""
-    H, W = levels[0].shape
-    stack = torch.zeros((len(levels), H, W), dtype=levels[0].dtype)
-    for l, img in enumerate(levels):
-        stack[l, :img.shape[0], :img.shape[1]] = img
-    return stack
 
 
 def _origins(case, levels, idx, rng):
@@ -101,7 +91,7 @@ def test_levels_route_matches_jax_on_the_stack(case, shape):
         assert (xi[:40][idx[:40] == 2] < 0).any()
     else:
         xi, yi = _origins(case, levels, idx, rng)
-    stack = _stack(levels)
+    stack = zero_padded_stack(levels)
     with jax_kernels_interpreted():
         ref = np.asarray(jak.gather_windows_multi(jnp.asarray(stack.numpy()), jnp.asarray(idx),
                                                   jnp.asarray(xi), jnp.asarray(yi), WIN))
@@ -142,7 +132,7 @@ def _stack_route(monkeypatch):
     table_route = tfe.gather_windows_multi
 
     def on_stack(imgs, *args):
-        return table_route(_stack(imgs), *args)
+        return table_route(zero_padded_stack(imgs), *args)
 
     monkeypatch.setattr(tfe, "gather_windows_multi", on_stack)
 
@@ -172,7 +162,7 @@ def _map_problem(shape, n=96, seed=40):
 
 
 @pytest.mark.parametrize("shape", [(61, 83), (121, 163)])
-def test_local_map_search_windows_equal_the_stack_route(shape, monkeypatch):
+def test_local_map_search_windows_equal_the_stack_route(shape):
     """`local_map_search` hands K2 the pyramid's levels; the windows equal
     those of the stack route on the same arguments, bit for bit, on frames
     whose coarsest level is smaller than the window."""
@@ -180,7 +170,7 @@ def test_local_map_search_windows_equal_the_stack_route(shape, monkeypatch):
     ls = tfe.local_map_search(levels, cam, T, pts, valid, ok, lvl)
     assert isinstance(ls.k2_args[0], tuple) and len(ls.k2_args[0]) == 3
     table = tak.gather_windows_multi(*ls.k2_args)
-    stack = tak.gather_windows_multi(_stack(levels), *ls.k2_args[1:])
+    stack = tak.gather_windows_multi(zero_padded_stack(levels), *ls.k2_args[1:])
     assert torch.equal(table, stack)
     assert (ls.k2_args[1] == 2).any() and (table == 0).any()
 
