@@ -117,16 +117,45 @@ Phases, each raising (and so exiting non-zero) on failure:
    held to the gate; the counters must show K11 once and K1 twice per
    frame (the three sparse levels, the align2d cache) and no other kernel.  Frames/s beside path 1's, the two run
    in turns (1, 5, 5, 1).
+5d. Main path 6: the System on non-planar worlds
+   (`models/nonplanar_workload.py`).  (a) tests/test_nonplanar.py's
+   TwoPlaneScene run (40 frames 320x240) through `System.track_monocular`:
+   init with F (init_model_f >= 1, init_model_h == 0), the last frame
+   GOOD, more than half GOOD, Sim(3)-aligned ATE < 0.06 m.  (b) BoxScene at
+   640x480 (bench_accuracy.py's world, camera f = 640, horizon 4000,
+   vignette 0.25 with its gain and bias drift; its options with the
+   vocabulary, depth filter, archive and async mapping off) on path 4's map
+   (K=10, F=256, L=3072), N_BOX frames, gated over its first BOX_SPAN:
+   GOOD on every frame after init, ATE < 0.10 m, the map grown past its
+   init rows; the whole run is reported (past frame ~180 the loop enters a
+   section where this configuration starves its map and loses track, in
+   both packages: ROADMAP section 3).  (c) Evictions: the same frames'
+   first EVICT_FRAMES on a map of EVICT_K slots under FUSED_VARIANT 2:
+   evictions > 0, more than 90% GOOD, one segment, ATE < 0.10 m.  Each run
+   holds path 4's launch counts per call of `track` and per keyframe.
+5e. Main path 7: path 6b's frames through `System.track_monocular_chunk`
+   (chunk=32), runs in turns per frame, chunked, chunked, per frame, each
+   equal to the first bit for bit (statuses, trajectory, keyframe slots,
+   stats, keyframe poses, landmarks), the chunks replaying a CUDA graph
+   of the step.  Launches on the graph path are counted per replay: the
+   wrappers a capture saw (`ops/kernels.capture_launches`), once each per
+   replay (`kernels.replayed`); the chunked run must show the per-frame
+   run's launches plus one step's kernels for every frame it computed and
+   discarded at or after a cut.  It prints frames/s of the four runs, the
+   wall ms per chunk frame in the chunk loop, and the frames computed and
+   discarded.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
-   variant 2 no operator named cholesky may run): device busy
+   variant 2 no operator named cholesky may run; paths 6b and 7 on the
+   same BoxScene frames, per frame and chunked, with the K3 launches the
+   profiler saw against the frames that ran `track`): device busy
    share and the kernels that take the most device time; then each
    kernel's device µs per launch in the profiler beside its CUDA-event
    time from phase 2 (whose intervals include the gap between launches;
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
    pass split beside it.
-7. One JSON line {"kernels": [...]} (launches summed over the five main
-   paths), then the last line {"ok": true, "device": {...}}.
+7. One JSON line {"kernels": [...]} (launches summed over the main
+   paths 1-7), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -147,6 +176,12 @@ N_VO = 240               # main path 3: frame 0 bootstraps the map, 239 are trac
 S_BIG = 16               # BASELINE.json config 5: 16 concurrent sequences
 E2_FRAME = 12            # main path 4's frame whose K9 launches phase 2e replays
 P4_PROFILE = (30, 50)    # main path 4's profiled frames (keyframes fall every ~7)
+N_BOX = 320              # main paths 6b and 7: BoxScene frames
+BOX_SPAN = 160           # path 6b's gated span (its loop starves the map past ~180)
+EVICT_K, EVICT_FRAMES = 6, 200   # path 6c: a map of 6 slots, evicted from ~frame 100
+BOX_SHAPE = (480, 640)
+CHUNK = 32               # main path 7's chunk (VOOptions.chunk_frames)
+P7_PROFILE = (32, 96, 160)    # path 7: per-frame to 32, chunked to 96, profiled to 160
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -376,6 +411,7 @@ def main() -> int:
     from ygz_slam_tpu_torch.ops.kernels import track_fused as k11
     from ygz_slam_tpu_torch.entry import entry
     from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import nonplanar_workload as nw
     from ygz_slam_tpu_torch.models import visual_odometry as vo_mod
     from ygz_slam_tpu_torch.system.system import System
     from ygz_slam_tpu_torch.ops.align import accepted, align2d, substitute_inits
@@ -1548,6 +1584,22 @@ def main() -> int:
     counters4 = counters + (k9.level_gn, k9.level_gn_v2)
     launches4 = {}
 
+    def want_track(n_track, n_kf, variant=3):
+        """Launch counts of the System: per frame through `track` K1 twice
+        (the reference levels, the window levels under variant 3; under 1
+        and 2 once, then once per level before each K9 launch), K2, K4, K5
+        once, K3 once under 3 or the variant's K9 three times; per keyframe
+        K10 twice; nothing else."""
+        want = {c.__name__: 0 for c in counters4}
+        want.update(gather_windows_levels=(2 if variant == 3 else 1) * n_track,
+                    gather_windows=0 if variant == 3 else 3 * n_track,
+                    gather_windows_multi=n_track, a2d_gn=n_track, pose_ba_gn=n_track,
+                    mega_gn=n_track if variant == 3 else 0,
+                    level_gn=3 * n_track if variant == 1 else 0,
+                    level_gn_v2=3 * n_track if variant == 2 else 0, distance_matrix=2 * n_kf)
+        return want
+
+
     def timed_run(variant):
         times = {"init": [], "track": [], "kf_cycle": [], "mapping_pass": []}
 
@@ -1597,14 +1649,7 @@ def main() -> int:
         if n_kf < 12 or vo_m.stats["keyframes_culled"] == 0:
             raise AssertionError(f"main path 4 inserted {n_kf} keyframes, culled "
                                  f"{vo_m.stats['keyframes_culled']}")
-        want4 = {"gather_windows_levels": (2 if variant == 3 else 1) * n_track,
-                 "gather_windows": 0 if variant == 3 else 3 * n_track,
-                 "gather_windows_grouped": 0,
-                 "gather_windows_multi": n_track, "mega_gn": n_track if variant == 3 else 0,
-                 "a2d_gn": n_track, "pose_ba_gn": n_track, "pose_ba_batch_gn": 0,
-                 "distance_matrix": 2 * n_kf, "track_gn": 0,
-                 "level_gn": 3 * n_track if variant == 1 else 0,
-                 "level_gn_v2": 3 * n_track if variant == 2 else 0}
+        want4 = want_track(n_track, n_kf, variant)
         if got != want4:
             raise AssertionError(f"launch counts {got}, expected {want4}")
         # The timed run repeats the gate run in this process: bit for bit.
@@ -1655,6 +1700,200 @@ def main() -> int:
           f"{ {k: [round(v, 1) for v in r] for k, r in fps.items()} }; path 5 / path 1 "
           f"{sum(fps['path 5']) / sum(fps['path 1']):.3f}", flush=True)
 
+    # -- 5d. main path 6: the System on non-planar worlds ----------------------
+    def run_counted(system, frames, on_frame=None):
+        """`mw.run_mono` with the counters at 0 and the calls of `track`
+        counted: (statuses, T7, wall, launches, calls of track)."""
+        calls = [0]
+        real_track = vo_mod.track
+
+        def track(*a, **kw):
+            calls[0] += 1
+            return real_track(*a, **kw)
+
+        for c in counters4:
+            c.launches = 0
+        torch.cuda.synchronize()
+        vo_mod.track = track
+        try:
+            statuses, T7, wall = mw.run_mono(system, frames, on_frame)
+        finally:
+            vo_mod.track = real_track
+        torch.cuda.synchronize()
+        return statuses, T7, wall, {c.__name__: c.launches for c in counters4}, calls[0]
+
+    # (a) TwoPlaneScene (tests/test_nonplanar.py's run): init with F across a
+    # depth step, tracking through a moving occlusion boundary.
+    cam_2p, frames_2p, T_gt_2p = nw.two_plane_workload(device=dev)
+    s6a = System(camera=cam_2p, options=mw.mono_options(), device=dev)
+    st6a, T7_6a, wall, launches6a, n_tr = run_counted(s6a, frames_2p)
+    ate6a = mw.good_ate(st6a, T7_6a, T_gt_2p)
+    n_good = sum(x is vo_mod.Status.GOOD for x in st6a)
+    stats6a = s6a.vo.stats
+    ok6a = (stats6a["init_model_f"] >= 1 and stats6a["init_model_h"] == 0
+            and st6a[-1] is vo_mod.Status.GOOD and n_good > len(st6a) / 2 and ate6a < 0.06)
+    print(f"main path 6a (System.track_monocular, TwoPlaneScene 320x240): {len(st6a)} frames "
+          f"in {wall:.3f} s; init at frame {mw.init_frame(st6a)}, init_model_f "
+          f"{stats6a['init_model_f']}, init_model_h {stats6a['init_model_h']}, {n_good} GOOD, "
+          f"last {st6a[-1].name}, {stats6a['keyframes']} keyframes, ATE {ate6a!r} m (< 0.06): "
+          f"{'pass' if ok6a else 'FAIL'}; launches {launches6a}", flush=True)
+    if not ok6a:
+        raise AssertionError("main path 6a failed its gate")
+    if launches6a != want_track(n_tr, stats6a["keyframes"]):
+        raise AssertionError(f"launch counts {launches6a}, expected "
+                             f"{want_track(n_tr, stats6a['keyframes'])}")
+
+    # (b) BoxScene at 640x480: bench_accuracy.py's world and options (camera
+    # and horizon doubled), map K=10, FUSED_VARIANT 3, N_BOX frames.  Gated
+    # over its first BOX_SPAN frames (GOOD on every frame after init, ATE <
+    # 0.10 m, the map grown by triangulation); past them the loop enters the
+    # section where this configuration starves its map (no depth filter):
+    # reported, not gated (ROADMAP section 3).
+    t0 = time.perf_counter()
+    cam_b, frames_b6, T_gt_b6 = nw.box_workload(N_BOX, device=dev, shape=BOX_SHAPE)
+    torch.cuda.synchronize()
+    ts_b6 = [float(k) for k in range(N_BOX)]
+    print(f"BoxScene workload: {N_BOX} frames {BOX_SHAPE[1]}x{BOX_SHAPE[0]} rendered in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    s6b = System(camera=cam_b, options=nw.box_options(), device=dev)
+    rows6b = []          # valid landmark rows at init and after each keyframe of the span
+    n_kf6b = [0]
+
+    def on_frame6b(k, r):
+        kf = s6b.vo.stats["keyframes"]
+        if k < BOX_SPAN and (kf > n_kf6b[0] or (r.status is vo_mod.Status.GOOD and not rows6b)):
+            rows6b.append(int(s6b.vo.server.state.pt_valid.sum()))
+        n_kf6b[0] = kf
+
+    st6, T7_6, wall6, launches6, n_tr6 = run_counted(s6b, frames_b6, on_frame6b)
+    vo6 = s6b.vo
+    k0 = mw.init_frame(st6)
+    span = st6[:BOX_SPAN]
+    ate6 = mw.good_ate(span, T7_6[:BOX_SPAN], T_gt_b6[:BOX_SPAN])
+    ok6 = (0 <= k0 < 30 and all(x is vo_mod.Status.GOOD for x in span[k0:]) and ate6 < 0.10
+           and len(rows6b) > 1 and max(rows6b) > rows6b[0])
+    first_lost = st6.index(vo_mod.Status.LOST) if vo_mod.Status.LOST in st6 else None
+    print(f"main path 6b (System.track_monocular, BoxScene {BOX_SHAPE[1]}x{BOX_SHAPE[0]}, map "
+          f"K={vo6.o.map_K}): {N_BOX} frames in {wall6:.3f} s = {N_BOX / wall6:.1f} frames/s; "
+          f"init at frame {k0} (model {'H' if vo6.init_used_h else 'F'}); frames {k0}-"
+          f"{BOX_SPAN - 1} GOOD: {all(x is vo_mod.Status.GOOD for x in span[k0:])}, ATE over them "
+          f"{ate6!r} m (< 0.10), valid landmark rows at init and after each keyframe of "
+          f"the span (the map must grow past its init rows) {rows6b}: "
+          f"{'pass' if ok6 else 'FAIL'}.  Whole run (reported): GOOD {st6.count(vo_mod.Status.GOOD) / N_BOX:.4f}, "
+          f"first LOST frame {first_lost}, {nw.segments(st6)} segment(s), "
+          f"{vo6.stats['keyframes']} keyframes, {vo6.stats['evictions']} evictions, "
+          f"{vo6.stats['keyframes_culled']} culled, valid landmark rows at the end "
+          f"{int(vo6.server.state.pt_valid.sum())} of {vo6.o.map_L}; launches {launches6}",
+          flush=True)
+    if not ok6:
+        raise AssertionError("main path 6b failed its gate")
+    if launches6 != want_track(n_tr6, vo6.stats["keyframes"]):
+        raise AssertionError(f"launch counts {launches6}, expected "
+                             f"{want_track(n_tr6, vo6.stats['keyframes'])}")
+
+    # (c) Evictions: the same frames' first EVICT_FRAMES with map K=EVICT_K
+    # under FUSED_VARIANT 2, so the slots fill (and are evicted) before that
+    # section: evictions > 0, GOOD > 0.9, one segment, ATE < 0.10 m.
+    sparse_align.FUSED_VARIANT = 2
+    s6c = System(camera=cam_b, options=nw.box_options(map_K=EVICT_K), device=dev)
+    try:
+        st6c, T7_6c, wall6c, launches6c, n_tr6c = run_counted(s6c, frames_b6[:EVICT_FRAMES])
+    finally:
+        sparse_align.FUSED_VARIANT = 3
+    vo6c = s6c.vo
+    ate6c = mw.good_ate(st6c, T7_6c, T_gt_b6[:EVICT_FRAMES])
+    frac6c = st6c.count(vo_mod.Status.GOOD) / EVICT_FRAMES
+    ok6c = (vo6c.stats["evictions"] > 0 and frac6c > 0.9 and nw.segments(st6c) == 1
+            and ate6c < 0.10)
+    print(f"main path 6c (BoxScene, map K={EVICT_K}, FUSED_VARIANT 2): {EVICT_FRAMES} frames "
+          f"in {wall6c:.3f} s; GOOD {frac6c:.4f} (> 0.9), {nw.segments(st6c)} segment(s), "
+          f"{vo6c.stats['keyframes']} keyframes, {vo6c.stats['evictions']} evictions (> 0), "
+          f"{vo6c.stats['keyframes_culled']} culled, valid landmark rows at the end "
+          f"{int(vo6c.server.state.pt_valid.sum())}; ATE {ate6c!r} m (< 0.10): "
+          f"{'pass' if ok6c else 'FAIL'}; launches {launches6c}", flush=True)
+    if not ok6c:
+        raise AssertionError("main path 6c failed its gate")
+    if launches6c != want_track(n_tr6c, vo6c.stats["keyframes"], variant=2):
+        raise AssertionError(f"launch counts {launches6c}, expected "
+                             f"{want_track(n_tr6c, vo6c.stats['keyframes'], variant=2)}")
+    del s6c
+
+    # -- 5e. main path 7: path 6b's frames through chunked tracking -----------
+    # Per-frame (P) and chunked (C) runs in turns, P, C, C, P, each from a
+    # fresh System (P1 is path 6b's own run): all equal bit for bit.
+    def box_run(chunked):
+        s = System(camera=cam_b, options=nw.box_options(), device=dev)
+        chunk_s = []
+        real = s.vo._track_chunk
+
+        def timed_chunk(frames, ts):
+            t = time.perf_counter()
+            out = real(frames, ts)
+            chunk_s.append((time.perf_counter() - t, len(out)))
+            return out
+
+        s.vo._track_chunk = timed_chunk
+        for c in counters4:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if chunked:
+            statuses = [r.status for r in s.track_monocular_chunk(frames_b6, ts_b6, chunk=CHUNK)]
+        else:
+            statuses = [s.track_monocular(frames_b6[k], ts_b6[k]).status for k in range(N_BOX)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return dict(s=s, wall=wall, chunk_s=chunk_s,
+                    launches={c.__name__: c.launches for c in counters4},
+                    fp=fingerprint7(s, statuses))
+
+    def fingerprint7(s, statuses):
+        T7 = np.stack([p for _, p in s.vo.trajectory])
+        return _fingerprint(s, statuses, T7)[0] + (tuple(s.vo.server.kf_used),
+                                                  tuple(sorted(s.vo.stats.items())))
+
+    box = {"P1": dict(s=s6b, wall=wall6, launches=launches6, fp=fingerprint7(s6b, st6))}
+    for key in ("C1", "C2", "P2"):
+        box[key] = box_run(key[0] == "C")
+    c1 = box["C1"]
+    for key in ("C1", "C2", "P2"):
+        same = box[key]["fp"] == box["P1"]["fp"]
+        print(f"main path 7: run {key} against P1: statuses, trajectory, keyframe slots, "
+              f"stats, keyframe poses and landmarks {'equal bit for bit' if same else 'DIFFERENT'}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"main path 7: run {key} differs from the per-frame run")
+    # Launches counted per replay (the wrappers a capture saw, once each per
+    # replay): C1's are P1's plus one step's kernels for every frame step it
+    # computed and discarded at or after a cut.
+    vo7 = c1["s"].vo
+    steps7 = list(vo7._chunk_steps.values())
+    cs = vo7.chunk_stats
+    per_step = {"gather_windows_levels": 2, "gather_windows_multi": 1, "mega_gn": 1,
+                "a2d_gn": 1, "pose_ba_gn": 1}
+    launches7 = c1["launches"]
+    want7 = {k: v + cs["frames_discarded"] * per_step.get(k, 0) for k, v in launches6.items()}
+    captured7 = sorted({w.__name__ for st in steps7 for w in st.captured})
+    kept7 = sum(n for _, n in c1["chunk_s"])
+    host_ms7 = 1e3 * sum(t for t, _ in c1["chunk_s"]) / max(kept7, 1)
+    fps7 = {k: round(N_BOX / r["wall"], 1) for k, r in box.items()}
+    print(f"main path 7 (System.track_monocular_chunk, chunk={CHUNK}): {cs['chunks']} chunks, "
+          f"{kept7} frames kept from chunks, {cs['frames_computed']} frame steps computed, "
+          f"{cs['frames_discarded']} discarded at or after a cut ("
+          f"{cs['frames_discarded'] / max(cs['chunks'], 1):.2f} per chunk), "
+          f"{N_BOX - kept7} frames through add_frame; graphs {len(steps7)}, captured "
+          f"{[len(st.captured) for st in steps7]} kernel launches ({captured7}), replays "
+          f"{[st.replays for st in steps7]}; wall ms per chunk frame {host_ms7:.3f} (the host's "
+          f"time in the chunk loop, its waits included); launches {launches7}", flush=True)
+    if not steps7 or any(st.graph is None for st in steps7) or sum(
+            st.replays for st in steps7) == 0:
+        raise AssertionError("main path 7 replayed no CUDA graph")
+    if launches7 != want7:
+        raise AssertionError(f"launch counts {launches7}, expected {want7}")
+    print(f"main paths 6b and 7 in turns (P, C, C, P), frames/s: {fps7}; chunked / per-frame "
+          f"{(fps7['C1'] + fps7['C2']) / (fps7['P1'] + fps7['P2']):.3f}", flush=True)
+    del box, c1
+
     # -- 6. profile windows ----------------------------------------------------
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
@@ -1689,6 +1928,33 @@ def main() -> int:
             raise AssertionError("K9 v2's H0 was factored outside the kernel")
         del sysm
     sparse_align.FUSED_VARIANT = 3
+    # Paths 6b and 7 over the same window of BoxScene frames: a System run
+    # per frame up to P7_PROFILE[0], then per frame (6b) or chunked (7, its
+    # graph captured on the frames before the window) through it.
+    a7, b7, c7 = P7_PROFILE
+    for key, chunked in (("6b", False), ("7", True)):
+        s7 = System(camera=cam_b, options=nw.box_options(), device=dev)
+        for k in range(a7):
+            s7.track_monocular(frames_b6[k], ts_b6[k])
+        for k in range(a7, b7):
+            if not chunked:
+                s7.track_monocular(frames_b6[k], ts_b6[k])
+        if chunked:
+            s7.track_monocular_chunk(frames_b6[a7:b7], ts_b6[a7:b7], chunk=CHUNK)
+        cs0, n_kf0 = dict(s7.vo.chunk_stats), s7.vo.stats["keyframes"]
+        run = ((lambda: s7.track_monocular_chunk(frames_b6[b7:c7], ts_b6[b7:c7], chunk=CHUNK))
+               if chunked else
+               (lambda: [s7.track_monocular(frames_b6[k], ts_b6[k]) for k in range(b7, c7)]))
+        prof[key] = _profile(torch, run, c7 - b7, f"main path {key}, BoxScene "
+                             f"{'chunked' if chunked else 'per frame'} (frames {b7}-{c7 - 1})")
+        n_k3 = sum(v[1] for name, v in prof[key].items() if "sparse_align_mega_kernel" in name)
+        computed = s7.vo.chunk_stats["frames_computed"] - cs0.get("frames_computed", 0)
+        discarded = s7.vo.chunk_stats["frames_discarded"] - cs0.get("frames_discarded", 0)
+        print(f"main path {key} profile window: {s7.vo.stats['keyframes'] - n_kf0} keyframes, "
+              f"{computed} frame steps computed in chunks ({discarded} discarded); K3 launches "
+              f"the profiler saw: {n_k3} (frames through `track`: {c7 - b7 + discarded})",
+              flush=True)
+        del s7
     # Each kernel's device time per launch in the profiler, in the window
     # whose shapes its phase-2 CUDA-event time was taken at, beside that
     # time (per frame for K1 and K9: 2 and 3 launches; per keyframe for
@@ -1724,7 +1990,8 @@ def main() -> int:
 
     def launches(name):
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
-                + sum(v[name] for v in launches4.values()) + launches5[name])
+                + sum(v[name] for v in launches4.values()) + launches5[name]
+                + launches6a[name] + launches6[name] + launches6c[name] + launches7[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

@@ -26,7 +26,11 @@ and second launches of K3, K4, K5, K8, K9 and K11 (the same bits); five frames o
 the fused step, three of the batch step, twelve of the VO slice (with one
 keyframe cycle) and forty of the monocular System from raw frames on the
 card against the CPU, and that System run twice on the card (the same
-bits).
+bits); the chunk step of `VisualOdometry.add_frames` replayed as a CUDA
+graph against the eager step under each FUSED_VARIANT (bit for bit), its
+warm-up, capture and replay under torch.cuda.set_sync_debug_mode("error"),
+forty frames through `track_monocular_chunk` against `track_monocular`
+(bit for bit), and BoxScene rendered on the card against the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -1163,3 +1167,133 @@ def test_align2d_and_level_v2_do_not_spill(cuda_device):
     print(f"K4 and K9 v2 ptxas: {res}")
     assert len(res) >= 2
     assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in res.values())
+
+
+# -- chunked tracking: the step as a CUDA graph ------------------------------
+
+def _mono_vo_after_init(dev, n_frames=14):
+    """A VisualOdometry on the card that has initialised on the monocular
+    workload (640x480) and tracked up to frame 12, with the frames."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models.visual_odometry import Status, VisualOdometry
+
+    cam, frames, _ = mw.make_mono_workload(n_frames, device=dev)
+    vo = VisualOdometry(cam, mw.mono_options(), device=dev)
+    for k in range(12):
+        vo.add_frame(frames[k], float(k))
+    assert vo.status is Status.GOOD
+    return vo, frames
+
+
+@pytest.mark.parametrize("variant", [3, 2, 1])
+def test_chunk_graph_replay_equals_eager_step(cuda_device, variant, monkeypatch):
+    """The chunk step on frames 12-13 twice from the same state: the first
+    pass runs frame 12 eagerly (the warm-up) and captures the graph, the
+    second replays it for both frames.  The records equal bit for bit, under
+    each FUSED_VARIANT (K3; K9 v2 and v1, launched as thread-block
+    clusters)."""
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+    from ygz_slam_tpu_torch.ops import sparse_align
+
+    monkeypatch.setattr(sparse_align, "FUSED_VARIANT", variant)
+    vo, frames = _mono_vo_after_init(cuda_device)
+    step = tvo.ChunkStep(vo, 2)
+    recs = []
+    for _ in range(2):
+        step.load(vo, frames[12:14])
+        if step.graph is None:
+            step.run(0)                     # eager warm-up, then the capture
+            eager0 = [r[0].clone() for r in _records(step)]
+            step.run(1)
+        else:
+            step.run(0)
+            step.run(1)
+        torch.cuda.synchronize()
+        recs.append([r.clone() for r in _records(step)])
+    assert step.replays == 3 and step.captured
+    for a, b in zip(recs[0], recs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(eager0, recs[1]):
+        assert torch.equal(a, b[0])
+    print(f"FUSED_VARIANT {variant}: replays equal the eager step bit for bit; the graph "
+          f"launches {[w.__name__ for w in step.captured]}")
+
+
+def _records(step):
+    return (step.rec_R, step.rec_t, step.rec_vR, step.rec_vt, step.rec_found, step.rec_cand,
+            step.rec_obs, step.rec_out)
+
+
+def test_chunk_capture_makes_no_hidden_sync(cuda_device):
+    """The warm-up frame, the capture and a replay of the chunk step under
+    torch.cuda.set_sync_debug_mode("error"): no operation of the step waits
+    for the device (a host-to-device copy from pageable memory or a
+    device-to-host read would raise)."""
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    vo, frames = _mono_vo_after_init(cuda_device)
+    step = tvo.ChunkStep(vo, 2)
+    step.load(vo, frames[12:14])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.run(0)
+        step.run(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step.replays == 1
+    assert bool(torch.isfinite(step.rec_out).all())
+
+
+def test_chunked_equals_per_frame_on_the_card(cuda_device):
+    """40 frames of the monocular System (640x480) through
+    `track_monocular_chunk(chunk=6)` and through `track_monocular`: equal
+    statuses, keyframes, trajectory and map, bit for bit; the chunks ran as
+    graph replays."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, _ = mw.make_mono_workload(40, device=cuda_device)
+    runs = []
+    for chunked in (True, False):
+        s = System(camera=cam, options=mw.mono_options(), device=cuda_device)
+        if chunked:
+            res = s.track_monocular_chunk(frames, [float(k) for k in range(40)], chunk=6)
+        else:
+            res = [s.track_monocular(frames[k], float(k)) for k in range(40)]
+        runs.append((s, res))
+    (sc, rc), (sf, rf) = runs
+    steps = list(sc.vo._chunk_steps.values())
+    print(f"chunked: {dict(sc.vo.chunk_stats)}, replays {[st.replays for st in steps]}")
+    assert [r.status for r in rc] == [r.status for r in rf]
+    assert sc.vo.server.kf_used == sf.vo.server.kf_used
+    assert sc.vo.stats == sf.vo.stats and sc.vo.stats["keyframes"] >= 2
+    assert np.stack([p for _, p in sc.vo.trajectory]).tobytes() == \
+        np.stack([p for _, p in sf.vo.trajectory]).tobytes()
+    assert all(torch.equal(a, b) for a, b in zip(sc.vo.server.state, sf.vo.server.state))
+    assert sum(st.replays for st in steps) > 0
+
+
+def test_box_scene_card_matches_cpu(cuda_device):
+    """BoxScene (2048-texel faces, vignette 0.25, gain and bias) rendered at
+    640x480 on the card against the CPU render: the same mip stacks (numpy),
+    pixels within 1e-3 on >= 99.9% and within 1e-2 everywhere (the
+    tolerance of the rendered workloads against the JAX package's)."""
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.utils.synthetic import BoxScene, loop_trajectory
+
+    cam = PinholeCamera.create(640.0, 640.0, 320.0, 240.0)
+    card = BoxScene(cam, vignette=0.25, device=cuda_device)
+    cpu = BoxScene(cam, vignette=0.25, device="cpu")
+    assert torch.equal(card.texs.cpu(), cpu.texs)
+    Ts = loop_trajectory(4000, radius=1.8, laps=2.2, face="out", device="cpu")
+    for k in (0, 100, 250):
+        gain, bias = 1.0 + 0.08 * np.sin(2 * np.pi * k / 400.0), 4.0 * np.sin(2 * np.pi * k / 270.0)
+        a = card.render(TSE3(Ts[k].R.to(cuda_device), Ts[k].t.to(cuda_device)), (480, 640),
+                        gain=gain, bias=bias).cpu()
+        b = cpu.render(Ts[k], (480, 640), gain=gain, bias=bias)
+        d = (a - b).abs()
+        print(f"BoxScene frame {k}: {float((d <= 1e-3).float().mean()):.6f} of pixels within "
+              f"1e-3, max {float(d.max()):.3e}")
+        assert float((d <= 1e-3).float().mean()) >= 0.999 and float(d.max()) <= 1e-2

@@ -10,7 +10,9 @@ sweep with a small rotation, its parameter u advancing 1/64 per frame, so
 plane filling the view throughout, and a keyframe every ~0.11 of u (21
 keyframes).  Keyframe culling retires most of them (19 of the 21), which
 holds the active window at about 4 of the map's map_K=10 slots, so no slot
-is ever evicted: eviction needs a scene beyond one plane.  Options:
+is ever evicted here; `chip_smoke.py`'s main paths 6b and 6c run the
+System on BoxScene (`models/nonplanar_workload.py`), and 6c gates its
+evictions.  Options:
 tests/test_vo.py's keyframe gates on the port's configuration (no
 vocabulary, depth filter, archive or async mapping).
 """

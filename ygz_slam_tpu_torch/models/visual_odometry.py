@@ -24,6 +24,12 @@ detection, triangulation against two neighbour keyframes (their two Hamming
 matrices in one K10 launch) and fusion with the map (K10), insertion.
 Everything stays on the device: selections that the JAX version makes with
 `jnp.where` are `torch.where` here, and slots are 0-d tensors.
+
+Chunked tracking (`VisualOdometry.add_frames`, the JAX package's scan over
+ordinary frames) runs `ChunkStep`, the per-frame step over static buffers:
+a CUDA graph replayed per frame on the card, eager on the CPU; the host
+decides each frame as the per-frame path does, so the two equal bit for
+bit.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from .. import resolve_device
 from ..geometry.se3 import SE3
 from ..map import state as ms
 from ..map.memory import MapServer, refresh_covisibility
-from ..ops import orb
+from ..ops import kernels, orb, sparse_align
 from ..ops.align import klt_pyramidal
 from ..ops.hamming import distance_matrix, hamming_distance
 from ..ops.select import top_k
@@ -95,6 +101,7 @@ class VOOptions:
     lost_reset_frames: int = 10
     lost_desc_max_dist: int = 64          # Hamming bound of the lost-retry re-check
     kf_cull_min_window: int = 4           # KeyFrameCulling keeps at least this many
+    chunk_frames: int = 32                # add_frames: frames per chunk
     use_depth_filter: bool = True
     use_vocabulary: bool = True
     archive_map: bool = True
@@ -385,6 +392,156 @@ def mapping_pass(cam, o: VOOptions, mstate: ms.MapState, fixed: torch.Tensor):
     return mstate, kf_redundancy(mstate)
 
 
+def accept_counters(mstate: ms.MapState, cand: torch.Tensor, found: torch.Tensor, j: int):
+    """The landmark statistics after the first `j` frames of a chunk, from
+    the chunk's per-frame candidate and found masks [C, L] (the JAX
+    package's `_accept_counters`): integer sums, so they equal the per-frame
+    path's frame-by-frame increments."""
+    return mstate._replace(
+        pt_visible=mstate.pt_visible + torch.sum(cand[:j], dim=0, dtype=torch.int32),
+        pt_found=mstate.pt_found + torch.sum(found[:j], dim=0, dtype=torch.int32))
+
+
+# Chunk frames queued on the device before the host reads the oldest one's
+# outcome: the card has the next frame queued while the host decides.
+IN_FLIGHT = 2
+
+
+class ChunkStep:
+    """One ordinary frame of `VisualOdometry.add_frames` over static
+    buffers: image `slot` of the chunk through `preprocess`, the motion
+    model's prediction, `track` and the velocity update (the per-frame
+    path's `_track_frame` without its host decisions); the carry (previous
+    pyramid, pose, velocity, landmark statistics, last frame's found set and
+    observations) is written back in place, the frame's outcome into row
+    `slot` of the chunk's records, and `slot` advances.
+
+    On a CUDA device the first frame runs eagerly on a side stream (the
+    warm-up: lazily made constants and library handles exist before the
+    capture), the step is then captured once as a CUDA graph, and every
+    later frame replays it; a capture failure raises.  On the CPU the step
+    runs eagerly.  The buffers' shapes are fixed by the map capacity, the
+    frame size, `n_levels` and the chunk length; the graph also fixes
+    `sparse_align.FUSED_VARIANT` as it was at capture."""
+
+    def __init__(self, vo: "VisualOdometry", chunk: int):
+        dev = vo.device
+        self.cam, self.o = vo.cam, vo.o
+        L = vo.o.map_L
+        H, W = vo.prev_pyr[0].shape
+        self.imgs = torch.zeros((chunk, H, W), dtype=torch.float32, device=dev)
+        self.slot = torch.zeros(1, dtype=torch.long, device=dev)
+        # The carry's static homes.
+        self.prev_pyr = tuple(torch.zeros_like(p) for p in vo.prev_pyr)
+        self.prev_R, self.prev_t = torch.zeros((3, 3), device=dev), torch.zeros(3, device=dev)
+        self.vel_R, self.vel_t = torch.zeros((3, 3), device=dev), torch.zeros(3, device=dev)
+        self.mstate = ms.MapState(*(torch.zeros_like(t) for t in vo.server.state))
+        self.kf_images = torch.zeros_like(vo.kf_images)
+        self._kf_src = None            # the eager kf_images last copied in
+        self.prev_found = torch.zeros(L, dtype=torch.bool, device=dev)
+        self.prev_obs_px = torch.zeros((L, 2), dtype=torch.float32, device=dev)
+        # Per-frame records: pose, velocity, found / candidate sets,
+        # observations; `out` rows are (params7, inliers) for the host.
+        self.rec_R = torch.zeros((chunk, 3, 3), device=dev)
+        self.rec_t = torch.zeros((chunk, 3), device=dev)
+        self.rec_vR = torch.zeros((chunk, 3, 3), device=dev)
+        self.rec_vt = torch.zeros((chunk, 3), device=dev)
+        self.rec_found = torch.zeros((chunk, L), dtype=torch.bool, device=dev)
+        self.rec_cand = torch.zeros((chunk, L), dtype=torch.bool, device=dev)
+        self.rec_obs = torch.zeros((chunk, L, 2), device=dev)
+        self.rec_out = torch.zeros((chunk, 8), device=dev)
+        self.on_card = dev.type == "cuda"
+        if self.on_card:
+            self.host_out = torch.zeros((chunk, 8), pin_memory=True)
+            self.events = [torch.cuda.Event() for _ in range(chunk)]
+        else:
+            self.host_out, self.events = self.rec_out, None
+        self.graph = None
+        self.captured = []             # wrappers that launch into the graph
+        self.replays = 0
+
+    def load(self, vo: "VisualOdometry", frames) -> None:
+        """Copy the VO's state and the chunk's frames into the static
+        buffers, and set `slot` to 0 (all device copies, no host wait but
+        the frames' upload)."""
+        for dst, src in zip(self.prev_pyr, vo.prev_pyr):
+            dst.copy_(src)
+        self.prev_R.copy_(vo.prev_T_cw.R)
+        self.prev_t.copy_(vo.prev_T_cw.t)
+        self.vel_R.copy_(vo.velocity.R)
+        self.vel_t.copy_(vo.velocity.t)
+        for dst, src in zip(self.mstate, vo.server.state):
+            dst.copy_(src)
+        if vo.kf_images is not self._kf_src:      # replaced by a keyframe since
+            self.kf_images.copy_(vo.kf_images)
+            self._kf_src = vo.kf_images
+        self.prev_found.copy_(vo.prev_found)
+        self.prev_obs_px.copy_(vo.prev_obs_px)
+        if not isinstance(frames, torch.Tensor):
+            frames = torch.stack([torch.as_tensor(f, dtype=torch.float32) for f in frames])
+        self.imgs.copy_(frames)
+        self.slot.zero_()
+
+    def _step(self) -> None:
+        img = self.imgs.index_select(0, self.slot)[0]
+        pyr = fe.preprocess(img, self.o.n_levels)
+        prev_T = SE3(self.prev_R, self.prev_t)
+        T_pred = SE3(self.vel_R, self.vel_t).compose(prev_T)
+        tm, st, _ = track(self.cam, self.o, self.prev_pyr, pyr, prev_T.params7(),
+                          T_pred.params7(), self.mstate, self.kf_images, self.prev_found,
+                          self.prev_obs_px)
+        T_cw = tm.T_cw
+        vel = T_cw.compose(prev_T.inverse())
+        s = self.slot
+        for rec, x in ((self.rec_R, T_cw.R), (self.rec_t, T_cw.t), (self.rec_vR, vel.R),
+                       (self.rec_vt, vel.t), (self.rec_found, tm.found),
+                       (self.rec_cand, tm.candidate), (self.rec_obs, tm.obs_px),
+                       (self.rec_out, torch.cat([T_cw.params7(),
+                                                 tm.n_inliers.to(torch.float32)[None]]))):
+            rec.index_copy_(0, s, x[None])
+        for dst, src in zip(self.prev_pyr, pyr):
+            dst.copy_(src)
+        for dst, src in ((self.prev_R, T_cw.R), (self.prev_t, T_cw.t), (self.vel_R, vel.R),
+                         (self.vel_t, vel.t), (self.mstate.pt_visible, st.pt_visible),
+                         (self.mstate.pt_found, st.pt_found), (self.prev_found, tm.found),
+                         (self.prev_obs_px, tm.obs_px)):
+            dst.copy_(src)
+        s.add_(1)
+
+    def run(self, k: int) -> None:
+        """Frame k of the chunk (the slot the step is at): eagerly on the
+        CPU; on the card the warm-up and capture the first time, a replay
+        after; then its outcome row on its way to the host."""
+        if not self.on_card:
+            self._step()
+            return
+        if self.graph is None:
+            cur = torch.cuda.current_stream(self.imgs.device)
+            side = torch.cuda.Stream(self.imgs.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._step()                      # the warm-up frame, a real one
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with kernels.capture_launches() as captured, torch.cuda.graph(graph, stream=side):
+                self._step()
+            self.graph, self.captured = graph, captured
+        else:
+            self.graph.replay()
+            kernels.replayed(self.captured)
+            self.replays += 1
+        self.host_out[k].copy_(self.rec_out[k], non_blocking=True)
+        self.events[k].record()
+
+    def outcome(self, k: int) -> tuple[np.ndarray, int]:
+        """Frame k's (params7 [7] float32, inliers), waiting for its event
+        on the card."""
+        if self.events is not None:
+            self.events[k].synchronize()
+        row = self.host_out[k].numpy()
+        return row[:7].copy(), int(row[7])
+
+
 @dataclasses.dataclass
 class TrackResult:
     status: Status
@@ -440,6 +597,10 @@ class VisualOdometry:
         self.kf_pose_log: dict[int, np.ndarray] = {}
         self._last_kf_fid = -1
         self._last_kf_pose7 = np.asarray([1, 0, 0, 0, 0, 0, 0], np.float32)
+        self._chunk_steps: dict = {}    # (frame shape, chunk, FUSED_VARIANT) -> ChunkStep
+        # add_frames' work: chunks, frame steps computed, and of those the
+        # ones discarded at or after a chunk's flagged frame.
+        self.chunk_stats = collections.Counter()
 
     def _identity(self) -> SE3:
         return SE3.identity(device=self.device)
@@ -478,6 +639,94 @@ class VisualOdometry:
         else:
             self.traj_rel.append((timestamp, -1, abs7))
         return res
+
+    def add_frames(self, imgs, timestamps=None, chunk: int | None = None) -> list:
+        """Chunked tracking (the JAX package's `add_frames`): spans of
+        `chunk` ordinary frames (`VOOptions.chunk_frames` by default) run as
+        `ChunkStep`s, a CUDA-graph replay each on the card, with no host wait
+        per frame but for the outcome of the frame IN_FLIGHT frames back.
+        The host decides each frame as the per-frame path does (the inlier
+        hysteresis and the keyframe need, from the fetched pose and inlier
+        count); the chunk is cut before the first frame that would go LOST,
+        need descriptor verification or become a keyframe, and that frame
+        runs through `add_frame`.  Frames while not GOOD, a tail shorter
+        than `chunk`, or a confirmed sub-gate streak take the per-frame
+        path.  The results, trajectory and map equal repeated `add_frame`
+        bit for bit.  Returns a TrackResult per frame."""
+        n = len(imgs)
+        ts = list(timestamps) if timestamps is not None else [0.0] * n
+        chunk = chunk or self.o.chunk_frames
+        results: list[TrackResult] = []
+        i = 0
+        while i < n:
+            if (self.status is not Status.GOOD or n - i < chunk
+                    or self._low_streak >= self.o.track_confirm_frames):
+                results.append(self.add_frame(imgs[i], ts[i]))
+                i += 1
+                continue
+            done = self._track_chunk(imgs[i:i + chunk], ts[i:i + chunk])
+            results += done
+            i += len(done)
+            if len(done) < chunk:          # the flagged frame: the per-frame path
+                results.append(self.add_frame(imgs[i], ts[i]))
+                i += 1
+        return results
+
+    def _track_chunk(self, frames, ts) -> list:
+        """One chunk of GOOD frames; returns the TrackResults of the frames
+        before the first flagged one (all of them if none is flagged), whose
+        state the VO then holds."""
+        o = self.o
+        C = len(ts)
+        key = (tuple(self.prev_pyr[0].shape), C, sparse_align.FUSED_VARIANT)
+        step = self._chunk_steps.get(key)
+        if step is None:
+            step = self._chunk_steps[key] = ChunkStep(self, C)
+        start = self.server.state
+        step.load(self, frames)
+        hard = self._hard_inlier_floor()
+        streak, fsk = self._low_streak, self.frames_since_kf
+        outcomes = []
+        launched = 0
+        while len(outcomes) < C:
+            while launched < C and launched - len(outcomes) < IN_FLIGHT:
+                step.run(launched)
+                launched += 1
+            abs7, n_inl = step.outcome(len(outcomes))
+            # _track_frame's hysteresis and keyframe decision, on the host.
+            low = n_inl < o.min_track_inliers
+            s_next = streak + 1 if low else 0
+            if (n_inl < hard or s_next >= o.track_confirm_frames
+                    or (not low and self._keyframe_due(fsk + 1, abs7))):
+                break
+            streak, fsk = s_next, fsk + 1
+            outcomes.append((abs7, n_inl))
+        j = len(outcomes)
+        self.chunk_stats.update(chunks=1, frames_computed=launched,
+                                frames_discarded=launched - j)
+        if j == 0:
+            return []
+        last = j - 1
+        self.server.state = accept_counters(start, step.rec_cand, step.rec_found, j)
+        self.prev_found = step.rec_found[last].clone()
+        self.prev_obs_px = step.rec_obs[last].clone()
+        R, t = step.rec_R[:j].clone(), step.rec_t[:j].clone()
+        self.prev_T_cw = self.T_cw = SE3(R[last], t[last])
+        self.velocity = SE3(step.rec_vR[last].clone(), step.rec_vt[last].clone())
+        self.prev_pyr = fe.preprocess(step.imgs[last].clone(), o.n_levels)
+        self.frames_since_kf, self._low_streak = fsk, streak
+        results = []
+        for k, (abs7, n_inl) in enumerate(outcomes):
+            self.frame_id += 1
+            self.stats.update(frames=1, frames_good=1, inliers_total=n_inl)
+            self.trajectory.append((ts[k], abs7))
+            if self._last_kf_fid >= 0:
+                self.traj_rel.append((ts[k], self._last_kf_fid, np_se3.relative7(
+                    abs7, self._last_kf_pose7).astype(np.float32)))
+            else:
+                self.traj_rel.append((ts[k], -1, abs7))
+            results.append(TrackResult(Status.GOOD, SE3(R[k], t[k]), n_inl))
+        return results
 
     def _detect(self, pyr, existing_px=None, existing_mask=None):
         o = self.o
@@ -640,14 +889,17 @@ class VisualOdometry:
         return TrackResult(Status.GOOD, T_cw, n_inl)
 
     def _need_keyframe(self, T_cw: SE3) -> bool:
+        return self._keyframe_due(self.frames_since_kf, T_cw.params7().cpu().numpy())
+
+    def _keyframe_due(self, frames_since_kf: int, abs7: np.ndarray) -> bool:
         """NeedNewKeyFrame (:304-321): at least kf_min_frames since the last
         keyframe and motion beyond the rotation or translation threshold,
-        computed on the host from the cached keyframe pose."""
+        computed on the host (float64) from the frame's params7 and the
+        cached keyframe pose."""
         o = self.o
-        if self.frames_since_kf < o.kf_min_frames:
+        if frames_since_kf < o.kf_min_frames:
             return False
-        delta = np_se3.log6(np_se3.relative7(T_cw.params7().cpu().numpy(),
-                                             self._last_kf_pose7))
+        delta = np_se3.log6(np_se3.relative7(abs7, self._last_kf_pose7))
         return (float(np.linalg.norm(delta[3:])) > o.kf_max_rot
                 or float(np.linalg.norm(delta[:3])) > o.kf_max_trans)
 

@@ -71,15 +71,41 @@ def cluster_partition(n: int, per_cta: int) -> Partition:
 
 
 _recording = None       # the open `record_launches` list, if any
+_capturing = None       # the open `capture_launches` list, if any
 
 
 def launched(wrapper, *args) -> None:
     """A wrapper calls this where it has launched its kernel, with the
     arguments it was given: one more in `wrapper.launches`, and a
-    (wrapper, args) entry in the open recording."""
+    (wrapper, args) entry in the open recording.  Under `capture_launches`
+    (a CUDA-graph capture, which runs nothing) the wrapper is noted there
+    instead, and counted by `replayed` each time the graph runs."""
+    if _capturing is not None:
+        _capturing.append(wrapper)
+        return
     wrapper.launches += 1
     if _recording is not None:
         _recording.append((wrapper, args))
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Within the block (a CUDA-graph capture), kernel launches are not
+    counted: the list this yields receives each launching wrapper, in order,
+    for `replayed`."""
+    global _capturing
+    _capturing = cap = []
+    try:
+        yield cap
+    finally:
+        _capturing = None
+
+
+def replayed(captured: list) -> None:
+    """A captured graph ran once: one more launch for each wrapper that
+    launched into it."""
+    for wrapper in captured:
+        wrapper.launches += 1
 
 
 @contextlib.contextmanager

@@ -48,7 +48,9 @@ def align2d_prepare(ref_patch_border: torch.Tensor) -> Align2DPrep:
     J = torch.stack([dx, dy, torch.ones_like(dx)], dim=-1).reshape(N, -1, 3)
     H3 = torch.einsum("npa,npb->nab", J, J)
     eye = torch.eye(3, dtype=b.dtype, device=b.device)
-    hinv = torch.linalg.inv(H3 + 1e-6 * eye)
+    # inv_ex: linalg.inv's solve without its host-side error check, which
+    # waits for the device (and so cannot be captured in a CUDA graph).
+    hinv = torch.linalg.inv_ex(H3 + 1e-6 * eye).inverse
     return Align2DPrep(ref.contiguous(), dx.contiguous(), dy.contiguous(),
                        hinv.contiguous())
 

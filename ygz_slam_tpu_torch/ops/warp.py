@@ -3,6 +3,7 @@
 The 2x2 determinant and inverse are closed forms."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -10,6 +11,15 @@ import torch
 from ..geometry.se3 import SE3
 
 WARP_HALF = 4  # WarpHalfPatchSize (Basic/Common.h:90-91: 8x8 patches)
+
+
+@functools.lru_cache(maxsize=8)
+def _probes(device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The probe offsets (WARP_HALF, 0) and (0, WARP_HALF) on `device`, made
+    once (no host-to-device copy per call: a CUDA-graph capture of the
+    tracking step permits none)."""
+    return (torch.tensor([float(WARP_HALF), 0.0], device=device),
+            torch.tensor([0.0, float(WARP_HALF)], device=device))
 
 
 def warp_affine_matrix(cam, px_ref: torch.Tensor, depth_ref: torch.Tensor,
@@ -20,8 +30,7 @@ def warp_affine_matrix(cam, px_ref: torch.Tensor, depth_ref: torch.Tensor,
     level_ref [N] int, the level the feature was detected on, scaling the
     probe offset."""
     scale = (2.0 ** level_ref.to(torch.float32))[:, None]
-    e_u = torch.tensor([float(WARP_HALF), 0.0], device=px_ref.device)
-    e_v = torch.tensor([0.0, float(WARP_HALF)], device=px_ref.device)
+    e_u, e_v = _probes(str(px_ref.device))
     pt_ref = cam.pixel_to_camera(px_ref, depth_ref)
     du = cam.pixel_to_camera(px_ref + e_u * scale, depth_ref)
     dv = cam.pixel_to_camera(px_ref + e_v * scale, depth_ref)

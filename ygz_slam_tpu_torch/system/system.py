@@ -4,10 +4,14 @@ ygz_slam_tpu/system/system.py, monocular only).
 `System(config_file=None, camera=None, sensor=MONOCULAR, options=None,
 device=None)` takes the JAX package's arguments in its order, `device` last,
 and wires a camera and VOOptions into a VisualOdometry on the card (or the
-named device); `track_monocular` tracks one frame.  Not ported:
-configuration files (a `config_file` raises NotImplementedError until
-`system/config.py` is ported), RGBD and stereo sensors, map save/load and
-chunked tracking.
+named device); `track_monocular` tracks one frame, `track_monocular_chunk`
+and `track_monocular_stream` track many through chunked tracking
+(`VisualOdometry.add_frames`).  Not ported yet (ROADMAP queue 1): async
+mapping with `shutdown`, `warmup` and `export_point_cloud`; the depth
+filter; the vocabulary, relocalization, keyframe archive, loop closing and
+map save/load; the SPARSE_ORB and SEMI_DENSE_DIRECT frontends; RGBD and
+stereo sensors; configuration files (a `config_file` raises
+NotImplementedError until `system/config.py` is ported); the viewer.
 """
 from __future__ import annotations
 
@@ -47,6 +51,29 @@ class System:
     def track_monocular(self, img, timestamp: float = 0.0):
         """One image [H, W] -> TrackResult (status, T_cw, inliers)."""
         return self.vo.add_frame(img, timestamp)
+
+    def track_monocular_chunk(self, imgs, timestamps=None, chunk: int | None = None) -> list:
+        """Consecutive images -> a TrackResult each, through chunked
+        tracking (`VisualOdometry.add_frames`): the same results as repeated
+        `track_monocular`, with the host's per-frame work paid per chunk."""
+        return self.vo.add_frames(imgs, timestamps, chunk=chunk)
+
+    def track_monocular_stream(self, frames_iter, chunk: int | None = None) -> list:
+        """An iterator of (image, timestamp) pairs -> a TrackResult each, in
+        order: frames are buffered 2 * chunk at a time and tracked by
+        `track_monocular_chunk`, so a buffer's results come when it is
+        flushed."""
+        chunk = chunk or self.vo.o.chunk_frames
+        buf, ts_buf, out = [], [], []
+        for img, ts in frames_iter:
+            buf.append(img)
+            ts_buf.append(ts)
+            if len(buf) >= 2 * chunk:
+                out += self.vo.add_frames(buf, ts_buf, chunk=chunk)
+                buf, ts_buf = [], []
+        if buf:
+            out += self.vo.add_frames(buf, ts_buf, chunk=chunk)
+        return out
 
     def reset(self) -> None:
         self.vo.reset()
