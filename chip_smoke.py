@@ -144,18 +144,42 @@ Phases, each raising (and so exiting non-zero) on failure:
    discarded at or after a cut.  It prints frames/s of the four runs, the
    wall ms per chunk frame in the chunk loop, and the frames computed and
    discarded.
+5f. Main path 8: the System with the depth filter
+   (`nonplanar_workload.box_df_options`: path 6b's options with
+   `use_depth_filter=True`).  (a) N_DF BoxScene frames at 640x480 through
+   `System.track_monocular`, gated over path 6b's span (its first BOX_SPAN
+   frames): GOOD on every frame after init, Sim(3)-aligned ATE < DF_ATE,
+   and more valid landmark rows at frame BOX_SPAN than path 6b; the whole
+   run is reported (in both packages this configuration loses track in
+   some runs past frame ~190 and drifts in others, ROADMAP section 3): the
+   GOOD share, first LOST, resets, evictions, keyframes, seeds promoted per
+   keyframe, valid landmark rows every DF_ROWS_EVERY frames, mean inliers
+   and the ATE over the first 160-400 frames; it holds path 4's launch
+   counts (the seed update launches no
+   kernel of the port's own: it is plain PyTorch, as the JAX package's is
+   jnp).  The seed update of frame SEED_FRAME, recorded, runs again on the
+   CPU in float32 and float64: the seeds updated agree on >=
+   MIN_SEED_AGREE of the rows, and mu and sigma2 on the card are within
+   max(TOL_SEED, SEED_SPREAD x the CPU's distance from float64) of the
+   CPU's.  (b) The same frames through `track_monocular_chunk(chunk=32)`,
+   runs in turns per frame (8a), chunked, chunked, per frame, each equal to
+   8a bit for bit, the seed table included; a graph with the seed update
+   captured and replayed; frames/s of the four runs.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
    same BoxScene frames, per frame and chunked, with the K3 launches the
-   profiler saw against the frames that ran `track`): device busy
-   share and the kernels that take the most device time; then each
+   profiler saw against the frames that ran `track`; path 8 per frame over
+   path 6b's window, then the synchronised ms of each seed update over the
+   next 64 frames and one recorded update alone, its kernels and device
+   time): device busy share and the kernels that take the most device
+   time; then each
    kernel's device µs per launch in the profiler beside its CUDA-event
    time from phase 2 (whose intervals include the gap between launches;
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
    pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-7), then the last line {"ok": true, "device": {...}}.
+   paths 1-8), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -182,6 +206,19 @@ EVICT_K, EVICT_FRAMES = 6, 200   # path 6c: a map of 6 slots, evicted from ~fram
 BOX_SHAPE = (480, 640)
 CHUNK = 32               # main path 7's chunk (VOOptions.chunk_frames)
 P7_PROFILE = (32, 96, 160)    # path 7: per-frame to 32, chunked to 96, profiled to 160
+N_DF = 400               # main path 8: BoxScene frames with the depth filter
+DF_ATE = 0.10            # path 8's gate on the Sim(3)-aligned ATE over its first BOX_SPAN
+                         # frames (path 6b's span; past it the run is reported: in both
+                         # packages this configuration loses track in some runs and
+                         # drifts in others, ROADMAP section 3)
+DF_ROWS_EVERY = 40       # path 8 prints the valid landmark rows every this many frames
+SEED_FRAME = 100         # path 8's frame whose seed update is held to the CPU's
+P8_PROFILE = (96, 160, 224)   # path 8: profiled 96-159 (path 6b's window), seed update timed to 224
+TOL_SEED = 1e-4          # seed update, card against CPU, relative: the floor ...
+SEED_SPREAD = 2.0        # ... else this many times the CPU's own float32 error (against
+                         # float64): tests/test_torch_depth_filter.py's rule, the CPU
+                         # run standing where the JAX package's jit run stands there
+MIN_SEED_AGREE = 0.98    # seeds updated on the card and on the CPU, share of valid rows
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -1750,19 +1787,27 @@ def main() -> int:
     # section where this configuration starves its map (no depth filter):
     # reported, not gated (ROADMAP section 3).
     t0 = time.perf_counter()
-    cam_b, frames_b6, T_gt_b6 = nw.box_workload(N_BOX, device=dev, shape=BOX_SHAPE)
+    n_render = max(N_BOX, N_DF)          # paths 6b and 7 take the first N_BOX, path 8 N_DF
+    cam_b, frames_box, T_gt_box = nw.box_workload(n_render, device=dev, shape=BOX_SHAPE)
+    frames_b6, T_gt_b6 = frames_box[:N_BOX], T_gt_box[:N_BOX]
     torch.cuda.synchronize()
     ts_b6 = [float(k) for k in range(N_BOX)]
-    print(f"BoxScene workload: {N_BOX} frames {BOX_SHAPE[1]}x{BOX_SHAPE[0]} rendered in "
+    print(f"BoxScene workload: {n_render} frames {BOX_SHAPE[1]}x{BOX_SHAPE[0]} rendered in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     s6b = System(camera=cam_b, options=nw.box_options(), device=dev)
     rows6b = []          # valid landmark rows at init and after each keyframe of the span
+    rows6b_span = []     # ... and after frame BOX_SPAN (path 8's map must grow past it)
+    inl6b = []           # inliers of the span's GOOD frames
     n_kf6b = [0]
 
     def on_frame6b(k, r):
+        if k < BOX_SPAN and r.status is vo_mod.Status.GOOD:
+            inl6b.append(r.n_inliers)
         kf = s6b.vo.stats["keyframes"]
         if k < BOX_SPAN and (kf > n_kf6b[0] or (r.status is vo_mod.Status.GOOD and not rows6b)):
             rows6b.append(int(s6b.vo.server.state.pt_valid.sum()))
+        if k == BOX_SPAN:
+            rows6b_span.append(int(s6b.vo.server.state.pt_valid.sum()))
         n_kf6b[0] = kf
 
     st6, T7_6, wall6, launches6, n_tr6 = run_counted(s6b, frames_b6, on_frame6b)
@@ -1778,7 +1823,8 @@ def main() -> int:
           f"init at frame {k0} (model {'H' if vo6.init_used_h else 'F'}); frames {k0}-"
           f"{BOX_SPAN - 1} GOOD: {all(x is vo_mod.Status.GOOD for x in span[k0:])}, ATE over them "
           f"{ate6!r} m (< 0.10), valid landmark rows at init and after each keyframe of "
-          f"the span (the map must grow past its init rows) {rows6b}: "
+          f"the span (the map must grow past its init rows) {rows6b}, at frame {BOX_SPAN} "
+          f"{rows6b_span}: "
           f"{'pass' if ok6 else 'FAIL'}.  Whole run (reported): GOOD {st6.count(vo_mod.Status.GOOD) / N_BOX:.4f}, "
           f"first LOST frame {first_lost}, {nw.segments(st6)} segment(s), "
           f"{vo6.stats['keyframes']} keyframes, {vo6.stats['evictions']} evictions, "
@@ -1894,6 +1940,178 @@ def main() -> int:
           f"{(fps7['C1'] + fps7['C2']) / (fps7['P1'] + fps7['P2']):.3f}", flush=True)
     del box, c1
 
+    # -- 5f. main path 8: the System with the depth filter ---------------------
+    # (a) BoxScene 640x480 per frame with box_df_options (path 6b's frames and
+    # options, the depth filter on), N_DF frames, gated over path 6b's span
+    # (its first BOX_SPAN frames): GOOD on every frame after init, ATE <
+    # DF_ATE, and more valid landmark rows at frame BOX_SPAN than path 6b;
+    # the whole run is reported.  The seed update of frame SEED_FRAME is
+    # recorded for the card-against-CPU check.
+    from ygz_slam_tpu_torch.map import depth_filter as dfilt
+
+    frames_b8, T_gt_b8 = frames_box[:N_DF], T_gt_box[:N_DF]
+    ts_b8 = [float(k) for k in range(N_DF)]
+    s8 = System(camera=cam_b, options=nw.box_df_options(), device=dev)
+    rows8, prom8, inl8, seed_call, last8 = {}, [], [], {}, {"kf": 0, "prom": 0}
+    real_usff = dfilt.update_seeds_from_frame
+
+    def recording_update(seeds, ref_img, cur_img, cam, T_cur_ref, *a, **kw):
+        out = real_usff(seeds, ref_img, cur_img, cam, T_cur_ref, *a, **kw)
+        if s8.vo.frame_id == SEED_FRAME and not seed_call:
+            seed_call.update(
+                args=(dfilt.Seeds(*(t.clone() for t in seeds)), ref_img.clone(), cur_img.clone(),
+                      SE3(T_cur_ref.R.clone(), T_cur_ref.t.clone())),
+                out=dfilt.Seeds(*(t.clone() for t in out)))
+        return out
+
+    def on_frame8(k, r):
+        vo = s8.vo
+        if r.status is vo_mod.Status.GOOD:
+            inl8.append((k, r.n_inliers))
+        if k == BOX_SPAN:
+            rows8["span"] = int(vo.server.state.pt_valid.sum())
+        if vo.stats["keyframes"] > last8["kf"]:
+            prom8.append(vo.stats["seeds_promoted"] - last8["prom"])
+            last8.update(kf=vo.stats["keyframes"], prom=vo.stats["seeds_promoted"])
+        if (k + 1) % DF_ROWS_EVERY == 0:
+            rows8[k] = int(vo.server.state.pt_valid.sum())
+
+    dfilt.update_seeds_from_frame = recording_update
+    try:
+        st8, T7_8, wall8, launches8, n_tr8 = run_counted(s8, frames_b8, on_frame8)
+    finally:
+        dfilt.update_seeds_from_frame = real_usff
+    vo8 = s8.vo
+    k0 = mw.init_frame(st8)
+    ate8 = mw.good_ate(st8, T7_8, T_gt_b8)
+    first_lost8 = st8.index(vo_mod.Status.LOST) if vo_mod.Status.LOST in st8 else None
+    rows_end8 = int(vo8.server.state.pt_valid.sum())
+    good8 = st8.count(vo_mod.Status.GOOD) / N_DF
+    ate8_spans = {n: round(mw.good_ate(st8[:n], T7_8[:n], T_gt_b8[:n]), 5)
+                  for n in (BOX_SPAN, 200, 240, 320, N_DF) if n <= N_DF}
+    span8 = st8[:BOX_SPAN]
+    ate8_span = mw.good_ate(span8, T7_8[:BOX_SPAN], T_gt_b8[:BOX_SPAN])
+    inl8_span = [n for k, n in inl8 if k < BOX_SPAN]
+    ok8 = (0 <= k0 < 30 and all(x is vo_mod.Status.GOOD for x in span8[k0:])
+           and ate8_span < DF_ATE and bool(rows6b_span) and rows8.get("span", 0) > rows6b_span[0])
+    print(f"main path 8a (System.track_monocular, BoxScene {BOX_SHAPE[1]}x{BOX_SHAPE[0]}, the "
+          f"depth filter on): {N_DF} frames in {wall8:.3f} s = {N_DF / wall8:.1f} frames/s; init "
+          f"at frame {k0} (model {'H' if vo8.init_used_h else 'F'}); frames {k0}-{BOX_SPAN - 1} "
+          f"GOOD: {all(x is vo_mod.Status.GOOD for x in span8[k0:])}, ATE over them "
+          f"{ate8_span!r} m (< {DF_ATE}), valid landmark rows at frame {BOX_SPAN} "
+          f"{rows8.get('span')} (> path 6b's {rows6b_span}), mean inliers per GOOD frame of the "
+          f"span {sum(inl8_span) / max(len(inl8_span), 1):.1f} (path 6b "
+          f"{sum(inl6b) / max(len(inl6b), 1):.1f}): {'pass' if ok8 else 'FAIL'}.  Whole run "
+          f"(reported): GOOD {good8:.4f} (every frame after init: "
+          f"{all(x is vo_mod.Status.GOOD for x in st8[k0:])}), first LOST frame {first_lost8}, "
+          f"{nw.segments(st8) - 1} reset(s), {vo8.stats['evictions']} evictions, "
+          f"{vo8.stats['keyframes']} keyframes ({vo8.stats['keyframes_culled']} culled), seeds "
+          f"promoted {vo8.stats['seeds_promoted']} (per keyframe {prom8}), valid landmark rows "
+          f"every {DF_ROWS_EVERY} frames { {k: v for k, v in rows8.items() if k != 'span'} }, at "
+          f"the end {rows_end8}, mean inliers per GOOD frame "
+          f"{sum(n for _, n in inl8) / max(len(inl8), 1):.1f}, ATE over the first n frames "
+          f"{ate8_spans}, over the run {ate8!r} m; launches {launches8}", flush=True)
+    if not ok8:
+        raise AssertionError("main path 8a failed its gate")
+    if launches8 != want_track(n_tr8, vo8.stats["keyframes"]):
+        raise AssertionError(f"launch counts {launches8}, expected "
+                             f"{want_track(n_tr8, vo8.stats['keyframes'])}")
+
+    # The recorded seed update on the card against the CPU (and both against
+    # float64 on the CPU): the seeds updated agree on >= MIN_SEED_AGREE of the
+    # valid rows; on rows updated in both, mu and sigma2 within max(TOL_SEED,
+    # SEED_SPREAD x the CPU run's own distance from float64).
+    if not seed_call:
+        raise AssertionError(f"main path 8a ran no seed update on frame {SEED_FRAME}")
+    sd, ref_img, cur_img, T_cr = seed_call["args"]
+    out_card = seed_call["out"]
+
+    def on_cpu(dtype):
+        def cast(t):
+            t = t.cpu()
+            return t.to(dtype) if t.is_floating_point() else t
+
+        return real_usff(dfilt.Seeds(*(cast(t) for t in sd)), cast(ref_img), cast(cur_img),
+                         cam_b, SE3(cast(T_cr.R), cast(T_cr.t)))
+
+    out_cpu, out_64 = on_cpu(torch.float32), on_cpu(torch.float64)
+    valid = sd.valid.cpu()
+    upd_card = (out_card.sigma2.cpu() != sd.sigma2.cpu()) & valid
+    upd_cpu = (out_cpu.sigma2 != sd.sigma2.cpu()) & valid
+    agree = float((upd_card == upd_cpu)[valid].float().mean()) if bool(valid.any()) else 1.0
+    both = upd_card & upd_cpu
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30))[both].max()) if bool(
+            both.any()) else 0.0
+
+    seed_errs = {name: (rel(getattr(out_card, name), getattr(out_cpu, name)),
+                        rel(getattr(out_cpu, name), getattr(out_64, name)))
+                 for name in ("mu", "sigma2")}
+    ok_seed = agree >= MIN_SEED_AGREE and int(both.sum()) > 0 and all(
+        card <= max(TOL_SEED, SEED_SPREAD * own) for card, own in seed_errs.values())
+    print(f"main path 8a's seed update of frame {SEED_FRAME}, card against CPU: "
+          f"{int(valid.sum())} valid seeds, {int(upd_card.sum())} updated on the card and "
+          f"{int(upd_cpu.sum())} on the CPU, the sets agree on {agree:.4f} of the rows (>= "
+          f"{MIN_SEED_AGREE}); mu and sigma2 on the {int(both.sum())} rows updated in both, "
+          f"(card against CPU, CPU against float64): {seed_errs}: "
+          f"{'pass' if ok_seed else 'FAIL'}", flush=True)
+    if not ok_seed:
+        raise AssertionError("main path 8a's seed update on the card differs from the CPU's")
+
+    # (b) The same frames through track_monocular_chunk: runs in turns P1 (8a),
+    # C1, C2, P2, each from a fresh System, equal bit for bit (statuses,
+    # trajectory, keyframe slots, stats, keyframe poses, landmarks and the
+    # seed table); graphs with the seed update captured and replayed.
+    def fingerprint8(s, statuses):
+        vo = s.vo
+        seeds = None if vo.seeds is None else tuple(t.cpu().numpy().tobytes() for t in vo.seeds)
+        return fingerprint7(s, statuses) + (vo.seed_kf_slot, seeds)
+
+    def df_run(chunked):
+        s = System(camera=cam_b, options=nw.box_df_options(), device=dev)
+        for c in counters4:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if chunked:
+            statuses = [r.status for r in s.track_monocular_chunk(frames_b8, ts_b8, chunk=CHUNK)]
+        else:
+            statuses = [s.track_monocular(frames_b8[k], ts_b8[k]).status for k in range(N_DF)]
+        torch.cuda.synchronize()
+        return dict(s=s, wall=time.perf_counter() - t,
+                    launches={c.__name__: c.launches for c in counters4},
+                    fp=fingerprint8(s, statuses))
+
+    dfr = {"P1": dict(s=s8, wall=wall8, launches=launches8, fp=fingerprint8(s8, st8))}
+    for key in ("C1", "C2", "P2"):
+        dfr[key] = df_run(key[0] == "C")
+        same = dfr[key]["fp"] == dfr["P1"]["fp"]
+        print(f"main path 8b: run {key} against 8a: statuses, trajectory, keyframe slots, stats, "
+              f"keyframe poses, landmarks and seed table "
+              f"{'equal bit for bit' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            raise AssertionError(f"main path 8b: run {key} differs from the per-frame run")
+    vo8c = dfr["C1"]["s"].vo
+    cs8 = vo8c.chunk_stats
+    seeded8 = [st for key, st in vo8c._chunk_steps.items() if key[-1]]
+    launches8c = dfr["C1"]["launches"]
+    want8c = {k: v + cs8["frames_discarded"] * per_step.get(k, 0) for k, v in launches8.items()}
+    fps8 = {k: round(N_DF / r["wall"], 1) for k, r in dfr.items()}
+    print(f"main path 8b (System.track_monocular_chunk, chunk={CHUNK}, the depth filter on): "
+          f"{cs8['chunks']} chunks, {cs8['frames_computed']} frame steps computed, "
+          f"{cs8['frames_discarded']} discarded; graphs (frame shape, chunk, variant, seeds) "
+          f"{[(k, st.replays) for k, st in vo8c._chunk_steps.items()]}; launches {launches8c}; "
+          f"frames/s in turns (P, C, C, P) {fps8}, chunked / per-frame "
+          f"{(fps8['C1'] + fps8['C2']) / (fps8['P1'] + fps8['P2']):.3f}", flush=True)
+    if not seeded8 or sum(st.replays for st in seeded8) == 0 or any(
+            st.graph is None for st in seeded8):
+        raise AssertionError("main path 8b replayed no CUDA graph with the seed update")
+    if launches8c != want8c:
+        raise AssertionError(f"launch counts {launches8c}, expected {want8c}")
+    del dfr, vo8c
+
     # -- 6. profile windows ----------------------------------------------------
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
@@ -1955,6 +2173,57 @@ def main() -> int:
               f"the profiler saw: {n_k3} (frames through `track`: {c7 - b7 + discarded})",
               flush=True)
         del s7
+    # Path 8 per frame over path 6b's window (the kernels the seed update
+    # adds per frame), then the synchronised ms of the seed update per frame
+    # over the next window, and one recorded update profiled alone.
+    a8, b8, c8 = P8_PROFILE
+    s8w = System(camera=cam_b, options=nw.box_df_options(), device=dev)
+    for k in range(a8):
+        s8w.track_monocular(frames_b8[k], ts_b8[k])
+    n_kf0 = s8w.vo.stats["keyframes"]
+    prof["8"] = _profile(torch, lambda: [s8w.track_monocular(frames_b8[k], ts_b8[k])
+                                         for k in range(a8, b8)],
+                         b8 - a8, f"main path 8, BoxScene with the depth filter, per frame "
+                         f"(frames {a8}-{b8 - 1})")
+    n_kf_w8 = s8w.vo.stats["keyframes"] - n_kf0
+    seed_ms, seed_args = [], []
+    real_update = vo_mod.update_seeds
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_update(*a, **kw)
+        torch.cuda.synchronize()
+        seed_ms.append(1e3 * (time.perf_counter() - t))
+        if not seed_args:
+            seed_args.append((a, kw))
+        return out
+
+    vo_mod.update_seeds = timed_update
+    try:
+        for k in range(b8, c8):
+            s8w.track_monocular(frames_b8[k], ts_b8[k])
+    finally:
+        vo_mod.update_seeds = real_update
+    if not seed_ms:
+        raise AssertionError(f"main path 8 ran no seed update in frames {b8}-{c8 - 1}")
+    a_, kw_ = seed_args[0]
+    prof["8seed"] = _profile(torch, lambda: [real_update(*a_, **kw_) for _ in range(20)], 20,
+                             "one seed update (update_seeds, 128 seeds) x 20")
+
+    def per_frame(window, n):
+        return (sum(v[1] for v in prof[window].values()) / n,
+                sum(v[0] for v in prof[window].values()) / n)
+
+    k8, us8 = per_frame("8", b8 - a8)
+    k6, us6 = per_frame("6b", P7_PROFILE[2] - P7_PROFILE[1])
+    kseed, usseed = per_frame("8seed", 20)
+    print(f"main path 8's seed update: {statistics.median(seed_ms):.3f} ms synchronised per "
+          f"frame (median of {len(seed_ms)} frames {b8}-{c8 - 1}; min {min(seed_ms):.3f}, max "
+          f"{max(seed_ms):.3f}); alone {kseed:.1f} kernels and {usseed:.2f} us of device time per "
+          f"update; window {a8}-{b8 - 1} per frame: path 8 {k8:.1f} kernels, {us8:.1f} us busy "
+          f"({n_kf_w8} keyframes), path 6b {k6:.1f} kernels, {us6:.1f} us busy", flush=True)
+    del s8w
     # Each kernel's device time per launch in the profiler, in the window
     # whose shapes its phase-2 CUDA-event time was taken at, beside that
     # time (per frame for K1 and K9: 2 and 3 launches; per keyframe for
@@ -1991,7 +2260,8 @@ def main() -> int:
     def launches(name):
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
                 + sum(v[name] for v in launches4.values()) + launches5[name]
-                + launches6a[name] + launches6[name] + launches6c[name] + launches7[name])
+                + launches6a[name] + launches6[name] + launches6c[name] + launches7[name]
+                + launches8[name] + launches8c[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

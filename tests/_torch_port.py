@@ -7,7 +7,19 @@ it on the CPU, and inputs passed between the packages as numpy arrays.
 runs the JAX package's VisualOdometry on the CPU over the port's monocular
 workload (models/mono_workload.py, 640x480, 160 frames) and prints its
 init frame, model, keyframes and ATE: the reference of that workload's
-gate."""
+gate.
+
+    JAX_PLATFORMS=cpu python tests/_torch_port.py box PACKAGE H W N THREADS
+
+runs bench_accuracy's BoxScene (`nonplanar_workload.box_workload`, N
+frames at HxW) with the depth filter on (`box_df_options`) through the
+port's System ("port"), the JAX VisualOdometry's CPU route ("jax") or its
+TPU kernels interpreted ("jax-interpreted"), on THREADS torch threads, and
+prints one JSON line: the ATE over the run and over its first n frames,
+the GOOD share, the first LOST frame, segments, valid landmark rows every
+40 frames, seeds promoted per keyframe (port) and the stats.  A run's
+outcome moves with float32 rounding (the thread count changes it), so
+compare several."""
 import contextlib
 import functools
 
@@ -137,8 +149,74 @@ def jax_vo_options(opts) -> dict:
             if f.name in names and f.name != "vo_type"}
 
 
-if __name__ == "__main__":
+def box_depth_filter_run(package: str, shape, n: int) -> dict:
+    """BoxScene with the depth filter through one package on the CPU: the
+    outcome of the run as a dict (see the module docstring)."""
+    import contextlib
     import time
+
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import nonplanar_workload as nw
+    from ygz_slam_tpu_torch.models.visual_odometry import Status
+
+    cam, frames, T_gt7 = nw.box_workload(n, device="cpu", shape=tuple(shape))
+    opts = nw.box_df_options()
+    rows, promoted, last = {}, [], {"kf": 0, "promoted": 0}
+    t0 = time.perf_counter()
+    if package == "port":
+        from ygz_slam_tpu_torch.system.system import System
+
+        s = System(camera=cam, options=opts, device="cpu")
+
+        def on_frame(k, r):
+            stats = s.vo.stats
+            if stats["keyframes"] > last["kf"]:
+                promoted.append(stats["seeds_promoted"] - last["promoted"])
+                last.update(kf=stats["keyframes"], promoted=stats["seeds_promoted"])
+            if (k + 1) % 40 == 0:
+                rows[k] = int(s.vo.server.state.pt_valid.sum())
+
+        statuses, T7, _ = mw.run_mono(s, frames, on_frame)
+        stats = s.vo.stats
+    else:
+        def on_frame(k, jv):
+            if (k + 1) % 40 == 0:
+                rows[k] = int(np.asarray(jv.server.state.pt_valid).sum())
+
+        ctx = (jax_kernels_interpreted() if package == "jax-interpreted"
+               else contextlib.nullcontext())
+        with ctx:
+            names, T7, _, jv = jax_mono_run(cam, frames, jax_vo_options(opts), on_frame=on_frame)
+        statuses = [Status[x] for x in names]
+        stats = jv.stats
+    spans = [m for m in (100, 160, 200, 240, 280, 320, 360, 400) if m <= n]
+    return dict(package=package, shape=list(shape), frames=n,
+                wall_s=time.perf_counter() - t0, ate=mw.good_ate(statuses, T7, T_gt7),
+                ate_first=[(m, mw.good_ate(statuses[:m], T7[:m], T_gt7[:m])) for m in spans],
+                good=statuses.count(Status.GOOD) / n,
+                first_lost=statuses.index(Status.LOST) if Status.LOST in statuses else None,
+                segments=nw.segments(statuses), rows=rows, promoted=promoted,
+                stats={k: int(v) for k, v in stats.items()})
+
+
+if __name__ == "__main__":
+    import json
+    import os
+    import sys
+    import time
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+    if sys.argv[1:2] == ["box"]:
+        package, H, W, n, threads = sys.argv[2], *map(int, sys.argv[3:7])
+        torch.set_num_threads(threads)
+        if package != "port":
+            import jax
+
+            jax.config.update("jax_platforms", "cpu")
+        out = box_depth_filter_run(package, (H, W), n)
+        print(json.dumps(dict(out, threads=threads)))
+        sys.exit(0)
 
     from ygz_slam_tpu_torch.models import mono_workload as mw
     from ygz_slam_tpu_torch.models.visual_odometry import Status

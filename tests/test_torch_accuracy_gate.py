@@ -21,7 +21,12 @@ each level's init pose).
   at most 1.5x the JAX run's); the whole prefix is printed.
 - The frozen-Hessian route in both (the JAX package's TPU kernels run
   interpreted): the same init, GOOD in both through frame 100, and where
-  one loses track the other loses it within 10 frames."""
+  one loses track the other loses it within 10 frames.
+- With the depth filter on (`box_options(use_depth_filter=True)`), the
+  keyframes' depthless detections become landmarks as their seeds
+  converge and the map holds: over the whole prefix, in the port's default
+  route and the JAX package's CPU route, no LOST frame, no reset and an ATE
+  under 0.05 m, the port's at most 1.5x the JAX run's."""
 import pytest
 import torch
 
@@ -41,6 +46,7 @@ N_FRAMES = 150
 SPAN = 80                              # the gated span: frames before the map starves
 GOOD_THROUGH = 100                     # frozen-Hessian route: GOOD in both up to here
 LOSS_WITHIN = 10                       # ... and lost within this many frames of each other
+DF_ATE_MAX = 0.05                      # the depth filter on: ATE over the whole prefix
 
 
 @pytest.fixture(scope="module")
@@ -48,10 +54,10 @@ def workload():
     return nw.box_workload(N_FRAMES, device="cpu")
 
 
-def _port_run(workload, variant, monkeypatch):
+def _port_run(workload, variant, monkeypatch, **opts):
     cam, frames, T_gt7 = workload
     monkeypatch.setattr(sparse_align, "FUSED_VARIANT", variant)
-    s = System(camera=cam, options=nw.box_options(), device="cpu")
+    s = System(camera=cam, options=nw.box_options(**opts), device="cpu")
     statuses, T7, _ = mw.run_mono(s, frames)
     return statuses, T7, s
 
@@ -102,3 +108,23 @@ def test_box_loop_prefix_frozen_hessian_route(workload, monkeypatch):
         assert all(x is tvo.Status.GOOD for x in st[k0:GOOD_THROUGH + 1])
     a, b = res["port"]["first_lost"], res["jax"]["first_lost"]
     assert (a is None) == (b is None) and (a is None or abs(a - b) <= LOSS_WITHIN), res
+
+
+def test_box_loop_prefix_with_depth_filter(workload, monkeypatch):
+    """The depth filter on, the port's default route against the JAX
+    package's CPU route over the whole 150-frame prefix: no LOST frame, one
+    segment, ATE under 0.05 m in both, the port's at most 1.5x the JAX
+    run's, and seeds promoted in the port."""
+    cam, frames, T_gt7 = workload
+    statuses, T7, s = _port_run(workload, 3, monkeypatch, use_depth_filter=True)
+    jnames, jT7, _, jv = jax_mono_run(cam, frames,
+                                      jax_vo_options(nw.box_options(use_depth_filter=True)))
+    jstatuses = [tvo.Status[n] for n in jnames]
+    res = {"port": _summary(statuses, T7, T_gt7), "jax": _summary(jstatuses, jT7, T_gt7)}
+    print(f"BoxScene prefix with the depth filter: {res}; port stats {dict(s.vo.stats)}, "
+          f"{int(s.vo.server.state.pt_valid.sum())} valid landmarks; JAX stats {dict(jv.stats)}, "
+          f"{int(jv.server.state.pt_valid.sum())} valid landmarks")
+    for r in res.values():
+        assert r["first_lost"] is None and r["segments"] == 1 and r["ate"] < DF_ATE_MAX, res
+    assert res["port"]["ate"] <= 1.5 * res["jax"]["ate"], res
+    assert s.vo.stats["seeds_promoted"] > 0

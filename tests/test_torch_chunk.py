@@ -43,16 +43,18 @@ def _frames():
             torch.stack([T.params7() for T in Ts]))
 
 
-def _run(frames, mode: str, chunk: int = CHUNK, on_chunk=None):
-    """The port's System over `frames`, per frame ("frame"), through
-    track_monocular_chunk ("chunk") or track_monocular_stream ("stream"),
-    with the JAX package's RANSAC draw.  `on_chunk(vo, j)`, if given, is
-    called after each chunk with the number of frames it kept."""
+def _run(frames, mode: str, chunk: int = CHUNK, on_chunk=None, on_frame=None, **opts):
+    """The port's System over `frames` with mono_options(**opts), per frame
+    ("frame"), through track_monocular_chunk ("chunk") or
+    track_monocular_stream ("stream"), with the JAX package's RANSAC draw.
+    `on_chunk(vo, j)`, if given, is called after each chunk with the number
+    of frames it kept; `on_frame(vo)` after each frame of the per-frame
+    run."""
     ts = [float(k) for k in range(len(frames))]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tin, "sample_hypotheses", lambda mask, n, gen: torch.tensor(
             jax_ransac_indices(mask, gen.initial_seed(), n), dtype=torch.long))
-        s = System(camera=CAM, options=mw.mono_options(), device="cpu")
+        s = System(camera=CAM, options=mw.mono_options(**opts), device="cpu")
         if on_chunk is not None:
             real = s.vo._track_chunk
 
@@ -63,7 +65,11 @@ def _run(frames, mode: str, chunk: int = CHUNK, on_chunk=None):
 
             mp.setattr(s.vo, "_track_chunk", track_chunk)
         if mode == "frame":
-            res = [s.track_monocular(frames[k], ts[k]) for k in range(len(frames))]
+            res = []
+            for k in range(len(frames)):
+                res.append(s.track_monocular(frames[k], ts[k]))
+                if on_frame is not None:
+                    on_frame(s.vo)
         elif mode == "chunk":
             res = s.track_monocular_chunk(frames, ts, chunk=chunk)
         else:
@@ -100,6 +106,9 @@ def _assert_runs_equal(a, b):
     for x, y in ((va.prev_found, vb.prev_found), (va.prev_obs_px, vb.prev_obs_px),
                  (va.velocity.R, vb.velocity.R), (va.velocity.t, vb.velocity.t)):
         assert torch.equal(x, y)
+    assert (va.seeds is None) == (vb.seeds is None) and va.seed_kf_slot == vb.seed_kf_slot
+    if va.seeds is not None:
+        assert all(torch.equal(x, y) for x, y in zip(va.seeds, vb.seeds))
 
 
 def test_chunked_equals_per_frame(runs):
@@ -194,3 +203,50 @@ def test_chunked_matches_jax_per_frame(runs):
     assert d.max() <= TOL_TRAJ
     assert ate < ATE_MAX and jate < ATE_MAX
     assert s.vo.server.kf_used == jv.server.kf_used
+
+
+@pytest.fixture(scope="module")
+def seeded(runs):
+    """The same frames with the depth filter on, per frame (the seed table
+    after every frame kept by frame id) and chunked (the seed table after
+    every chunk cut short by a flagged frame)."""
+    per_frame, cuts = {}, []
+
+    def on_frame(vo):
+        per_frame[vo.frame_id] = None if vo.seeds is None else [t.clone() for t in vo.seeds]
+
+    def on_chunk(vo, j):
+        if 0 < j < CHUNK and vo.seeds is not None:
+            cuts.append((vo.frame_id, [t.clone() for t in vo.seeds]))
+
+    frames = runs["frames"]
+    return dict(frame=_run(frames, "frame", on_frame=on_frame, use_depth_filter=True),
+                chunk=_run(frames, "chunk", on_chunk=on_chunk, use_depth_filter=True),
+                per_frame=per_frame, cuts=cuts)
+
+
+def test_chunked_equals_per_frame_with_seeds(seeded):
+    """With the depth filter on (the seed update in the chunk step, seeds
+    promoted at keyframes), chunked tracking equals per-frame tracking bit
+    for bit: statuses, trajectory, keyframes, stats, map and the seed
+    table."""
+    _assert_runs_equal(seeded["chunk"], seeded["frame"])
+    vo = seeded["chunk"][0].vo
+    seeded_keys = [k for k in vo._chunk_steps if k[-1]]
+    print(f"seeded chunks: {dict(vo.chunk_stats)}; stats {dict(vo.stats)}; chunk steps "
+          f"{list(vo._chunk_steps)}")
+    assert vo.stats["seeds_promoted"] > 0 and vo.seeds is not None
+    assert seeded_keys and all(vo._chunk_steps[k].rec_seeds is not None for k in seeded_keys)
+
+
+def test_truncated_chunk_takes_the_seeds_of_the_frame_before_the_cut(seeded):
+    """A chunk cut short by a flagged frame has run the seed update on the
+    flagged frame and the one after it (IN_FLIGHT); the VO takes the seed
+    table recorded after the last kept frame, which equals the per-frame
+    run's after the same frame."""
+    assert seeded["cuts"], "no chunk with seeds was cut short"
+    for fid, seeds in seeded["cuts"]:
+        want = seeded["per_frame"][fid]
+        assert want is not None and all(torch.equal(a, b) for a, b in zip(seeds, want))
+    print(f"{len(seeded['cuts'])} cut chunks with seeds, at frame ids "
+          f"{[f for f, _ in seeded['cuts']]}")

@@ -29,8 +29,9 @@ card against the CPU, and that System run twice on the card (the same
 bits); the chunk step of `VisualOdometry.add_frames` replayed as a CUDA
 graph against the eager step under each FUSED_VARIANT (bit for bit), its
 warm-up, capture and replay under torch.cuda.set_sync_debug_mode("error"),
-forty frames through `track_monocular_chunk` against `track_monocular`
-(bit for bit), and BoxScene rendered on the card against the CPU.
+both also for the step with the depth filter's seed update, forty frames
+through `track_monocular_chunk` against `track_monocular` (bit for bit),
+and BoxScene rendered on the card against the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -1244,6 +1245,79 @@ def test_chunk_capture_makes_no_hidden_sync(cuda_device):
     torch.cuda.synchronize()
     assert step.replays == 1
     assert bool(torch.isfinite(step.rec_out).all())
+
+
+def _mono_vo_with_seeds(dev):
+    """A VisualOdometry on the card with the depth filter on, tracked on the
+    monocular workload (640x480) until it holds seeds on a keyframe, with
+    the frames and the index of the next frame."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models.visual_odometry import Status, VisualOdometry
+
+    cam, frames, _ = mw.make_mono_workload(40, device=dev)
+    vo = VisualOdometry(cam, mw.mono_options(use_depth_filter=True), device=dev)
+    for k in range(36):
+        vo.add_frame(frames[k], float(k))
+        if vo.seeds is not None and vo.status is Status.GOOD and vo.frames_since_kf >= 1:
+            return vo, frames, k + 1
+    raise AssertionError("no seeds within 36 frames")
+
+
+def test_seeded_chunk_graph_replay_equals_eager_step(cuda_device):
+    """The chunk step with the depth filter's seed update (align1d and the
+    Bayes update against the seed keyframe, a device index into the static
+    keyframe images) on two frames twice from the same state: the first
+    pass runs the first frame eagerly and captures the graph, the second
+    replays it for both.  Every record, the seed table's included, equals
+    bit for bit."""
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    vo, frames, k = _mono_vo_with_seeds(cuda_device)
+    step = tvo.ChunkStep(vo, 2)
+    assert step.seeds is not None
+    recs = []
+    for _ in range(2):
+        step.load(vo, frames[k:k + 2])
+        if step.graph is None:
+            step.run(0)                     # eager warm-up, then the capture
+            eager0 = [r[0].clone() for r in _records(step) + tuple(step.rec_seeds)]
+            step.run(1)
+        else:
+            step.run(0)
+            step.run(1)
+        torch.cuda.synchronize()
+        recs.append([r.clone() for r in _records(step) + tuple(step.rec_seeds)])
+    assert step.replays == 3
+    for a, b in zip(recs[0], recs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(eager0, recs[1]):
+        assert torch.equal(a, b[0])
+    moved = (step.rec_seeds.sigma2[1] != vo.seeds.sigma2) & vo.seeds.valid
+    print(f"seeded step: replays equal the eager step bit for bit; seeds updated on frame "
+          f"{k + 1}: {int(moved.sum())} of {int(vo.seeds.valid.sum())}")
+    assert bool(moved.any())
+
+
+def test_seeded_chunk_capture_makes_no_hidden_sync(cuda_device):
+    """The seeded chunk step's warm-up frame, capture and a replay under
+    torch.cuda.set_sync_debug_mode("error"): align1d's 2x2 solve and the
+    seed update wait for nothing on the device."""
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    vo, frames, k = _mono_vo_with_seeds(cuda_device)
+    step = tvo.ChunkStep(vo, 2)
+    step.load(vo, frames[k:k + 2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.run(0)
+        step.run(1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step.replays == 1
+    assert all(bool(torch.isfinite(t).all()) for t in (step.rec_out, step.rec_seeds.mu,
+                                                       step.rec_seeds.sigma2))
 
 
 def test_chunked_equals_per_frame_on_the_card(cuda_device):

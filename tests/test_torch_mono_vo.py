@@ -205,9 +205,29 @@ def test_reset_and_reinit(runs):
     assert r.status in (tvo.Status.INITING, tvo.Status.GOOD)
 
 
-@pytest.mark.parametrize("bad", [dict(use_vocabulary=True), dict(use_depth_filter=True),
-                                 dict(archive_map=True), dict(async_mapping=True),
-                                 dict(vo_type=tvo.VOType.SPARSE_ORB)],
+def test_depth_filter_runs_and_reset_clears_seeds(runs):
+    """The depth filter is ported: a System with `use_depth_filter=True`
+    tracks test_reset_and_reinit's frames with seeds on the last keyframe;
+    reset() clears them (and the seed keyframe), and the system initialises
+    again."""
+    frames = runs["frames"]
+    s = System(camera=runs["cam"], options=mw.mono_options(use_depth_filter=True), device="cpu")
+    for k in range(20):
+        s.track_monocular(frames[k], float(k))
+    vo = s.vo
+    assert s.status is tvo.Status.GOOD and vo.stats["keyframes"] >= 1
+    assert vo.seeds is not None and vo.seed_kf_slot == vo.last_kf_slot
+    assert bool(vo.seeds.valid.any())
+    s.reset()
+    assert vo.seeds is None and vo.seed_kf_slot == -1 and vo.seed_feat_idx is None
+    assert s.status is tvo.Status.NOT_READY and vo.server.kf_used == []
+    for k in range(12):
+        r = s.track_monocular(frames[k], float(k))
+    assert r.status in (tvo.Status.INITING, tvo.Status.GOOD)
+
+
+@pytest.mark.parametrize("bad", [dict(use_vocabulary=True), dict(archive_map=True),
+                                 dict(async_mapping=True), dict(vo_type=tvo.VOType.SPARSE_ORB)],
                          ids=lambda d: next(iter(d)))
 def test_unsupported_options_raise(bad):
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)

@@ -122,8 +122,9 @@ class TestTrack:
 def run_kf_cycle_both(jv, state, pyr, tm, nbr2):
     """One keyframe cycle in both packages from the port's state."""
     T7 = state.prev_T_cw7
-    t_out = tvo.kf_cycle(state.cam, OPTS, state.mstate, pyr, tm.found, tm.obs_px, T7,
-                         state.last_kf_slot, nbr2, state.frame_id, state.kf_images)
+    t_st, t_kf, _, t_host = tvo.kf_cycle(state.cam, OPTS, state.mstate, pyr, tm.found,
+                                         tm.obs_px, T7, state.last_kf_slot, nbr2,
+                                         state.frame_id, state.kf_images)
     Fn = OPTS.map_F - FL
     j_out = jv._jit_kf_cycle(
         jax_map(state.mstate), tuple(jnp.asarray(np32(lv)) for lv in pyr),
@@ -131,7 +132,7 @@ def run_kf_cycle_both(jv, state, pyr, tm, nbr2):
         jnp.asarray(state.last_kf_slot, jnp.int32), jnp.asarray(nbr2, jnp.int32), state.frame_id,
         jnp.asarray(np32(state.kf_images)), None, None, None, jnp.asarray(0, jnp.int32),
         jnp.zeros((Fn,), jnp.int32))
-    return t_out, (j_out[0], j_out[1], j_out[5])
+    return (t_st, t_kf, t_host), (j_out[0], j_out[1], j_out[5])
 
 
 def compare_kf_cycle(t_out, j_out, state, want_evicted):
@@ -142,9 +143,12 @@ def compare_kf_cycle(t_out, j_out, state, want_evicted):
     assert bool(thost[1]) == bool(jhost[1]) == want_evicted
     assert int(thost[2]) == int(jhost[2])
     assert bool(thost[3]) == bool(jhost[3])
-    # --- the archive snapshot: plain indexing of the same input state ---
-    assert len(thost) == 13 and len(jhost) == 15     # the JAX block adds BoW row and nodes
-    for a, b in zip(thost[4:], jhost[4:13]):
+    # --- the archive snapshot: plain indexing of the same input state (the
+    # port's block ends with the seeds promoted, the JAX one adds BoW row and
+    # nodes) ---
+    assert len(thost) == 14 and len(jhost) == 15
+    assert int(thost[-1]) == 0                      # no seeds were handed in
+    for a, b in zip(thost[4:13], jhost[4:13]):
         a, b = np32(a), np.asarray(b)
         if a.dtype == np.int32 and b.dtype == np.uint32:
             a = a.view(np.uint32)

@@ -14,6 +14,7 @@ import torch
 from . import resolve_device
 from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
+from .map.depth_filter import Seeds
 from .map.state import MapState
 from .models.batch import BatchState
 from .models.frontend import Features
@@ -104,6 +105,17 @@ def map_state_to_numpy(m: MapState) -> dict:
     for name in ("feat_desc", "pt_desc"):
         out[name] = out[name].view(np.uint32)
     return out
+
+
+def seeds_from_numpy(fields: dict, device=None) -> Seeds:
+    """Seeds from a dict of numpy arrays named after its fields (the JAX
+    Seeds' `_asdict()`, say)."""
+    return Seeds(**{name: _like(fields[name], device) for name in Seeds._fields})
+
+
+def seeds_to_numpy(seeds: Seeds) -> dict:
+    """The fields of a Seeds as numpy arrays."""
+    return {name: t.detach().cpu().numpy() for name, t in seeds._asdict().items()}
 
 
 def features_from_numpy(px, level, score, angle, desc, depth, valid, device=None) -> Features:

@@ -90,6 +90,10 @@ class PinholeCamera(NamedTuple):
                           (px[..., 1] - self.cy) / self.fy], dim=-1)
         if distorted:
             xn = self.undistort(xn)
+        if isinstance(depth, (int, float)):
+            # A number stays on the host: no copy to the device (inside a
+            # CUDA-graph capture such a copy is refused).
+            return torch.cat([xn * depth, torch.full_like(xn[..., :1], depth)], dim=-1)
         depth = torch.as_tensor(depth, dtype=xn.dtype, device=xn.device)
         return torch.cat([xn * depth[..., None],
                           depth[..., None].expand(xn[..., :1].shape)], dim=-1)

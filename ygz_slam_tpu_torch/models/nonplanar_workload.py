@@ -17,7 +17,12 @@
   are evicted (from about frame 230 at 480x640).
 
 `box_options` are bench_accuracy.py's options in the port's configuration
-(no vocabulary, depth filter, archive or async mapping).
+(no vocabulary, depth filter, archive or async mapping).  `box_df_options`
+are the same with the depth filter on (`box_options(use_depth_filter=True)`):
+the keyframes' depthless detections carry inverse-depth seeds that every
+frame refines and the next keyframe promotes to landmarks, which keeps
+the map from starving where the keyframes' baselines give too little
+parallax to triangulate.
 """
 from __future__ import annotations
 
@@ -74,6 +79,11 @@ def box_workload(n: int, device=None, shape=(240, 320)):
 def box_options(**overrides) -> VOOptions:
     """bench_accuracy.py's options in the port's configuration."""
     return mono_options(**{**BOX_OPTS, **overrides})
+
+
+def box_df_options(**overrides) -> VOOptions:
+    """`box_options` with the depth filter on."""
+    return box_options(**{"use_depth_filter": True, **overrides})
 
 
 def segments(statuses) -> int:

@@ -1,7 +1,7 @@
 """VisualOdometry: the monocular frontend state machine over the VO's
 per-frame map-tracking step and keyframe cycle (counterpart of
 ygz_slam_tpu/models/visual_odometry.py, SPARSE_DIRECT, synchronous mapping,
-without vocabulary, depth filter or keyframe archive).
+with the depth filter, without vocabulary or keyframe archive).
 
 The device steps are plain functions over MapState (`track`,
 `triangulate`, `free_rows`, `assemble_keyframe`, `kf_cycle`: the JAX
@@ -19,9 +19,13 @@ Per frame (`track`): sparse-direct alignment of NS selected landmarks
 against the previous frame (K1 x 2, K3), the NSV best visible landmarks'
 affine-warped reference patches from the keyframe images, their patch
 search on the pyramid's levels (K2, K4), pose-only BA (K5), and the landmark
-statistics.  Per keyframe (`kf_cycle`): slot allocation or eviction,
-detection, triangulation against two neighbour keyframes (their two Hamming
-matrices in one K10 launch) and fusion with the map (K10), insertion.
+statistics; then, with depth-filter seeds, their update at the refined pose
+(`update_seeds`: align1d along each seed's epipolar line in the frame,
+triangulation, the Gaussian-Beta posterior; `map/depth_filter.py`).  Per
+keyframe (`kf_cycle`): slot allocation or eviction, detection,
+triangulation against two neighbour keyframes (their two Hamming matrices
+in one K10 launch) and fusion with the map (K10), insertion, the converged
+seeds promoted to landmarks and new seeds on the depthless detections.
 Everything stays on the device: selections that the JAX version makes with
 `jnp.where` are `torch.where` here, and slots are 0-d tensors.
 
@@ -42,6 +46,7 @@ import torch
 
 from .. import resolve_device
 from ..geometry.se3 import SE3
+from ..map import depth_filter as dfilt
 from ..map import state as ms
 from ..map.memory import MapServer, refresh_covisibility
 from ..ops import kernels, orb, sparse_align
@@ -74,9 +79,10 @@ class VOType(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class VOOptions:
     """The fields of the JAX package's VOOptions that the port reads, with
-    its defaults (config/default.yaml, VisualOdometry.h:32-45).  The last
-    five name parts of the JAX package the port does not run:
-    `VisualOdometry` raises unless each is off (False, SPARSE_DIRECT)."""
+    its defaults (config/default.yaml, VisualOdometry.h:32-45).  Of the
+    last five, the port runs `use_depth_filter`; the other four name parts
+    of the JAX package it does not run: `VisualOdometry` raises unless each
+    is off (False, SPARSE_DIRECT)."""
     n_levels: int = 3
     detect_threshold: float = 20.0
     grid_cell: int = 16
@@ -239,8 +245,10 @@ def assemble_keyframe(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px
     recomputed on this image, registration, landmark creation and fusion
     with the map (SetKeyframe + CreateNewMapPoints + SearchInNeighbors).
 
-    Returns (MapState, kf_images, depthless [Fn]: valid detections left
-    without a landmark)."""
+    Returns (MapState, kf_images, new_px [Fn, 2]: the detections,
+    depthless [Fn]: valid detections left without a landmark, mean_d: the
+    mean camera z of the valid landmarks of `mstate` seen from keyframe
+    `last_kf_slot`, the depth filter's prior)."""
     Fl = o.map_F // 2
     Fn = o.map_F - Fl
     dev = found.device
@@ -289,23 +297,31 @@ def assemble_keyframe(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px
     st = lm.search_in_neighbors(st, cam, slot)
     fp_now = ms.row(st.feat_point, slot)[Fl:]
     depthless = new_valid & ~can_write & (fp_now < 0)
-    return st, kf_images, depthless
+    z_map = torch.where(mstate.pt_valid, mstate.kf_pose(last_kf_slot).apply(mstate.pt_pos)[:, 2],
+                        0.0)
+    mean_d = z_map.sum() / torch.clamp(mstate.pt_valid.sum(), min=1).to(z_map.dtype)
+    return st, kf_images, new_px, depthless, mean_d
 
 
 def kf_cycle(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px, T_cw7, last_kf_slot,
-             nbr2_slot, fid, kf_images):
+             nbr2_slot, fid, kf_images, seeds: dfilt.Seeds | None = None, seed_slot=0,
+             seed_feat_idx=None):
     """The synchronous half of keyframe insertion, all on the device: slot
     allocation or the choice of a victim (the used slot least covisible
     with the newest keyframe), the victim's archive snapshot, its
     invalidation, the covisibility refresh and orphan sweep that follow an
     eviction (landmarks the tracker currently observes are spared),
-    landmark-row allocation, and `assemble_keyframe`.
+    landmark-row allocation, `assemble_keyframe`, then the depth filter:
+    the converged `seeds` of keyframe `seed_slot` (features
+    `seed_feat_idx` [Fn]) become landmarks linked to their features, and
+    new seeds start on this keyframe's depthless detections.
 
-    Returns (MapState, kf_images, host_block): host_block is (slot, evicted,
-    evict_fid, any depthless detection) followed by the snapshot (pose7,
-    feat_desc, feat_px, feat_valid, landmark positions, their validity,
-    feat_angle, feat_level, image), garbage rows when nothing was evicted;
-    fetching it is the one host transfer of a keyframe."""
+    Returns (MapState, kf_images, new seeds, host_block): host_block is
+    (slot, evicted, evict_fid, any depthless detection) followed by the
+    snapshot (pose7, feat_desc, feat_px, feat_valid, landmark positions,
+    their validity, feat_angle, feat_level, image), garbage rows when
+    nothing was evicted, and the number of seeds promoted; fetching it is
+    the one host transfer of a keyframe."""
     K = o.map_K
     Fn = o.map_F - o.map_F // 2
     dev = mstate.kf_valid.device
@@ -339,11 +355,56 @@ def kf_cycle(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px, T_cw7, 
     m2 = ms.MapState(*(torch.where(evicted, a, b) for a, b in zip(swept, m2)))
     # --- landmark rows + assembly ---
     rows, n_free = free_rows(m2.pt_valid, Fn)
-    st, kf_images, depthless = assemble_keyframe(
+    st, kf_images, new_px, depthless, mean_d = assemble_keyframe(
         cam, o, m2, pyr, found, obs_px, T_cw7, last_kf_slot, rows, n_free, slot, fid, kf_images,
         nbr2_slot=nbr2_slot)
-    host_block = (slot, evicted, evict_fid, torch.any(depthless)) + snapshot
-    return st, kf_images, host_block
+    # --- depth filter: promote the last keyframe's converged seeds, re-seed ---
+    n_promoted = torch.zeros((), dtype=torch.int64, device=dev)
+    if seeds is not None:
+        st, n_promoted = promote_seeds(cam, o, st, seeds, seed_slot, seed_feat_idx)
+    mean_safe = torch.clamp(torch.where(mean_d > 0, mean_d, 1.0), min=0.5)
+    new_seeds = dfilt.Seeds.init(new_px, depthless, depth_mean=1.0, depth_min=0.1)
+    new_seeds = new_seeds._replace(mu=new_seeds.mu / mean_safe)
+    host_block = (slot, evicted, evict_fid, torch.any(depthless)) + snapshot + (n_promoted,)
+    return st, kf_images, new_seeds, host_block
+
+
+def promote_seeds(cam, o: VOOptions, st: ms.MapState, seeds: dfilt.Seeds, seed_slot,
+                  seed_feat_idx):
+    """Converged seeds (sigma < z_range / 100) of keyframe `seed_slot`
+    become landmarks in free rows, linked to their features
+    `seed_feat_idx` [N] with the seed's depth, where the feature is still
+    unlinked (the JAX package's `_kf_cycle` depth-filter block).  Returns
+    (MapState, number promoted)."""
+    conv = seeds.converged(ratio=100.0) & seeds.valid
+    n_s = conv.shape[0]
+    rows, n_free = free_rows(st.pt_valid, n_s)
+    idx = seed_feat_idx.long()
+    fp = ms.row(st.feat_point, seed_slot)
+    still_free = fp[idx] < 0
+    can = conv & still_free & (torch.arange(n_s, device=conv.device) < n_free)
+    depth = seeds.depth()
+    pos_w = cam.pixel_to_world(seeds.px, st.kf_pose(seed_slot), depth=depth)
+    st = ms.add_landmarks(st, rows, can, pos_w, ms.row(st.feat_desc, seed_slot)[idx], seed_slot,
+                          ref_feat=seed_slot * o.map_F + seed_feat_idx.to(torch.int32))
+    fd = ms.row(st.feat_depth, seed_slot)
+    st = st._replace(
+        feat_point=ms.set_row(st.feat_point, seed_slot,
+                              fp.index_copy(0, idx, torch.where(can, rows, fp[idx]))),
+        feat_depth=ms.set_row(st.feat_depth, seed_slot,
+                              fd.index_copy(0, idx, torch.where(can, depth, fd[idx]))))
+    return st, can.sum()
+
+
+def update_seeds(cam, seeds: dfilt.Seeds, kf_pose7, kf_images, seed_slot, cur_img,
+                 T_cw: SE3) -> dfilt.Seeds:
+    """The depth filter's per-frame step (the JAX package's
+    `_track_with_seeds` after `_track`): the seeds of keyframe `seed_slot`
+    (a Python int or a device index) updated against a frame's level 0 at
+    its refined pose T_cw."""
+    T_seed = SE3.from_params7(ms.row(kf_pose7, seed_slot))
+    return dfilt.update_seeds_from_frame(seeds, ms.row(kf_images, seed_slot), cur_img, cam,
+                                         T_cw.compose(T_seed.inverse()))
 
 
 def desc_check(ref_desc: torch.Tensor, img: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
@@ -411,10 +472,12 @@ class ChunkStep:
     """One ordinary frame of `VisualOdometry.add_frames` over static
     buffers: image `slot` of the chunk through `preprocess`, the motion
     model's prediction, `track` and the velocity update (the per-frame
-    path's `_track_frame` without its host decisions); the carry (previous
+    path's `_track_frame` without its host decisions) and, when the VO holds
+    depth-filter seeds, their update at the refined pose against the seed
+    keyframe's image (a device index into `kf_images`); the carry (previous
     pyramid, pose, velocity, landmark statistics, last frame's found set and
-    observations) is written back in place, the frame's outcome into row
-    `slot` of the chunk's records, and `slot` advances.
+    observations, the seeds) is written back in place, the frame's outcome
+    into row `slot` of the chunk's records, and `slot` advances.
 
     On a CUDA device the first frame runs eagerly on a side stream (the
     warm-up: lazily made constants and library handles exist before the
@@ -422,7 +485,8 @@ class ChunkStep:
     later frame replays it; a capture failure raises.  On the CPU the step
     runs eagerly.  The buffers' shapes are fixed by the map capacity, the
     frame size, `n_levels` and the chunk length; the graph also fixes
-    `sparse_align.FUSED_VARIANT` as it was at capture."""
+    `sparse_align.FUSED_VARIANT` as it was at capture, and whether the step
+    updates seeds (the VO's seeds at construction)."""
 
     def __init__(self, vo: "VisualOdometry", chunk: int):
         dev = vo.device
@@ -450,6 +514,14 @@ class ChunkStep:
         self.rec_cand = torch.zeros((chunk, L), dtype=torch.bool, device=dev)
         self.rec_obs = torch.zeros((chunk, L, 2), device=dev)
         self.rec_out = torch.zeros((chunk, 8), device=dev)
+        # The seed table's homes, the seed keyframe's slot and the table
+        # after each frame (a cut chunk takes the frame before the cut's).
+        self.seeds = self.rec_seeds = self.seed_slot = None
+        if vo.seeds is not None:
+            self.seeds = dfilt.Seeds(*(torch.zeros_like(t) for t in vo.seeds))
+            self.rec_seeds = dfilt.Seeds(*(torch.zeros((chunk,) + tuple(t.shape), dtype=t.dtype,
+                                                       device=dev) for t in vo.seeds))
+            self.seed_slot = torch.zeros(1, dtype=torch.long, device=dev)
         self.on_card = dev.type == "cuda"
         if self.on_card:
             self.host_out = torch.zeros((chunk, 8), pin_memory=True)
@@ -477,6 +549,10 @@ class ChunkStep:
             self._kf_src = vo.kf_images
         self.prev_found.copy_(vo.prev_found)
         self.prev_obs_px.copy_(vo.prev_obs_px)
+        if self.seeds is not None:
+            for dst, src in zip(self.seeds, vo.seeds):
+                dst.copy_(src)
+            self.seed_slot.fill_(vo.seed_kf_slot)
         if not isinstance(frames, torch.Tensor):
             frames = torch.stack([torch.as_tensor(f, dtype=torch.float32) for f in frames])
         self.imgs.copy_(frames)
@@ -492,19 +568,25 @@ class ChunkStep:
                           self.prev_obs_px)
         T_cw = tm.T_cw
         vel = T_cw.compose(prev_T.inverse())
+        recs = [(self.rec_R, T_cw.R), (self.rec_t, T_cw.t), (self.rec_vR, vel.R),
+                (self.rec_vt, vel.t), (self.rec_found, tm.found), (self.rec_cand, tm.candidate),
+                (self.rec_obs, tm.obs_px),
+                (self.rec_out, torch.cat([T_cw.params7(), tm.n_inliers.to(torch.float32)[None]]))]
+        carry = [(self.prev_R, T_cw.R), (self.prev_t, T_cw.t), (self.vel_R, vel.R),
+                 (self.vel_t, vel.t), (self.mstate.pt_visible, st.pt_visible),
+                 (self.mstate.pt_found, st.pt_found), (self.prev_found, tm.found),
+                 (self.prev_obs_px, tm.obs_px)]
+        if self.seeds is not None:
+            seeds = update_seeds(self.cam, self.seeds, st.kf_pose7, self.kf_images,
+                                 self.seed_slot, pyr[0], T_cw)
+            recs += list(zip(self.rec_seeds, seeds))
+            carry += list(zip(self.seeds, seeds))
         s = self.slot
-        for rec, x in ((self.rec_R, T_cw.R), (self.rec_t, T_cw.t), (self.rec_vR, vel.R),
-                       (self.rec_vt, vel.t), (self.rec_found, tm.found),
-                       (self.rec_cand, tm.candidate), (self.rec_obs, tm.obs_px),
-                       (self.rec_out, torch.cat([T_cw.params7(),
-                                                 tm.n_inliers.to(torch.float32)[None]]))):
+        for rec, x in recs:
             rec.index_copy_(0, s, x[None])
         for dst, src in zip(self.prev_pyr, pyr):
             dst.copy_(src)
-        for dst, src in ((self.prev_R, T_cw.R), (self.prev_t, T_cw.t), (self.vel_R, vel.R),
-                         (self.vel_t, vel.t), (self.mstate.pt_visible, st.pt_visible),
-                         (self.mstate.pt_found, st.pt_found), (self.prev_found, tm.found),
-                         (self.prev_obs_px, tm.obs_px)):
+        for dst, src in carry:
             dst.copy_(src)
         s.add_(1)
 
@@ -550,8 +632,8 @@ class TrackResult:
 
 
 def _unsupported(o: VOOptions) -> list:
-    return [name for name in ("use_depth_filter", "use_vocabulary", "archive_map",
-                              "async_mapping") if getattr(o, name)] + (
+    return [name for name in ("use_vocabulary", "archive_map", "async_mapping")
+            if getattr(o, name)] + (
         [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else [])
 
 
@@ -564,8 +646,8 @@ class VisualOdometry:
         bad = _unsupported(o)
         if bad:
             raise ValueError(f"VOOptions not supported by the port: {', '.join(bad)} "
-                             "(it runs SPARSE_DIRECT without vocabulary, depth filter, "
-                             "keyframe archive or async mapping)")
+                             "(it runs SPARSE_DIRECT without vocabulary, keyframe archive "
+                             "or async mapping)")
         self.cam = cam
         self.o = o
         self.device = resolve_device(device)
@@ -585,6 +667,9 @@ class VisualOdometry:
         self.init_used_h = None        # which RANSAC model bootstrapped the map
         self.frames_since_kf = 0
         self.last_kf_slot = -1
+        self.seeds: dfilt.Seeds | None = None   # depth-filter seeds of the last keyframe
+        self.seed_kf_slot = -1
+        self.seed_feat_idx = None      # [Fn] their feature rows in that keyframe
         self.frame_id = -1
         self.lost_count = 0
         self._low_streak = 0           # consecutive sub-gate GOOD frames
@@ -597,7 +682,8 @@ class VisualOdometry:
         self.kf_pose_log: dict[int, np.ndarray] = {}
         self._last_kf_fid = -1
         self._last_kf_pose7 = np.asarray([1, 0, 0, 0, 0, 0, 0], np.float32)
-        self._chunk_steps: dict = {}    # (frame shape, chunk, FUSED_VARIANT) -> ChunkStep
+        # (frame shape, chunk, FUSED_VARIANT, seeds present) -> ChunkStep
+        self._chunk_steps: dict = {}
         # add_frames' work: chunks, frame steps computed, and of those the
         # ones discarded at or after a chunk's flagged frame.
         self.chunk_stats = collections.Counter()
@@ -678,7 +764,8 @@ class VisualOdometry:
         state the VO then holds."""
         o = self.o
         C = len(ts)
-        key = (tuple(self.prev_pyr[0].shape), C, sparse_align.FUSED_VARIANT)
+        key = (tuple(self.prev_pyr[0].shape), C, sparse_align.FUSED_VARIANT,
+               self.seeds is not None)
         step = self._chunk_steps.get(key)
         if step is None:
             step = self._chunk_steps[key] = ChunkStep(self, C)
@@ -713,6 +800,8 @@ class VisualOdometry:
         R, t = step.rec_R[:j].clone(), step.rec_t[:j].clone()
         self.prev_T_cw = self.T_cw = SE3(R[last], t[last])
         self.velocity = SE3(step.rec_vR[last].clone(), step.rec_vt[last].clone())
+        if step.seeds is not None:
+            self.seeds = dfilt.Seeds(*(r[last].clone() for r in step.rec_seeds))
         self.prev_pyr = fe.preprocess(step.imgs[last].clone(), o.n_levels)
         self.frames_since_kf, self._low_streak = fsk, streak
         results = []
@@ -876,6 +965,10 @@ class VisualOdometry:
             self._low_streak = 0
         self.server.state = new_state
         T_cw = tm.T_cw
+        if self.seeds is not None:
+            # The depth filter at the refined pose; a LOST frame keeps the seeds.
+            self.seeds = update_seeds(self.cam, self.seeds, new_state.kf_pose7, self.kf_images,
+                                      self.seed_kf_slot, pyr[0], T_cw)
         self.velocity = T_cw.compose(self.prev_T_cw.inverse())
         self.prev_pyr = pyr
         self.prev_T_cw = T_cw
@@ -905,20 +998,33 @@ class VisualOdometry:
 
     def _insert_keyframe(self, pyr, T_cw: SE3, tm) -> None:
         """SetKeyframe (:182-218): the keyframe cycle on the device (slot
-        allocation or eviction, assembly, triangulation and fusion), one
-        host fetch of the slot, then the mapping pass."""
-        srv = self.server
+        allocation or eviction, assembly, triangulation and fusion, seed
+        promotion and re-seeding), one host fetch of the slot, the eviction
+        and depth-filter flags, then the mapping pass."""
+        o, srv = self.o, self.server
         self.stats["keyframes"] += 1
         used = srv.kf_used
         nbr2 = used[-4] if len(used) >= 4 else used[0]
-        srv.state, self.kf_images, host_block = kf_cycle(
-            self.cam, self.o, srv.state, pyr, tm.found, tm.obs_px, T_cw.params7(),
-            self.last_kf_slot, nbr2, self.frame_id, self.kf_images)
-        slot, evicted = torch.stack([host_block[0].long(), host_block[1].long()]).tolist()
+        with_seeds = self.seeds is not None
+        srv.state, self.kf_images, new_seeds, host_block = kf_cycle(
+            self.cam, o, srv.state, pyr, tm.found, tm.obs_px, T_cw.params7(),
+            self.last_kf_slot, nbr2, self.frame_id, self.kf_images,
+            seeds=self.seeds, seed_slot=self.seed_kf_slot if with_seeds else 0,
+            seed_feat_idx=self.seed_feat_idx)
+        slot, evicted, d_any, n_promoted = torch.stack(
+            [host_block[0].long(), host_block[1].long(), host_block[3].long(),
+             host_block[-1]]).tolist()
         if evicted:
             self.stats["evictions"] += 1
             srv.kf_used.remove(slot)
         srv.kf_used.append(slot)
+        if o.use_depth_filter:
+            self.stats["seeds_promoted"] += n_promoted
+            self.seeds = new_seeds if d_any else None
+            self.seed_kf_slot = slot
+            Fl = o.map_F // 2
+            self.seed_feat_idx = Fl + torch.arange(o.map_F - Fl, dtype=torch.int32,
+                                                   device=self.device)
         self._finish_insert(T_cw, slot)
 
     def _finish_insert(self, T_cw: SE3, slot: int) -> None:
@@ -1004,6 +1110,9 @@ class VisualOdometry:
         self.frames_since_kf = 0
         self.last_kf_slot = -1
         self.lost_count = 0
+        self.seeds = None
+        self.seed_kf_slot = -1
+        self.seed_feat_idx = None
         self._last_kf_fid = -1
 
     def trajectory_poses(self, corrected: bool = True) -> list:

@@ -130,7 +130,7 @@ def insert_vo_keyframe(state: VOState, pyr, tm):
     used = state.kf_used
     o = state.opts
     nbr2 = used[-4] if len(used) >= 4 else used[0]
-    mstate, kf_images, host_block = vo.kf_cycle(
+    mstate, kf_images, _, host_block = vo.kf_cycle(
         state.cam, o, state.mstate, pyr, tm.found, tm.obs_px, state.prev_T_cw7,
         state.last_kf_slot, nbr2, state.frame_id, state.kf_images)
     mstate = ms.update_covisibility(mstate)

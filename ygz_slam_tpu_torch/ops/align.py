@@ -1,6 +1,7 @@
 """Batched patch alignment (counterpart of ygz_slam_tpu/ops/align.py):
-align2d on the kernel path only, and the pyramidal KLT of monocular
-initialization in plain PyTorch.
+align2d on the kernel path only; align1d (the depth filter's epipolar
+search) and the pyramidal KLT of monocular initialization in plain
+PyTorch.
 
 align2d is cvutils::Align2D (CVUtils.cpp:186-318) for all N points at once:
 the cached-window GN loop of K4 plus the JAX package's acceptance gates.
@@ -69,6 +70,59 @@ def accepted(xy, err, xy_init, inb0, H: int, W: int,
 def _window_coords(xy: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return torch.stack([xy[:, 0, None, None] + gx[None], xy[:, 1, None, None] + gy[None]],
                        dim=-1)
+
+
+def _patch_grid(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gx, gy) [size, size] of the symmetric grid arange(size) - (size-1)/2,
+    gx varying along columns."""
+    d = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
+    gy, gx = torch.meshgrid(d, d, indexing="ij")
+    return gx, gy
+
+
+def align1d(cur_img: torch.Tensor, ref_patch_border: torch.Tensor, xy_init: torch.Tensor,
+            direction: torch.Tensor, n_iter: int = 10, patch: int = 8,
+            conv_eps: float = 0.03, max_error: float = 30.0) -> AlignResult:
+    """cvutils::Align1D (CVUtils.cpp:64-184) for all N points at once: like
+    align2d, but the motion is held to the unit `direction [N, 2]` (the
+    epipolar line), estimating (step, mean offset) by Gauss-Newton on the
+    reference patch's 2x2 normal matrix.  A fixed `n_iter` iterations; a
+    point freezes once its step is below `conv_eps`.  A result is accepted
+    inside a patch/2 + 1 px margin with its final mean |r| below
+    `max_error`.  No host sync: it runs inside a CUDA graph."""
+    H, W = cur_img.shape
+    ref = ref_patch_border[:, 1:-1, 1:-1]
+    dx = 0.5 * (ref_patch_border[:, 1:-1, 2:] - ref_patch_border[:, 1:-1, :-2])
+    dy = 0.5 * (ref_patch_border[:, 2:, 1:-1] - ref_patch_border[:, :-2, 1:-1])
+    dir_ = direction / torch.clamp(torch.linalg.norm(direction, dim=-1, keepdim=True), min=1e-9)
+    dd = dx * dir_[:, None, None, 0] + dy * dir_[:, None, None, 1]
+    # The normal matrix J^T J + 1e-6 I of J = [dd, 1], inverted in closed
+    # form (torch.linalg.inv would read the device for its error check).
+    h00 = torch.sum(dd * dd, dim=(1, 2)) + 1e-6
+    h01 = torch.sum(dd, dim=(1, 2))
+    h11 = float(patch * patch) + 1e-6
+    det = h00 * h11 - h01 * h01
+    i00, i01, i11 = h11 / det, -h01 / det, h00 / det
+    gx, gy = _patch_grid(patch, cur_img.device)
+    s = torch.zeros_like(xy_init[:, 0])
+    mean_diff = torch.zeros_like(s)
+    active = torch.ones_like(s, dtype=torch.bool)
+    for _ in range(n_iter):
+        cur = bilinear(cur_img, _window_coords(xy_init + s[:, None] * dir_, gx, gy))
+        r = cur - ref + mean_diff[:, None, None]
+        g0 = torch.sum(dd * r, dim=(1, 2))
+        g1 = torch.sum(r, dim=(1, 2))
+        u0 = i00 * g0 + i01 * g1
+        u1 = i01 * g0 + i11 * g1
+        still = active & (torch.abs(u0) >= conv_eps)
+        s = torch.where(active, s - u0, s)
+        mean_diff = torch.where(active, mean_diff - u1, mean_diff)
+        active = still
+    xy = xy_init + s[:, None] * dir_
+    cur = bilinear(cur_img, _window_coords(xy, gx, gy))
+    err = torch.mean(torch.abs(cur - ref + mean_diff[:, None, None]), dim=(1, 2))
+    converged = in_bounds(xy, H, W, margin=patch / 2 + 1) & (err < max_error)
+    return AlignResult(xy=xy, converged=converged, error=err)
 
 
 def klt_pyramidal(ref_pyr, cur_pyr, xy_ref: torch.Tensor, xy_init: torch.Tensor | None = None,

@@ -44,8 +44,17 @@ def pose_only_ba(T_cw: SE3, points: torch.Tensor, px: torch.Tensor,
 
 
 def inv3x3(M: torch.Tensor) -> torch.Tensor:
-    """Batched closed-form 3x3 inverse (adjugate over determinant), exact in
-    float32 for the damped landmark blocks; |det| < 1e-20 is clamped."""
+    """Batched closed-form 3x3 inverse (adjugate over determinant) of a
+    float32 M, computed in float64 and rounded to float32; |det| < 1e-20 is
+    clamped.  The damped block of a landmark seen by one keyframe (a
+    promoted depth-filter seed) is rank 2 plus the damping, and in float32
+    its cofactors cancel catastrophically (a determinant of 1.7e14 for a
+    true 2.3e7): the inverse is then noise, and local BA can send such a
+    landmark along its ray to ~1e20, a step that leaves its reprojection
+    alone and so passes the LM test (the JAX package's float32 adjugate
+    gives the same noise on the same blocks)."""
+    out_dtype = M.dtype
+    M = M.double()
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
@@ -62,7 +71,7 @@ def inv3x3(M: torch.Tensor) -> torch.Tensor:
     inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
     adj = torch.stack([torch.stack([A, B, C], dim=-1), torch.stack([D, E, F], dim=-1),
                        torch.stack([G, H, I], dim=-1)], dim=-2)
-    return adj * inv_det[..., None, None]
+    return (adj * inv_det[..., None, None]).to(out_dtype)
 
 
 class Observations(NamedTuple):

@@ -6,10 +6,10 @@ device=None)` takes the JAX package's arguments in its order, `device` last,
 and wires a camera and VOOptions into a VisualOdometry on the card (or the
 named device); `track_monocular` tracks one frame, `track_monocular_chunk`
 and `track_monocular_stream` track many through chunked tracking
-(`VisualOdometry.add_frames`).  Not ported yet (ROADMAP queue 1): async
-mapping with `shutdown`, `warmup` and `export_point_cloud`; the depth
-filter; the vocabulary, relocalization, keyframe archive, loop closing and
-map save/load; the SPARSE_ORB and SEMI_DENSE_DIRECT frontends; RGBD and
+(`VisualOdometry.add_frames`), with the depth filter if the options ask
+for it.  Not ported yet (ROADMAP queue 1): async mapping with `shutdown`,
+`warmup` and `export_point_cloud`; the vocabulary, relocalization,
+keyframe archive, loop closing and map save/load; the SPARSE_ORB and SEMI_DENSE_DIRECT frontends; RGBD and
 stereo sensors; configuration files (a `config_file` raises
 NotImplementedError until `system/config.py` is ported); the viewer.
 """
