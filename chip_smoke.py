@@ -165,6 +165,35 @@ Phases, each raising (and so exiting non-zero) on failure:
    runs in turns per frame (8a), chunked, chunked, per frame, each equal to
    8a bit for bit, the seed table included; a graph with the seed update
    captured and replayed; frames/s of the four runs.
+5g. Main path 9: relocalization (`models/reloc_workload.py`; the vocabulary
+   on, the packaged 10^4-word asset, `reloc_top_c` 10 candidates, 256 P3P
+   hypotheses each).  (a) Path 4's PlaneScene run with the vocabulary:
+   `reloc_workload.N_PRE` frames, N_NOISE noise frames, then the view of
+   the window's oldest keyframe and the N_AFTER frames after it, through
+   `System.track_monocular`: every noise frame after the first LOST (the
+   first may pass on the inlier hysteresis), the revisit frame GOOD through
+   relocalization with no reset, its pose within TOL_REVISIT of the
+   keyframe's, the N_AFTER frames GOOD, and the frames before the blackout
+   equal to path 4's (variant 3) bit for bit; path 4's launch counts plus
+   one K10 and one K8 per attempt.  Then ten more attempts: one K10 and one
+   K8 launch each, their synchronised ms, one attempt's kernels and device
+   µs under the profiler, and the ms of a keyframe's BoW row.  (b)
+   tests/test_relocalization.py's kidnapped (upside-down) query against
+   9a's map: with the P3P seed a success within TOL_KIDNAP; seeded at the
+   stored pose a failure or an error over 10x that.  (c) One attempt on
+   the card against the CPU (the map, features and the card's P3P draws
+   copied): BoW scores within 1e-6, candidates and matches equal, inlier
+   counts within the K8-against-plain agreement and the winner's equal,
+   the pose within TOL_POSE; its recorded K10 [256, 2560] and K8 [S=10]
+   arguments against their plain versions, with kernel ms, profiler µs,
+   plain and library ms and bounds.  (d) Path 8a's frames and options with
+   the vocabulary on: 8a's gates, equal to 8a bit for bit up to the first
+   frame that attempts a relocalization (the whole run if none does); the
+   attempts, relocalizations, resets and ATE over 160-400 frames reported.
+   (e) Path 6b's frames and options (no depth filter; 6b loses track past
+   frame ~180) with the vocabulary on: equal to 6b bit for bit up to the
+   first attempt; attempts, relocalizations, resets and ATE reported
+   beside 6b's.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -179,7 +208,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
    pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-8), then the last line {"ok": true, "device": {...}}.
+   paths 1-9), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -1669,6 +1698,8 @@ def main() -> int:
         torch.cuda.synchronize()
         got = {c.__name__: c.launches for c in counters4}
         launches4[variant] = got
+        if variant == 3:
+            st4_v3, T7_4_v3 = st_m, T7_m          # path 9a's frames before its blackout
         k0, ate, ok = mw.mono_gate(st_m, T7_m, T_gt_m)
         vo_m = sysm.vo
         n_track = len(st_m) - k0 - 1                   # frames through `track`
@@ -1738,9 +1769,9 @@ def main() -> int:
           f"{sum(fps['path 5']) / sum(fps['path 1']):.3f}", flush=True)
 
     # -- 5d. main path 6: the System on non-planar worlds ----------------------
-    def run_counted(system, frames, on_frame=None):
-        """`mw.run_mono` with the counters at 0 and the calls of `track`
-        counted: (statuses, T7, wall, launches, calls of track)."""
+    def counted(fn):
+        """fn() with the counters at 0 and the calls of `track` counted:
+        (fn's result, wall s, launches, calls of track)."""
         calls = [0]
         real_track = vo_mod.track
 
@@ -1751,13 +1782,22 @@ def main() -> int:
         for c in counters4:
             c.launches = 0
         torch.cuda.synchronize()
+        t = time.perf_counter()
         vo_mod.track = track
         try:
-            statuses, T7, wall = mw.run_mono(system, frames, on_frame)
+            out = fn()
         finally:
             vo_mod.track = real_track
         torch.cuda.synchronize()
-        return statuses, T7, wall, {c.__name__: c.launches for c in counters4}, calls[0]
+        return (out, time.perf_counter() - t, {c.__name__: c.launches for c in counters4},
+                calls[0])
+
+    def run_counted(system, frames, on_frame=None):
+        """`mw.run_mono` under `counted`: (statuses, T7, wall, launches,
+        calls of track)."""
+        (statuses, T7, wall), _, launches, calls = counted(
+            lambda: mw.run_mono(system, frames, on_frame))
+        return statuses, T7, wall, launches, calls
 
     # (a) TwoPlaneScene (tests/test_nonplanar.py's run): init with F across a
     # depth step, tracking through a moving occlusion boundary.
@@ -2112,6 +2152,257 @@ def main() -> int:
         raise AssertionError(f"launch counts {launches8c}, expected {want8c}")
     del dfr, vo8c
 
+    # -- 5g. main path 9: relocalization --------------------------------------
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+    from ygz_slam_tpu_torch.models import reloc_workload as rw
+    from ygz_slam_tpu_torch.models import relocalization as rl
+
+    def want_reloc(n_track, n_kf, attempts):
+        """Path 4's launch counts plus one K10 and one K8 per relocalization
+        attempt."""
+        want = want_track(n_track, n_kf)
+        want["distance_matrix"] += attempts
+        want["pose_ba_batch_gn"] += attempts
+        return want
+
+    def reloc_args(vo, q):
+        m = vo.server.state
+        return (vo.vocab, vo.cam, q.desc, q.px, q.valid, vo.kf_bow, m.kf_valid, m.kf_pose7,
+                m.feat_desc.reshape(-1, 8), vo.kf_nodes.reshape(-1), m.feat_point.reshape(-1),
+                m.feat_valid.reshape(-1), m.pt_pos, m.pt_valid)
+
+    # (a) Blackout and revisit: path 4's PlaneScene run with the vocabulary on,
+    # rw.N_PRE frames, rw.N_NOISE noise frames, then the view of the window's
+    # oldest keyframe and the rw.N_AFTER frames after it.
+    s9 = System(camera=cam_m, options=rw.reloc_options(), device=dev)
+    vo9 = s9.vo
+    out9, wall9, launches9a, n_tr9 = counted(lambda: rw.blackout_revisit(s9, frames_m))
+    st9 = out9["statuses"]
+    k0_9 = mw.init_frame(st9)
+    same_pre = (st9[:rw.N_PRE] == st4_v3[:rw.N_PRE]
+                and out9["T7"][:rw.N_PRE].tobytes() == T7_4_v3[:rw.N_PRE].tobytes())
+    want9a = want_reloc(n_tr9, vo9.stats["keyframes"], vo9.stats["reloc_attempts"])
+    print(f"main path 9a (System.track_monocular, PlaneScene {frames_m.shape[2]}x"
+          f"{frames_m.shape[1]}, the vocabulary on): {len(st9)} frames in {wall9:.3f} s; init at "
+          f"frame {k0_9}; frames 0-{rw.N_PRE - 1} equal to path 4's (FUSED_VARIANT 3) bit for "
+          f"bit: {same_pre}; noise frames {[x.name for x in st9[rw.N_PRE:rw.N_PRE + rw.N_NOISE]]}"
+          f"; revisited keyframe slot {out9['revisit_slot']} (frame {out9['revisit_fid']}), "
+          f"window {vo9.server.kf_used}; relocalized at fed frame {out9['reloc_frame']} "
+          f"({vo9.stats['reloc_attempts']} attempts, {vo9.stats['relocalizations']} "
+          f"relocalizations), pose against the keyframe's {out9['reloc_error']:.3e} (< "
+          f"{rw.TOL_REVISIT}); the {rw.N_AFTER} frames after GOOD: {out9['after_good']}; gates "
+          f"noise LOST {out9['noise_lost']}, relocalized without a reset {out9['relocalized']}: "
+          f"{'pass' if out9['ok'] and same_pre else 'FAIL'}; stats {dict(vo9.stats)}; launches "
+          f"{launches9a}", flush=True)
+    if not (out9["ok"] and same_pre):
+        raise AssertionError("main path 9a failed its gates")
+    if launches9a != want9a:
+        raise AssertionError(f"launch counts {launches9a}, expected {want9a}")
+    # One attempt's cost: synchronised ms (median of 10 attempts on the revisit
+    # frame against the map as the run left it), its launches (one K10 and one
+    # K8 each), its kernels and device µs alone, and a keyframe's BoW row.
+    pyr9 = fe.preprocess(frames_m[out9["revisit_fid"]], vo9.o.n_levels)
+    att_ms = []
+    for c in counters4:
+        c.launches = 0
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vo9._try_relocalize(pyr9)
+        torch.cuda.synchronize()
+        att_ms.append(1e3 * (time.perf_counter() - t))
+    per_att = {c.__name__: c.launches / 10 for c in counters4 if c.launches}
+    if per_att != {"distance_matrix": 1.0, "pose_ba_batch_gn": 1.0}:
+        raise AssertionError(f"a relocalization attempt launched {per_att}, not one K10 and one K8")
+    prof9 = _profile(torch, lambda: [vo9._try_relocalize(pyr9) for _ in range(10)], 10,
+                     "one relocalization attempt (detection, BoW, matching, P3P-RANSAC, pose "
+                     "BA; 10 candidates) x 10")
+    bow_ms = []
+    slot9 = vo9.server.kf_used[-1]
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vo_mod.keyframe_bow(vo9.vocab, vo9.server.state, slot9)
+        torch.cuda.synchronize()
+        bow_ms.append(1e3 * (time.perf_counter() - t))
+    k_att = sum(v[1] for v in prof9.values()) / 10
+    us_att = sum(v[0] for v in prof9.values()) / 10
+    print(f"main path 9a relocalization attempt: {statistics.median(att_ms):.3f} ms synchronised "
+          f"(median of 10; min {min(att_ms):.3f}, max {max(att_ms):.3f}), launches per attempt "
+          f"{per_att}; alone {k_att:.1f} device kernels and {us_att:.2f} us of device time per "
+          f"attempt; a keyframe's BoW row {statistics.median(bow_ms):.3f} ms synchronised "
+          f"(median of 20)", flush=True)
+
+    # (b) Kidnapped: tests/test_relocalization.py's upside-down query at this
+    # size against 9a's map, with and without the P3P-RANSAC seed.
+    Tw9, Tm9 = rw.kidnapped_pose(vo9, T_gt_m, out9["fed"])
+    q9b = vo9._detect(fe.preprocess(rw.kidnapped_frame(cam_m, Tw9, tuple(frames_m.shape[1:])),
+                                    vo9.o.n_levels))
+    kid = {}
+    for use_pnp in (True, False):
+        r = rl.relocalize(*reloc_args(vo9, q9b), min_inliers=15,
+                          feat_angle_flat=vo9.server.state.feat_angle.reshape(-1),
+                          q_angle=q9b.angle, top_c=vo9.o.reloc_top_c, use_pnp=use_pnp,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+        kid[use_pnp] = (bool(r.success), int(r.n_inliers), float(se3.distance(r.T_cw, Tm9)))
+    ok9b = kid[True][0] and kid[True][2] < rw.TOL_KIDNAP and (
+        not kid[False][0] or kid[False][2] > 10 * kid[True][2])
+    print(f"main path 9b (kidnapped, upside down): P3P seed (success, inliers, pose error in "
+          f"map units) {kid[True]} (error < {rw.TOL_KIDNAP}); stored-pose seed {kid[False]} (must "
+          f"fail or land > 10x further): {'pass' if ok9b else 'FAIL'}", flush=True)
+    if not ok9b:
+        raise AssertionError("main path 9b failed its gate")
+
+    # (c) One attempt on the card against the CPU: the same map, features and
+    # P3P triples (the card's draws) copied over.
+    q9 = vo9._detect(pyr9)
+    stages_card, stages_cpu = {}, {}
+    kw9 = dict(min_inliers=vo9.o.reloc_min_inliers, top_c=vo9.o.reloc_top_c, use_pnp=True)
+    with kernels.record_launches() as rec9:
+        r_card = rl.relocalize(*reloc_args(vo9, q9),
+                               feat_angle_flat=vo9.server.state.feat_angle.reshape(-1),
+                               q_angle=q9.angle, generator=torch.Generator(device=dev).manual_seed(2),
+                               stages=stages_card, **kw9)
+    a_card = stages_card["attempt"]
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    vocab_cpu = voc.from_state_dict(voc.state_dict(vo9.vocab), device="cpu")
+    r_cpu = rl.relocalize(vocab_cpu, *(cpu(x) for x in reloc_args(vo9, q9)[1:]),
+                          feat_angle_flat=vo9.server.state.feat_angle.reshape(-1).cpu(),
+                          q_angle=q9.angle.cpu(), draws=a_card.draws.cpu(), stages=stages_cpu,
+                          **kw9)
+    a_cpu = stages_cpu["attempt"]
+    d_sc = float((a_card.scores.cpu() - a_cpu.scores).abs().max())
+    same_cand = torch.equal(a_card.cand.cpu(), a_cpu.cand)
+    same_match = torch.equal(a_card.match_idx.cpu(), a_cpu.match_idx)
+    n_card, n_cpu = a_card.n_inl.cpu(), a_cpu.n_inl
+    Nq = q9.desc.shape[0]
+    inl_close = int((n_card - n_cpu).abs().max()) <= (1 - MIN_INLIER_AGREE) * Nq
+    d_pose = float(se3.distance(SE3(r_card.T_cw.R.cpu(), r_card.T_cw.t.cpu()), r_cpu.T_cw))
+    ok9c = (d_sc <= 1e-6 and same_cand and same_match and inl_close
+            and int(r_card.n_inliers) == int(r_cpu.n_inliers)
+            and int(r_card.kf_slot) == int(r_cpu.kf_slot) and d_pose <= TOL_POSE
+            and bool(r_card.success) and bool(r_cpu.success))
+    print(f"main path 9c (one attempt, card against CPU, the card's P3P draws): BoW scores within "
+          f"{d_sc:.2e} (<= 1e-6), candidates {a_card.cand.tolist()} equal: {same_cand}, matches "
+          f"equal: {same_match} ({int((a_card.match_idx >= 0).sum())} kept), inliers per "
+          f"candidate {n_card.tolist()} / {n_cpu.tolist()} (equal: {torch.equal(n_card, n_cpu)}; "
+          f"within {(1 - MIN_INLIER_AGREE) * Nq:.2f} rows), winner {int(r_card.kf_slot)} / "
+          f"{int(r_cpu.kf_slot)} with {int(r_card.n_inliers)} / {int(r_cpu.n_inliers)}, pose "
+          f"distance {d_pose:.3e} (<= {TOL_POSE}): {'pass' if ok9c else 'FAIL'}", flush=True)
+    if not ok9c:
+        raise AssertionError("main path 9c: the attempt on the card differs from the CPU's")
+    # The attempt's recorded K10 [Nq, C*F] and K8 [S=C] arguments against their
+    # plain versions, and their times, profiler µs and bounds at these shapes.
+    a10s = [a for f, a in rec9 if f is k10.distance_matrix]
+    a8s = [a for f, a in rec9 if f is k8.pose_ba_batch_gn]
+    if len(a10s) != 1 or len(a8s) != 1 or len(rec9) != 2:
+        raise AssertionError(f"the attempt launched {[f.__name__ for f, _ in rec9]}")
+    a10r, a8r = a10s[0], a8s[0]
+    out10 = k10.distance_matrix(*a10r)
+    e10r = int((out10 - k10.distance_matrix_plain(*a10r)).abs().max())
+    tag10 = f"{a10r[0].shape[0]} x {a10r[1].shape[0]} (relocalization, {kw9['top_c']} candidates)"
+    print(f"K10 hamming distance_matrix {tag10}: max |kernel - plain| = {e10r} (tolerance 0)")
+    if e10r != 0:
+        raise AssertionError("K10 disagrees with its plain version at the relocalization's shape")
+    e8r, st8r = check_k8(a8r, f"S={a8r[0].shape[0]} N={a8r[0].shape[1]} (relocalization)")
+    ab10, bb10 = unpack_bits(a10r[0]), unpack_bits(a10r[1])
+    k10r = dict(ms=_time_kernel(torch, lambda: k10.distance_matrix(*a10r)),
+                plain=_time_host(torch, lambda: k10.distance_matrix_plain(*a10r)),
+                lib=_time_kernel(torch, lambda: torch.cdist(ab10, bb10, p=0)),
+                us=_profile_us(torch, lambda: k10.distance_matrix(*a10r), "hamming_mma_kernel"),
+                bound=k10_bound(*a10r))
+    S8r, N8r = a8r[0].shape[:2]
+    k8r = dict(ms=_time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8r)),
+               plain=_time_host(torch, lambda: k8.pose_ba_batch_gn_plain(*a8r)),
+               us=_profile_us(torch, lambda: k8.pose_ba_batch_gn(*a8r),
+                              "pose_ba_fused_batch_kernel"),
+               bound=_bound(S8r * (N8r * (12 + 8 + 4) + 48 + N8r * 4 + 52),
+                            sum(N8r * (180 * ne + 27 * 25 + 4 * 30) for ne in st8r["normal_eqs"])))
+    for name, r in (("K10 " + tag10, k10r), (f"K8 S={S8r} N={N8r} (relocalization)", k8r)):
+        lib = "null" if r.get("lib") is None else f"{r['lib']:.4f}"
+        print(f"{name}: kernel {r['ms']:.4f} ms, profiler {r['us']:.2f} us per launch, plain "
+              f"{r['plain']:.4f} ms, library {lib} ms, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]})", flush=True)
+
+    # (d) BoxScene with relocalization: path 8a's frames and options plus the
+    # vocabulary; path 8a's gates, and equal to 8a bit for bit up to the first
+    # frame that attempts a relocalization (all of it if none does).
+    s9d = System(camera=cam_b, options=nw.box_df_options(use_vocabulary=True,
+                                                         loop_closing=False), device=dev)
+    first9d, rows9d = {}, {}
+
+    def on_frame9d(k, r):
+        if s9d.vo.stats["reloc_attempts"] and "k" not in first9d:
+            first9d["k"] = k
+        if k == BOX_SPAN:
+            rows9d["span"] = int(s9d.vo.server.state.pt_valid.sum())
+
+    st9d, T7_9d, wall9d, launches9d, n_tr9d = run_counted(s9d, frames_b8, on_frame9d)
+    vo9d = s9d.vo
+    k_eq = first9d.get("k", N_DF)
+    same9d = st9d[:k_eq] == st8[:k_eq] and T7_9d[:k_eq].tobytes() == T7_8[:k_eq].tobytes()
+    k0 = mw.init_frame(st9d)
+    span9 = st9d[:BOX_SPAN]
+    ate9_span = mw.good_ate(span9, T7_9d[:BOX_SPAN], T_gt_b8[:BOX_SPAN])
+    ok9d = (0 <= k0 < 30 and all(x is vo_mod.Status.GOOD for x in span9[k0:])
+            and ate9_span < DF_ATE and rows9d.get("span", 0) > rows6b_span[0] and same9d)
+    ate9_spans = {n: round(mw.good_ate(st9d[:n], T7_9d[:n], T_gt_b8[:n]), 5)
+                  for n in (BOX_SPAN, 240, 320, N_DF) if n <= N_DF}
+    print(f"main path 9d (path 8a's BoxScene frames and options with the vocabulary on): "
+          f"{N_DF} frames in {wall9d:.3f} s = {N_DF / wall9d:.1f} frames/s; first frame "
+          f"attempting a relocalization: {first9d.get('k')}; equal to 8a bit for bit before it "
+          f"(over all {N_DF} frames if none): {same9d}; 8a's gates: frames {k0}-{BOX_SPAN - 1} "
+          f"GOOD, ATE over them {ate9_span!r} m (< {DF_ATE}), rows at frame {BOX_SPAN} "
+          f"{rows9d.get('span')}: {'pass' if ok9d else 'FAIL'}.  Whole run (reported): GOOD "
+          f"{st9d.count(vo_mod.Status.GOOD) / N_DF:.4f}, {vo9d.stats['reloc_attempts']} attempts, "
+          f"{vo9d.stats['relocalizations']} relocalizations, {nw.segments(st9d) - 1} reset(s), "
+          f"first LOST frame "
+          f"{st9d.index(vo_mod.Status.LOST) if vo_mod.Status.LOST in st9d else None}, ATE over "
+          f"the first n frames {ate9_spans}; launches {launches9d}", flush=True)
+    if not ok9d:
+        raise AssertionError("main path 9d failed its gates")
+    want9d = want_reloc(n_tr9d, vo9d.stats["keyframes"], vo9d.stats["reloc_attempts"])
+    if launches9d != want9d:
+        raise AssertionError(f"launch counts {launches9d}, expected {want9d}")
+    # (e) Path 6b's frames and options (no depth filter: past frame ~180 this
+    # loop starves the map and 6b loses track) with the vocabulary on: equal
+    # to 6b bit for bit up to the first attempt; whether relocalization takes
+    # the place of 6b's reset is reported.
+    s9e = System(camera=cam_b, options=nw.box_options(use_vocabulary=True, loop_closing=False),
+                 device=dev)
+    first9e = {}
+
+    def on_frame9e(k, r):
+        if s9e.vo.stats["reloc_attempts"] and "k" not in first9e:
+            first9e["k"] = k
+
+    st9e, T7_9e, wall9e, launches9e, n_tr9e = run_counted(s9e, frames_b6, on_frame9e)
+    vo9e = s9e.vo
+    k_eq = first9e.get("k", N_BOX)
+    same9e = st9e[:k_eq] == st6[:k_eq] and T7_9e[:k_eq].tobytes() == T7_6[:k_eq].tobytes()
+    ate9e = {n: round(mw.good_ate(st9e[:n], T7_9e[:n], T_gt_b6[:n]), 5)
+             for n in (BOX_SPAN, 240, N_BOX)}
+    ate6e = {n: round(mw.good_ate(st6[:n], T7_6[:n], T_gt_b6[:n]), 5)
+             for n in (BOX_SPAN, 240, N_BOX)}
+    print(f"main path 9e (path 6b's frames and options with the vocabulary on): {N_BOX} frames in "
+          f"{wall9e:.3f} s; first frame attempting a relocalization: {first9e.get('k')}; equal to "
+          f"6b bit for bit before it: {same9e}.  Reported: GOOD "
+          f"{st9e.count(vo_mod.Status.GOOD) / N_BOX:.4f} (6b "
+          f"{st6.count(vo_mod.Status.GOOD) / N_BOX:.4f}), {vo9e.stats['reloc_attempts']} attempts, "
+          f"{vo9e.stats['relocalizations']} relocalizations, {nw.segments(st9e) - 1} reset(s) (6b "
+          f"{nw.segments(st6) - 1}), LOST frames {st9e.count(vo_mod.Status.LOST)} (6b "
+          f"{st6.count(vo_mod.Status.LOST)}), ATE over the first n frames {ate9e} (6b {ate6e}); "
+          f"launches {launches9e}", flush=True)
+    if not same9e:
+        raise AssertionError("main path 9e differs from 6b before any relocalization")
+    want9e = want_reloc(n_tr9e, vo9e.stats["keyframes"], vo9e.stats["reloc_attempts"])
+    if launches9e != want9e:
+        raise AssertionError(f"launch counts {launches9e}, expected {want9e}")
+    del s9, s9d, s9e, vo9, vo9d, vo9e
+
     # -- 6. profile windows ----------------------------------------------------
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
@@ -2261,7 +2552,8 @@ def main() -> int:
         return (launches1.get(name, 0) + launches2.get(name, 0) + launches3.get(name, 0)
                 + sum(v[name] for v in launches4.values()) + launches5[name]
                 + launches6a[name] + launches6[name] + launches6c[name] + launches7[name]
-                + launches8[name] + launches8c[name])
+                + launches8[name] + launches8c[name] + launches9a[name] + launches9d[name]
+                + launches9e[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

@@ -137,6 +137,23 @@ def jax_ransac_indices(mask, seed: int, n_hypotheses: int = 200) -> np.ndarray:
         lambda k: jax.random.choice(k, n, shape=(8,), replace=False, p=p))(keys))
 
 
+def jax_pnp_draws(mask, cand, n_hyp: int = 256) -> torch.Tensor:
+    """The [C, n_hyp, 3] P3P triples the JAX package's `relocalize` draws
+    for candidate keyframes `cand [C]` on their match masks `mask [C, N]`
+    (`ransac_pnp`'s categorical under `fold_in(PRNGKey(17), kf)`,
+    relocalization.py:115-118), on mask's device."""
+    import jax
+    import jax.numpy as jnp
+
+    out = []
+    for m, kf in zip(np32(mask), np32(cand)):
+        key = jax.random.fold_in(jax.random.PRNGKey(17), int(kf))
+        logits = jnp.where(jnp.asarray(m), 0.0, -1e9)
+        out.append(np.asarray(jax.random.categorical(
+            key, logits[None, :].repeat(n_hyp * 3, 0)).reshape(n_hyp, 3)))
+    return torch.tensor(np.stack(out), dtype=torch.long, device=mask.device)
+
+
 def jax_vo_options(opts) -> dict:
     """The JAX VOOptions keyword arguments of a port VOOptions: the fields
     both define, with the port's values."""

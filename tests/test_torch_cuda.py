@@ -1371,3 +1371,123 @@ def test_box_scene_card_matches_cpu(cuda_device):
         print(f"BoxScene frame {k}: {float((d <= 1e-3).float().mean()):.6f} of pixels within "
               f"1e-3, max {float(d.max()):.3e}")
         assert float((d <= 1e-3).float().mean()) >= 0.999 and float(d.max()) <= 1e-2
+
+
+def test_hamming_relocalization_shape(cuda_device):
+    """K10 at relocalization's shape: 256 query rows against 10 candidates'
+    256 features, gathered into one table (a fresh, aligned tensor) from a
+    larger one, exactly the plain version; each candidate's column block
+    equals its own launch."""
+    q = _words(256, 21, cuda_device)
+    table = _words(10 * 256 + 37, 22, cuda_device)
+    rows = torch.randperm(table.shape[0], device=cuda_device)[:2560]
+    cands = table[rows]
+    d = tk10.distance_matrix(q, cands)
+    assert torch.equal(d, tk10.distance_matrix_plain(q, cands))
+    for c in (0, 4, 9):
+        blk = cands[c * 256:(c + 1) * 256].contiguous()
+        assert torch.equal(d[:, c * 256:(c + 1) * 256], tk10.distance_matrix(q, blk))
+
+
+def test_pose_ba_batch_ten_candidates_equal_k5(cuda_device):
+    """K8 at relocalization's shape (S = 10 candidates, N = 256) equals ten
+    K5 launches on the same inputs bit for bit, a candidate seeded at a NaN
+    pose and one fully masked beside sound ones included: one sequence
+    cannot change another's."""
+    rng = np.random.default_rng(12)
+    S = 10
+    per = [_k5_args(cuda_device, 256, seed=20 + s) for s in range(S)]
+    pts, px, msk, pose0 = (torch.stack([a[i] for a in per]).contiguous() for i in range(4))
+    cam = per[0][4]
+    pose0[3] = float("nan")                     # a degenerate seed
+    msk[6] = False                              # no usable point
+    pose0[8, 9:12] += torch.tensor(rng.normal(0, 0.05, 3), dtype=torch.float32,
+                                   device=cuda_device)
+    out, inl = tk8.pose_ba_batch_gn(pts, px, msk, pose0, cam)
+    for s in range(S):
+        o5, i5 = tk5.pose_ba_gn(pts[s], px[s], msk[s], pose0[s], cam)
+        assert torch.equal(out[s].view(torch.int32), o5.view(torch.int32)), s
+        assert torch.equal(inl[s].view(torch.int32), i5.view(torch.int32)), s
+    sound = [s for s in range(S) if s not in (3, 6)]
+    assert bool(torch.isfinite(out[sound]).all())
+    assert not bool((inl[6] > 0.5).any())
+
+
+def _reloc_map_on(dev, n_pre=30):
+    """A 240x320 monocular map with the vocabulary on, after the
+    blackout-and-revisit run of models/reloc_workload.py."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import reloc_workload as rw
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, T_gt7 = mw.make_mono_workload(40, device=dev, shape=(240, 320), du=1 / 39)
+    s = System(camera=cam, options=rw.reloc_options(), device=dev)
+    out = rw.blackout_revisit(s, frames, n_pre=n_pre, n_after=8)
+    return s, frames, out
+
+
+def test_relocalize_card_matches_cpu(cuda_device):
+    """One relocalization attempt on the card against the CPU on the same
+    map, features and P3P triples (the card's draws): BoW scores within
+    1e-6, the same candidates, matches and winner, inlier counts within the
+    K8-against-plain agreement, the pose within 1e-4; one K10 and one K8
+    launch."""
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+    from ygz_slam_tpu_torch.models import frontend as tfe
+    from ygz_slam_tpu_torch.models import relocalization as rl
+
+    s, frames, out = _reloc_map_on(cuda_device)
+    assert out["ok"], {k: v for k, v in out.items() if k not in ("T7", "statuses")}
+    vo = s.vo
+    q = vo._detect(tfe.preprocess(frames[out["revisit_fid"]], vo.o.n_levels))
+    m = vo.server.state
+    args = [q.desc, q.px, q.valid, vo.kf_bow, m.kf_valid, m.kf_pose7, m.feat_desc.reshape(-1, 8),
+            vo.kf_nodes.reshape(-1), m.feat_point.reshape(-1), m.feat_valid.reshape(-1),
+            m.pt_pos, m.pt_valid]
+    kw = dict(min_inliers=20, top_c=10, use_pnp=True)
+    st_card, st_cpu = {}, {}
+    n10, n8 = tk10.distance_matrix.launches, tk8.pose_ba_batch_gn.launches
+    r_card = rl.relocalize(vo.vocab, vo.cam, *args, feat_angle_flat=m.feat_angle.reshape(-1),
+                           q_angle=q.angle, generator=torch.Generator(cuda_device).manual_seed(3),
+                           stages=st_card, **kw)
+    assert (tk10.distance_matrix.launches - n10, tk8.pose_ba_batch_gn.launches - n8) == (1, 1)
+    a = st_card["attempt"]
+    r_cpu = rl.relocalize(voc.from_state_dict(voc.state_dict(vo.vocab), device="cpu"), vo.cam,
+                          *(t.cpu() for t in args), feat_angle_flat=m.feat_angle.reshape(-1).cpu(),
+                          q_angle=q.angle.cpu(), draws=a.draws.cpu(), stages=st_cpu, **kw)
+    b = st_cpu["attempt"]
+    d_pose = float(tse3.distance(TSE3(r_card.T_cw.R.cpu(), r_card.T_cw.t.cpu()), r_cpu.T_cw))
+    print(f"scores within {float((a.scores.cpu() - b.scores).abs().max()):.2e}; inliers "
+          f"{a.n_inl.tolist()} / {b.n_inl.tolist()}; pose distance {d_pose:.2e}")
+    assert float((a.scores.cpu() - b.scores).abs().max()) <= 1e-6
+    assert torch.equal(a.cand.cpu(), b.cand) and torch.equal(a.match_idx.cpu(), b.match_idx)
+    assert int((a.n_inl.cpu() - b.n_inl).abs().max()) <= 0.01 * q.desc.shape[0]
+    assert bool(r_card.success) and bool(r_cpu.success)
+    assert int(r_card.n_inliers) == int(r_cpu.n_inliers)
+    assert int(r_card.kf_slot) == int(r_cpu.kf_slot) and d_pose <= TOL_POSE
+
+
+def test_chunked_equals_per_frame_across_a_relocalization_on_the_card(cuda_device):
+    """The blackout-and-revisit frames through `track_monocular_chunk`
+    (chunk=4) and through `track_monocular` on the card: equal statuses,
+    trajectory, map, BoW rows and stats bit for bit, one relocalization in
+    each, graph replays on both sides of it."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import reloc_workload as rw
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, _ = mw.make_mono_workload(40, device=cuda_device, shape=(240, 320), du=1 / 39)
+    seq = torch.cat([frames[:30], rw.noise_frames(4, (240, 320), device=cuda_device),
+                     frames[:9]])
+    ts = [float(k) for k in range(seq.shape[0])]
+    sc = System(camera=cam, options=rw.reloc_options(), device=cuda_device)
+    rc = sc.track_monocular_chunk(seq, ts, chunk=4)
+    sf = System(camera=cam, options=rw.reloc_options(), device=cuda_device)
+    rf = [sf.track_monocular(seq[k], ts[k]) for k in range(seq.shape[0])]
+    assert [r.status for r in rc] == [r.status for r in rf]
+    assert sf.vo.stats["relocalizations"] == 1 and sc.vo.stats == sf.vo.stats
+    assert np.stack([p for _, p in sc.vo.trajectory]).tobytes() == \
+        np.stack([p for _, p in sf.vo.trajectory]).tobytes()
+    assert all(torch.equal(a, b) for a, b in zip(sc.vo.server.state, sf.vo.server.state))
+    assert torch.equal(sc.vo.kf_bow, sf.vo.kf_bow) and torch.equal(sc.vo.kf_nodes, sf.vo.kf_nodes)
+    assert sum(st.replays for st in sc.vo._chunk_steps.values()) > 0

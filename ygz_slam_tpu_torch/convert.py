@@ -16,6 +16,7 @@ from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
 from .map.depth_filter import Seeds
 from .map.state import MapState
+from .map.vocabulary import Vocabulary, from_state_dict
 from .models.batch import BatchState
 from .models.frontend import Features
 from .models.tracking import KeyframeState
@@ -116,6 +117,12 @@ def seeds_from_numpy(fields: dict, device=None) -> Seeds:
 def seeds_to_numpy(seeds: Seeds) -> dict:
     """The fields of a Seeds as numpy arrays."""
     return {name: t.detach().cpu().numpy() for name, t in seeds._asdict().items()}
+
+
+def vocabulary_from_numpy(state_dict: dict, device=None) -> Vocabulary:
+    """The port's Vocabulary from the JAX package's vocabulary arrays (its
+    `vocabulary.state_dict`: nodes_<level> uint32, weights, meta)."""
+    return from_state_dict({k: np.asarray(v) for k, v in state_dict.items()}, device=device)
 
 
 def features_from_numpy(px, level, score, angle, desc, depth, valid, device=None) -> Features:

@@ -1,7 +1,8 @@
 """VisualOdometry: the monocular frontend state machine over the VO's
 per-frame map-tracking step and keyframe cycle (counterpart of
 ygz_slam_tpu/models/visual_odometry.py, SPARSE_DIRECT, synchronous mapping,
-with the depth filter, without vocabulary or keyframe archive).
+with the depth filter, the BoW vocabulary and relocalization against the
+active keyframe window; without keyframe archive or loop closing).
 
 The device steps are plain functions over MapState (`track`,
 `triangulate`, `free_rows`, `assemble_keyframe`, `kf_cycle`: the JAX
@@ -12,8 +13,11 @@ and `_kf_cycle`; `mapping_pass`: its `_map_pass` without loop closing).
 initialization (KLT, descriptor re-check, RANSAC H/F, two-view BA, mean
 depth 1, the first local BA), tracking with inlier-gate hysteresis, the
 keyframe decision, keyframe insertion and the mapping pass, and lost
-handling with a retry and a reset.  Its host syncs (`int(...)`,
-`bool(...)`) are the JAX package's own.
+handling with a retry, relocalization (`models/relocalization.py`: BoW
+candidates, one K10 launch for their matching, P3P-RANSAC seeds, one K8
+launch for their pose solves) and a reset, and the NOT_READY resume against
+a surviving map.  Its host syncs (`int(...)`, `bool(...)`) are the JAX
+package's own.
 
 Per frame (`track`): sparse-direct alignment of NS selected landmarks
 against the previous frame (K1 x 2, K3), the NSV best visible landmarks'
@@ -25,7 +29,8 @@ triangulation, the Gaussian-Beta posterior; `map/depth_filter.py`).  Per
 keyframe (`kf_cycle`): slot allocation or eviction, detection,
 triangulation against two neighbour keyframes (their two Hamming matrices
 in one K10 launch) and fusion with the map (K10), insertion, the converged
-seeds promoted to landmarks and new seeds on the depthless detections.
+seeds promoted to landmarks and new seeds on the depthless detections;
+with a vocabulary, the new keyframe's BoW row (`keyframe_bow`).
 Everything stays on the device: selections that the JAX version makes with
 `jnp.where` are `torch.where` here, and slots are 0-d tensors.
 
@@ -40,6 +45,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import os
 
 import numpy as np
 import torch
@@ -48,6 +54,7 @@ from .. import resolve_device
 from ..geometry.se3 import SE3
 from ..map import depth_filter as dfilt
 from ..map import state as ms
+from ..map import vocabulary as voc
 from ..map.memory import MapServer, refresh_covisibility
 from ..ops import kernels, orb, sparse_align
 from ..ops.align import klt_pyramidal
@@ -58,8 +65,41 @@ from ..solvers import initializer as init_mod
 from ..utils import np_se3
 from . import frontend as fe
 from . import local_mapping as lm
+from . import relocalization as reloc
 
 INT32_MAX = 2 ** 31 - 1
+
+_VOCAB_CACHE: dict = {}
+
+
+def _shared_vocabulary(prefer_asset: bool = True, device=None):
+    """The process-wide ORB vocabulary on `device` (the card unless named):
+    the packaged 10^4-word asset (`map/vocabulary.ASSET`, the role of DBoW3's
+    pretrained ORBvoc.bin), or, with prefer_asset=False or without the
+    asset, a 512-word bootstrap (k=8, depth 3) trained on four PlaneScene
+    renders with the port's FAST and ORB (the JAX package's
+    `_shared_vocabulary`)."""
+    dev = resolve_device(device)
+    key = ("asset" if prefer_asset and os.path.exists(voc.ASSET) else "bootstrap", dev)
+    if key in _VOCAB_CACHE:
+        return _VOCAB_CACHE[key]
+    if key[0] == "asset":
+        _VOCAB_CACHE[key] = voc.load(voc.ASSET, device=dev)
+    else:
+        from ..geometry.camera import PinholeCamera
+        from ..ops import fast
+        from ..utils.synthetic import PlaneScene
+
+        cam = PinholeCamera.create(320.0, 320.0, 160.0, 120.0)
+        descs = []
+        for i in range(4):
+            img = PlaneScene(cam, plane_z=3.0, seed=1000 + i, device=dev).render(
+                SE3.identity(device=dev), (240, 320))
+            c = fast.detect(img, 20.0, cell=12, max_corners=200)
+            _, d = orb.compute(img, c.xy)
+            descs.append(d[c.mask])
+        _VOCAB_CACHE[key] = voc.train(torch.cat(descs), k=8, depth=3, iters=4, device=dev)
+    return _VOCAB_CACHE[key]
 
 
 class Status(enum.Enum):
@@ -80,9 +120,12 @@ class VOType(enum.Enum):
 class VOOptions:
     """The fields of the JAX package's VOOptions that the port reads, with
     its defaults (config/default.yaml, VisualOdometry.h:32-45).  Of the
-    last five, the port runs `use_depth_filter`; the other four name parts
-    of the JAX package it does not run: `VisualOdometry` raises unless each
-    is off (False, SPARSE_DIRECT)."""
+    switches at the end, the port runs `use_depth_filter` and
+    `use_vocabulary` (BoW rows per keyframe, relocalization when lost and
+    the NOT_READY resume); `loop_closing` (with the vocabulary on),
+    `archive_map`, `async_mapping` and a `vo_type` other than SPARSE_DIRECT
+    name parts of the JAX package it does not run yet: `VisualOdometry`
+    raises for them."""
     n_levels: int = 3
     detect_threshold: float = 20.0
     grid_cell: int = 16
@@ -105,11 +148,17 @@ class VOOptions:
     map_L: int = 3072                     # >= map_K * map_F
     local_ba_iters: int = 8
     lost_reset_frames: int = 10
+    lost_reloc_after: int = 3             # failed retries before relocalization is tried
     lost_desc_max_dist: int = 64          # Hamming bound of the lost-retry re-check
     kf_cull_min_window: int = 4           # KeyFrameCulling keeps at least this many
     chunk_frames: int = 32                # add_frames: frames per chunk
     use_depth_filter: bool = True
     use_vocabulary: bool = True
+    vocab_asset: bool = True              # the packaged 10^4-word vocabulary; False: a bootstrap
+    reloc_min_inliers: int = 20
+    reloc_top_c: int = 10                 # BoW candidates verified per relocalization attempt
+    reloc_use_pnp: bool = True            # P3P-RANSAC pose seed (else the stored keyframe pose)
+    loop_closing: bool = True
     archive_map: bool = True
     async_mapping: bool = True
     vo_type: VOType = VOType.SPARSE_DIRECT
@@ -407,6 +456,15 @@ def update_seeds(cam, seeds: dfilt.Seeds, kf_pose7, kf_images, seed_slot, cur_im
                                          T_cw.compose(T_seed.inverse()))
 
 
+def keyframe_bow(vocab: voc.Vocabulary, mstate: ms.MapState, slot):
+    """The BoW row [W] and vocabulary nodes [F] of keyframe `slot` (a Python
+    int or a device index), from its feature table (Frame::ComputeBoW,
+    Frame.cpp:190-201; the JAX package's `_kf_bow`), on the device."""
+    desc, valid = ms.row(mstate.feat_desc, slot), ms.row(mstate.feat_valid, slot)
+    words, nodes = voc.transform(vocab, desc, valid)
+    return voc.bow_vector(vocab, words, valid), nodes
+
+
 def desc_check(ref_desc: torch.Tensor, img: torch.Tensor, px: torch.Tensor) -> torch.Tensor:
     """Hamming distance [N] between each reference descriptor and one
     computed afresh at its tracked position (CheckFrameDescriptors,
@@ -632,9 +690,9 @@ class TrackResult:
 
 
 def _unsupported(o: VOOptions) -> list:
-    return [name for name in ("use_vocabulary", "archive_map", "async_mapping")
-            if getattr(o, name)] + (
-        [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else [])
+    return ([name for name in ("archive_map", "async_mapping") if getattr(o, name)]
+            + (["loop_closing"] if o.use_vocabulary and o.loop_closing else [])
+            + ([f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else []))
 
 
 class VisualOdometry:
@@ -646,7 +704,7 @@ class VisualOdometry:
         bad = _unsupported(o)
         if bad:
             raise ValueError(f"VOOptions not supported by the port: {', '.join(bad)} "
-                             "(it runs SPARSE_DIRECT without vocabulary, keyframe archive "
+                             "(it runs SPARSE_DIRECT without keyframe archive, loop closing "
                              "or async mapping)")
         self.cam = cam
         self.o = o
@@ -687,6 +745,16 @@ class VisualOdometry:
         # add_frames' work: chunks, frame steps computed, and of those the
         # ones discarded at or after a chunk's flagged frame.
         self.chunk_stats = collections.Counter()
+        # The vocabulary, and per keyframe slot its BoW row and vocabulary
+        # nodes (rows of invalid slots are masked by kf_valid).
+        self.vocab = (_shared_vocabulary(prefer_asset=o.vocab_asset, device=self.device)
+                      if o.use_vocabulary else None)
+        self.kf_bow = self.kf_nodes = None
+        if self.vocab is not None:
+            self.kf_bow = torch.zeros((o.map_K, self.vocab.n_words), dtype=torch.float32,
+                                      device=self.device)
+            self.kf_nodes = torch.full((o.map_K, o.map_F), -1, dtype=torch.int32,
+                                       device=self.device)
 
     def _identity(self) -> SE3:
         return SE3.identity(device=self.device)
@@ -704,7 +772,9 @@ class VisualOdometry:
             self.kf_images = torch.zeros((self.o.map_K,) + tuple(pyr[0].shape),
                                          dtype=torch.float32, device=self.device)
         if self.status is Status.NOT_READY:
-            res = self._start_init(pyr)
+            # A surviving map: resume by relocalizing against it.
+            res = (self._resume(pyr) if self.server.kf_used and self.vocab is not None
+                   else None) or self._start_init(pyr)
         elif self.status is Status.INITING:
             res = self._try_init(pyr)
         elif self.status is Status.GOOD:
@@ -823,6 +893,22 @@ class VisualOdometry:
                                     existing_px, existing_mask)
 
     # -- NOT_READY ------------------------------------------------------
+    def _resume(self, pyr) -> TrackResult | None:
+        """Relocalize against the map instead of re-initializing (the JAX
+        package's NOT_READY branch, :1299-1333, without the archive); None
+        if the attempt fails.  Tracking continues from the recovered pose
+        with an empty last-frame set, anchored at the newest keyframe."""
+        r = self._try_relocalize(pyr)
+        if r is None:
+            return None
+        srv = self.server
+        self._relocalized(pyr, r.T_cw)
+        self.last_kf_slot = srv.kf_used[-1]
+        self.frames_since_kf = 0
+        self._last_kf_fid = int(srv.state.kf_id[self.last_kf_slot])
+        self._last_kf_pose7 = srv.state.kf_pose7[self.last_kf_slot].cpu().numpy()
+        return TrackResult(Status.GOOD, r.T_cw, int(r.n_inliers))
+
     def _start_init(self, pyr) -> TrackResult:
         feats = self._detect(pyr)
         if int(feats.valid.sum()) < self.o.init_min_features:
@@ -906,6 +992,8 @@ class VisualOdometry:
             padded(torch.where(inl, rows, -1), -1), padded(inl, False))
         self.kf_images = ms.set_row(ms.set_row(self.kf_images, slot0, self.init_pyr[0]),
                                     slot1, pyr[0])
+        self._store_bow(slot0)
+        self._store_bow(slot1)
         srv.refresh_covisibility()
         # First local BA with both keyframes fixed (gauge and scale).
         fixed = torch.zeros(o.map_K, dtype=torch.bool, device=dev)
@@ -1011,6 +1099,7 @@ class VisualOdometry:
             self.last_kf_slot, nbr2, self.frame_id, self.kf_images,
             seeds=self.seeds, seed_slot=self.seed_kf_slot if with_seeds else 0,
             seed_feat_idx=self.seed_feat_idx)
+        self._store_bow(host_block[0])
         slot, evicted, d_any, n_promoted = torch.stack(
             [host_block[0].long(), host_block[1].long(), host_block[3].long(),
              host_block[-1]]).tolist()
@@ -1026,6 +1115,15 @@ class VisualOdometry:
             self.seed_feat_idx = Fl + torch.arange(o.map_F - Fl, dtype=torch.int32,
                                                    device=self.device)
         self._finish_insert(T_cw, slot)
+
+    def _store_bow(self, slot) -> None:
+        """The BoW row and nodes of keyframe `slot` (an int or a device
+        index) written at the slot, on the device (the JAX `_store_bow`)."""
+        if self.vocab is None:
+            return
+        bow, nodes = keyframe_bow(self.vocab, self.server.state, slot)
+        self.kf_bow = ms.set_row(self.kf_bow, slot, bow)
+        self.kf_nodes = ms.set_row(self.kf_nodes, slot, nodes)
 
     def _finish_insert(self, T_cw: SE3, slot: int) -> None:
         """Bookkeeping and the mapping pass; tracking continues from the
@@ -1078,7 +1176,10 @@ class VisualOdometry:
     def _handle_lost(self, pyr) -> TrackResult:
         """Retry tracking from the last pose with the motion model reset;
         a retry must pass the full inlier gate and the descriptor re-check.
-        After `lost_reset_frames` failures the map is reset."""
+        From the `lost_reloc_after`-th failed retry on, relocalization is
+        tried too (a retry recovers without a pose jump, so it gets the
+        first frames alone); after `lost_reset_frames` failures the map is
+        reset."""
         o = self.o
         self.lost_count += 1
         self.velocity = self._identity()
@@ -1094,9 +1195,48 @@ class VisualOdometry:
             self.prev_found = tm.found
             self.prev_obs_px = tm.obs_px
             return TrackResult(Status.GOOD, tm.T_cw, n_inl)
+        r = self._try_relocalize(pyr) if self.lost_count >= o.lost_reloc_after else None
+        if r is not None:
+            self._relocalized(pyr, r.T_cw)
+            return TrackResult(Status.GOOD, r.T_cw, int(r.n_inliers))
         if self.lost_count > o.lost_reset_frames:
             self.reset()
         return TrackResult(Status.LOST, self.T_cw)
+
+    def _try_relocalize(self, pyr) -> reloc.RelocResult | None:
+        """One relocalization attempt against the active window (the JAX
+        `_try_relocalize` without its archive cascade): detection on the
+        frame, then `relocalization.relocalize` with P3P triples drawn from a
+        generator seeded with the frame id, so a run repeats.  Returns the
+        result if it succeeded, else None; reading `success` is the
+        attempt's one host sync."""
+        if self.vocab is None:
+            return None
+        o, m = self.o, self.server.state
+        feats = self._detect(pyr)
+        gen = torch.Generator(device=self.device).manual_seed(self.frame_id)
+        r = reloc.relocalize(
+            self.vocab, self.cam, feats.desc, feats.px, feats.valid, self.kf_bow, m.kf_valid,
+            m.kf_pose7, m.feat_desc.reshape(-1, 8), self.kf_nodes.reshape(-1),
+            m.feat_point.reshape(-1), m.feat_valid.reshape(-1), m.pt_pos, m.pt_valid,
+            min_inliers=o.reloc_min_inliers, feat_angle_flat=m.feat_angle.reshape(-1),
+            q_angle=feats.angle, top_c=o.reloc_top_c, use_pnp=o.reloc_use_pnp, generator=gen)
+        self.stats["reloc_attempts"] += 1
+        if not bool(r.success):
+            return None
+        self.stats["relocalizations"] += 1
+        return r
+
+    def _relocalized(self, pyr, T_cw: SE3) -> None:
+        """GOOD at a relocalized pose: no last-frame observations, the
+        motion model reset."""
+        L = self.o.map_L
+        self.status = Status.GOOD
+        self.prev_pyr = pyr
+        self.prev_T_cw = self.T_cw = T_cw
+        self.prev_found = torch.zeros(L, dtype=torch.bool, device=self.device)
+        self.prev_obs_px = torch.zeros((L, 2), dtype=torch.float32, device=self.device)
+        self.velocity = self._identity()
 
     def reset(self) -> None:
         """Full reset (System::Reset): an empty map, NOT_READY."""
@@ -1114,6 +1254,9 @@ class VisualOdometry:
         self.seed_kf_slot = -1
         self.seed_feat_idx = None
         self._last_kf_fid = -1
+        if self.vocab is not None:           # the vocabulary stays
+            self.kf_bow = torch.zeros_like(self.kf_bow)
+            self.kf_nodes = torch.full_like(self.kf_nodes, -1)
 
     def trajectory_poses(self, corrected: bool = True) -> list:
         """(ts, params7) per frame.  corrected=True re-composes each GOOD

@@ -1,6 +1,6 @@
 """Hamming distance over packed binary descriptors and the matchers built
 on it (counterpart of ygz_slam_tpu/ops/hamming.py, without
-`archive_match_scores`, which belongs to relocalization).
+`archive_match_scores`, which belongs to the keyframe archive).
 
 Descriptors are 8 x 32-bit words (256 bits) stored as int32.  The all-pairs
 matrix is K10 on the card and its plain version on the CPU
