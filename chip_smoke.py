@@ -194,6 +194,37 @@ Phases, each raising (and so exiting non-zero) on failure:
    frame ~180) with the vocabulary on: equal to 6b bit for bit up to the
    first attempt; attempts, relocalizations, resets and ATE reported
    beside 6b's.
+5h. Main path 10: the keyframe archive and loop closing within the active
+   window (`models/archive_workload.py`; the vocabulary on).  (a)
+   tests/test_archive.py's kidnapped sweep at 640x480 (PlaneScene seed 3,
+   a 3.4 m one-way sweep of 52 frames on a 6-slot window, the archive on,
+   loop closing and the depth filter off), 4 noise frames, then the oldest
+   archived keyframe's view and the 16 frames after it, through
+   `VisualOdometry.add_frame`: the revisit relocalized through the archive
+   with the keyframe reactivated, its pose within TOL_REVISIT of the
+   archived one, every frame after GOOD, the archive's rows equal to the
+   evictions plus culls less the reactivations, and the sweep equal bit
+   for bit to the same run with the archive off; path 4's launch counts
+   plus one K10 and one K8 per active-window attempt and two K10 and one
+   K8 per archive attempt; each attempt's synchronised ms, and the archive
+   attempt's kernels and device µs under the profiler.  (b) Archives of
+   capacity 16, 128, 512 and 2048 filled with 10a's rows: K10 at the
+   scoring shape [256, min(rows, 512) x 256] (ms, profiler µs, byte bound,
+   torch.cdist on the unpacked bits), the retrieval scores and one whole
+   `relocalize_archive` (synchronised ms); at 16 and 128 the match-count
+   and retrieval scores on the card equal to the CPU's.  (c) Path 9d's
+   BoxScene frames and options with `loop_closing` on (first 240 frames),
+   twice (the same bits): equal to 9d bit for bit up to the first
+   keyframe whose `detect_loop` finds a loop, path 4's launch counts plus
+   one K10 and one K5 per mapping pass with the loop block; the pass's
+   synchronised ms with and without the loop block, one recorded pass's
+   kernels and device µs both ways, its K10 [256, 256] and K5 against
+   their plain versions; tests/test_relocalization.py's planted 6-keyframe
+   loop through `close_loop` on the card against the CPU (TOL_POSE, loop
+   residual < 0.05).  (d) 10a's archive attempt on the card against the CPU
+   (the archive, features and the card's P3P draws copied): retrieval
+   scores, candidates, matches and winner equal, the pose within TOL_POSE;
+   its K10 and K8 launches against their plain versions.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -208,7 +239,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
    pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-9), then the last line {"ok": true, "device": {...}}.
+   paths 1-10), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -262,6 +293,13 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores (K10's
 # (K1, K2, K6) copy and must be exact.
 TOL_POSE = 1e-4         # K3/K5/K8 pose distance: rounding can move a pose
                         # by a fraction of the 1e-4 stopping step
+TOL_POSE_FLAT = 1e-3    # K8 on relocalization candidates, where the final chi2 agrees
+                        # within TOL_REL: a candidate held by ~20 points has a
+                        # direction along which float32 chi2 does not change, so
+                        # kernel and plain stop at different points of it (path
+                        # 10d's 20-inlier candidate: 1.5e-4 apart, chi2 1.8e-6
+                        # apart, the same gap at eps 1e-6; the plain version alone
+                        # on the CPU and on the card: 6.9e-5 on a 34-inlier one)
 TOL_XY = 1e-3           # K4, px, on >= 98% of the points both accept;
 TOL_XY_ALL = 0.05       # all of them within 0.05 px: a 0.03 px freeze
                         # decision may flip on rounding and skip one step
@@ -352,7 +390,10 @@ def _profile_us(torch, fn, sym, n=30):
             dt = getattr(e, "self_device_time_total", None)
             hits.append((getattr(e, "self_cuda_time_total", 0.0) if dt is None else dt, e.count))
     if not hits or not sum(h[1] for h in hits):
-        raise AssertionError(f"the profiler saw no {sym}")
+        seen = [e.key[:60] for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        raise AssertionError(f"the profiler saw no {sym}; its device events: {seen[:8]} "
+                             f"({len(seen)} names)")
     return sum(h[0] for h in hits) / sum(h[1] for h in hits)
 
 
@@ -839,22 +880,34 @@ def main() -> int:
                     f"{tag}, {len(twice)} requests, level 0 named twice, origins off the image")
         return e
 
-    def check_k8(a8, tag):
+    def check_k8(a8, tag, flat=False):
+        """K8 against its plain version: every sequence's pose within
+        TOL_POSE and its inlier set agreeing.  With `flat` (relocalization
+        candidates, some matched by a handful of points), a sequence may
+        instead lie within TOL_POSE_FLAT when its final chi2 equals the
+        plain version's within TOL_REL: the two stop at different points of
+        an objective that float32 cannot resolve along some direction."""
         out, inl = k8.pose_ba_batch_gn(*a8)
         same_launch("K8", [out, inl], k8.pose_ba_batch_gn(*a8), tag)
         stats = {}
         ref, inl_ref = k8.pose_ba_batch_gn_plain(*a8, stats=stats)
         S = out.shape[0]
-        d = max(float(se3.distance(SE3(*_pose_of(out[s])), SE3(*_pose_of(ref[s]))))
-                for s in range(S))
+        ds = [float(se3.distance(SE3(*_pose_of(out[s])), SE3(*_pose_of(ref[s]))))
+              for s in range(S)]
+        d = max(ds)
+        flat_s = [s for s in range(S) if flat and TOL_POSE < ds[s] <= TOL_POSE_FLAT
+                  and _rel(out[s, 12], ref[s, 12]) <= TOL_REL]
         err = float((out[:, :12] - ref[:, :12]).abs().max())
         agree = float(((inl > 0.5) == (inl_ref > 0.5)).float().mean(dim=1).min())
-        print(f"K8 pose_ba_fused_batch {tag}: max pose distance {d:.3e} (tolerance {TOL_POSE}), "
-              f"max |R,t diff| {err:.3e}, inliers per sequence "
-              f"{(inl > 0.5).sum(dim=1).tolist()} vs {(inl_ref > 0.5).sum(dim=1).tolist()}, "
-              f"least set agreement {agree:.4f} (need {MIN_INLIER_AGREE}), "
-              f"normal equations {stats['normal_eqs']}")
-        if not (d <= TOL_POSE and agree >= MIN_INLIER_AGREE):
+        print(f"K8 pose_ba_fused_batch {tag}: max pose distance {d:.3e} (tolerance {TOL_POSE}"
+              + (f"; flat: {[(s, round(ds[s], 7), _rel(out[s, 12], ref[s, 12])) for s in flat_s]}"
+                 f" within {TOL_POSE_FLAT} at chi2 within {TOL_REL}" if flat else "")
+              + f"), per sequence {[round(x, 7) for x in ds]}, max |R,t diff| {err:.3e}, inliers "
+              f"per sequence {(inl > 0.5).sum(dim=1).tolist()} vs "
+              f"{(inl_ref > 0.5).sum(dim=1).tolist()}, least set agreement {agree:.4f} (need "
+              f"{MIN_INLIER_AGREE}), normal equations {stats['normal_eqs']}")
+        if not (all(x <= TOL_POSE or s in flat_s for s, x in enumerate(ds))
+                and agree >= MIN_INLIER_AGREE):
             raise AssertionError("K8 disagrees with its plain version")
         return err, stats
 
@@ -2403,6 +2456,320 @@ def main() -> int:
         raise AssertionError(f"launch counts {launches9e}, expected {want9e}")
     del s9, s9d, s9e, vo9, vo9d, vo9e
 
+    # -- 5h. main path 10: the keyframe archive and active-window loop closing --
+    from ygz_slam_tpu_torch.map import archive as arc_mod
+    from ygz_slam_tpu_torch.models import archive_workload as aw
+
+    # (a) The kidnapped sweep at 640x480 with the archive on: the sweep, noise
+    # frames, then the oldest archived keyframe's view and the frames after it.
+    # The successful archive attempt's arguments are kept for (d).
+    cam_a, frames_a, _ = aw.sweep_frames((480, 640), device=dev)
+    vo10 = vo_mod.VisualOdometry(cam_a, aw.archive_options(), device=dev)
+    att10 = {"ms": [], "arc": None}
+    real_try, real_arc = vo10._try_relocalize, rl.relocalize_archive
+
+    def timed_try(pyr):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real_try(pyr)
+        torch.cuda.synchronize()
+        att10["ms"].append(1e3 * (time.perf_counter() - t))
+        return r
+
+    def kept_arc(vocab, cam, q_desc, q_px, q_valid, arc, **kw):
+        att10["arc"] = (q_desc.clone(), q_px.clone(), q_valid.clone(),
+                        arc_mod.ArchiveView(*(t.clone() for t in arc)), dict(kw))
+        return real_arc(vocab, cam, q_desc, q_px, q_valid, arc, **kw)
+
+    vo10._try_relocalize = timed_try
+    rl.relocalize_archive = kept_arc
+    try:
+        out10, wall10, launches10a, n_tr10 = counted(
+            lambda: aw.kidnapped_sweep(vo10, frames_a, n_after=aw.N_AFTER * 2))
+    finally:
+        rl.relocalize_archive = real_arc
+    st10 = out10["statuses"]
+    # The same sweep with the archive off: equal up to the noise, bit for bit.
+    vo10b = vo_mod.VisualOdometry(cam_a, aw.archive_options(archive_map=False), device=dev)
+    st10b = [vo10b.add_frame(frames_a[k], float(k)).status for k in range(frames_a.shape[0])]
+    n_sw = frames_a.shape[0]
+    same10 = (st10[:n_sw] == st10b and out10["T7"][:n_sw].tobytes()
+              == np.stack([p for _, p in vo10b.trajectory]).tobytes())
+    count_ok = vo10.archive.count == (vo10.stats["evictions"] + vo10.stats["keyframes_culled"]
+                                      - vo10.stats["keyframes_reactivated"])
+    ok10a = (out10["ok"] and same10 and count_ok and vo10.stats["relocs_archive"] >= 1
+             and vo10.stats["keyframes_reactivated"] >= 1)
+    # Path 4's counts, plus one K10 and one K8 per active-window attempt and,
+    # per archive attempt, one K10 per ARCHIVE_CHUNK rows of the scored view
+    # (one below 512), one for the candidates and one K8.
+    want10a = want_track(n_tr10, vo10.stats["keyframes"])
+    n_att, n_arc = vo10.stats["reloc_attempts"], vo10.stats["reloc_archive_attempts"]
+    want10a["distance_matrix"] += n_att + 2 * n_arc
+    want10a["pose_ba_batch_gn"] += n_att + n_arc
+    print(f"main path 10a (the kidnapped sweep, PlaneScene seed 3 {frames_a.shape[2]}x"
+          f"{frames_a.shape[1]}, map_K {vo10.o.map_K}, the archive on): {len(st10)} frames in "
+          f"{wall10:.3f} s; statuses {''.join(s.name[0] for s in st10)}; the sweep equal to the "
+          f"run with the archive off bit for bit: {same10}; {out10['archived_before']} keyframes "
+          f"archived at the sweep's end; revisited archived keyframe {out10['revisit_fid']}, "
+          f"relocalized at fed frame {out10['reloc_frame']} through the archive with "
+          f"reactivation: {out10['relocalized']}, pose against the archived one "
+          f"{out10['reloc_error']:.3e} (< {aw.TOL_REVISIT}), the {aw.N_AFTER * 2} frames after "
+          f"GOOD: {out10['after_good']}; archive rows {vo10.archive.count} = evictions "
+          f"{vo10.stats['evictions']} + culls {vo10.stats['keyframes_culled']} - reactivations "
+          f"{vo10.stats['keyframes_reactivated']}: {count_ok}; "
+          f"{'pass' if ok10a else 'FAIL'}; stats {dict(vo10.stats)}; launches {launches10a}",
+          flush=True)
+    if not ok10a:
+        raise AssertionError("main path 10a failed its gates")
+    if launches10a != want10a:
+        raise AssertionError(f"launch counts {launches10a}, expected {want10a}")
+    if att10["arc"] is None:
+        raise AssertionError("main path 10a made no archive attempt")
+    qd10, qpx10, qv10, arcv10, kw10 = att10["arc"]
+    arc_once = lambda: rl.relocalize_archive(vo10.vocab, cam_a, qd10, qpx10, qv10, arcv10,
+                                             **kw10)
+    prof10 = _profile(torch, lambda: [bool(arc_once().success) for _ in range(10)], 10,
+                      "one archive relocalization (retrieval over the archive, matching, "
+                      "P3P-RANSAC, pose BA; 10 candidates) x 10")
+    print(f"main path 10a attempts: {[round(x, 3) for x in att10['ms']]} ms synchronised "
+          f"({vo10.stats['reloc_attempts']} active-window attempts, each followed by an archive "
+          f"attempt); the archive attempt alone: "
+          f"{sum(v[1] for v in prof10.values()) / 10:.1f} device kernels and "
+          f"{sum(v[0] for v in prof10.values()) / 10:.2f} us of device time", flush=True)
+
+    # (b) The archive at scale: views of capacity 16, 128, 512 and 2048 filled
+    # with 10a's rows (2048 rows take the BoW prefilter to 1024).
+    rows10 = [vo10.archive.row(i) for i in range(vo10.archive.count)]
+    scale10 = {}
+    for cap in (16, 128, 512, 2048):
+        big = arc_mod.KeyframeArchive(vo10.o.map_F, vo10.archive.W, device=dev)
+        for i in range(cap):
+            r = rows10[i % len(rows10)]
+            big.append(r["frame_id"] + 1000 * (i // len(rows10)), r["pose7"], r["bow"], r["nodes"],
+                       r["desc"], r["px"], r["feat_valid"], r["pt_pos"], r["pt_ok"],
+                       angle=r["angle"], level=r["level"], image=r["image"])
+        v = big.device_view()
+        assert v.valid.shape[0] == cap
+        c_valid = v.feat_valid & v.pt_ok
+        scored = min(cap, rl.ARCHIVE_PREFILTER)
+        C = min(scored, hamming.ARCHIVE_CHUNK)
+        b10 = v.desc[:C].reshape(C * vo10.o.map_F, 8)
+        torch.cuda.synchronize()
+        k10_us = _profile_us(torch, lambda: k10.distance_matrix(qd10, b10), "hamming_mma_kernel")
+        k10_ms = _time_kernel(torch, lambda: k10.distance_matrix(qd10, b10))
+        ab, bb = unpack_bits(qd10), unpack_bits(b10)
+        lib_ms = _time_kernel(torch, lambda: torch.cdist(ab, bb, p=0), reps=5)
+        del ab, bb
+        n_launch = -(-scored // hamming.ARCHIVE_CHUNK)
+        score_ms = _time_kernel(torch, lambda: rl._archive_retrieval_scores(
+            vo10.vocab, qd10, qv10, v, v.valid), reps=10)
+        whole = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            bool(rl.relocalize_archive(vo10.vocab, cam_a, qd10, qpx10, qv10, v, **kw10).success)
+            torch.cuda.synchronize()
+            whole.append(1e3 * (time.perf_counter() - t))
+        exact = None
+        if cap <= 128:
+            cpu_v = arc_mod.ArchiveView(*(t.cpu() for t in v))
+            vocab_cpu = voc.from_state_dict(voc.state_dict(vo10.vocab), device="cpu")
+            m_card = hamming.archive_match_scores(qd10, qv10, v.desc, c_valid)
+            m_cpu = hamming.archive_match_scores(qd10.cpu(), qv10.cpu(), cpu_v.desc,
+                                                 cpu_v.feat_valid & cpu_v.pt_ok)
+            s_card = rl._archive_retrieval_scores(vo10.vocab, qd10, qv10, v, v.valid)
+            s_cpu = rl._archive_retrieval_scores(vocab_cpu, qd10.cpu(), qv10.cpu(), cpu_v,
+                                                 cpu_v.valid)
+            exact = torch.equal(m_card.cpu(), m_cpu) and torch.equal(s_card.cpu(), s_cpu)
+            if not exact:
+                raise AssertionError(f"archive scores at capacity {cap}: the card differs from "
+                                     "the CPU")
+        bound = k10_bound(qd10, b10)
+        scale10[cap] = dict(k10_ms=k10_ms, k10_us=k10_us, lib_ms=lib_ms, bound=bound,
+                            n_launch=n_launch, score_ms=score_ms,
+                            reloc_ms=statistics.median(whole))
+        print(f"main path 10b capacity {cap}: {scored} rows scored in {n_launch} K10 launch(es) of "
+              f"{qd10.shape[0]} x {C * vo10.o.map_F} ({qd10.shape[0] * C * vo10.o.map_F * 4} "
+              f"bytes of matrix each): K10 {k10_ms:.4f} ms, profiler {k10_us:.2f} us, bound "
+              f"{bound[0]:.6f} ms ({bound[1]}), library {lib_ms:.4f} ms (torch.cdist p=0 on the "
+              f"unpacked bits); the retrieval scores {score_ms:.4f} ms; one whole "
+              f"relocalize_archive {statistics.median(whole):.3f} ms synchronised (median of 5)"
+              + ("" if exact is None else f"; card equal to the CPU: {exact}"), flush=True)
+        del big, v
+
+    # (c) Active-window loop closing: path 9d's frames and options with
+    # loop_closing on (no archive), over the first N_LOOP frames, twice (the
+    # same bits); equal to 9d up to the first keyframe whose detect_loop
+    # finds a loop; one K10 and one K5 more per mapping pass with the loop
+    # block (4 keyframes or more).
+    N_LOOP = 240
+    loop_opts = nw.box_df_options(use_vocabulary=True, loop_closing=True, archive_map=False)
+    passes10 = {"loop": 0, "ms_loop": [], "ms_plain": [], "rec": None}
+    real_pass = vo_mod.mapping_pass
+
+    def counted_pass(cam, o, mstate, fixed, loop=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_pass(cam, o, mstate, fixed, loop=loop)
+        torch.cuda.synchronize()
+        passes10["ms_loop" if loop is not None else "ms_plain"].append(
+            1e3 * (time.perf_counter() - t))
+        if loop is not None:
+            passes10["loop"] += 1
+            if passes10["rec"] is None:
+                passes10["rec"] = (cam, o, ms_mod.MapState(*(x.clone() for x in mstate)),
+                                   fixed.clone(), loop)
+        return out
+
+    def loop_run(n_frames):
+        s = System(camera=cam_b, options=loop_opts, device=dev)
+        first = {}
+
+        def on_frame(k, r):
+            if s.vo.stats["loops_closed_active"] and "k" not in first:
+                first["k"] = k
+
+        st, T7, wall, launches, n_tr = run_counted(s, frames_b8[:n_frames], on_frame)
+        return s, st, T7, wall, launches, n_tr, first.get("k", n_frames)
+
+    from ygz_slam_tpu_torch.map import state as ms_mod
+    vo_mod.mapping_pass = counted_pass
+    try:
+        s10c, st10c, T7_10c, wall10c, launches10c, n_tr10c, k_loop = loop_run(N_LOOP)
+    finally:
+        vo_mod.mapping_pass = real_pass
+    n_loop_pass = passes10["loop"]
+    s10r, st10r, T7_10r, _, _, _, _ = loop_run(N_LOOP)
+    repeat10 = (st10r == st10c and T7_10r.tobytes() == T7_10c.tobytes()
+                and all(torch.equal(a, b) for a, b in zip(s10c.vo.server.state,
+                                                          s10r.vo.server.state)))
+    same10c = st10c[:k_loop] == st9d[:k_loop] and T7_10c[:k_loop].tobytes() == \
+        T7_9d[:k_loop].tobytes()
+    want10c = want_track(n_tr10c, s10c.vo.stats["keyframes"])
+    want10c["distance_matrix"] += s10c.vo.stats["reloc_attempts"] + n_loop_pass
+    want10c["pose_ba_batch_gn"] += s10c.vo.stats["reloc_attempts"]
+    want10c["pose_ba_gn"] += n_loop_pass
+    ok10c = same10c and repeat10 and n_loop_pass > 0 and launches10c == want10c
+    ate10c = mw.good_ate(st10c, T7_10c, T_gt_b8[:N_LOOP])
+    print(f"main path 10c (9d's BoxScene frames and options with loop_closing on, the first "
+          f"{N_LOOP}): {wall10c:.3f} s; loops closed {s10c.vo.stats['loops_closed_active']} (first "
+          f"at frame {k_loop if k_loop < N_LOOP else None}); equal to 9d bit for bit before it: "
+          f"{same10c}; the run repeated bit for bit: {repeat10}; {n_loop_pass} mapping passes "
+          f"with the loop block of {len(passes10['ms_loop']) + len(passes10['ms_plain'])}; "
+          f"launches {launches10c} (expected {want10c}); GOOD "
+          f"{st10c.count(vo_mod.Status.GOOD) / N_LOOP:.4f}, ATE {ate10c!r} m: "
+          f"{'pass' if ok10c else 'FAIL'}", flush=True)
+    if not ok10c:
+        raise AssertionError("main path 10c failed its gates")
+    print(f"main path 10c mapping pass: {statistics.median(passes10['ms_loop']):.3f} ms "
+          f"synchronised with the loop block (median of {len(passes10['ms_loop'])}), "
+          f"{statistics.median(passes10['ms_plain']):.3f} ms without it (median of "
+          f"{len(passes10['ms_plain'])}, the passes before 4 keyframes)", flush=True)
+    # One recorded pass state: the pass with and without the loop block, its
+    # kernels under the profiler, and its K10 [256, 256] and K5 launches
+    # against their plain versions.
+    cam_p, o_p, m_p, fixed_p, loop_p = passes10["rec"]
+    for tag, lp in (("with the loop block", loop_p), ("without it", None)):
+        ms_pass = _time_host(torch, lambda: real_pass(cam_p, o_p, m_p, fixed_p, loop=lp))
+        prof_p = _profile(torch, lambda: real_pass(cam_p, o_p, m_p, fixed_p, loop=lp), 1,
+                          f"one mapping pass {tag}")
+        print(f"main path 10c one recorded mapping pass {tag}: {ms_pass:.3f} ms synchronised, "
+              f"{sum(v[1] for v in prof_p.values())} device kernels, "
+              f"{sum(v[0] for v in prof_p.values()):.1f} us of device time", flush=True)
+    with kernels.record_launches() as rec10:
+        real_pass(cam_p, o_p, m_p, fixed_p, loop=loop_p)
+    a10l = [a for f, a in rec10 if f is k10.distance_matrix]
+    a5l = [a for f, a in rec10 if f is k5.pose_ba_gn]
+    if len(a10l) != 1 or len(a5l) != 1:
+        raise AssertionError(f"the loop block launched {[f.__name__ for f, _ in rec10]}")
+    e10l = int((k10.distance_matrix(*a10l[0]) - k10.distance_matrix_plain(*a10l[0])).abs().max())
+    print(f"K10 detect_loop {a10l[0][0].shape[0]} x {a10l[0][1].shape[0]}: max |kernel - plain| "
+          f"= {e10l} (tolerance 0); kernel {_time_kernel(torch, lambda: k10.distance_matrix(*a10l[0])):.4f} ms, "
+          f"bound {k10_bound(*a10l[0])[0]:.6f} ms", flush=True)
+    if e10l:
+        raise AssertionError("K10 disagrees with its plain version at detect_loop's shape")
+    e5l, st5l = check_k5(a5l[0], "N=256 (detect_loop)")
+    N5l = a5l[0][0].shape[0]
+    print(f"K5 detect_loop N={N5l}: kernel {_time_kernel(torch, lambda: k5.pose_ba_gn(*a5l[0])):.4f} "
+          f"ms, plain {_time_host(torch, lambda: k5.pose_ba_gn_plain(*a5l[0])):.4f} ms, bound "
+          f"{_bound(N5l * (12 + 8 + 4) + 48 + N5l * 4 + 52, N5l * (180 * st5l['normal_eqs'] + 27 * 25 + 4 * 30))[0]:.6f} ms",
+          flush=True)
+    # tests/test_relocalization.py's planted 6-keyframe loop through close_loop
+    # on the card against the CPU.
+    rng10 = np.random.default_rng(1)
+    gt10 = [se3.exp(torch.tensor([0.2 * k, 0, 0, 0, 0.05 * k, 0], dtype=torch.float32))
+            for k in range(6)]
+    est10 = [se3.exp(torch.tensor(rng10.normal(0, 0.02 * min(k, 1) * k, 6),
+                                  dtype=torch.float32)).compose(gt10[k]) for k in range(6)]
+    cov10 = torch.zeros((6, 6), dtype=torch.int32)
+    for k in range(5):
+        cov10[k, k + 1] = cov10[k + 1, k] = 30
+    pts10 = torch.tensor(rng10.uniform(-1, 1, (20, 3)), dtype=torch.float32)
+    first10 = torch.tensor(rng10.integers(0, 6, 20), dtype=torch.int32)
+    T_loop10 = gt10[5].compose(gt10[0].inverse())
+    res10 = []
+    for d_ in (dev, torch.device("cpu")):
+        lp = rl.LoopResult(found=torch.tensor(True, device=d_),
+                           loop_kf=torch.tensor(0, device=d_),
+                           T_loop7=T_loop10.params7().to(d_), scale=torch.tensor(1.0, device=d_))
+        res10.append(rl.close_loop(
+            torch.stack([e.params7() for e in est10]).to(d_), torch.ones(6, dtype=torch.bool,
+                                                                          device=d_),
+            cov10.to(d_), pts10.to(d_), torch.ones(20, dtype=torch.bool, device=d_),
+            first10.to(d_), 5, lp))
+    p_card, p_cpu = res10[0][0].cpu(), res10[1][0]
+    d_close = float(se3.distance(SE3.from_params7(p_card), SE3.from_params7(p_cpu)).max())
+    opt10 = SE3.from_params7(p_card)
+    resid10 = float(torch.linalg.norm(se3.log(T_loop10.compose(SE3(opt10.R[0], opt10.t[0])).compose(
+        SE3(opt10.R[5], opt10.t[5]).inverse()))))
+    ok10cl = d_close <= TOL_POSE and resid10 < 0.05
+    print(f"main path 10c planted loop (tests/test_relocalization.py) through close_loop: card "
+          f"against CPU {d_close:.3e} (<= {TOL_POSE}), loop residual {resid10:.4f} (< 0.05): "
+          f"{'pass' if ok10cl else 'FAIL'}", flush=True)
+    if not ok10cl:
+        raise AssertionError("main path 10c: close_loop on the card differs from the CPU")
+
+    # (d) 10a's archive attempt on the card against the CPU: the same archive,
+    # features and P3P triples (the card's draws).
+    st_c, st_p = {}, {}
+    with kernels.record_launches() as rec10d:
+        r_c = rl.relocalize_archive(vo10.vocab, cam_a, qd10, qpx10, qv10, arcv10, stages=st_c,
+                                    **{**kw10, "generator": torch.Generator(device=dev).manual_seed(5)})
+    a_c = st_c["attempt"]
+    r_p = rl.relocalize_archive(voc.from_state_dict(voc.state_dict(vo10.vocab), device="cpu"),
+                                cam_a, qd10.cpu(), qpx10.cpu(), qv10.cpu(),
+                                arc_mod.ArchiveView(*(t.cpu() for t in arcv10)), stages=st_p,
+                                **{**{k: v for k, v in kw10.items() if k != "generator"},
+                                   "q_angle": kw10["q_angle"].cpu(), "draws": a_c.draws.cpu()})
+    a_p = st_p["attempt"]
+    d_p10 = float(se3.distance(SE3(r_c.T_cw.R.cpu(), r_c.T_cw.t.cpu()), r_p.T_cw))
+    ok10d = (torch.equal(a_c.scores.cpu(), a_p.scores) and torch.equal(a_c.cand.cpu(), a_p.cand)
+             and torch.equal(a_c.match_idx.cpu(), a_p.match_idx)
+             and int(r_c.kf_slot) == int(r_p.kf_slot) and int(r_c.n_inliers) == int(r_p.n_inliers)
+             and bool(r_c.success) and bool(r_p.success) and d_p10 <= TOL_POSE)
+    print(f"main path 10d (10a's archive attempt, card against CPU, the card's P3P draws): "
+          f"retrieval scores equal: {torch.equal(a_c.scores.cpu(), a_p.scores)}, candidates "
+          f"{a_c.cand.tolist()}, matches equal: {torch.equal(a_c.match_idx.cpu(), a_p.match_idx)}, "
+          f"inliers per candidate {a_c.n_inl.tolist()} / {a_p.n_inl.tolist()}, winner row "
+          f"{int(r_c.kf_slot)} / {int(r_p.kf_slot)}, pose distance {d_p10:.3e} (<= {TOL_POSE}): "
+          f"{'pass' if ok10d else 'FAIL'}", flush=True)
+    if not ok10d:
+        raise AssertionError("main path 10d: the archive attempt on the card differs from the CPU")
+    a10d = [a for f, a in rec10d if f is k10.distance_matrix]
+    a8d = [a for f, a in rec10d if f is k8.pose_ba_batch_gn]
+    if len(a10d) != 2 or len(a8d) != 1:
+        raise AssertionError(f"the archive attempt launched {[f.__name__ for f, _ in rec10d]}")
+    for a in a10d:
+        e = int((k10.distance_matrix(*a) - k10.distance_matrix_plain(*a)).abs().max())
+        print(f"K10 archive attempt {a[0].shape[0]} x {a[1].shape[0]}: max |kernel - plain| = {e} "
+              f"(tolerance 0); kernel {_time_kernel(torch, lambda: k10.distance_matrix(*a)):.4f} "
+              f"ms, bound {k10_bound(*a)[0]:.6f} ms", flush=True)
+        if e:
+            raise AssertionError("K10 disagrees with its plain version in the archive attempt")
+    e8a, st8a = check_k8(a8d[0], f"S={a8d[0][0].shape[0]} N={a8d[0][0].shape[1]} (archive attempt)",
+                         flat=True)
+    del vo10, vo10b, s10c, s10r
+
     # -- 6. profile windows ----------------------------------------------------
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
@@ -2553,7 +2920,7 @@ def main() -> int:
                 + sum(v[name] for v in launches4.values()) + launches5[name]
                 + launches6a[name] + launches6[name] + launches6c[name] + launches7[name]
                 + launches8[name] + launches8c[name] + launches9a[name] + launches9d[name]
-                + launches9e[name])
+                + launches9e[name] + launches10a[name] + launches10c[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

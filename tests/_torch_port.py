@@ -137,17 +137,19 @@ def jax_ransac_indices(mask, seed: int, n_hypotheses: int = 200) -> np.ndarray:
         lambda k: jax.random.choice(k, n, shape=(8,), replace=False, p=p))(keys))
 
 
-def jax_pnp_draws(mask, cand, n_hyp: int = 256) -> torch.Tensor:
+def jax_pnp_draws(mask, cand, n_hyp: int = 256, key: int = 17) -> torch.Tensor:
     """The [C, n_hyp, 3] P3P triples the JAX package's `relocalize` draws
     for candidate keyframes `cand [C]` on their match masks `mask [C, N]`
-    (`ransac_pnp`'s categorical under `fold_in(PRNGKey(17), kf)`,
-    relocalization.py:115-118), on mask's device."""
+    (`ransac_pnp`'s categorical under `fold_in(PRNGKey(key), kf)`,
+    relocalization.py:115-118; `relocalize_archive` draws under key 23 with
+    archive rows for `cand`), on mask's device."""
     import jax
     import jax.numpy as jnp
 
+    base = key
     out = []
     for m, kf in zip(np32(mask), np32(cand)):
-        key = jax.random.fold_in(jax.random.PRNGKey(17), int(kf))
+        key = jax.random.fold_in(jax.random.PRNGKey(base), int(kf))
         logits = jnp.where(jnp.asarray(m), 0.0, -1e9)
         out.append(np.asarray(jax.random.categorical(
             key, logits[None, :].repeat(n_hyp * 3, 0)).reshape(n_hyp, 3)))

@@ -1491,3 +1491,187 @@ def test_chunked_equals_per_frame_across_a_relocalization_on_the_card(cuda_devic
     assert all(torch.equal(a, b) for a, b in zip(sc.vo.server.state, sf.vo.server.state))
     assert torch.equal(sc.vo.kf_bow, sf.vo.kf_bow) and torch.equal(sc.vo.kf_nodes, sf.vo.kf_nodes)
     assert sum(st.replays for st in sc.vo._chunk_steps.values()) > 0
+
+
+@pytest.mark.parametrize("A", [16, 128, 512])
+def test_hamming_archive_shapes(cuda_device, A):
+    """K10 at the archive scoring's shape (256 query rows against A
+    archived keyframes' 256 features, [256, A * 256]) exactly the plain
+    version, and `archive_match_scores` on the card equal to the CPU's with
+    one K10 launch per ARCHIVE_CHUNK rows."""
+    q = _words(256, 31, cuda_device)
+    arc = _words(A * 256, 32 + A, cuda_device)
+    d = tk10.distance_matrix(q, arc)
+    assert torch.equal(d, tk10.distance_matrix_plain(q, arc))
+    g = torch.Generator(device="cpu").manual_seed(A)
+    qv = (torch.rand(256, generator=g) < 0.9).to(cuda_device)
+    av = (torch.rand((A, 256), generator=g) < 0.8).to(cuda_device)
+    arc3 = arc.reshape(A, 256, 8).clone()
+    arc3[:, :40] = q[None, :40]                    # planted matches
+    n10 = tk10.distance_matrix.launches
+    s_card = tham.archive_match_scores(q, qv, arc3, av)
+    assert tk10.distance_matrix.launches - n10 == -(-A // tham.ARCHIVE_CHUNK)
+    s_cpu = tham.archive_match_scores(q.cpu(), qv.cpu(), arc3.cpu(), av.cpu())
+    assert torch.equal(s_card.cpu(), s_cpu) and int(s_cpu.max()) > 0
+
+
+def _archive_vo_on(dev, n=None):
+    """The port's VisualOdometry after models/archive_workload.py's sweep
+    (240x320) on `dev`."""
+    from ygz_slam_tpu_torch.models import archive_workload as aw
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    cam, frames, _ = aw.sweep_frames((240, 320), device=dev)
+    vo = tvo.VisualOdometry(cam, aw.archive_options(), device=dev)
+    for k in range(n or frames.shape[0]):
+        vo.add_frame(frames[k], float(k))
+    return vo, frames
+
+
+def test_relocalize_archive_card_matches_cpu(cuda_device):
+    """One archive relocalization on the card against the CPU on the same
+    archive, features and P3P triples (the card's draws): retrieval scores
+    equal, the same candidates, matches and winner, the pose within 1e-4;
+    one K10 launch to score the archive, one for the candidates, one K8."""
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+    from ygz_slam_tpu_torch.models import frontend as tfe
+    from ygz_slam_tpu_torch.models import relocalization as rl
+    from ygz_slam_tpu_torch.map.archive import ArchiveView
+
+    vo, frames = _archive_vo_on(cuda_device)
+    fid = int(vo.archive.frame_ids().min())
+    q = vo._detect(tfe.preprocess(frames[fid], vo.o.n_levels))
+    arc = vo.archive.device_view()
+    kw = dict(min_inliers=vo.o.reloc_min_inliers, top_c=10, use_pnp=True)
+    st_card, st_cpu = {}, {}
+    n10, n8 = tk10.distance_matrix.launches, tk8.pose_ba_batch_gn.launches
+    r_card = rl.relocalize_archive(vo.vocab, vo.cam, q.desc, q.px, q.valid, arc, q_angle=q.angle,
+                                   generator=torch.Generator(cuda_device).manual_seed(4),
+                                   stages=st_card, **kw)
+    assert (tk10.distance_matrix.launches - n10, tk8.pose_ba_batch_gn.launches - n8) == (2, 1)
+    a = st_card["attempt"]
+    r_cpu = rl.relocalize_archive(voc.from_state_dict(voc.state_dict(vo.vocab), device="cpu"),
+                                  vo.cam, q.desc.cpu(), q.px.cpu(), q.valid.cpu(),
+                                  ArchiveView(*(t.cpu() for t in arc)), q_angle=q.angle.cpu(),
+                                  draws=a.draws.cpu(), stages=st_cpu, **kw)
+    b = st_cpu["attempt"]
+    d_pose = float(tse3.distance(TSE3(r_card.T_cw.R.cpu(), r_card.T_cw.t.cpu()), r_cpu.T_cw))
+    print(f"archive {vo.archive.count} rows: scores {a.scores.cpu()[:vo.archive.count].tolist()}; "
+          f"inliers {a.n_inl.tolist()} / {b.n_inl.tolist()}; pose distance {d_pose:.2e}")
+    assert torch.equal(a.scores.cpu(), b.scores)
+    assert torch.equal(a.cand.cpu(), b.cand) and torch.equal(a.match_idx.cpu(), b.match_idx)
+    assert int((a.n_inl.cpu() - b.n_inl).abs().max()) <= 0.01 * q.desc.shape[0]
+    assert bool(r_card.success) and bool(r_cpu.success)
+    assert int(r_card.n_inliers) == int(r_cpu.n_inliers)
+    assert int(r_card.kf_slot) == int(r_cpu.kf_slot) and d_pose <= TOL_POSE
+
+
+def _plant_loop(vo):
+    """The VO's map with a loop planted: the landmarks of the window
+    keyframe whose BoW row scores best against the newest keyframe's copied
+    into free rows and its features linked to the copies, so it shares no
+    landmark with the newest keyframe but sees the same place.  Returns
+    (MapState, newest slot, planted slot)."""
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+
+    m = type(vo.server.state)(*(t.clone() for t in vo.server.state))
+    used = vo.server.kf_used
+    new = used[-1]
+    sc = voc.score_l1(vo.kf_bow[new][None], vo.kf_bow).cpu()
+    slot = max((s for s in used if s != new), key=lambda s: float(sc[s]))
+    F = m.feat_point.shape[1]
+    fp = m.feat_point[slot].cpu().numpy()
+    linked = np.where(fp >= 0)[0]
+    free = np.where(~m.pt_valid.cpu().numpy())[0][:len(linked)]
+    src = torch.as_tensor(fp[linked[:len(free)]], dtype=torch.long, device=m.pt_pos.device)
+    dst = torch.as_tensor(free, dtype=torch.long, device=m.pt_pos.device)
+    fields = {}
+    for name in ("pt_pos", "pt_desc", "pt_valid", "pt_obs", "pt_visible", "pt_found",
+                 "pt_first_kf", "pt_ref_feat"):
+        t = getattr(m, name).clone()
+        t[dst] = t[src]
+        fields[name] = t
+    fields["pt_ref_feat"][dst] = (slot * F + torch.as_tensor(linked[:len(free)],
+                                                             device=dst.device)).to(torch.int32)
+    feat_point = m.feat_point.clone()
+    feat_point[slot, torch.as_tensor(linked[:len(free)], device=dst.device)] = dst.to(torch.int32)
+    return m._replace(feat_point=feat_point, **fields), new, slot
+
+
+def test_mapping_pass_with_the_loop_block_repeats_on_the_card(cuda_device):
+    """The mapping pass with the loop block on a planted loop, twice from
+    the same state on the card: the loop found, the same bits (the pose
+    graph's blocks are summed without atomics), one more K10 and one more K5
+    launch than the pass without it; and the loop block alone (detect_loop,
+    close_loop) on the card against the CPU: the same candidate and
+    inliers, the corrected poses within 1e-4."""
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+    from ygz_slam_tpu_torch.map.memory import refresh_covisibility
+    from ygz_slam_tpu_torch.models import relocalization as rl
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    s, frames, out = _reloc_map_on(cuda_device)
+    vo = s.vo
+    m, new, slot = _plant_loop(vo)
+    fixed = torch.zeros(vo.o.map_K, dtype=torch.bool, device=cuda_device)
+    fixed[vo.server.kf_used[:2]] = True
+    loop = (vo.vocab, new, vo.kf_bow, vo.kf_nodes)
+    n10, n5 = tk10.distance_matrix.launches, tk5.pose_ba_gn.launches
+    a = tvo.mapping_pass(vo.cam, vo.o, m, fixed, loop=loop)
+    d10, d5 = tk10.distance_matrix.launches - n10, tk5.pose_ba_gn.launches - n5
+    b = tvo.mapping_pass(vo.cam, vo.o, m, fixed, loop=loop)
+    n10, n5 = tk10.distance_matrix.launches, tk5.pose_ba_gn.launches
+    tvo.mapping_pass(vo.cam, vo.o, m, fixed)
+    assert (d10 - (tk10.distance_matrix.launches - n10), d5 - (tk5.pose_ba_gn.launches - n5)) \
+        == (1, 1)
+    assert bool(a[2]) and bool(b[2])
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0])) and torch.equal(a[1], b[1])
+
+    def loop_block(mm, vocab, kf_bow, kf_nodes):
+        mm = refresh_covisibility(mm)
+        lp = rl.detect_loop(vocab, vo.cam, new, kf_bow, mm.kf_valid, mm.kf_pose7, mm.cov_weight,
+                            mm.feat_desc.reshape(-1, 8), kf_nodes.reshape(-1),
+                            mm.feat_px.reshape(-1, 2), mm.feat_point.reshape(-1),
+                            mm.feat_valid.reshape(-1), mm.pt_pos, mm.pt_valid,
+                            feat_angle_flat=mm.feat_angle.reshape(-1))
+        pose7, _, _ = rl.close_loop(mm.kf_pose7, mm.kf_valid, mm.cov_weight, mm.pt_pos,
+                                    mm.pt_valid, mm.pt_first_kf, new, lp,
+                                    feat_point=mm.feat_point, feat_valid=mm.feat_valid)
+        return lp, pose7
+
+    lc, pc = loop_block(m, vo.vocab, vo.kf_bow, vo.kf_nodes)
+    lh, ph = loop_block(type(m)(*(t.cpu() for t in m)),
+                        voc.from_state_dict(voc.state_dict(vo.vocab), device="cpu"),
+                        vo.kf_bow.cpu(), vo.kf_nodes.cpu())
+    used = vo.server.kf_used
+    d = float(tse3.distance(TSE3.from_params7(pc[used].cpu()),
+                            TSE3.from_params7(ph[used])).max())
+    print(f"planted slot {slot}, new {new}: loop block card against CPU {d:.2e}; inliers "
+          f"{int(lc.n_inl)} / {int(lh.n_inl)}")
+    assert bool(lc.found) and bool(lh.found) and int(lc.loop_kf) == int(lh.loop_kf) == slot
+    assert int(lc.n_inl) == int(lh.n_inl) and d < TOL_POSE
+
+
+def test_chunked_equals_per_frame_across_an_archive_relocalization_on_the_card(cuda_device):
+    """models/archive_workload.py's kidnapped sweep through
+    `track_monocular_chunk` (chunk=4) and through `track_monocular` on the
+    card: equal statuses, trajectory, map, archive and stats bit for bit,
+    one archive relocalization in each, graph replays on both sides of it."""
+    from ygz_slam_tpu_torch.models import archive_workload as aw
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, _ = aw.sweep_frames((240, 320), device=cuda_device)
+    sf = System(camera=cam, options=aw.archive_options(), device=cuda_device)
+    out = aw.kidnapped_sweep(sf.vo, frames, feed=sf.track_monocular)
+    seq = aw.fed_frames(frames, out["fed"])
+    ts = [float(k) for k in range(seq.shape[0])]
+    sc = System(camera=cam, options=aw.archive_options(), device=cuda_device)
+    rc = sc.track_monocular_chunk(seq, ts, chunk=4)
+    assert [r.status for r in rc] == out["statuses"] and out["ok"]
+    assert sf.vo.stats["relocs_archive"] == 1 and sc.vo.stats == sf.vo.stats
+    assert np.stack([p for _, p in sc.vo.trajectory]).tobytes() == \
+        np.stack([p for _, p in sf.vo.trajectory]).tobytes()
+    assert all(torch.equal(a, b) for a, b in zip(sc.vo.server.state, sf.vo.server.state))
+    assert all(torch.equal(a, b) for a, b in zip(sc.vo.archive.device_view(),
+                                                 sf.vo.archive.device_view()))
+    assert sum(st.replays for st in sc.vo._chunk_steps.values()) > 0

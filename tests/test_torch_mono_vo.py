@@ -226,9 +226,10 @@ def test_depth_filter_runs_and_reset_clears_seeds(runs):
     assert r.status in (tvo.Status.INITING, tvo.Status.GOOD)
 
 
-@pytest.mark.parametrize("bad", [dict(use_vocabulary=True), dict(archive_map=True),
+@pytest.mark.parametrize("bad", [dict(use_vocabulary=True, archive_map=True),
+                                 dict(vo_type=tvo.VOType.SEMI_DENSE_DIRECT),
                                  dict(async_mapping=True), dict(vo_type=tvo.VOType.SPARSE_ORB)],
-                         ids=lambda d: next(iter(d)))
+                         ids=["use_vocabulary", "vo_type_semi_dense", "async_mapping", "vo_type"])
 def test_unsupported_options_raise(bad):
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
     with pytest.raises(ValueError, match="not supported by the port"):

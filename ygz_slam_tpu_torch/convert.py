@@ -14,6 +14,7 @@ import torch
 from . import resolve_device
 from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
+from .map.archive import KeyframeArchive
 from .map.depth_filter import Seeds
 from .map.state import MapState
 from .map.vocabulary import Vocabulary, from_state_dict
@@ -117,6 +118,15 @@ def seeds_from_numpy(fields: dict, device=None) -> Seeds:
 def seeds_to_numpy(seeds: Seeds) -> dict:
     """The fields of a Seeds as numpy arrays."""
     return {name: t.detach().cpu().numpy() for name, t in seeds._asdict().items()}
+
+
+def archive_from_numpy(state_dict: dict, F: int, n_words: int, device=None) -> KeyframeArchive:
+    """The port's KeyframeArchive holding the rows of a JAX package archive,
+    from its `state_dict` (numpy, uint32 descriptors; `{}` for an empty
+    archive of F features and n_words BoW words)."""
+    arc = KeyframeArchive(F, n_words, device=device)
+    arc.load_state_dict({k: np.asarray(v) for k, v in state_dict.items()})
+    return arc
 
 
 def vocabulary_from_numpy(state_dict: dict, device=None) -> Vocabulary:

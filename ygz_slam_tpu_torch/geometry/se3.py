@@ -94,6 +94,15 @@ def boxplus(T: SE3, xi: torch.Tensor) -> SE3:
     return exp(xi).compose(T)
 
 
+def adjoint(T: SE3) -> torch.Tensor:
+    """Adjoint matrix [..., 6, 6] mapping tangents across frames:
+    [[R, hat(t) R], [0, R]]."""
+    tR = so3.hat(T.t) @ T.R
+    top = torch.cat([T.R, tR], dim=-1)
+    bot = torch.cat([torch.zeros_like(T.R), T.R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
 def distance(Ta: SE3, Tb: SE3) -> torch.Tensor:
     """||log(Ta * Tb^-1)||: the tracking gate's pose error."""
     return torch.linalg.norm(log(Ta.compose(Tb.inverse())), dim=-1)

@@ -46,6 +46,9 @@ class MapServer:
         self.Kcap, self.Fcap, self.Lcap = K, F, L
         self.state = ms.empty_map(K, F, L, device=device)
         self.kf_used: list[int] = []   # slots in insertion order
+        # Called with the slot just before its contents are invalidated: the
+        # VO archives the keyframe there (map/archive.py).
+        self.on_evict = None
 
     def alloc_kf_slot(self) -> int:
         """A free slot, or the slot least covisible with the newest,
@@ -60,6 +63,8 @@ class MapServer:
         return slot
 
     def evict_kf(self, slot: int) -> None:
+        if self.on_evict is not None:
+            self.on_evict(slot)
         m = self.state
         self.state = m._replace(
             kf_valid=ms.set_row(m.kf_valid, slot, False),

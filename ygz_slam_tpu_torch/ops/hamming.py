@@ -1,6 +1,5 @@
 """Hamming distance over packed binary descriptors and the matchers built
-on it (counterpart of ygz_slam_tpu/ops/hamming.py, without
-`archive_match_scores`, which belongs to the keyframe archive).
+on it (counterpart of ygz_slam_tpu/ops/hamming.py).
 
 Descriptors are 8 x 32-bit words (256 bits) stored as int32.  The all-pairs
 matrix is K10 on the card and its plain version on the CPU
@@ -74,3 +73,37 @@ def rotation_consistency(angle_a: torch.Tensor, angle_b: torch.Tensor,
     strong = top_counts.float() >= 0.1 * top_counts[0].float()
     in_top = torch.any((bin_idx[:, None] == top_bins[None, :]) & strong[None, :], dim=1)
     return matched & in_top
+
+
+# Archive rows scored per K10 launch by `archive_match_scores`: a
+# [F, ARCHIVE_CHUNK * F] int32 matrix, 134,217,728 bytes at F = 256, so an
+# archive of capacity 512 takes one launch and the 1024-row prefilter two.
+ARCHIVE_CHUNK = 512
+
+
+def archive_match_scores(q_desc: torch.Tensor, q_valid: torch.Tensor, arc_desc: torch.Tensor,
+                         arc_valid: torch.Tensor, max_dist: int = 64,
+                         chunk: int = ARCHIVE_CHUNK) -> torch.Tensor:
+    """Match-count retrieval score of one query frame against every archived
+    keyframe: score[a] = the query's valid descriptors whose nearest valid
+    descriptor in archive row a lies within `max_dist` (the JAX package's
+    brute-force replacement of DBoW3's inverted-index ranking).
+
+    q_desc [Fq, 8] int32 words, q_valid [Fq] bool, arc_desc [A, F, 8],
+    arc_valid [A, F] bool -> [A] int32.  Each `chunk` of archive rows is one
+    K10 launch, the query against the chunk's C * F descriptors (a
+    [Fq, C * F] matrix), then the masked minimum over each row's F columns
+    and the hits counted; the JAX package's chunks of 32 bound memory the
+    same way."""
+    A, F = arc_desc.shape[0], arc_desc.shape[1]
+    flat = arc_desc.reshape(A * F, 8)
+    out = []
+    for a0 in range(0, A, chunk):
+        C = min(chunk, A - a0)
+        d = distance_matrix(q_desc, flat[a0 * F:(a0 + C) * F]).reshape(-1, C, F)
+        best = torch.amin(torch.where(arc_valid[None, a0:a0 + C], d, BIG), dim=-1)   # [Fq, C]
+        hit = (best <= max_dist) & q_valid[:, None]
+        out.append(hit.sum(dim=0, dtype=torch.int32))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=q_desc.device)
+    return torch.cat(out)
