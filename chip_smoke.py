@@ -225,6 +225,37 @@ Phases, each raising (and so exiting non-zero) on failure:
    (the archive, features and the card's P3P draws copied): retrieval
    scores, candidates, matches and winner equal, the pose within TOL_POSE;
    its K10 and K8 launches against their plain versions.
+5i. Main path 11: the archive loops and async mapping (the JAX defaults:
+   `VOOptions()` runs in the port).  (a) tests/test_archive.py's
+   out-and-back sweep at its own 240x320 (`archive_workload.out_and_back_frames`,
+   110 frames, PlaneScene seed 3; at 640x480 the return's correction sits at
+   the significance gate's floor, closed or only confirmed as float32
+   rounding falls) through `VisualOdometry.add_frame` with
+   `loop_options()` (the defaults with ARC_OPTS, async mapping on): more
+   keyframes archived than window slots, at least one global loop closed,
+   the corrected trajectory's Sim(3)-aligned ATE < 0.10, and the sweep
+   equal bit for bit to the same run with the archive off up to the first
+   keyframe whose archive detection applies a correction; path 4's launch
+   counts plus one K10 and one K5 per mapping pass with the loop block and,
+   per archive loop detection, one K10 per 512 scored rows, one K10 for the
+   candidates and one K8; each detection's and global closure's
+   synchronised ms and the closures' (P, EP); one found detection's kernels
+   and device µs under the profiler and its K10 (retrieval, candidates) and
+   K8 (S=8) launches against their plain versions; one closure's kernels and
+   device µs.  (b) tests/test_map_merge.py's reset and revisit at 640x480:
+   `maps_merged` >= 1, epoch 0 after the merge, the last pose within 0.12
+   map units and 0.1 rad of epoch 0's at the same view.  (c)
+   `System(camera=cam)` with `VOOptions()` unchanged on path 8a's frames
+   0-BOX_SPAN, per frame with async mapping, per frame without it and
+   through `track_monocular_chunk`: 8a's gate, the three equal bit for bit;
+   the median return latency of keyframe frames, of the frame after each
+   and of every frame, with and without async mapping.  (d) Path 9e with
+   the archive on: equal to 9e bit for bit up to the first archive
+   relocalization; attempts, relocalizations, resets and ATE beside 9e's.
+   (e) tests/test_sim3.py's drifted loop through `optimize_sim3` and
+   `close_loop_global_sim3` on the card against the CPU (TOL_POSE); one
+   global closure at P = 512 nodes (300 archived and 10 active keyframes):
+   synchronised ms and device kernels.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -239,7 +270,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
    pass split beside it.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-10), then the last line {"ok": true, "device": {...}}.
+   paths 1-11), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -2449,6 +2480,7 @@ def main() -> int:
           f"{nw.segments(st6) - 1}), LOST frames {st9e.count(vo_mod.Status.LOST)} (6b "
           f"{st6.count(vo_mod.Status.LOST)}), ATE over the first n frames {ate9e} (6b {ate6e}); "
           f"launches {launches9e}", flush=True)
+    n_att9e, n_rel9e = vo9e.stats["reloc_attempts"], vo9e.stats["relocalizations"]
     if not same9e:
         raise AssertionError("main path 9e differs from 6b before any relocalization")
     want9e = want_reloc(n_tr9e, vo9e.stats["keyframes"], vo9e.stats["reloc_attempts"])
@@ -2770,6 +2802,375 @@ def main() -> int:
                          flat=True)
     del vo10, vo10b, s10c, s10r
 
+    # -- 5i. main path 11: the archive loops and async mapping ------------------
+    from ygz_slam_tpu_torch.geometry import sim3 as sim3_mod
+    from ygz_slam_tpu_torch.solvers import pose_graph as pg_mod
+    from ygz_slam_tpu_torch.utils import np_se3
+
+    t11 = time.perf_counter()
+    real_det, real_clo, real_mpass = (rl.detect_loop_archive, rl.close_loop_global_sim3,
+                                      vo_mod.mapping_pass)
+
+    def instrumented(fn, timed=True):
+        """`counted(fn)` with the archive loop detections, the Sim(3) global
+        closures and the mapping passes with the loop block seen: each
+        detection's view capacity (its retrieval launches) and, with `timed`,
+        each detection's and closure's synchronised ms (synchronised on the
+        thread that runs them: the bits do not change), the first detection
+        that finds a loop and the first closure's arguments kept.  Returns
+        (counted's 4-tuple, the record)."""
+        rec = {"det_ms": [], "det_A": [], "det": None, "clo_ms": [], "clo_size": [],
+               "clo": None, "loop_passes": 0}
+
+        def det(*a, **kw):
+            if timed:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_det(*a, **kw)
+            rec["det_A"].append(int(a[12].valid.shape[0]))
+            if timed:
+                found = bool(out.found)
+                torch.cuda.synchronize()
+                rec["det_ms"].append(1e3 * (time.perf_counter() - t))
+                if found and rec["det"] is None:
+                    rec["det"] = ([x.clone() if isinstance(x, torch.Tensor) else x for x in a[:12]]
+                                  + [arc_mod.ArchiveView(*(x.clone() for x in a[12]))], dict(kw))
+            return out
+
+        def clo(*a, **kw):
+            size = {}
+            if timed:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_clo(*a, **{**kw, "stats": size})
+            if timed:
+                torch.cuda.synchronize()
+            rec["clo_ms"].append(1e3 * (time.perf_counter() - t))
+            rec["clo_size"].append((size["P"], size["EP"]))
+            if rec["clo"] is None:
+                rec["clo"] = (a, dict(kw))
+            return out
+
+        def mpass(cam, o, mstate, fixed, loop=None):
+            rec["loop_passes"] += loop is not None
+            return real_mpass(cam, o, mstate, fixed, loop=loop)
+
+        rl.detect_loop_archive, rl.close_loop_global_sim3, vo_mod.mapping_pass = det, clo, mpass
+        try:
+            out = counted(fn)
+        finally:
+            rl.detect_loop_archive, rl.close_loop_global_sim3, vo_mod.mapping_pass = (
+                real_det, real_clo, real_mpass)
+        return out, rec
+
+    def want_loops(n_track, vo, rec):
+        """Path 4's counts plus, per mapping pass with the loop block, one K10
+        and one K5; per archive loop detection, one K10 per 512 rows of the
+        scored view, one K10 for its candidates and one K8; per relocalization
+        attempt, one K10 and one K8 (the active window) and two K10 and one K8
+        (the archive)."""
+        want = want_track(n_track, vo.stats["keyframes"])
+        n_att, n_arc = vo.stats["reloc_attempts"], vo.stats["reloc_archive_attempts"]
+        want["distance_matrix"] += (rec["loop_passes"] + n_att + 2 * n_arc + sum(
+            -(-min(A, rl.ARCHIVE_PREFILTER) // hamming.ARCHIVE_CHUNK) + 1 for A in rec["det_A"]))
+        want["pose_ba_gn"] += rec["loop_passes"]
+        want["pose_ba_batch_gn"] += len(rec["det_A"]) + n_att + n_arc
+        return want
+
+    # (a) tests/test_archive.py's out-and-back sweep at its own 240x320, the
+    # default options with ARC_OPTS (async mapping on); the same sweep with the
+    # archive off must equal it bit for bit up to the first keyframe whose
+    # archive detection applies a correction.  (At 640x480 the return's
+    # measured correction sits at the significance gate's floor: whether it
+    # closes or only confirms the loop moves with float32 rounding, 0 or 1
+    # closures in CPU runs on 3 and 6 threads.)
+    cam_o, frames_o, T_gt_o = aw.out_and_back_frames((240, 320), device=dev)
+    n_o = frames_o.shape[0]
+    vo11 = vo_mod.VisualOdometry(cam_o, aw.loop_options(), device=dev)
+    applied11 = []
+    real_handle = vo11._handle_archive_loop
+
+    def handle11(slot, kf_fid, lp):
+        done = real_handle(slot, kf_fid, lp)
+        if done:
+            applied11.append(kf_fid)
+        return done
+
+    vo11._handle_archive_loop = handle11
+
+    def sweep11(vo):
+        for k in range(n_o):
+            vo.add_frame(frames_o[k], float(k))
+        return aw.out_and_back_gates(vo, T_gt_o)          # joins the last pass
+
+    (g11, wall11, launches11a, n_tr11), rec11 = instrumented(lambda: sweep11(vo11))
+    vo11b = vo_mod.VisualOdometry(cam_o, aw.loop_options(archive_map=False), device=dev)
+    sweep_off = [vo11b.add_frame(frames_o[k], float(k)).status for k in range(n_o)]
+    vo11b.trajectory_poses()
+    k_app = applied11[0] if applied11 else n_o - 1
+    T7_on = np.stack([p for _, p in vo11.trajectory])
+    T7_off = np.stack([p for _, p in vo11b.trajectory])
+    same11 = T7_on[:k_app + 1].tobytes() == T7_off[:k_app + 1].tobytes()
+    want11a = want_loops(n_tr11, vo11, rec11)
+    ok11a = g11["closes"] and same11
+    print(f"main path 11a (tests/test_archive.py's out-and-back sweep, PlaneScene seed 3 "
+          f"{frames_o.shape[2]}x{frames_o.shape[1]}, VOOptions() with ARC_OPTS: async mapping, "
+          f"the depth filter, loops against the window and the archive): {n_o} frames in "
+          f"{wall11:.3f} s; {g11['archived']} keyframes archived (> map_K "
+          f"{vo11.o.map_K}), global loops closed {g11['closed']} (>= 1), confirmed "
+          f"{g11['confirmed']}, corrected ATE {g11['ate']!r} (< 0.10), end-start gap "
+          f"{g11['gap']:.4f} of span {g11['span']:.4f}; first applied correction at keyframe "
+          f"frame {applied11[0] if applied11 else None}, the sweep equal to the archive-off run "
+          f"bit for bit up to it: {same11} (statuses of the off run "
+          f"{''.join(s.name[0] for s in sweep_off)}); {'pass' if ok11a else 'FAIL'}; stats "
+          f"{dict(vo11.stats)}; launches {launches11a}", flush=True)
+    if not ok11a:
+        raise AssertionError("main path 11a failed its gates")
+    if launches11a != want11a:
+        raise AssertionError(f"launch counts {launches11a}, expected {want11a}")
+    print(f"main path 11a archive loop detections: {len(rec11['det_ms'])} keyframes, "
+          f"{[round(x, 2) for x in rec11['det_ms']]} ms synchronised (median "
+          f"{statistics.median(rec11['det_ms']):.2f}), view capacities {rec11['det_A']}; global "
+          f"Sim(3) closures: (P, EP) {rec11['clo_size']}, {[round(x, 2) for x in rec11['clo_ms']]} "
+          f"ms synchronised", flush=True)
+    if rec11["det"] is None or rec11["clo"] is None:
+        raise AssertionError("main path 11a kept no found detection or no closure")
+    a_d, kw_d = rec11["det"]
+    prof11 = _profile(torch, lambda: [bool(real_det(*a_d, **kw_d).found) for _ in range(10)], 10,
+                      "one archive loop detection (retrieval, 8 candidates' matching, P3P-RANSAC, "
+                      "pose BA, scale) x 10")
+    with kernels.record_launches() as rec11d:
+        real_det(*a_d, **kw_d)
+    a10_11 = [a for f, a in rec11d if f is k10.distance_matrix]
+    a8_11 = [a for f, a in rec11d if f is k8.pose_ba_batch_gn]
+    if len(a10_11) != 2 or len(a8_11) != 1:
+        raise AssertionError(f"the archive loop detection launched {[f.__name__ for f, _ in rec11d]}")
+    for a, what in zip(a10_11, ("retrieval", "candidates")):
+        e = int((k10.distance_matrix(*a) - k10.distance_matrix_plain(*a)).abs().max())
+        print(f"K10 archive loop {what} {a[0].shape[0]} x {a[1].shape[0]}: max |kernel - plain| = "
+              f"{e} (tolerance 0); kernel {_time_kernel(torch, lambda: k10.distance_matrix(*a)):.4f} "
+              f"ms, bound {k10_bound(*a)[0]:.6f} ms", flush=True)
+        if e:
+            raise AssertionError("K10 disagrees with its plain version in the archive loop")
+    check_k8(a8_11[0], f"S={a8_11[0][0].shape[0]} N={a8_11[0][0].shape[1]} (archive loop)",
+             flat=True)
+    a_c, kw_c = rec11["clo"]
+    ms_clo = _time_host(torch, lambda: real_clo(*a_c, **kw_c))
+    prof11c = _profile(torch, lambda: real_clo(*a_c, **kw_c), 1,
+                       f"one global Sim(3) closure (P, EP) {rec11['clo_size'][0]}")
+    print(f"main path 11a one archive loop detection: {sum(v[1] for v in prof11.values()) / 10:.1f} "
+          f"device kernels, {sum(v[0] for v in prof11.values()) / 10:.2f} us of device time; one "
+          f"global closure at (P, EP) {rec11['clo_size'][0]}: {ms_clo:.3f} ms synchronised, "
+          f"{sum(v[1] for v in prof11c.values())} device kernels, "
+          f"{sum(v[0] for v in prof11c.values()):.1f} us of device time", flush=True)
+
+    # (b) tests/test_map_merge.py's reset-and-revisit at 640x480.
+    cam_mg, frames_mg, _ = aw.merge_frames((480, 640), device=dev)
+    vo11m = vo_mod.VisualOdometry(cam_mg, aw.merge_options(), device=dev)
+    (out11b, wall11b, launches11b, n_tr11b), rec11b = instrumented(
+        lambda: aw.reset_and_revisit(vo11m, frames_mg))
+    vo11m.trajectory_poses()
+    want11b = want_loops(n_tr11b, vo11m, rec11b)
+    print(f"main path 11b (tests/test_map_merge.py's reset and revisit, {frames_mg.shape[2]}x"
+          f"{frames_mg.shape[1]}): {frames_mg.shape[0]} + {aw.N_REVISIT} frames in {wall11b:.3f} "
+          f"s; after the reset {out11b['after_reset']}; revisit "
+          f"{''.join(s.name[0] for s in out11b['statuses'])}; maps merged "
+          f"{vo11m.stats['maps_merged']} (>= 1), epoch {vo11m.epoch} (0), the last pose "
+          f"{out11b['dt']:.4f} map units (< 0.12) and {out11b['ang']:.4f} rad (< 0.1) from epoch "
+          f"0's: {'pass' if out11b['ok'] else 'FAIL'}; stats {dict(vo11m.stats)}; launches "
+          f"{launches11b}", flush=True)
+    if not out11b["ok"]:
+        raise AssertionError("main path 11b failed its gates")
+    if launches11b != want11b:
+        raise AssertionError(f"launch counts {launches11b}, expected {want11b}")
+
+    # (c) System(camera=cam) with VOOptions() unchanged on path 8a's frames
+    # over BOX_SPAN (and frame BOX_SPAN, where 8a's gate reads the map), per
+    # frame with async mapping, per frame without it, and chunked: 8a's gate,
+    # the three equal bit for bit; each frame's return latency (host clock,
+    # no synchronisation beyond the VO's own).
+    n_c = BOX_SPAN + 1
+    frames_c, ts_c = frames_b8[:n_c], [float(k) for k in range(n_c)]
+
+    def default_run(async_mapping, chunked=False):
+        s = (System(camera=cam_b, device=dev) if async_mapping else
+             System(camera=cam_b, options=vo_mod.VOOptions(async_mapping=False), device=dev))
+        lat, kf_at = [], []
+
+        def run():
+            if chunked:
+                return s.track_monocular_chunk(frames_c, ts_c, chunk=CHUNK)
+            out = []
+            for k in range(n_c):
+                n_kf = s.vo.stats["keyframes"]
+                t = time.perf_counter()
+                out.append(s.track_monocular(frames_c[k], ts_c[k]))
+                lat.append(1e3 * (time.perf_counter() - t))
+                if s.vo.stats["keyframes"] > n_kf:
+                    kf_at.append(k)
+            return out
+
+        (res, wall, launches, n_tr), rec = instrumented(run, timed=False)
+        s.shutdown()
+        return s, res, wall, launches, n_tr, rec, lat, kf_at
+
+    runs11c = {name: default_run(*args) for name, args in
+               (("async", (True,)), ("sync", (False,)), ("chunked", (True, True)))}
+    s_a, res_a, wall_a, launches11c, n_tr11c, rec11c, lat_a, kf_a = runs11c["async"]
+    st11c = [r.status for r in res_a]
+    T7_11c = np.stack([p for _, p in s_a.vo.trajectory])
+
+    def same_as_async(s, res):
+        return (np.stack([p for _, p in s.vo.trajectory_poses()]).tobytes()
+                == np.stack([p for _, p in s_a.vo.trajectory_poses()]).tobytes()
+                and [r.status for r in res] == st11c and s.vo.stats == s_a.vo.stats
+                and all(torch.equal(x, y) for x, y in zip(s.vo.server.state, s_a.vo.server.state)))
+
+    same11c = {name: same_as_async(v[0], v[1]) for name, v in runs11c.items() if name != "async"}
+    k0 = mw.init_frame(st11c)
+    span11 = st11c[:BOX_SPAN]
+    ate11c = mw.good_ate(span11, T7_11c[:BOX_SPAN], T_gt_b8[:BOX_SPAN])
+    rows11c = int(s_a.vo.server.state.pt_valid.sum())
+    ok11c = (0 <= k0 < 30 and all(x is vo_mod.Status.GOOD for x in span11[k0:])
+             and ate11c < DF_ATE and rows11c > rows6b_span[0] and all(same11c.values()))
+    lat_kf = {}
+    for name in ("async", "sync"):
+        lat, kf_at = runs11c[name][6], runs11c[name][7]
+        lat_kf[name] = (statistics.median([lat[k] for k in kf_at]),
+                        statistics.median([lat[k + 1] for k in kf_at if k + 1 < len(lat)]),
+                        statistics.median(lat))
+    print(f"main path 11c (System(camera=cam), VOOptions() unchanged, path 8a's BoxScene frames "
+          f"0-{BOX_SPAN}): {n_c} frames in {wall_a:.3f} s per frame with async mapping "
+          f"({runs11c['sync'][2]:.3f} s without, {runs11c['chunked'][2]:.3f} s chunked); init at "
+          f"frame {k0}, frames {k0}-{BOX_SPAN - 1} GOOD: "
+          f"{all(x is vo_mod.Status.GOOD for x in span11[k0:])}, ATE {ate11c!r} m (< {DF_ATE}), "
+          f"valid landmark rows at frame {BOX_SPAN} {rows11c} (> path 6b's {rows6b_span}); "
+          f"without async mapping and chunked equal to it bit for bit: {same11c}; "
+          f"{'pass' if ok11c else 'FAIL'}; stats {dict(s_a.vo.stats)}; launches {launches11c}",
+          flush=True)
+    print(f"main path 11c return latency, median ms (keyframe frames, the frame after each, "
+          f"every frame): async mapping {tuple(round(x, 2) for x in lat_kf['async'])}, "
+          f"synchronous {tuple(round(x, 2) for x in lat_kf['sync'])}; keyframes at frames "
+          f"{kf_a}", flush=True)
+    if not ok11c:
+        raise AssertionError("main path 11c failed its gates")
+    for name in ("async", "sync"):
+        s_, _, _, l_, n_, r_ = runs11c[name][:6]
+        if l_ != want_loops(n_, s_.vo, r_):
+            raise AssertionError(f"main path 11c {name}: launch counts {l_}, expected "
+                                 f"{want_loops(n_, s_.vo, r_)}")
+    launches11c_all = [runs11c[name][3] for name in runs11c]
+
+    # (d) Path 9e with the archive on: path 6b's frames and options with the
+    # vocabulary and the archive (loop closing off); equal to 9e bit for bit
+    # up to the first archive relocalization.
+    s11d = System(camera=cam_b, options=nw.box_options(use_vocabulary=True, loop_closing=False,
+                                                       archive_map=True), device=dev)
+    first11d = {}
+
+    def on_frame11d(k, r):
+        if s11d.vo.stats["relocs_archive"] and "k" not in first11d:
+            first11d["k"] = k
+
+    st11d, T7_11d, wall11d, launches11d, n_tr11d = run_counted(s11d, frames_b6, on_frame11d)
+    vo11d = s11d.vo
+    k_eq = first11d.get("k", N_BOX)
+    same11d = st11d[:k_eq] == st9e[:k_eq] and T7_11d[:k_eq].tobytes() == T7_9e[:k_eq].tobytes()
+    ate11d = {n: round(mw.good_ate(st11d[:n], T7_11d[:n], T_gt_b6[:n]), 5)
+              for n in (BOX_SPAN, 240, N_BOX)}
+    want11d = want_loops(n_tr11d, vo11d, {"loop_passes": 0, "det_A": []})
+    print(f"main path 11d (path 9e with the archive on): {N_BOX} frames in {wall11d:.3f} s; "
+          f"first archive relocalization at frame {first11d.get('k')}; equal to 9e bit for bit "
+          f"before it: {same11d}.  Reported: GOOD {st11d.count(vo_mod.Status.GOOD) / N_BOX:.4f} "
+          f"(9e {st9e.count(vo_mod.Status.GOOD) / N_BOX:.4f}), {vo11d.stats['reloc_attempts']} "
+          f"attempts (9e {n_att9e}), {vo11d.stats['reloc_archive_attempts']} archive attempts, "
+          f"{vo11d.stats['relocalizations']} relocalizations ({vo11d.stats['relocs_archive']} "
+          f"through the archive; 9e {n_rel9e}), {nw.segments(st11d) - 1} reset(s) (9e "
+          f"{nw.segments(st9e) - 1}), LOST frames {st11d.count(vo_mod.Status.LOST)} (9e "
+          f"{st9e.count(vo_mod.Status.LOST)}), ATE over the first n frames {ate11d} (9e "
+          f"{ate9e}); {vo11d.archive.count} archive rows; launches {launches11d}", flush=True)
+    if not same11d:
+        raise AssertionError("main path 11d differs from 9e before any archive relocalization")
+    if launches11d != want11d:
+        raise AssertionError(f"launch counts {launches11d}, expected {want11d}")
+
+    # (e) The Sim(3) solves on the card: tests/test_sim3.py's drifted loop
+    # through optimize_sim3 and close_loop_global_sim3 against the CPU, then
+    # one global closure at P = 512 nodes (~300 archived keyframes, as a
+    # 2000-frame run holds, and 10 active), timed.
+    K_d, drift = 24, 1.02
+    ring = np.asarray([[2 * np.cos(2 * np.pi * k / K_d), 2 * np.sin(2 * np.pi * k / K_d), 0.0]
+                       for k in range(K_d)], np.float32)
+    gt_d = np.stack([np.concatenate([[1, 0, 0, 0], -c]) for c in ring]).astype(np.float32)
+    est_d = [gt_d[0]]
+    for k in range(1, K_d):
+        T_rel = np_se3.relative7(gt_d[k], gt_d[k - 1]).copy()
+        T_rel[4:7] *= drift ** k
+        est_d.append(np_se3.compose7(T_rel, est_d[-1]))
+    est_d = np.asarray(est_d, np.float32)
+    T_d = [np_se3.relative7(est_d[k + 1], est_d[k]) for k in range(K_d - 1)]
+    T_d.append(np_se3.relative7(gt_d[0], gt_d[K_d - 1]))
+    e8_d = np.asarray([np.concatenate([T_d[k], [1.0]]) for k in range(K_d - 1)]
+                      + [np.concatenate([T_d[-1], [drift ** -(K_d - 1)]])], np.float32)
+    fixed_d = np.zeros(K_d, bool)
+    fixed_d[0] = True
+
+    def sim3_solve(d_):
+        edges = pg_mod.Sim3Edges(
+            torch.arange(K_d, dtype=torch.int32, device=d_),
+            torch.roll(torch.arange(K_d, dtype=torch.int32, device=d_), -1),
+            torch.tensor(e8_d, device=d_), torch.ones(K_d, device=d_),
+            torch.ones(K_d, dtype=torch.bool, device=d_))
+        p, _ = pg_mod.optimize_sim3(
+            sim3_mod.Sim3.from_se3(SE3.from_params7(torch.tensor(est_d, device=d_))), edges,
+            torch.tensor(fixed_d, device=d_), n_iter=30)
+        return p.params8().cpu()
+
+    A_d = 16
+    g_args = (est_d[:A_d], np.arange(A_d, dtype=np.int32), est_d[A_d:],
+              np.arange(A_d, K_d, dtype=np.int32), np.zeros((K_d - A_d, K_d - A_d), np.int32), 0,
+              K_d - A_d - 1, np_se3.relative7(gt_d[-1], gt_d[0]).astype(np.float32))
+    g_card = real_clo(*g_args, loop_scale=drift ** (K_d - 1), n_iter=30, device=dev)
+    g_cpu = real_clo(*g_args, loop_scale=drift ** (K_d - 1), n_iter=30, device="cpu")
+    d_opt = float((sim3_solve(dev) - sim3_solve("cpu")).abs().max())
+    d_glob = max(float(np.abs(a - b).max()) for a, b in zip(g_card[:4], g_cpu[:4]))
+    ok11e = d_opt <= TOL_POSE and d_glob <= TOL_POSE
+    print(f"main path 11e drifted loop (tests/test_sim3.py) on the card against the CPU: "
+          f"optimize_sim3 {d_opt:.3e}, close_loop_global_sim3 {d_glob:.3e} (<= {TOL_POSE}): "
+          f"{'pass' if ok11e else 'FAIL'}", flush=True)
+    if not ok11e:
+        raise AssertionError("main path 11e: the Sim(3) solves on the card differ from the CPU")
+    n_arc, n_act = 300, 10
+    rng11 = np.random.default_rng(11)
+    ang = 2 * np.pi * np.arange(n_arc + n_act) / (n_arc + n_act)
+    big7 = np.concatenate([np.stack([np.cos(ang / 2), 0 * ang, 0 * ang, np.sin(ang / 2)], 1),
+                           np.stack([3 * np.cos(ang), 3 * np.sin(ang),
+                                     rng11.normal(0, 0.05, ang.shape)], 1)], 1).astype(np.float32)
+    cov_b = np.zeros((n_act, n_act), np.int32)
+    for k in range(n_act - 1):
+        cov_b[k, k + 1] = cov_b[k + 1, k] = 40
+    b_args = (big7[:n_arc], np.arange(n_arc, dtype=np.int32), big7[n_arc:],
+              np.arange(n_arc, n_arc + n_act, dtype=np.int32), cov_b, 0, n_act - 1,
+              np_se3.relative7(big7[0], big7[0]).astype(np.float32))
+    size_b = {}
+    real_clo(*b_args, loop_scale=1.05, n_iter=25, device=dev, stats=size_b)
+    ms_b = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_clo(*b_args, loop_scale=1.05, n_iter=25, device=dev)
+        torch.cuda.synchronize()
+        ms_b.append(1e3 * (time.perf_counter() - t))
+    prof11e = _profile(torch, lambda: real_clo(*b_args, loop_scale=1.05, n_iter=25, device=dev),
+                       1, f"one global Sim(3) closure at (P, EP) ({size_b['P']}, {size_b['EP']})")
+    print(f"main path 11e one global closure over {n_arc} archived and {n_act} active keyframes "
+          f"(P, EP) ({size_b['P']}, {size_b['EP']}), 25 iterations: {statistics.median(ms_b):.2f} "
+          f"ms synchronised (median of 3; {[round(x, 2) for x in ms_b]}), "
+          f"{sum(v[1] for v in prof11e.values())} device kernels, "
+          f"{sum(v[0] for v in prof11e.values()) / 1e3:.3f} ms of device time", flush=True)
+    print(f"main path 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    del vo11, vo11b, vo11m, runs11c, s_a, s11d, vo11d
+
     # -- 6. profile windows ----------------------------------------------------
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
@@ -2920,7 +3321,9 @@ def main() -> int:
                 + sum(v[name] for v in launches4.values()) + launches5[name]
                 + launches6a[name] + launches6[name] + launches6c[name] + launches7[name]
                 + launches8[name] + launches8c[name] + launches9a[name] + launches9d[name]
-                + launches9e[name] + launches10a[name] + launches10c[name])
+                + launches9e[name] + launches10a[name] + launches10c[name] + launches11a[name]
+                + launches11b[name] + sum(l_[name] for l_ in launches11c_all)
+                + launches11d[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

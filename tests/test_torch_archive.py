@@ -360,3 +360,28 @@ def test_warmup_archive_runs_each_capacity_and_leaves_the_archive(swept):
     vo = tvo.VisualOdometry(swept["cam"], aw.archive_options(), device="cpu")
     vo.warmup_archive(max_capacity=32)
     assert vo.archive.count == 0 and vo.stats == {}
+
+
+def test_system_warmup_fills_the_capacity_buckets(swept, monkeypatch):
+    """System.warmup runs archive relocalization and archive loop detection
+    once at each capacity 16, 32, ... up to its argument (the JAX package's
+    buckets), on all-invalid views, and leaves the archive and stats empty."""
+    from ygz_slam_tpu_torch.system.system import System
+
+    seen = {"reloc": [], "loop": []}
+    real_reloc, real_loop = trl.relocalize_archive, trl.detect_loop_archive
+
+    def reloc(vocab, cam, q_desc, q_px, q_valid, arc, **kw):
+        seen["reloc"].append(int(arc.valid.shape[0]))
+        return real_reloc(vocab, cam, q_desc, q_px, q_valid, arc, **kw)
+
+    def loop(*a, **kw):
+        seen["loop"].append(int(a[12].valid.shape[0]))
+        return real_loop(*a, **kw)
+
+    monkeypatch.setattr(trl, "relocalize_archive", reloc)
+    monkeypatch.setattr(trl, "detect_loop_archive", loop)
+    s = System(camera=swept["cam"], options=aw.loop_options(), device="cpu")
+    s.warmup(archive_capacity=64)
+    assert seen == {"reloc": [16, 32, 64], "loop": [16, 32, 64]}
+    assert s.vo.archive.count == 0 and s.vo.stats == {}

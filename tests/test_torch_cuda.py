@@ -31,7 +31,11 @@ graph against the eager step under each FUSED_VARIANT (bit for bit), its
 warm-up, capture and replay under torch.cuda.set_sync_debug_mode("error"),
 both also for the step with the depth filter's seed update, forty frames
 through `track_monocular_chunk` against `track_monocular` (bit for bit),
-and BoxScene rendered on the card against the CPU.
+and BoxScene rendered on the card against the CPU; the Sim(3) pose graph
+and the global Sim(3) closure against the CPU (and repeating bit for bit),
+an archive loop detection recorded on the card against the CPU with the
+card's P3P draws, and the default options with async mapping equal to the
+synchronous run, per frame and chunked (graphs captured and replayed).
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -1675,3 +1679,171 @@ def test_chunked_equals_per_frame_across_an_archive_relocalization_on_the_card(c
     assert all(torch.equal(a, b) for a, b in zip(sc.vo.archive.device_view(),
                                                  sf.vo.archive.device_view()))
     assert sum(st.replays for st in sc.vo._chunk_steps.values()) > 0
+
+
+def _drifted_loop(K=24, drift=1.02):
+    """tests/test_sim3.py's scale-drifted circle: (gt params7, drifted
+    params7, edges i, j, params8 with the loop edge at the measured scale)."""
+    from ygz_slam_tpu_torch.utils import np_se3
+
+    c = np.asarray([[2 * np.cos(2 * np.pi * k / K), 2 * np.sin(2 * np.pi * k / K), 0.0]
+                    for k in range(K)], np.float32)
+    gt7 = np.stack([np.concatenate([[1, 0, 0, 0], -x]) for x in c]).astype(np.float32)
+    est7 = [gt7[0]]
+    for k in range(1, K):
+        T_rel = np_se3.relative7(gt7[k], gt7[k - 1]).copy()
+        T_rel[4:7] *= drift ** k
+        est7.append(np_se3.compose7(T_rel, est7[-1]))
+    est7 = np.asarray(est7, np.float32)
+    T7 = [np_se3.relative7(est7[k + 1], est7[k]) for k in range(K - 1)]
+    T7.append(np_se3.relative7(gt7[0], gt7[K - 1]))
+    e8 = np.asarray([np.concatenate([T7[k], [1.0]]) for k in range(K - 1)]
+                    + [np.concatenate([T7[K - 1], [drift ** -(K - 1)]])], np.float32)
+    return gt7, est7, np.arange(K, dtype=np.int32), np.roll(np.arange(K, dtype=np.int32), -1), e8
+
+
+def test_optimize_sim3_card_matches_cpu(cuda_device):
+    """The Sim(3) pose graph on the drifted loop and the global Sim(3)
+    closure (16 keyframes archived, 8 active) on the card against the CPU:
+    poses and scales within TOL_POSE, and a second solve on the card equal
+    bit for bit (the blocks are summed without atomics)."""
+    from ygz_slam_tpu_torch.geometry.sim3 import Sim3
+    from ygz_slam_tpu_torch.models import relocalization as rl
+    from ygz_slam_tpu_torch.solvers import pose_graph as pg
+    from ygz_slam_tpu_torch.utils import np_se3
+
+    gt7, est7, ii, jj, e8 = _drifted_loop()
+    K = est7.shape[0]
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+
+    def solve(dev):
+        edges = pg.Sim3Edges(torch.tensor(ii, device=dev), torch.tensor(jj, device=dev),
+                             torch.tensor(e8, device=dev), torch.ones(K, device=dev),
+                             torch.ones(K, dtype=torch.bool, device=dev))
+        p, chi2 = pg.optimize_sim3(Sim3.from_se3(TSE3.from_params7(torch.tensor(est7, device=dev))),
+                                   edges, torch.tensor(fixed, device=dev), n_iter=30)
+        return p.params8().cpu(), float(chi2)
+
+    (p_card, c_card), (p_card2, _), (p_cpu, c_cpu) = solve(cuda_device), solve(cuda_device), \
+        solve("cpu")
+    d = float((p_card - p_cpu).abs().max())
+    A = 16
+    args = (est7[:A], np.arange(A, dtype=np.int32), est7[A:], np.arange(A, K, dtype=np.int32),
+            np.zeros((K - A, K - A), np.int32), 0, K - A - 1,
+            np_se3.relative7(gt7[K - 1], gt7[0]).astype(np.float32))
+    g_card = rl.close_loop_global_sim3(*args, loop_scale=1.02 ** (K - 1), n_iter=30,
+                                       device=cuda_device)
+    g_cpu = rl.close_loop_global_sim3(*args, loop_scale=1.02 ** (K - 1), n_iter=30, device="cpu")
+    dg = max(float(np.abs(a - b).max()) for a, b in zip(g_card[:4], g_cpu[:4]))
+    print(f"optimize_sim3 card against CPU {d:.2e}, chi2 {c_card:.4e} / {c_cpu:.4e}; "
+          f"close_loop_global_sim3 {dg:.2e}")
+    assert torch.equal(p_card, p_card2)
+    assert d < TOL_POSE and dg < TOL_POSE
+    assert abs(c_card - c_cpu) <= 1e-3 * max(c_cpu, 1e-9)
+
+
+def _archive_loop_call(device):
+    """The port's out-and-back sweep (models/archive_workload.py, 240x320,
+    mapping synchronous) on `device` up to the first archive detection that
+    finds a loop: that call's arguments, cloned, and the vocabulary."""
+    from ygz_slam_tpu_torch.models import archive_workload as aw
+    from ygz_slam_tpu_torch.models import relocalization as rl
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    cam, frames, _ = aw.out_and_back_frames((240, 320), device=device)
+    vo = tvo.VisualOdometry(cam, aw.loop_options(async_mapping=False), device=device)
+    found = []
+    real = rl.detect_loop_archive
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        if not found and bool(out.found):
+            clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+            arc = type(a[12])(*(t.clone() for t in a[12]))
+            found.append(([clone(x) for x in a[:12]] + [arc], dict(kw)))
+        return out
+
+    rl.detect_loop_archive = recording
+    try:
+        for k in range(frames.shape[0]):
+            vo.add_frame(frames[k], float(k))
+            if found:
+                break
+    finally:
+        rl.detect_loop_archive = real
+    assert found, "no archive loop found in the sweep"
+    return found[0], vo.vocab
+
+
+def test_detect_loop_archive_card_matches_cpu(cuda_device):
+    """An archive loop detection recorded on the card, replayed on the card
+    and on the CPU with the card's P3P draws: retrieval scores, candidates,
+    matches, winner and inliers equal, T_loop7 within TOL_POSE, the scale
+    within 1e-5 relative."""
+    from ygz_slam_tpu_torch.map import vocabulary as voc
+    from ygz_slam_tpu_torch.models import relocalization as rl
+
+    (args, kw), vocab = _archive_loop_call(cuda_device)
+    sc, sh = {}, {}
+    lc = rl.detect_loop_archive(*args, **kw, stages=sc)
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    a_cpu = [voc.from_state_dict(voc.state_dict(vocab), device="cpu")] + [cpu(x) for x in args[1:12]]
+    a_cpu.append(type(args[12])(*(t.cpu() for t in args[12])))
+    lh = rl.detect_loop_archive(*a_cpu, **{k: cpu(v) for k, v in kw.items()},
+                                draws=sc["attempt"].draws.cpu(), stages=sh)
+    a, b = sc["attempt"], sh["attempt"]
+    d = float(tse3.distance(TSE3.from_params7(lc.T_loop7.cpu()), TSE3.from_params7(lh.T_loop7)))
+    ds = abs(float(lc.scale) - float(lh.scale)) / float(lh.scale)
+    print(f"archive loop: row {int(lc.loop_kf)} / {int(lh.loop_kf)}, inliers {a.n_inl.tolist()} / "
+          f"{b.n_inl.tolist()}, T_loop7 {d:.2e}, scale {float(lc.scale):.6f} / {float(lh.scale):.6f}")
+    assert torch.equal(a.scores.cpu(), b.scores) and torch.equal(a.cand.cpu(), b.cand)
+    assert torch.equal(a.match_idx.cpu(), b.match_idx)
+    assert bool(lc.found) and bool(lh.found) and int(lc.loop_kf) == int(lh.loop_kf)
+    assert int(lc.n_inl) == int(lh.n_inl) and d < TOL_POSE and ds < 1e-5
+
+
+def _default_runs(device, async_mapping: bool, chunk=None):
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+    from ygz_slam_tpu_torch.system.system import System
+
+    cam, frames, _ = mw.make_mono_workload(40, device=device, shape=(240, 320), du=1 / 39)
+    s = System(camera=cam, options=tvo.VOOptions(**mw.VO_OPTS, async_mapping=async_mapping),
+               device=device)
+    if chunk:
+        s.track_monocular_chunk(frames, [float(k) for k in range(40)], chunk=chunk)
+    else:
+        for k in range(40):
+            s.track_monocular(frames[k], float(k))
+    s.shutdown()
+    return s
+
+
+def _same_run(a, b) -> bool:
+    pa, pb = a.vo.trajectory_poses(), b.vo.trajectory_poses()
+    return (np.stack([p for _, p in pa]).tobytes() == np.stack([p for _, p in pb]).tobytes()
+            and all(torch.equal(x, y) for x, y in zip(a.vo.server.state, b.vo.server.state))
+            and a.vo.stats == b.vo.stats)
+
+
+def test_async_mapping_equals_sync_on_the_card(cuda_device):
+    """tests/test_async_mapping.py's run with the default options on the
+    card: the mapping pass on the worker thread (launching on the caller's
+    stream) gives the synchronous run's trajectory, map and stats bit for
+    bit."""
+    sa, ss = _default_runs(cuda_device, True), _default_runs(cuda_device, False)
+    print(f"keyframes {sa.vo.stats['keyframes']}, stats {dict(sa.vo.stats)}")
+    assert sa.vo.stats["keyframes"] >= 3 and _same_run(sa, ss)
+
+
+def test_chunked_async_mapping_captures_and_replays_on_the_card(cuda_device):
+    """The same run through `track_monocular_chunk` (chunk=6) with async
+    mapping: every chunk starts after the join, its graph is captured and
+    replayed without error, and the run equals the per-frame one bit for
+    bit."""
+    sc = _default_runs(cuda_device, True, chunk=6)
+    sf = _default_runs(cuda_device, True)
+    replays = sum(st.replays for st in sc.vo._chunk_steps.values())
+    print(f"chunks {dict(sc.vo.chunk_stats)}, replays {replays}")
+    assert replays > 0 and _same_run(sc, sf)

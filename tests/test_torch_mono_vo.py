@@ -231,7 +231,16 @@ def test_depth_filter_runs_and_reset_clears_seeds(runs):
                                  dict(async_mapping=True), dict(vo_type=tvo.VOType.SPARSE_ORB)],
                          ids=["use_vocabulary", "vo_type_semi_dense", "async_mapping", "vo_type"])
 def test_unsupported_options_raise(bad):
+    """A frontend the port does not run raises; the archive loops (the
+    vocabulary with the archive and loop closing) and async mapping, once
+    unsupported, now construct."""
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
+    if "vo_type" not in bad:
+        vo = System(camera=cam, options=mw.mono_options(**bad), device="cpu").vo
+        assert tvo._unsupported(vo.o) == []
+        if bad.get("archive_map"):
+            assert vo.archive is not None and vo.vocab is not None and vo.o.loop_closing
+        return
     with pytest.raises(ValueError, match="not supported by the port"):
         System(camera=cam, options=mw.mono_options(**bad), device="cpu")
 

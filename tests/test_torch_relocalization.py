@@ -237,12 +237,12 @@ def test_one_matrix_for_all_candidates_equals_separate_matchings(carried):
 
 
 def test_loop_closing_with_the_vocabulary_raises():
-    """Loop closing with the vocabulary raises only together with the
-    archive (the archive loops are not ported); within the active window it
-    runs."""
-    with pytest.raises(ValueError, match="archive loops"):
-        tvo.VisualOdometry(CAM, mw.mono_options(use_vocabulary=True, archive_map=True),
-                           device="cpu")
+    """Loop closing with the vocabulary once raised together with the
+    archive (the archive loops were not ported); it now constructs with the
+    archive as without it."""
+    vo = tvo.VisualOdometry(CAM, mw.mono_options(use_vocabulary=True, archive_map=True),
+                            device="cpu")
+    assert vo.o.loop_closing and vo.archive is not None and vo.vocab is not None
     vo = tvo.VisualOdometry(CAM, mw.mono_options(use_vocabulary=True), device="cpu")
     assert vo.o.loop_closing and vo.archive is None
     assert vo.vocab.n_words == 10 ** 4 and tuple(vo.kf_bow.shape) == (OPTS.map_K, 10 ** 4)

@@ -1,8 +1,8 @@
-"""Relocalization and active-window loop closing over the BoW vocabulary
-(counterpart of ygz_slam_tpu/models/relocalization.py: `RelocResult`,
-`relocalize`, `relocalize_archive`, `LoopResult`, `detect_loop` and
-`close_loop`; the archive loops, `detect_loop_archive`, `close_loop_global`
-and `apply_global_correction`, are not ported yet).
+"""Relocalization and loop closing over the BoW vocabulary (counterpart of
+ygz_slam_tpu/models/relocalization.py: `RelocResult`, `relocalize`,
+`relocalize_archive`, `LoopResult`, `detect_loop`, `close_loop`,
+`detect_loop_archive`, `apply_global_correction`, `close_loop_global` and
+`close_loop_global_sim3`).
 
 The ORB-SLAM recipe the reference left as a TODO
 (src/Module/VisualOdometry.cpp:101-104): BoW similarity against every
@@ -16,18 +16,30 @@ keyframe cycle's triangulation does) and every candidate's pose solve in
 one K8 launch (K5's body once per candidate).  The archive tier
 (`relocalize_archive`) ranks the archived keyframes by descriptor match
 counts (K10 again, `hamming.archive_match_scores`) before the same two
-launches.  Loop detection verifies one candidate per keyframe with one K10
-and one K5 launch, and a found loop is closed by the SE(3) pose graph
-(`solvers/pose_graph.py`).  Nothing waits for the device until the caller
-reads `success` or `found`.
+launches.  Loop detection within the window verifies one candidate per
+keyframe with one K10 and one K5 launch, and a found loop is closed by the
+SE(3) pose graph (`solvers/pose_graph.py`).  Loop detection against the
+archive (`detect_loop_archive`) is `relocalize_archive`'s recipe for a new
+keyframe (its retrieval, one K10 launch for the candidates' matching, one
+K8 launch for their pose solves) plus each candidate's relative map scale;
+a found archive loop is closed by the global pose graph over the archived
+and active keyframes (`close_loop_global_sim3`, Sim(3), or
+`close_loop_global`, SE(3): the graph assembled on the host in numpy as the
+JAX package does, the padded solve on the device), and the map follows the
+corrected keyframes (`apply_global_correction`).  Nothing waits for the
+device until the caller reads `success` or `found`, but the global closures,
+which return numpy.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from .. import resolve_device
 from ..geometry.se3 import SE3
+from ..geometry.sim3 import Sim3
 from ..map import state as ms
 from ..map import vocabulary as voc
 from ..map.archive import ArchiveView
@@ -37,6 +49,7 @@ from ..ops.select import top_k
 from ..solvers import pnp
 from ..solvers import pose_graph as pg
 from ..solvers.ba import pose_only_ba
+from ..utils import np_se3
 
 MATCH_MAX_DIST = 64     # Hamming bound of the candidates' matching
 PNP_MIN_INLIERS = 6     # a P3P-RANSAC seed needs this many inliers, else the stored pose
@@ -136,8 +149,9 @@ def relocalize(vocab: voc.Vocabulary, cam,
     c_angle = None if feat_angle_flat is None else feat_angle_flat[rows]
     idx, ok = candidate_matches(q_desc, q_valid, feat_desc_flat[rows], c_valid, q_angle, c_angle)
     match_pts = pt_pos[torch.gather(pt_safe, 1, torch.clamp(idx, 0, F - 1).long())]  # [C, Nq, 3]
-    T_opt, cand_inl, draws = _solve_candidates(cam, match_pts, q_px, ok, kf_pose7[cand], cand,
-                                               use_pnp, pnp_hyps, generator, draws, 17)
+    T_opt, inlier, draws = _solve_candidates(cam, match_pts, q_px, ok, kf_pose7[cand], cand,
+                                             use_pnp, pnp_hyps, generator, draws, 17)
+    cand_inl = inlier.sum(dim=1)
     best = torch.argmax(cand_inl)
     n_inl = cand_inl[best]
     if stages is not None:
@@ -157,7 +171,7 @@ def _solve_candidates(cam, match_pts, q_px, ok, stored_pose7, cand, use_pnp: boo
     all candidates in one K8 launch on undistorted pixels.  The triples come
     from `draws` (a tensor, or a function of (ok, cand)), else from
     `generator` (a fresh one seeded `seed` if none).  Returns (poses SE3
-    [C], BA inlier counts [C], the draws or None)."""
+    [C], BA inlier masks [C, Nq], the draws or None)."""
     C = ok.shape[0]
     q_px_c = q_px[None].expand(C, -1, -1)
     T_stored = SE3.from_params7(stored_pose7)
@@ -177,7 +191,7 @@ def _solve_candidates(cam, match_pts, q_px, ok, stored_pose7, cand, use_pnp: boo
     # Pose-only BA takes ideal-pinhole pixels (as solvers.ba.pose_only_ba).
     T_opt, inlier, _ = pose_only_ba_fused_batch(T_init, match_pts, cam.undistort_px(q_px_c), ok,
                                                 cam)
-    return T_opt, inlier.sum(dim=1), draws
+    return T_opt, inlier, draws
 
 
 # Above this many archive rows a BoW prefilter keeps the best this many for
@@ -231,9 +245,9 @@ def relocalize_archive(vocab: voc.Vocabulary, cam, q_desc, q_px, q_valid, arc: A
     idx, ok = candidate_matches(q_desc, q_valid, arc.desc[cand], c_valid, q_angle, c_angle)
     match_pts = torch.gather(arc.pt_pos[cand], 1,
                              torch.clamp(idx, 0, F - 1).long()[..., None].expand(-1, -1, 3))
-    T_opt, cand_inl, draws = _solve_candidates(cam, match_pts, q_px, ok, arc.pose7[cand], cand,
-                                               use_pnp, pnp_hyps, generator, draws, 23)
-    cand_inl = torch.where(c_scores >= 0, cand_inl, 0)
+    T_opt, inlier, draws = _solve_candidates(cam, match_pts, q_px, ok, arc.pose7[cand], cand,
+                                             use_pnp, pnp_hyps, generator, draws, 23)
+    cand_inl = torch.where(c_scores >= 0, inlier.sum(dim=1), 0)
     best = torch.argmax(cand_inl)
     n_inl = cand_inl[best]
     if stages is not None:
@@ -340,3 +354,253 @@ def close_loop(kf_pose7, kf_valid, cov_weight, pt_pos, pt_valid, pt_first_kf, ne
     pose7_out = torch.where(loop.found, poses_new.params7(), kf_pose7)
     pt_out = torch.where(loop.found, pt_new, pt_pos)
     return pose7_out, pt_out, chi2
+
+
+LOOP_ARC_SEED = 29      # the P3P draws' generator seed of `detect_loop_archive`
+MIN_SCALE_PAIRS = 16    # matched landmark pairs the loop's scale estimate needs
+
+
+def detect_loop_archive(vocab: voc.Vocabulary, cam, new_slot, new_frame_id,
+                        kf_bow, kf_valid, cov_weight,
+                        feat_desc_flat, feat_nodes_flat, feat_px_flat, feat_valid_flat,
+                        kf_pose7, arc: ArchiveView, min_frame_gap: int = 50,
+                        min_inliers: int = 25, min_score_ratio: float = 0.75,
+                        feat_angle_flat=None, feat_point_flat=None, pt_pos=None, pt_valid=None,
+                        use_pnp: bool = True, top_c: int = 8, pnp_hyps: int = 256,
+                        generator: torch.Generator | None = None,
+                        draws: torch.Tensor | Callable | None = None,
+                        stages: dict | None = None) -> LoopResult:
+    """Loop detection for the new keyframe `new_slot` (frame
+    `new_frame_id`) against the archive (the JAX `detect_loop_archive`): the
+    long loops the active window cannot hold.  The returned loop_kf is the
+    archive row.
+
+    1. Archive rows at least `min_frame_gap` frames older than the keyframe
+       are ranked by `_archive_retrieval_scores` (the descriptor match
+       count: one K10 launch per 512 rows); the `top_c` best are the
+       candidates, plausible where the score reaches `min_inliers`
+       (`min_score_ratio` is the JAX signature's, unused there too).
+    2. The keyframe's features are matched against each candidate's
+       landmark-bearing features (`candidate_matches`: one K10 launch), the
+       rotation histogram filtering them where angles are given.
+    3. Each candidate's pose of the keyframe: a P3P-RANSAC seed (`use_pnp`;
+       the keyframe's stored pose where the seed is unusable), then pose-only
+       BA, all candidates in one K8 launch (`_solve_candidates`, draws from
+       a generator seeded LOOP_ARC_SEED unless `generator` or `draws` are
+       given).  T_loop7 = T_opt * T_arc^-1.
+    4. Each candidate's relative map scale, the spread ratio of the BA
+       inliers' live landmarks (`feat_point_flat`, `pt_pos`, `pt_valid`)
+       against their archived positions (Horn's closed-form similarity
+       scale), 1 without the live links or where fewer than
+       MIN_SCALE_PAIRS pairs, a degenerate spread or a non-finite ratio.
+    5. The plausible candidate with the most BA inliers (the first on ties)
+       wins; found at `min_inliers`.
+
+    `stages`, a dict if given, receives the attempt's RelocAttempt (its
+    `scores` are the retrieval scores) and the candidates' scales under
+    "scale"."""
+    K = kf_valid.shape[0]
+    F = arc.nodes.shape[1]
+    Fq = feat_valid_flat.shape[0] // K
+    dev = kf_valid.device
+    q_rows = new_slot * Fq + torch.arange(Fq, device=dev)
+    q_desc, q_px, q_valid = feat_desc_flat[q_rows], feat_px_flat[q_rows], feat_valid_flat[q_rows]
+    gap_ok = arc.frame_id < (new_frame_id - min_frame_gap)
+    scores = _archive_retrieval_scores(vocab, q_desc, q_valid, arc, arc.valid & gap_ok)
+    c_scores, cand = top_k(scores, min(top_c, scores.shape[0]))
+    plausible = c_scores >= float(min_inliers)
+    c_valid = arc.feat_valid[cand] & arc.pt_ok[cand]
+    q_angle = None if feat_angle_flat is None else feat_angle_flat[q_rows]
+    c_angle = None if feat_angle_flat is None else arc.angle[cand]
+    idx, ok = candidate_matches(q_desc, q_valid, arc.desc[cand], c_valid, q_angle, c_angle)
+    match_pts = torch.gather(arc.pt_pos[cand], 1,
+                             torch.clamp(idx, 0, F - 1).long()[..., None].expand(-1, -1, 3))
+    C = cand.shape[0]
+    stored = ms.row(kf_pose7, new_slot)[None].expand(C, -1)
+    T_opt, inlier, draws = _solve_candidates(cam, match_pts, q_px, ok, stored, cand, use_pnp,
+                                             pnp_hyps, generator, draws, LOOP_ARC_SEED)
+    T_loop = T_opt.compose(SE3.from_params7(arc.pose7[cand]).inverse())
+    scale = torch.ones(C, dtype=q_px.dtype, device=dev)
+    if feat_point_flat is not None and pt_pos is not None:
+        q_point = feat_point_flat[q_rows]
+        q_safe = torch.clamp(q_point, 0, pt_pos.shape[0] - 1).long()
+        q_lm_ok = q_valid & (q_point >= 0)
+        if pt_valid is not None:
+            q_lm_ok = q_lm_ok & pt_valid[q_safe]
+        wp = (inlier & q_lm_ok[None]).to(q_px.dtype)                      # [C, Nq]
+        n_pair = torch.clamp(wp.sum(dim=1), min=1.0)
+        q_pts = pt_pos[q_safe][None]                                      # [1, Nq, 3]
+        cq = (q_pts * wp[..., None]).sum(dim=1) / n_pair[:, None]
+        cc = (match_pts * wp[..., None]).sum(dim=1) / n_pair[:, None]
+        var_q = (wp * ((q_pts - cq[:, None]) ** 2).sum(dim=-1)).sum(dim=1)
+        var_c = (wp * ((match_pts - cc[:, None]) ** 2).sum(dim=-1)).sum(dim=1)
+        raw = torch.sqrt(var_q / torch.clamp(var_c, min=1e-12))
+        usable = (wp.sum(dim=1) >= MIN_SCALE_PAIRS) & (var_c > 1e-9) & torch.isfinite(raw)
+        scale = torch.where(usable, raw, 1.0)
+    cand_inl = torch.where(plausible, inlier.sum(dim=1), 0)
+    best = torch.argmax(cand_inl)
+    n_inl = cand_inl[best]
+    if stages is not None:
+        stages["attempt"] = RelocAttempt(scores=scores, cand=cand,
+                                         match_idx=torch.where(ok, idx, -1), draws=draws,
+                                         T_cand=T_opt, n_inl=cand_inl)
+        stages["scale"] = scale
+    return LoopResult(found=n_inl >= min_inliers, loop_kf=cand[best],
+                      T_loop7=T_loop.params7()[best], scale=scale[best], n_inl=n_inl)
+
+
+def apply_global_correction(mstate: ms.MapState, new_pose7, new_scale=None) -> ms.MapState:
+    """Globally corrected keyframe poses `new_pose7` [K, 7] written into the
+    map, each landmark moved with the correction of a keyframe that observes
+    it (the highest such slot; its first keyframe where none does, a window
+    slot that may have been recycled), p' = T_new^-1 T_old p; with
+    `new_scale` [K] (the Sim(3) correction scale per keyframe, `new_pose7`
+    holding t / s) the anchor is a similarity, p' = S_new^-1(T_old(p)) with
+    S_new = (R_new, s t_new, s).  The JAX `apply_global_correction`; no host
+    sync."""
+    m = mstate
+    K = m.kf_pose7.shape[0]
+    L = m.pt_pos.shape[0]
+    dev = m.pt_pos.device
+    fp = m.feat_point
+    link_ok = m.feat_valid & (fp >= 0) & m.kf_valid[:, None]
+    fp_safe = torch.clamp(fp, 0, L - 1).long()
+    slot_of = torch.arange(K, dtype=torch.int32, device=dev)[:, None].expand_as(fp)
+    obs_anchor = torch.full((L,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        0, fp_safe.reshape(-1), torch.where(link_ok, slot_of, -1).reshape(-1), "amax")
+    anchor = torch.where(obs_anchor >= 0, obs_anchor,
+                         torch.clamp(m.pt_first_kf, 0, K - 1)).long()
+    T_old = SE3.from_params7(m.kf_pose7[anchor])
+    T_new = SE3.from_params7(new_pose7[anchor])
+    p_cam = T_old.apply(m.pt_pos)
+    if new_scale is None:
+        p = T_new.inverse().apply(p_cam)
+    else:
+        s_a = new_scale[anchor]
+        p = Sim3(T_new.R, T_new.t * s_a[:, None], s_a).inverse().apply(p_cam)
+    p = torch.where(m.pt_valid[:, None], p, m.pt_pos)
+    return m._replace(kf_pose7=new_pose7, pt_pos=p)
+
+
+def _next_pow2(n: int, lo: int = 16) -> int:
+    c = lo
+    while c < n:
+        c *= 2
+    return c
+
+
+def _global_graph(arc_pose7, arc_frame_id, act_pose7, act_frame_id, act_cov, loop_arc_idx: int,
+                  new_act_idx: int, T_loop7):
+    """The global pose graph's nodes and edges on the host (the JAX numpy
+    assembly): the archived then the active poses [N, 7]; sequential
+    odometry edges between temporally consecutive keyframes at their
+    current relative poses (weight 1), active covisibility edges of at
+    least 10 (weight sqrt(cov)), the loop edge (archive row -> the new
+    keyframe, weight 10).  Returns (pose7 [N, 7], e_i, e_j, e_T7 [E, 7],
+    e_w), the loop edge last."""
+    A = arc_pose7.shape[0]
+    ids = np.concatenate([arc_frame_id, act_frame_id])
+    pose7 = np.concatenate([arc_pose7, act_pose7]).astype(np.float32)
+    order = np.argsort(ids, kind="stable")
+    si, sj = order[:-1].astype(np.int32), order[1:].astype(np.int32)
+    T_ji_seq = np_se3.relative7(pose7[sj], pose7[si]).astype(np.float32)
+    w_seq = np.full(len(si), 1.0, np.float32)
+    ai, aj = np.nonzero(np.triu(act_cov, 1) >= 10)
+    ci, cj = (A + ai).astype(np.int32), (A + aj).astype(np.int32)
+    T_ji_cov = np_se3.relative7(pose7[cj], pose7[ci]).astype(np.float32)
+    w_cov = np.sqrt(np.maximum(act_cov[ai, aj], 1.0)).astype(np.float32)
+    e_i = np.concatenate([si, ci, np.asarray([loop_arc_idx], np.int32)])
+    e_j = np.concatenate([sj, cj, np.asarray([A + new_act_idx], np.int32)])
+    e_T7 = np.concatenate([T_ji_seq, T_ji_cov, np.asarray(T_loop7, np.float32)[None]])
+    e_w = np.concatenate([w_seq, w_cov, np.asarray([10.0], np.float32)])
+    return pose7, e_i, e_j, e_T7, e_w
+
+
+def _padded(nodes: np.ndarray, ident: np.ndarray, e_i, e_j, e_meas, e_w, loop_arc_idx: int):
+    """Nodes and edges padded to power-of-two capacities (P, EP), as the
+    JAX package pads them for its shape-cached jit: padding nodes at the
+    identity and fixed, the loop's archive node fixed, padding edges masked
+    at the identity.  Returns numpy (nodes [P, d], e_i, e_j, e_meas, e_w,
+    e_mask, fixed)."""
+    N, E = nodes.shape[0], len(e_i)
+    P, EP = _next_pow2(N), _next_pow2(E)
+    nodes_p = np.tile(ident, (P, 1))
+    nodes_p[:N, :nodes.shape[1]] = nodes
+    fixed = np.ones(P, bool)
+    fixed[:N] = False
+    fixed[loop_arc_idx] = True
+    e_mask = np.zeros(EP, bool)
+    e_mask[:E] = True
+
+    def pad(a, fill):
+        return np.concatenate([a, np.full((EP - E,) + a.shape[1:], fill, a.dtype)])
+
+    return (nodes_p, pad(e_i, 0), pad(e_j, 0), np.concatenate([e_meas, np.tile(ident, (EP - E, 1))]),
+            pad(e_w, 0.0), e_mask, fixed)
+
+
+def _on(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def close_loop_global(arc_pose7, arc_frame_id, act_pose7, act_frame_id, act_cov,
+                      loop_arc_idx: int, new_act_idx: int, T_loop7, n_iter: int = 25,
+                      device=None, stats: dict | None = None):
+    """Global SE(3) pose graph over the whole trajectory, archived and
+    active keyframes (the JAX `close_loop_global`): `_global_graph`'s nodes
+    and edges, assembled on the host in numpy, padded to power-of-two node
+    and edge capacities and solved by `pose_graph.optimize` on `device` (the
+    card unless named), anchored on the archived loop keyframe.  Returns
+    numpy (arc_pose7_new [A, 7], act_pose7_new [Ka, 7]) and the final chi2
+    as a float; `stats`, a dict if given, receives the capacities (P, EP)."""
+    dev = resolve_device(device)
+    A = arc_pose7.shape[0]
+    pose7, e_i, e_j, e_T7, e_w = _global_graph(arc_pose7, arc_frame_id, act_pose7, act_frame_id,
+                                               act_cov, loop_arc_idx, new_act_idx, T_loop7)
+    N = pose7.shape[0]
+    ident7 = np.asarray([1, 0, 0, 0, 0, 0, 0], np.float32)
+    padded = _padded(pose7, ident7, e_i, e_j, e_T7, e_w, loop_arc_idx)
+    pose7_p, i_p, j_p, T7_p, w_p, mask_p, fixed_p = _on(dev, *padded)
+    if stats is not None:
+        stats.update(P=pose7_p.shape[0], EP=i_p.shape[0])
+    p, chi2 = pg.optimize(SE3.from_params7(pose7_p), pg.PoseGraphEdges(i_p, j_p, T7_p, w_p, mask_p),
+                          fixed_p, n_iter=n_iter)
+    out7 = p.params7()[:N].cpu().numpy()
+    return out7[:A], out7[A:], float(chi2)
+
+
+def close_loop_global_sim3(arc_pose7, arc_frame_id, act_pose7, act_frame_id, act_cov,
+                           loop_arc_idx: int, new_act_idx: int, T_loop7, loop_scale: float = 1.0,
+                           n_iter: int = 30, device=None, stats: dict | None = None):
+    """The 7-DoF global pose graph (the JAX `close_loop_global_sim3`): the
+    monocular loop closure that also absorbs scale drift.  `_global_graph`'s
+    edges lifted into Sim(3) with unit relative scale; the loop edge the
+    measured similarity S_ji = (R_loop, lambda t_loop, lambda), lambda =
+    `loop_scale` (the matched landmarks' spread ratio).  Solved by
+    `pose_graph.optimize_sim3` on `device` after the same padding, anchored
+    on the archived loop keyframe (the rigid gauge and the global scale).
+    Returns numpy (arc_pose7_new, act_pose7_new: SE(3) poses, t / s), their
+    correction scales (arc_scale [A], act_scale [Ka]) and the chi2 as a
+    float; `stats` as in `close_loop_global`."""
+    dev = resolve_device(device)
+    A = arc_pose7.shape[0]
+    pose7, e_i, e_j, e_T7, e_w = _global_graph(arc_pose7, arc_frame_id, act_pose7, act_frame_id,
+                                               act_cov, loop_arc_idx, new_act_idx, T_loop7)
+    N = pose7.shape[0]
+    lam = float(loop_scale)
+    T_loop = e_T7[-1]
+    S_loop8 = np.concatenate([T_loop[:4], lam * T_loop[4:7], [lam]]).astype(np.float32)
+    e_S8 = np.concatenate([np.concatenate([e_T7[:-1], np.ones((len(e_T7) - 1, 1), np.float32)],
+                                          axis=1), S_loop8[None]])
+    ident8 = np.asarray([1, 0, 0, 0, 0, 0, 0, 1], np.float32)
+    padded = _padded(pose7, ident8, e_i, e_j, e_S8, e_w, loop_arc_idx)
+    pose8_p, i_p, j_p, S8_p, w_p, mask_p, fixed_p = _on(dev, *padded)
+    if stats is not None:
+        stats.update(P=pose8_p.shape[0], EP=i_p.shape[0])
+    p, chi2 = pg.optimize_sim3(Sim3.from_params8(pose8_p),
+                               pg.Sim3Edges(i_p, j_p, S8_p, w_p, mask_p), fixed_p, n_iter=n_iter)
+    out8 = p.params8()[:N].cpu().numpy()
+    scale = out8[:, 7]
+    out7 = out8[:, :7].copy()
+    out7[:, 4:7] /= scale[:, None]
+    return out7[:A], out7[A:], scale[:A], scale[A:], float(chi2)

@@ -4,20 +4,26 @@ ygz_slam_tpu/system/system.py, monocular only).
 `System(config_file=None, camera=None, sensor=MONOCULAR, options=None,
 device=None)` takes the JAX package's arguments in its order, `device` last,
 and wires a camera and VOOptions into a VisualOdometry on the card (or the
-named device); `track_monocular` tracks one frame, `track_monocular_chunk`
+named device).  With `VOOptions()` unchanged it runs the JAX package's
+default configuration: monocular SPARSE_DIRECT with the depth filter, the
+vocabulary, relocalization, the keyframe archive, loop closing against the
+window and the archive (the Sim(3) global pose graph, epoch merging) and
+async mapping.  `track_monocular` tracks one frame, `track_monocular_chunk`
 and `track_monocular_stream` track many through chunked tracking
-(`VisualOdometry.add_frames`), with the depth filter if the options ask
-for it, and with the vocabulary and relocalization (loop closing off).
-Not ported yet (ROADMAP queue 1): async mapping with `shutdown`, `warmup`
-and `export_point_cloud`; the keyframe archive, loop closing and map
-save/load; the SPARSE_ORB and SEMI_DENSE_DIRECT frontends; RGBD and
-stereo sensors; configuration files (a `config_file` raises
-NotImplementedError until `system/config.py` is ported); the viewer.
+(`VisualOdometry.add_frames`); `warmup` runs the archive's capacity buckets
+ahead, `shutdown` waits for the mapping worker, `export_point_cloud`
+returns the sparse map's points.  Not ported yet (ROADMAP queue 1): map
+save/load; the SPARSE_ORB and SEMI_DENSE_DIRECT frontends and the
+SEMI_DENSE and DENSE map types; RGBD and stereo sensors; configuration
+files (a `config_file` raises NotImplementedError until `system/config.py`
+is ported); the viewer.
 """
 from __future__ import annotations
 
 import enum
 import os
+
+import numpy as np
 
 from ..models.visual_odometry import Status, VisualOdometry, VOOptions
 from . import trajectory as traj
@@ -49,6 +55,13 @@ class System:
         self.sensor = sensor
         self.vo = VisualOdometry(camera, options or VOOptions(), device=device)
 
+    def warmup(self, archive_capacity: int = 128) -> None:
+        """Run the archive's capacity buckets 16, 32, ... up to
+        `archive_capacity` once (`VisualOdometry.warmup_archive`): the kernels
+        of archive relocalization and archive loop detection are built and
+        launched before a tracking step needs them."""
+        self.vo.warmup_archive(archive_capacity)
+
     def track_monocular(self, img, timestamp: float = 0.0):
         """One image [H, W] -> TrackResult (status, T_cw, inliers)."""
         return self.vo.add_frame(img, timestamp)
@@ -78,6 +91,15 @@ class System:
 
     def reset(self) -> None:
         self.vo.reset()
+
+    def shutdown(self) -> None:
+        """Wait for the mapping worker (async mapping), re-raising its
+        exception if it failed."""
+        self.vo._join_mapping()
+
+    def export_point_cloud(self) -> np.ndarray:
+        """The sparse map's points, [N, 3] world coordinates."""
+        return self.vo.export_point_cloud()
 
     @property
     def status(self) -> Status:
