@@ -256,6 +256,30 @@ Phases, each raising (and so exiting non-zero) on failure:
    `close_loop_global_sim3` on the card against the CPU (TOL_POSE); one
    global closure at P = 512 nodes (300 archived and 10 active keyframes):
    synchronised ms and device kernels.
+5j. Main path 12: depth sensors and the map file (`VOOptions()`, path 4's
+   camera, 640x480).  (a) `System(sensor=RGBD)`, its camera and options
+   set through `Config.set_dict` and `apply_to`, on `SyntheticDataset`'s
+   N_SENSOR frames with depth (the JAX dataset's defaults): >= 75% GOOD,
+   rigid ATE < SENSOR_ATE (tests/test_system.py's gates); ms per frame,
+   each sensor keyframe insertion's synchronised ms (the first under the
+   profiler: device kernels and µs) beside path 4's keyframe cycle; path
+   4's launch counts plus the loop block's and the archive detections'
+   (a sensor keyframe launches K10 twice, as a monocular one does); the
+   first DENSE_FRAMES frames with the DENSE map, every cloud on the plane
+   within 0.05 m and the exported cloud written by `save_ply`; frame 0's start on the card against the CPU (features at
+   the same pixel >= 95%, decisions >= MIN_MASK_AGREE, landmarks within
+   TOL_POSE).  (b) The same trajectory as a rectified pair (baseline
+   BASELINE) through `System(sensor=STEREO)`: >= 11/14 GOOD, rigid ATE <
+   SENSOR_ATE (tests/test_stereo.py's gates); `match_stereo`'s synchronised
+   ms, device kernels and µs per call, its first call on the card against
+   the CPU (ok flags >= MIN_MASK_AGREE, depth within TOL_STEREO); frame 0's
+   start as in (a).  (c) 12a's map and path 11a's (archive rows) written on
+   the card (`save_map`), loaded on the card and on the CPU and written
+   again, equal bit for bit; 12a's loaded state equal to the saved VO's;
+   path 11a's map resumed by relocalization in a fresh System (the frame of
+   its third keyframe and the next GOOD, the second with > 50 inliers,
+   test_system.py::test_resume_from_saved_map's gates) with its K10 and K8
+   launches counted; `save_map` / `load_map` ms and the files' bytes.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -268,9 +292,15 @@ Phases, each raising (and so exiting non-zero) on failure:
    kernel's device µs per launch in the profiler beside its CUDA-event
    time from phase 2 (whose intervals include the gap between launches;
    K2 in path 2's window and, at the VO's shape, in path 3's), K9 v1's
-   pass split beside it.
+   pass split beside it.  A profiler window that records no device event
+   at all (CUPTI hands the profiler none, now and then) is run again where
+   its work may be repeated, up to PROFILE_TRIES windows, and is then
+   printed as not measured; the launch counts and CUDA-event times do not
+   depend on the profiler.  The windows record device activity only
+   (host operators too where their names are checked: path 4's).  Every
+   phase prints the clock it starts at.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-11), then the last line {"ok": true, "device": {...}}.
+   paths 1-12), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -279,9 +309,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_FRAMES = 240
@@ -310,8 +342,15 @@ SEED_SPREAD = 2.0        # ... else this many times the CPU's own float32 error 
                          # float64): tests/test_torch_depth_filter.py's rule, the CPU
                          # run standing where the JAX package's jit run stands there
 MIN_SEED_AGREE = 0.98    # seeds updated on the card and on the CPU, share of valid rows
+N_SENSOR = 60            # main path 12: SyntheticDataset frames (its default length) ...
+SENSOR_SHAPE = (480, 640)   # ... at its default size
+SENSOR_ATE = 0.03        # path 12's gate on the rigid ATE (tests/test_system.py, test_stereo.py)
+DENSE_FRAMES = 20        # path 12a's frames with the DENSE map
+BASELINE = 0.1           # path 12b's stereo baseline, m (tests/test_stereo.py)
+TOL_STEREO = 1e-4        # match_stereo depth, card against CPU, relative, where both accept
 REPS = 30               # kernel timing: per-launch intervals, median
 PLAIN_REPS = 5          # plain versions sync on the host: fewer reps
+PROFILE_TRIES = 3       # profiler windows run before one is reported as not measured
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores (K10's
                               # integer XOR/popcount/add are counted at this rate:
@@ -404,27 +443,58 @@ def _time_host(torch, fn, reps=PLAIN_REPS):
     return statistics.median(ts)
 
 
+def _device_events(averages):
+    """{kernel name: (device µs, launches)} of a profiler window's device
+    events, from its key_averages() (host events left out: no double
+    count)."""
+    rows = {}
+    for e in averages:
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            us, count = rows.get(e.key, (0.0, 0))
+            rows[e.key] = (us + dt, count + e.count)
+    return rows
+
+
+def _nm(x, spec, unit=""):
+    """x formatted by spec with its unit, or "not measured" for None (a
+    profiler window that recorded no device event)."""
+    return "not measured" if x is None else format(x, spec) + unit
+
+
 def _profile_us(torch, fn, sym, n=30):
     """Device µs per launch of the kernels whose name holds `sym`, in a
-    torch.profiler window over n calls of fn()."""
+    torch.profiler window over n calls of fn() (device activity only: the
+    host operators' events would only lengthen the trace's parse).  A
+    window in which the
+    profiler recorded no device event at all (CUPTI handed it none) is run
+    again, up to PROFILE_TRIES windows; after that the number is not
+    measured (None).  A window with device events but none named `sym`
+    fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = []
-    for e in prof.key_averages():
-        if sym in e.key and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            dt = getattr(e, "self_device_time_total", None)
-            hits.append((getattr(e, "self_cuda_time_total", 0.0) if dt is None else dt, e.count))
-    if not hits or not sum(h[1] for h in hits):
-        seen = [e.key[:60] for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        raise AssertionError(f"the profiler saw no {sym}; its device events: {seen[:8]} "
-                             f"({len(seen)} names)")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_events(prof.key_averages())
+        if rows:
+            break
+    else:
+        print(f"the profiler recorded no device event in {PROFILE_TRIES} windows of {n} calls "
+              f"(for {sym}): not measured", flush=True)
+        return None
+    hits = [v for key, v in rows.items() if sym in key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no {sym}; its device events: "
+                             f"{[k[:60] for k in rows][:8]} ({len(rows)} names)")
     return sum(h[0] for h in hits) / sum(h[1] for h in hits)
 
 
@@ -484,36 +554,50 @@ def _check_repeat(first, second, label):
         raise AssertionError(f"main path 4 is not repeatable on the card ({label})")
 
 
-def _profile(torch, fn, n, label, ops=None):
+def _profile(torch, fn, n, label, ops=None, again=True):
     """Device busy share and top kernels of fn() (n frames) under
     torch.profiler; returns {kernel name: (device µs, launches)}.  `ops`, a
-    set if given, receives the names of every event (host operators too)."""
+    set if given, receives the names of every event, host operators too,
+    which are recorded only then: they are most of a window's events, and
+    parsing the events on the host is most of a window's time.
+    A window in which the profiler recorded no device event at all is run
+    again when fn() may be repeated (`again`), up to PROFILE_TRIES windows;
+    after that the window is not measured (None)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
+    activities = [ProfilerActivity.CUDA] + ([] if ops is None else [ProfilerActivity.CPU])
+    for _ in range(PROFILE_TRIES if again else 1):
+        with profile(activities=activities) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        averages = prof.key_averages()
         if ops is not None:
-            ops.add(e.key)
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue                     # device-side events only: no double count
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt, e.key, e.count))
-    busy_us = sum(r[0] for r in rows)
+            ops.update(e.key for e in averages)
+        rows = _device_events(averages)
+        if rows:
+            break
+    else:
+        print(f"profile {label}: {n} frames, wall {wall * 1e3 / n:.3f} ms/frame; the profiler "
+              f"recorded no device event: not measured", flush=True)
+        return None
+    busy_us = sum(v[0] for v in rows.values())
     print(f"profile {label}: {n} frames, wall {wall * 1e3 / n:.3f} ms/frame, "
           f"device busy {busy_us / n / 1e3:.3f} ms/frame ({busy_us / (wall * 1e6):.3f} of wall), "
-          f"{sum(r[2] for r in rows) / n:.1f} device kernels/frame")
-    for dt, key, count in sorted(rows, reverse=True)[:10]:
+          f"{sum(v[1] for v in rows.values()) / n:.1f} device kernels/frame")
+    for key, (dt, count) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {dt / n:9.2f} us/frame  {count / n:6.1f}/frame  {key[:90]}")
-    return {key: (dt, count) for dt, key, count in rows}
+    return rows
+
+
+def _totals(prof, n=1):
+    """(device kernels, device µs) of a profiler window per frame of n, or
+    (None, None) where the window was not measured."""
+    if prof is None:
+        return None, None
+    return (sum(v[1] for v in prof.values()) / n, sum(v[0] for v in prof.values()) / n)
 
 
 def main() -> int:
@@ -578,6 +662,7 @@ def main() -> int:
     L = tr.N_LEVELS
 
     # -- 2a. single-sequence kernels versus plain versions -------------------
+    print(f"clock: phase 2a starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     t0 = time.perf_counter()
     cam, px, depth, mask, pts_w, patches, ref_pyr, frames, T_gt7 = tr.make_workload(
         N_FRAMES, dev)
@@ -806,6 +891,7 @@ def main() -> int:
              "origins off the image, the pyramid", with_library=False)
 
     # -- 2b. batch kernels versus plain versions -----------------------------
+    print(f"clock: phase 2b starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     def batch_frame_inputs(bst, imgs, T7):
         """Each batch kernel's inputs on one frame of the batch path, from
         that path's own stages: (K6's request list, recorded from
@@ -885,7 +971,7 @@ def main() -> int:
                                   [lib[1], lib[2], lib[3]]),
                  bound=_bound(nbytes, 0.0))
         print(f"K2 {tag}, {n} windows of {win}^2: kernel {r['ms']:.4f} ms, profiler "
-              f"{r['us']:.2f} us per launch, plain {r['plain']:.4f} ms, library {r['lib']:.4f} "
+              f"{_nm(r['us'], '.2f', ' us')} per launch, plain {r['plain']:.4f} ms, library {r['lib']:.4f} "
               f"ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}: {nbytes} B, of which "
               f"{nbytes - n * (win * win * 4 + 12)} B of image pixels the windows cover, "
               f"against {n * win * win * 4} B read if every window read its own)", flush=True)
@@ -1015,6 +1101,7 @@ def main() -> int:
     del frames16, bst16, g6_16, a8_16
 
     # -- 2c. K10 versus its plain version ------------------------------------
+    print(f"clock: phase 2c starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     t0 = time.perf_counter()
     vstate, vframes, vT_gt7 = vw.make_vo_workload(N_VO, dev)
     torch.cuda.synchronize()
@@ -1116,6 +1203,7 @@ def main() -> int:
           flush=True)
 
     # -- 2d. the VO path's kernels on the inputs that path gives them ---------
+    print(f"clock: phase 2d starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # Frame 10 through the entry point (`track`, then the keyframe cycle) with
     # every launch recorded: each kernel and its plain version then get the
     # arguments the step itself passed.  By then the NS selection is padded
@@ -1213,6 +1301,7 @@ def main() -> int:
     del st9, rec, g1v, a3v, a2v, a4v, a5v, d10v, a2_16
 
     # -- 2e. K9 on the inputs main path 4 gives it under variants 1 and 2 -----
+    print(f"clock: phase 2e starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # The monocular System from raw frames, initialised and tracked to frame
     # E2_FRAME under each per-level variant; that frame's `track` is recorded
     # and each K9 launch (one per level, coarse to fine) replayed against its
@@ -1363,6 +1452,7 @@ def main() -> int:
     sparse_align.FUSED_VARIANT = 3
 
     # -- 2f. K11 on the inputs main path 5 gives it ----------------------------
+    print(f"clock: phase 2f starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # Frame 1 of path 5 (`fused_track_step` from frame 0's ground truth, as
     # 2a's frame) with every launch recorded: K1 x 2 (the three sparse levels
     # in one, the align2d cache), then K11, whose arguments are replayed against its
@@ -1553,6 +1643,7 @@ def main() -> int:
         raise AssertionError("entry() on the card disagrees with the CPU")
 
     # -- 3. main path 1: single-sequence tracking ----------------------------
+    print(f"clock: phase 3 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     counters = (k1.gather_windows_levels, k1.gather_windows, k1.gather_windows_grouped,
                 k1.gather_windows_multi, k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn,
                 k8.pose_ba_batch_gn, k10.distance_matrix, k11.track_gn)
@@ -1593,6 +1684,7 @@ def main() -> int:
     print(f"main path 1 repeats: {[round(r, 1) for r in reps]} frames/s", flush=True)
 
     # -- 4. main path 2: multi-sequence batch tracking -----------------------
+    print(f"clock: phase 4 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     T0b = SE3.identity((S_BATCH,), device=dev).params7()
     reset()
     t0 = time.perf_counter()
@@ -1657,6 +1749,7 @@ def main() -> int:
           flush=True)
 
     # -- 5. main path 3: the VO's map tracking and keyframe cycle -------------
+    print(f"clock: phase 5 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     n_f = N_VO - 1
     reset()
     t0 = time.perf_counter()
@@ -1727,6 +1820,7 @@ def main() -> int:
           f"synchronisation inside the step, {split3}, sum {sum(split3.values()):.3f}", flush=True)
 
     # -- 5b. main path 4: the monocular System from raw frames ----------------
+    print(f"clock: phase 5b starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # Under each FUSED_VARIANT: one run for the gate, the launch counts and
     # frames/s, then a second from a fresh System with the init step,
     # `track`, the keyframe cycle and the mapping pass each wrapped in
@@ -1749,6 +1843,8 @@ def main() -> int:
                     level_gn_v2=3 * n_track if variant == 2 else 0, distance_matrix=2 * n_kf)
         return want
 
+
+    kf_cycle_ms4 = {}                    # FUSED_VARIANT -> median keyframe cycle, ms
 
     def timed_run(variant):
         times = {"init": [], "track": [], "kf_cycle": [], "mapping_pass": []}
@@ -1808,6 +1904,7 @@ def main() -> int:
         times, fp_timed = timed_run(variant)
         _check_repeat(_fingerprint(sysm, st_m, T7_m), fp_timed, f"FUSED_VARIANT {variant}")
         med = {k: statistics.median(v) for k, v in times.items() if k != "init"}
+        kf_cycle_ms4[variant] = med["kf_cycle"]
         klt_only = statistics.median(times["init"][:-1] or [float("nan")])
         print(f"main path 4, FUSED_VARIANT {variant}, synchronised ms: init step (KLT, "
               f"RANSAC H/F, two-view BA, first local BA) {times['init'][-1]:.3f} (the "
@@ -1820,6 +1917,7 @@ def main() -> int:
     sparse_align.FUSED_VARIANT = 3
 
     # -- 5c. main path 5: the whole-step configuration (K11) ------------------
+    print(f"clock: phase 5c starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     for c in counters4:
         c.launches = 0
     torch.cuda.synchronize()
@@ -1853,6 +1951,7 @@ def main() -> int:
           f"{sum(fps['path 5']) / sum(fps['path 1']):.3f}", flush=True)
 
     # -- 5d. main path 6: the System on non-planar worlds ----------------------
+    print(f"clock: phase 5d starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     def counted(fn):
         """fn() with the counters at 0 and the calls of `track` counted:
         (fn's result, wall s, launches, calls of track)."""
@@ -1989,6 +2088,7 @@ def main() -> int:
     del s6c
 
     # -- 5e. main path 7: path 6b's frames through chunked tracking -----------
+    print(f"clock: phase 5e starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # Per-frame (P) and chunked (C) runs in turns, P, C, C, P, each from a
     # fresh System (P1 is path 6b's own run): all equal bit for bit.
     def box_run(chunked):
@@ -2065,6 +2165,7 @@ def main() -> int:
     del box, c1
 
     # -- 5f. main path 8: the System with the depth filter ---------------------
+    print(f"clock: phase 5f starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     # (a) BoxScene 640x480 per frame with box_df_options (path 6b's frames and
     # options, the depth filter on), N_DF frames, gated over path 6b's span
     # (its first BOX_SPAN frames): GOOD on every frame after init, ATE <
@@ -2237,6 +2338,7 @@ def main() -> int:
     del dfr, vo8c
 
     # -- 5g. main path 9: relocalization --------------------------------------
+    print(f"clock: phase 5g starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     from ygz_slam_tpu_torch.map import vocabulary as voc
     from ygz_slam_tpu_torch.models import reloc_workload as rw
     from ygz_slam_tpu_torch.models import relocalization as rl
@@ -2309,11 +2411,11 @@ def main() -> int:
         vo_mod.keyframe_bow(vo9.vocab, vo9.server.state, slot9)
         torch.cuda.synchronize()
         bow_ms.append(1e3 * (time.perf_counter() - t))
-    k_att = sum(v[1] for v in prof9.values()) / 10
-    us_att = sum(v[0] for v in prof9.values()) / 10
+    k_att, us_att = _totals(prof9, 10)
     print(f"main path 9a relocalization attempt: {statistics.median(att_ms):.3f} ms synchronised "
           f"(median of 10; min {min(att_ms):.3f}, max {max(att_ms):.3f}), launches per attempt "
-          f"{per_att}; alone {k_att:.1f} device kernels and {us_att:.2f} us of device time per "
+          f"{per_att}; alone {_nm(k_att, '.1f')} device kernels and {_nm(us_att, '.2f', ' us')} of "
+          f"device time per "
           f"attempt; a keyframe's BoW row {statistics.median(bow_ms):.3f} ms synchronised "
           f"(median of 20)", flush=True)
 
@@ -2407,7 +2509,7 @@ def main() -> int:
                             sum(N8r * (180 * ne + 27 * 25 + 4 * 30) for ne in st8r["normal_eqs"])))
     for name, r in (("K10 " + tag10, k10r), (f"K8 S={S8r} N={N8r} (relocalization)", k8r)):
         lib = "null" if r.get("lib") is None else f"{r['lib']:.4f}"
-        print(f"{name}: kernel {r['ms']:.4f} ms, profiler {r['us']:.2f} us per launch, plain "
+        print(f"{name}: kernel {r['ms']:.4f} ms, profiler {_nm(r['us'], '.2f', ' us')} per launch, plain "
               f"{r['plain']:.4f} ms, library {lib} ms, bound {r['bound'][0]:.6f} ms "
               f"({r['bound'][1]})", flush=True)
 
@@ -2489,6 +2591,7 @@ def main() -> int:
     del s9, s9d, s9e, vo9, vo9d, vo9e
 
     # -- 5h. main path 10: the keyframe archive and active-window loop closing --
+    print(f"clock: phase 5h starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     from ygz_slam_tpu_torch.map import archive as arc_mod
     from ygz_slam_tpu_torch.models import archive_workload as aw
 
@@ -2566,8 +2669,8 @@ def main() -> int:
     print(f"main path 10a attempts: {[round(x, 3) for x in att10['ms']]} ms synchronised "
           f"({vo10.stats['reloc_attempts']} active-window attempts, each followed by an archive "
           f"attempt); the archive attempt alone: "
-          f"{sum(v[1] for v in prof10.values()) / 10:.1f} device kernels and "
-          f"{sum(v[0] for v in prof10.values()) / 10:.2f} us of device time", flush=True)
+          f"{_nm(_totals(prof10, 10)[0], '.1f')} device kernels and "
+          f"{_nm(_totals(prof10, 10)[1], '.2f', ' us')} of device time", flush=True)
 
     # (b) The archive at scale: views of capacity 16, 128, 512 and 2048 filled
     # with 10a's rows (2048 rows take the BoW prefilter to 1024).
@@ -2622,7 +2725,7 @@ def main() -> int:
                             reloc_ms=statistics.median(whole))
         print(f"main path 10b capacity {cap}: {scored} rows scored in {n_launch} K10 launch(es) of "
               f"{qd10.shape[0]} x {C * vo10.o.map_F} ({qd10.shape[0] * C * vo10.o.map_F * 4} "
-              f"bytes of matrix each): K10 {k10_ms:.4f} ms, profiler {k10_us:.2f} us, bound "
+              f"bytes of matrix each): K10 {k10_ms:.4f} ms, profiler {_nm(k10_us, '.2f', ' us')}, bound "
               f"{bound[0]:.6f} ms ({bound[1]}), library {lib_ms:.4f} ms (torch.cdist p=0 on the "
               f"unpacked bits); the retrieval scores {score_ms:.4f} ms; one whole "
               f"relocalize_archive {statistics.median(whole):.3f} ms synchronised (median of 5)"
@@ -2706,8 +2809,8 @@ def main() -> int:
         prof_p = _profile(torch, lambda: real_pass(cam_p, o_p, m_p, fixed_p, loop=lp), 1,
                           f"one mapping pass {tag}")
         print(f"main path 10c one recorded mapping pass {tag}: {ms_pass:.3f} ms synchronised, "
-              f"{sum(v[1] for v in prof_p.values())} device kernels, "
-              f"{sum(v[0] for v in prof_p.values()):.1f} us of device time", flush=True)
+              f"{_nm(_totals(prof_p)[0], '.0f')} device kernels, "
+              f"{_nm(_totals(prof_p)[1], '.1f', ' us')} of device time", flush=True)
     with kernels.record_launches() as rec10:
         real_pass(cam_p, o_p, m_p, fixed_p, loop=loop_p)
     a10l = [a for f, a in rec10 if f is k10.distance_matrix]
@@ -2803,6 +2906,7 @@ def main() -> int:
     del vo10, vo10b, s10c, s10r
 
     # -- 5i. main path 11: the archive loops and async mapping ------------------
+    print(f"clock: phase 5i starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     from ygz_slam_tpu_torch.geometry import sim3 as sim3_mod
     from ygz_slam_tpu_torch.solvers import pose_graph as pg_mod
     from ygz_slam_tpu_torch.utils import np_se3
@@ -2958,11 +3062,11 @@ def main() -> int:
     ms_clo = _time_host(torch, lambda: real_clo(*a_c, **kw_c))
     prof11c = _profile(torch, lambda: real_clo(*a_c, **kw_c), 1,
                        f"one global Sim(3) closure (P, EP) {rec11['clo_size'][0]}")
-    print(f"main path 11a one archive loop detection: {sum(v[1] for v in prof11.values()) / 10:.1f} "
-          f"device kernels, {sum(v[0] for v in prof11.values()) / 10:.2f} us of device time; one "
+    print(f"main path 11a one archive loop detection: {_nm(_totals(prof11, 10)[0], '.1f')} "
+          f"device kernels, {_nm(_totals(prof11, 10)[1], '.2f', ' us')} of device time; one "
           f"global closure at (P, EP) {rec11['clo_size'][0]}: {ms_clo:.3f} ms synchronised, "
-          f"{sum(v[1] for v in prof11c.values())} device kernels, "
-          f"{sum(v[0] for v in prof11c.values()):.1f} us of device time", flush=True)
+          f"{_nm(_totals(prof11c)[0], '.0f')} device kernels, "
+          f"{_nm(_totals(prof11c)[1], '.1f', ' us')} of device time", flush=True)
 
     # (b) tests/test_map_merge.py's reset-and-revisit at 640x480.
     cam_mg, frames_mg, _ = aw.merge_frames((480, 640), device=dev)
@@ -3166,12 +3270,296 @@ def main() -> int:
     print(f"main path 11e one global closure over {n_arc} archived and {n_act} active keyframes "
           f"(P, EP) ({size_b['P']}, {size_b['EP']}), 25 iterations: {statistics.median(ms_b):.2f} "
           f"ms synchronised (median of 3; {[round(x, 2) for x in ms_b]}), "
-          f"{sum(v[1] for v in prof11e.values())} device kernels, "
-          f"{sum(v[0] for v in prof11e.values()) / 1e3:.3f} ms of device time", flush=True)
+          f"{_nm(_totals(prof11e)[0], '.0f')} device kernels, "
+          f"{_nm(_totals(prof11e, 1e3)[1], '.3f', ' ms')} of device time", flush=True)
     print(f"main path 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    # Path 11a's map (its archive rows included) for path 12c.
+    from ygz_slam_tpu_torch.system import system as sysmod
+
+    tmp12 = tempfile.mkdtemp(prefix="ygz_map_")
+    map11 = os.path.join(tmp12, "out_and_back.npz")
+    sysmod.save_map(vo11, map11)
+    arc11_rows = vo11.archive.count
     del vo11, vo11b, vo11m, runs11c, s_a, s11d, vo11d
 
+    # -- 5j. main path 12: depth sensors and the map file ----------------------
+    print(f"clock: phase 5j starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    from ygz_slam_tpu_torch.system import trajectory as traj
+    from ygz_slam_tpu_torch.system import viewer
+    from ygz_slam_tpu_torch.system.config import VO_CONFIG_KEYS, Config, apply_to
+    from ygz_slam_tpu_torch.system.system import Sensor
+    from ygz_slam_tpu_torch.utils.datasets import SyntheticDataset
+
+    t12 = time.perf_counter()
+    ds12 = SyntheticDataset(cam_m, n_frames=N_SENSOR, shape=SENSOR_SHAPE, with_depth=True,
+                            device=dev)
+    fr12 = list(ds12)
+    gt12 = [fd.T_cw_gt for fd in fr12]
+
+    def sensor_gate(res):
+        """(GOOD frames, rigid ATE over them)."""
+        good = [k for k, r in enumerate(res) if r.status is vo_mod.Status.GOOD]
+        ate = traj.ate_rmse(traj.camera_centers([res[k].T_cw for k in good]),
+                            traj.camera_centers([gt12[k] for k in good]), with_scale=False)
+        return len(good), ate
+
+    def timed_insertions(vo, label):
+        """The VO's sensor keyframe insertions, each up to its mapping pass
+        (which then runs as it would): the first under the profiler, the rest
+        synchronised and timed."""
+        rec = {"ms": [], "prof": None, "profiled": False}
+        real = vo._insert_sensor_keyframe
+
+        def insert(pyr, T_cw, tm):
+            finish, pending = vo._finish_insert, []
+            vo._finish_insert = lambda *a: pending.append(a)
+            try:
+                if not rec["profiled"]:
+                    rec["profiled"] = True
+                    rec["prof"] = _profile(torch, lambda: real(pyr, T_cw, tm), 1,
+                                           f"{label}: one sensor keyframe insertion", again=False)
+                else:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    real(pyr, T_cw, tm)
+                    torch.cuda.synchronize()
+                    rec["ms"].append(1e3 * (time.perf_counter() - t))
+            finally:
+                vo._finish_insert = finish
+            finish(*pending[0])
+
+        vo._insert_sensor_keyframe = insert
+        return rec
+
+    def sensor_run(system, track, frames):
+        """Every frame through `track` under `instrumented`, the launch
+        counts checked: (results, each frame's return latency in ms on the
+        host clock, launches)."""
+        lat = []
+
+        def run():
+            out = []
+            for f in frames:
+                t = time.perf_counter()
+                out.append(track(*f))
+                lat.append(1e3 * (time.perf_counter() - t))
+            system.shutdown()
+            return out
+
+        (res, _, launches, n_tr), rec = instrumented(run, timed=False)
+        want = want_loops(n_tr, system.vo, rec)
+        if launches != want:
+            raise AssertionError(f"main path 12: launch counts {launches}, expected {want}")
+        return res, lat, launches
+
+    # (a) RGBD: the JAX SyntheticDataset's defaults at 640x480 through
+    # System(sensor=RGBD) with VOOptions(); tests/test_system.py's gates.  The
+    # camera and the options come through the configuration (`Config.set_dict`:
+    # the card's machine has no PyYAML for a file), which sets path 4's
+    # camera and the default keyframe interval.
+    Config.set_dict({"camera": {"fx": cam_m.fx, "fy": cam_m.fy, "cx": cam_m.cx, "cy": cam_m.cy},
+                     "keyframe": {"min_frames": vo_mod.VOOptions().kf_min_frames}})
+    try:
+        s12 = System(sensor=Sensor.RGBD, options=apply_to(vo_mod.VOOptions(), VO_CONFIG_KEYS),
+                     device=dev)
+    finally:
+        Config.clear()
+    if s12.vo.cam != cam_m or s12.vo.o != vo_mod.VOOptions():
+        raise AssertionError("main path 12a: the configuration did not give path 4's camera and "
+                             "VOOptions()")
+    ins12 = timed_insertions(s12.vo, "main path 12a")
+    res12a, lat12a, launches12a = sensor_run(
+        s12, s12.track_rgbd, [(fd.gray, fd.depth, fd.timestamp) for fd in fr12])
+    good12a, ate12a = sensor_gate(res12a)
+    k12, us12 = _totals(ins12["prof"])
+    ok12a = good12a >= 0.75 * N_SENSOR and ate12a < SENSOR_ATE
+    print(f"main path 12a (RGBD, SyntheticDataset {SENSOR_SHAPE[1]}x{SENSOR_SHAPE[0]}, "
+          f"{N_SENSOR} frames, VOOptions()): {good12a} GOOD (>= 75%), rigid ATE {ate12a!r} m "
+          f"(< {SENSOR_ATE}): {'pass' if ok12a else 'FAIL'}; return latency "
+          f"{statistics.median(lat12a):.2f} ms per frame (median; mean {statistics.mean(lat12a):.2f} with the keyframes, one "
+          f"under the profiler); a sensor keyframe insertion "
+          f"{statistics.median(ins12['ms'] or [float('nan')]):.2f} ms synchronised (median of "
+          f"{len(ins12['ms'])}), "
+          f"{_nm(k12, '.0f')} device kernels and {_nm(us12, '.1f', ' us')} of device time (the "
+          f"first); path 4's "
+          f"monocular keyframe cycle {kf_cycle_ms4[3]:.2f} ms; stats {dict(s12.vo.stats)}; "
+          f"launches {launches12a}", flush=True)
+    if not ok12a:
+        raise AssertionError("main path 12a failed its gates")
+    # The first DENSE_FRAMES frames with the DENSE map: every cloud on the plane.
+    s12d = System(camera=cam_m, sensor=Sensor.RGBD,
+                  options=vo_mod.VOOptions(map_type=vo_mod.MapType.DENSE), device=dev)
+    _, _, launches12d = sensor_run(
+        s12d, s12d.track_rgbd, [(fd.gray, fd.depth, fd.timestamp) for fd in fr12[:DENSE_FRAMES]])
+    dense = s12d.vo.dense_cloud
+    z12 = np.concatenate(dense)[:, 2] if dense else np.zeros(0)
+    cloud12 = s12d.export_point_cloud()
+    ply12 = os.path.join(tmp12, "cloud.ply")
+    viewer.save_ply(ply12, cloud12)
+    with open(ply12) as f:
+        n_ply = sum(1 for _ in f) - 7                         # the header's 7 lines
+    ok12d = (len(dense) >= 1 and bool(np.all(np.abs(z12 - 3.0) <= 0.05))
+             and n_ply == len(cloud12) == int(s12d.vo.server.state.pt_valid.sum()) + len(z12))
+    print(f"main path 12a DENSE, frames 0-{DENSE_FRAMES - 1}: {len(dense)} clouds of "
+          f"{[len(c) for c in dense]} points, z in [{z12.min():.4f}, {z12.max():.4f}] (plane 3 "
+          f"+- 0.05); the exported cloud ({len(cloud12)} points with the landmarks) in "
+          f"`save_ply`'s file: {n_ply} vertices: {'pass' if ok12d else 'FAIL'}; launches "
+          f"{launches12d}", flush=True)
+    if not ok12d:
+        raise AssertionError("main path 12a's DENSE cloud is off the plane")
+
+    def sensor_start(device, **kw):
+        """Frame 0 through a fresh VisualOdometry(VOOptions()) on `device`:
+        keyframe 0's feature pixels, depths and landmark positions (CPU)."""
+        vo = vo_mod.VisualOdometry(cam_m, vo_mod.VOOptions(), device=device)
+        vo.add_frame(fr12[0].gray.to(device), 0.0, **{k: v.to(device) for k, v in kw.items()})
+        m = vo.server.state
+        fp, fv = m.feat_point[0].cpu(), m.feat_valid[0].cpu()
+        pos = torch.where((fp >= 0)[:, None], m.pt_pos.cpu()[fp.clamp(min=0).long()], 0.0)
+        return m.feat_px[0].cpu()[fv], m.feat_depth[0].cpu()[fv], pos[fv]
+
+    def compare_starts(label, **kw):
+        (px_c, d_c, p_c), (px_h, d_h, p_h) = sensor_start(dev, **kw), sensor_start("cpu", **kw)
+        dist = (px_c[:, None] - px_h[None]).abs().amax(-1)
+        hit = dist.amin(1) <= 1e-3
+        j = dist.argmin(1)[hit]
+        same = ((d_c[hit] > 0) == (d_h[j] > 0)).float().mean().item()
+        both = (d_c[hit] > 0) & (d_h[j] > 0)
+        dp = (p_c[hit][both] - p_h[j][both]).abs().max().item()
+        ok = hit.float().mean().item() >= 0.95 and same >= MIN_MASK_AGREE and dp <= TOL_POSE
+        print(f"main path 12 {label} start on the card against the CPU: "
+              f"{hit.float().mean().item():.4f} of {len(px_c)} features at the same pixel, the "
+              f"sensor decision equal on {same:.4f}, landmarks within {dp:.3e} m (<= {TOL_POSE}): "
+              f"{'pass' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"main path 12: the {label} start differs on the card")
+
+    compare_starts("12a RGBD", depth=fr12[0].depth)
+
+    # (b) STEREO: the same trajectory rendered as a rectified pair.
+    shift = SE3(torch.eye(3, device=dev), torch.tensor([-BASELINE, 0.0, 0.0], device=dev))
+    right12 = [ds12.scene.render(shift.compose(T), SENSOR_SHAPE) for T in gt12]
+    ms_st, st_args, real_ms = [], [], vo_mod.match_stereo
+
+    def timed_match(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_ms(*a, **kw)
+        torch.cuda.synchronize()
+        ms_st.append(1e3 * (time.perf_counter() - t))
+        if not st_args:
+            st_args.append(([x.clone() if isinstance(x, torch.Tensor) else x for x in a], kw))
+        return out
+
+    s12s = System(camera=cam_m, sensor=Sensor.STEREO, device=dev)
+    vo_mod.match_stereo = timed_match
+    try:
+        res12b, lat12b, launches12b = sensor_run(
+            s12s, s12s.track_stereo, [(fd.gray, r, fd.timestamp) for fd, r in zip(fr12, right12)])
+    finally:
+        vo_mod.match_stereo = real_ms
+    good12b, ate12b = sensor_gate(res12b)
+    a_st, kw_st = st_args[0]
+    k_st, us_st = _totals(_profile(torch, lambda: real_ms(*a_st, **kw_st), 1,
+                                    "main path 12b: one match_stereo call"))
+    on_card = real_ms(*a_st, **kw_st)
+    on_cpu = real_ms(*[x.cpu() if isinstance(x, torch.Tensor) else x for x in a_st], **kw_st)
+    agree = (on_card.ok.cpu() == on_cpu.ok).float().mean().item()
+    both = on_card.ok.cpu() & on_cpu.ok
+    rel = ((on_card.depth.cpu() - on_cpu.depth).abs() / on_cpu.depth)[both]
+    ok12b = (14 * good12b >= 11 * N_SENSOR and ate12b < SENSOR_ATE and agree >= MIN_MASK_AGREE
+             and (rel <= TOL_STEREO).float().mean().item() >= MIN_MASK_AGREE)
+    print(f"main path 12b (STEREO, the same trajectory as a rectified pair, baseline {BASELINE} "
+          f"m): {good12b} GOOD (>= 11/14), rigid ATE {ate12b!r} m (< {SENSOR_ATE}); return "
+          f"latency {statistics.median(lat12b):.2f} ms per frame (median; mean "
+          f"{statistics.mean(lat12b):.2f}); match_stereo {len(ms_st)} calls, "
+          f"{statistics.median(ms_st):.2f} ms synchronised (median), {_nm(k_st, '.0f')} device "
+          f"kernels and {_nm(us_st, '.1f', ' us')} of device time per call; the first call on the card against the CPU: "
+          f"ok flags equal on {agree:.4f} ({int(on_card.ok.sum())} accepted), depth where both "
+          f"accept within {rel.max().item():.3e} relative (<= {TOL_STEREO} on "
+          f"{(rel <= TOL_STEREO).float().mean().item():.4f}): {'pass' if ok12b else 'FAIL'}; "
+          f"stats {dict(s12s.vo.stats)}; launches {launches12b}", flush=True)
+    if not ok12b:
+        raise AssertionError("main path 12b failed its gates")
+    compare_starts("12b STEREO", right=right12[0])
+
+    # (c) The map file: 12a's map and path 11a's, written on the card, loaded
+    # on the card and on the CPU and written again (bit for bit), then path
+    # 11a's map resumed by relocalization.
+    def npz(path):
+        with np.load(path) as f:
+            return dict(f)
+
+    def same_files(a, b):
+        return set(a) == set(b) and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                                        for k in a)
+
+    p12 = os.path.join(tmp12, "rgbd.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s12.save_map(p12)
+    save_ms = 1e3 * (time.perf_counter() - t)
+    rep12 = {}
+    for label, path, make in (
+            ("12a RGBD", p12, lambda d: System(camera=cam_m, sensor=Sensor.RGBD, device=d)),
+            ("11a out-and-back", map11,
+             lambda d: System(camera=cam_o, options=aw.loop_options(), device=d))):
+        data = npz(path)
+        out = {}
+        for d in (dev, "cpu"):
+            s_l = make(d)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s_l.load_map(path)
+            torch.cuda.synchronize()
+            out[str(d)] = 1e3 * (time.perf_counter() - t)
+            again = os.path.join(tmp12, f"again_{d}.npz")
+            s_l.save_map(again)
+            out[f"same_{d}"] = same_files(data, npz(again))
+            out[f"s_{d}"] = s_l
+        rows = out[f"s_{dev}"].vo.archive.count
+        rep12[label] = (out, rows, os.path.getsize(path))
+        print(f"main path 12c {label} map file: {os.path.getsize(path)} bytes, {len(data)} arrays, "
+              f"{rows} archive rows; load_map {out[str(dev)]:.1f} ms on the card, "
+              f"{out['cpu']:.1f} ms on the CPU; written again equal bit for bit: card "
+              f"{out[f'same_{dev}']}, CPU {out['same_cpu']}", flush=True)
+        if not (out[f"same_{dev}"] and out["same_cpu"]):
+            raise AssertionError(f"main path 12c: {label}'s map does not round-trip bit for bit")
+    loaded = rep12["12a RGBD"][0][f"s_{dev}"].vo
+    same_state = (all(torch.equal(a, b) for a, b in zip(loaded.server.state, s12.vo.server.state))
+                  and torch.equal(loaded.kf_images, s12.vo.kf_images)
+                  and torch.equal(loaded.kf_bow, s12.vo.kf_bow)
+                  and torch.equal(loaded.kf_nodes, s12.vo.kf_nodes)
+                  and same_files(loaded.archive.state_dict(), s12.vo.archive.state_dict()))
+    if not same_state or rep12["11a out-and-back"][1] != arc11_rows or arc11_rows == 0:
+        raise AssertionError(f"main path 12c: the loaded map differs from the saved one "
+                             f"({same_state}, archive rows {rep12['11a out-and-back'][1]} of "
+                             f"{arc11_rows})")
+    # Resume: the loaded out-and-back map tracks the frame of its third
+    # keyframe and the next (test_resume_from_saved_map's gates).
+    s_r = rep12["11a out-and-back"][0][f"s_{dev}"]
+    fid_r = int(s_r.vo.server.state.kf_id[s_r.vo.server.kf_used[2]])
+    (res12c, _, launches12c, n_tr12c), rec12c = instrumented(
+        lambda: [s_r.track_monocular(frames_o[fid_r + i], 100.0 + i) for i in range(2)],
+        timed=False)
+    s_r.shutdown()
+    want12c = want_loops(n_tr12c, s_r.vo, rec12c)
+    ok12c = (res12c[0].status is vo_mod.Status.GOOD and res12c[1].status is vo_mod.Status.GOOD
+             and res12c[1].n_inliers > 50 and launches12c == want12c
+             and launches12c["distance_matrix"] >= 1 and launches12c["pose_ba_batch_gn"] >= 1)
+    print(f"main path 12c resume of the out-and-back map at frame {fid_r}: "
+          f"{res12c[0].status.name} ({res12c[0].n_inliers} inliers), then "
+          f"{res12c[1].status.name} ({res12c[1].n_inliers}, > 50): {'pass' if ok12c else 'FAIL'}; "
+          f"save_map {save_ms:.1f} ms (12a's map); stats {dict(s_r.vo.stats)}; launches "
+          f"{launches12c} (expected {want12c})", flush=True)
+    if not ok12c:
+        raise AssertionError("main path 12c: the loaded map did not resume")
+    shutil.rmtree(tmp12, ignore_errors=True)
+    print(f"main path 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    del s12, s12d, s12s, s_r, rep12, loaded, fr12, right12
+
     # -- 6. profile windows ----------------------------------------------------
+    print(f"clock: phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     prof = {}
     prof[1] = _profile(torch, lambda: tr.track_frames(state, frames[:30], T0), 30,
                        "main path 1")
@@ -3181,7 +3569,7 @@ def main() -> int:
     prof[2] = _profile(torch, lambda: bm.track_batch_frames(bstate, frames_b[:10], T0b), 10,
                        f"main path 2 (per batched frame of {S_BATCH} sequences)")
     prof[3] = _profile(torch, lambda: vw.track_vo_frames(vstate, vframes[1:31]), 30,
-                       "main path 3 (30 frames with 3 keyframe cycles)")
+                       "main path 3 (30 frames with 3 keyframe cycles)", again=False)
     # Path 4 under variants 2 and 1, past init, over a window with keyframes in it.
     for variant in (2, 1):
         sparse_align.FUSED_VARIANT = variant
@@ -3194,7 +3582,7 @@ def main() -> int:
             torch, lambda: [sysm.track_monocular(frames_m[k], float(k))
                             for k in range(*P4_PROFILE)],
             P4_PROFILE[1] - P4_PROFILE[0], f"main path 4, FUSED_VARIANT {variant} (frames "
-            f"{P4_PROFILE[0]}-{P4_PROFILE[1] - 1})", ops=ops4)
+            f"{P4_PROFILE[0]}-{P4_PROFILE[1] - 1})", ops=ops4, again=False)
         n_kf_win = sysm.vo.stats["keyframes"] - n_kf0
         chol = sorted(k for k in ops4 if "cholesky" in k)
         print(f"main path 4 profile window: {n_kf_win} keyframes in it; operators named "
@@ -3223,13 +3611,15 @@ def main() -> int:
                if chunked else
                (lambda: [s7.track_monocular(frames_b6[k], ts_b6[k]) for k in range(b7, c7)]))
         prof[key] = _profile(torch, run, c7 - b7, f"main path {key}, BoxScene "
-                             f"{'chunked' if chunked else 'per frame'} (frames {b7}-{c7 - 1})")
-        n_k3 = sum(v[1] for name, v in prof[key].items() if "sparse_align_mega_kernel" in name)
+                             f"{'chunked' if chunked else 'per frame'} (frames {b7}-{c7 - 1})",
+                             again=False)
+        n_k3 = None if prof[key] is None else sum(
+            v[1] for name, v in prof[key].items() if "sparse_align_mega_kernel" in name)
         computed = s7.vo.chunk_stats["frames_computed"] - cs0.get("frames_computed", 0)
         discarded = s7.vo.chunk_stats["frames_discarded"] - cs0.get("frames_discarded", 0)
         print(f"main path {key} profile window: {s7.vo.stats['keyframes'] - n_kf0} keyframes, "
               f"{computed} frame steps computed in chunks ({discarded} discarded); K3 launches "
-              f"the profiler saw: {n_k3} (frames through `track`: {c7 - b7 + discarded})",
+              f"the profiler saw: {_nm(n_k3, 'd')} (frames through `track`: {c7 - b7 + discarded})",
               flush=True)
         del s7
     # Path 8 per frame over path 6b's window (the kernels the seed update
@@ -3243,7 +3633,7 @@ def main() -> int:
     prof["8"] = _profile(torch, lambda: [s8w.track_monocular(frames_b8[k], ts_b8[k])
                                          for k in range(a8, b8)],
                          b8 - a8, f"main path 8, BoxScene with the depth filter, per frame "
-                         f"(frames {a8}-{b8 - 1})")
+                         f"(frames {a8}-{b8 - 1})", again=False)
     n_kf_w8 = s8w.vo.stats["keyframes"] - n_kf0
     seed_ms, seed_args = [], []
     real_update = vo_mod.update_seeds
@@ -3270,18 +3660,15 @@ def main() -> int:
     prof["8seed"] = _profile(torch, lambda: [real_update(*a_, **kw_) for _ in range(20)], 20,
                              "one seed update (update_seeds, 128 seeds) x 20")
 
-    def per_frame(window, n):
-        return (sum(v[1] for v in prof[window].values()) / n,
-                sum(v[0] for v in prof[window].values()) / n)
-
-    k8, us8 = per_frame("8", b8 - a8)
-    k6, us6 = per_frame("6b", P7_PROFILE[2] - P7_PROFILE[1])
-    kseed, usseed = per_frame("8seed", 20)
+    k8, us8 = _totals(prof["8"], b8 - a8)
+    k6, us6 = _totals(prof["6b"], P7_PROFILE[2] - P7_PROFILE[1])
+    kseed, usseed = _totals(prof["8seed"], 20)
     print(f"main path 8's seed update: {statistics.median(seed_ms):.3f} ms synchronised per "
           f"frame (median of {len(seed_ms)} frames {b8}-{c8 - 1}; min {min(seed_ms):.3f}, max "
-          f"{max(seed_ms):.3f}); alone {kseed:.1f} kernels and {usseed:.2f} us of device time per "
-          f"update; window {a8}-{b8 - 1} per frame: path 8 {k8:.1f} kernels, {us8:.1f} us busy "
-          f"({n_kf_w8} keyframes), path 6b {k6:.1f} kernels, {us6:.1f} us busy", flush=True)
+          f"{max(seed_ms):.3f}); alone {_nm(kseed, '.1f')} kernels and "
+          f"{_nm(usseed, '.2f', ' us')} of device time per update; window {a8}-{b8 - 1} per frame: "
+          f"path 8 {_nm(k8, '.1f')} kernels, {_nm(us8, '.1f', ' us')} busy ({n_kf_w8} keyframes), "
+          f"path 6b {_nm(k6, '.1f')} kernels, {_nm(us6, '.1f', ' us')} busy", flush=True)
     del s8w
     # Each kernel's device time per launch in the profiler, in the window
     # whose shapes its phase-2 CUDA-event time was taken at, beside that
@@ -3296,13 +3683,18 @@ def main() -> int:
                  ("K9v1", "4v1", "level_align_v1_kernel", 3),
                  ("K9v2", "4v2", "level_align_v2_kernel", 3), ("K11", 5, "track_fused_kernel", 1))
     for k, window, sym, per_unit in prof_rows:
-        hits = [v for key, v in prof[window].items() if sym in key]
-        if not hits:
-            raise AssertionError(f"the profiler saw no {sym} in main path {window}'s window")
-        us = sum(h[0] for h in hits) / sum(h[1] for h in hits)
-        print(f"{k} {sym}: profiler device {us:.2f} us per launch ({us * per_unit:.2f} per "
-              f"{per_unit} launch(es), main path {window}'s window); CUDA-event interval "
-              f"{report[k]['ms'] * 1e3:.2f} us per {per_unit} launch(es)", flush=True)
+        if prof[window] is None:
+            print(f"{k} {sym}: profiler device time not measured (main path {window}'s window "
+                  f"recorded no device event); CUDA-event interval "
+                  f"{report[k]['ms'] * 1e3:.2f} us per {per_unit} launch(es)", flush=True)
+        else:
+            hits = [v for key, v in prof[window].items() if sym in key]
+            if not hits:
+                raise AssertionError(f"the profiler saw no {sym} in main path {window}'s window")
+            us = sum(h[0] for h in hits) / sum(h[1] for h in hits)
+            print(f"{k} {sym}: profiler device {us:.2f} us per launch ({us * per_unit:.2f} per "
+                  f"{per_unit} launch(es), main path {window}'s window); CUDA-event interval "
+                  f"{report[k]['ms'] * 1e3:.2f} us per {per_unit} launch(es)", flush=True)
         if k == "K9v1":
             for part, pix, red_, clu, sol, body, n_pass in e2_report[k]["splits"]:
                 print(f"  K9v1 at frame {E2_FRAME}'s levels 2, 1, 0: cluster {part.cluster}, "
@@ -3311,6 +3703,7 @@ def main() -> int:
                       f"solve and retraction {sol:.2f}), body {body:.2f} us", flush=True)
 
     # -- 7. result lines ------------------------------------------------------
+    print(f"clock: phase 7 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     spilled = {k: v for k, v in spills.items() if k in NO_SPILL and v}
     if set(NO_SPILL) - set(spills) or spilled:
         raise AssertionError(f"ptxas: spills in {spilled}, or no report for "
@@ -3323,7 +3716,8 @@ def main() -> int:
                 + launches8[name] + launches8c[name] + launches9a[name] + launches9d[name]
                 + launches9e[name] + launches10a[name] + launches10c[name] + launches11a[name]
                 + launches11b[name] + sum(l_[name] for l_ in launches11c_all)
-                + launches11d[name])
+                + launches11d[name] + launches12a[name] + launches12d[name] + launches12b[name]
+                + launches12c[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

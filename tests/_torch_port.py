@@ -158,14 +158,122 @@ def jax_pnp_draws(mask, cand, n_hyp: int = 256, key: int = 17) -> torch.Tensor:
 
 def jax_vo_options(opts) -> dict:
     """The JAX VOOptions keyword arguments of a port VOOptions: the fields
-    both define, with the port's values."""
+    both define, with the port's values (an enum as the JAX package's member
+    of the same name)."""
     import dataclasses
+    import enum
 
     from ygz_slam_tpu.models import visual_odometry as jvo
 
+    def jax_value(v):
+        return getattr(jvo, type(v).__name__)[v.name] if isinstance(v, enum.Enum) else v
+
     names = {f.name for f in dataclasses.fields(jvo.VOOptions)}
-    return {f.name: getattr(opts, f.name) for f in dataclasses.fields(opts)
-            if f.name in names and f.name != "vo_type"}
+    return {f.name: jax_value(getattr(opts, f.name)) for f in dataclasses.fields(opts)
+            if f.name in names}
+
+
+# -- the depth-sensor VO runs (tests/test_torch_sensors.py, test_torch_stereo.py) --
+
+SENSOR_MIN_COINCIDE = 0.95   # start features at the same pixel (Shi-Tomasi's float32 noise)
+SENSOR_TOL_PX = 1e-3         # px: "the same pixel"
+SENSOR_TOL_POS = 1e-5        # start landmarks and feature depths, metres
+SENSOR_TOL_TRAJ = 1e-2       # camera centres, metres (test_torch_mono_vo.py's bound)
+SENSOR_ATE_MAX = 0.03        # tests/test_system.py, tests/test_stereo.py: rigid ATE, metres
+
+
+def _sensor_options():
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    return (tvo.VOOptions(kf_min_frames=5, kf_max_trans=0.05, use_vocabulary=False,
+                          archive_map=False, loop_closing=False, async_mapping=False),
+            tvo.VOOptions(kf_min_frames=5, kf_max_trans=0.05))
+
+
+# The parity runs' options (the port's configuration: no vocabulary, archive
+# or async mapping) and the JAX sensor tests' own (the defaults, faster keyframes).
+SENSOR_PARITY_OPTS, SENSOR_GATE_OPTS = _sensor_options()
+
+
+def sensor_runs(cam, frames, kw_of, opts):
+    """The port's and the JAX package's VisualOdometry on the CPU over
+    `frames`, each frame's keyword arguments from kw_of(frame) (numpy for
+    the JAX side): for each, (status names, params7 per frame, keyframe
+    frames, the map after frame 0 as numpy, the VO)."""
+    from ygz_slam_tpu.models import visual_odometry as jvo
+    from ygz_slam_tpu_torch import convert
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    out = {}
+    for name in ("port", "jax"):
+        vo = (tvo.VisualOdometry(cam, opts, device="cpu") if name == "port"
+              else jvo.VisualOdometry(jax_camera(cam), jvo.VOOptions(**jax_vo_options(opts))))
+        names, kfs, m0 = [], [], None
+        for k, f in enumerate(frames):
+            n_kf = vo.stats["keyframes"]
+            kw = kw_of(f)
+            if name == "jax":
+                kw = {key: np32(v) for key, v in kw.items()}
+            r = vo.add_frame(timestamp=float(k), **kw)
+            names.append(r.status.name)
+            if vo.stats["keyframes"] > n_kf:
+                kfs.append(k)
+            if k == 0:
+                m0 = (convert.map_state_to_numpy(vo.server.state) if name == "port"
+                      else {f_: np.asarray(v) for f_, v in vo.server.state._asdict().items()})
+        out[name] = (names, np.stack([np32(p) for _, p in vo.trajectory]), kfs, m0, vo)
+    return out
+
+
+def compare_sensor_start(m_port: dict, m_jax: dict, label: str) -> None:
+    """Keyframe 0's features coincide by pixel on >= SENSOR_MIN_COINCIDE,
+    with the same sensor decision, and depth and landmark within
+    SENSOR_TOL_POS where they do."""
+    keys = ("feat_px", "feat_valid", "feat_depth", "feat_point")
+    fp, fj = {k: m_port[k][0] for k in keys}, {k: m_jax[k][0] for k in keys}
+    ip, ij = np.where(fp["feat_valid"])[0], np.where(fj["feat_valid"])[0]
+    d = np.abs(fp["feat_px"][ip][:, None] - fj["feat_px"][ij][None]).max(-1)
+    pairs = [(a, ij[b]) for a, b, h in zip(ip, d.argmin(1), d.min(1) <= SENSOR_TOL_PX) if h]
+    share = len(pairs) / max(len(ip), len(ij))
+    same_ok = np.mean([(fp["feat_point"][a] >= 0) == (fj["feat_point"][b] >= 0) for a, b in pairs])
+    both = [(a, b) for a, b in pairs if fp["feat_point"][a] >= 0 and fj["feat_point"][b] >= 0]
+    d_depth = max(abs(fp["feat_depth"][a] - fj["feat_depth"][b]) for a, b in both)
+    d_pos = max(np.abs(m_port["pt_pos"][fp["feat_point"][a]]
+                       - m_jax["pt_pos"][fj["feat_point"][b]]).max() for a, b in both)
+    print(f"{label} start: {len(ip)} port / {len(ij)} JAX features, {share:.4f} coincide by "
+          f"pixel, the sensor decision equal on {same_ok:.4f} of them; {len(both)} landmarks in "
+          f"both: depth within {d_depth:.3e}, position within {d_pos:.3e} m (tolerance "
+          f"{SENSOR_TOL_POS})")
+    assert share >= SENSOR_MIN_COINCIDE and same_ok >= SENSOR_MIN_COINCIDE
+    assert d_depth <= SENSOR_TOL_POS and d_pos <= SENSOR_TOL_POS
+    assert int(m_port["pt_valid"].sum()) == int((fp["feat_point"] >= 0).sum())
+
+
+def compare_sensor_run(runs: dict, label: str) -> None:
+    """Statuses and keyframe frames equal (at least one keyframe), camera
+    centres within SENSOR_TOL_TRAJ."""
+    from ygz_slam_tpu_torch.system import trajectory as traj
+
+    (n_p, T_p, kf_p, _, _), (n_j, T_j, kf_j, _, _) = runs["port"], runs["jax"]
+    d = float(np.abs(traj.camera_centers(T_p) - traj.camera_centers(T_j)).max())
+    print(f"{label}: statuses {''.join(x[0] for x in n_p)} (JAX {''.join(x[0] for x in n_j)}), "
+          f"keyframes at {kf_p} (JAX {kf_j}), camera centres within {d:.3e} m "
+          f"(tolerance {SENSOR_TOL_TRAJ})")
+    assert n_p == n_j and kf_p == kf_j and len(kf_p) >= 1
+    assert d <= SENSOR_TOL_TRAJ
+
+
+def sensor_gate(results, gt_poses, n_min: int, label: str) -> None:
+    """At least n_min GOOD frames and a rigid ATE < SENSOR_ATE_MAX over them."""
+    from ygz_slam_tpu_torch.models.visual_odometry import Status
+    from ygz_slam_tpu_torch.system import trajectory as traj
+
+    good = [k for k, r in enumerate(results) if r.status is Status.GOOD]
+    est = traj.camera_centers([results[k].T_cw for k in good])
+    ate = traj.ate_rmse(est, traj.camera_centers([gt_poses[k] for k in good]), with_scale=False)
+    print(f"{label}: {len(good)} of {len(results)} GOOD (>= {n_min}), rigid ATE {ate:.5f} m "
+          f"(< {SENSOR_ATE_MAX})")
+    assert len(good) >= n_min and ate < SENSOR_ATE_MAX
 
 
 def box_depth_filter_run(package: str, shape, n: int) -> dict:

@@ -35,7 +35,10 @@ and BoxScene rendered on the card against the CPU; the Sim(3) pose graph
 and the global Sim(3) closure against the CPU (and repeating bit for bit),
 an archive loop detection recorded on the card against the CPU with the
 card's P3P draws, and the default options with async mapping equal to the
-synchronous run, per frame and chunked (graphs captured and replayed).
+synchronous run, per frame and chunked (graphs captured and replayed); the
+RGBD and stereo starts, `match_stereo` and an RGBD map file (the DENSE
+cloud, the vocabulary, archive rows) on the card against the CPU, the file
+written on the card, loaded on the CPU and back bit for bit.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -1847,3 +1850,113 @@ def test_chunked_async_mapping_captures_and_replays_on_the_card(cuda_device):
     replays = sum(st.replays for st in sc.vo._chunk_steps.values())
     print(f"chunks {dict(sc.vo.chunk_stats)}, replays {replays}")
     assert replays > 0 and _same_run(sc, sf)
+
+
+# -- depth sensors and the map file (slice 11) ---------------------------------
+
+def _sensor_start(device, depth: bool):
+    """Frame 0 of tests/test_system.py's RGBD sequence (240x320) through a
+    VisualOdometry on `device` with its depth image, or, with depth=False,
+    tests/test_stereo.py's pair (seed 12) with the right image: (VO,
+    feature pixels, feature depths, landmark positions of keyframe 0)."""
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+    from ygz_slam_tpu_torch.utils.datasets import SyntheticDataset
+    from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
+
+    cam = PinholeCamera.create(320.0, 320.0, 160.0, 120.0)
+    if depth:
+        fd = next(iter(SyntheticDataset(cam, n_frames=16, shape=(240, 320), with_depth=True,
+                                        motion_scale=0.5, device="cpu")))
+        kw = dict(img=fd.gray, depth=fd.depth)
+    else:
+        scene = PlaneScene(cam, plane_z=3.0, seed=12, device="cpu")
+        kw = dict(img=scene.render(TSE3.identity(device="cpu"), (240, 320)),
+                  right=scene.render(TSE3(torch.eye(3), torch.tensor([-0.1, 0.0, 0.0])),
+                                     (240, 320)))
+    vo = tvo.VisualOdometry(cam, tvo.VOOptions(use_vocabulary=False, archive_map=False,
+                                               async_mapping=False), device=device)
+    r = vo.add_frame(timestamp=0.0, **{k: v.to(device) for k, v in kw.items()})
+    assert r.status is tvo.Status.GOOD
+    m = vo.server.state
+    fp, fv = m.feat_point[0].cpu(), m.feat_valid[0].cpu()
+    pos = torch.where((fp >= 0)[:, None], m.pt_pos.cpu()[fp.clamp(min=0).long()], 0.0)
+    return vo, m.feat_px[0].cpu()[fv], m.feat_depth[0].cpu()[fv], pos[fv]
+
+
+@pytest.mark.parametrize("depth", [True, False], ids=["rgbd", "stereo"])
+def test_sensor_start_card_matches_cpu(cuda_device, depth):
+    """The depth-sensor start on the card against the CPU: >= 95% of the
+    features at the same pixel (Shi-Tomasi's float32 noise), and where they
+    coincide the same sensor decision on >= 98% and depths and landmarks
+    within 1e-4 m."""
+    _, px_c, d_c, p_c = _sensor_start(cuda_device, depth)
+    _, px_h, d_h, p_h = _sensor_start("cpu", depth)
+    dist = (px_c[:, None] - px_h[None]).abs().amax(-1)
+    hit = dist.amin(1) <= 1e-3
+    j = dist.argmin(1)[hit]
+    same = ((d_c[hit] > 0) == (d_h[j] > 0)).float().mean().item()
+    both = (d_c[hit] > 0) & (d_h[j] > 0)
+    dd = (d_c[hit][both] - d_h[j][both]).abs().max().item()
+    dp = (p_c[hit][both] - p_h[j][both]).abs().max().item()
+    print(f"{'RGBD' if depth else 'STEREO'} start: {hit.float().mean().item():.4f} of "
+          f"{len(px_c)} features coincide, decisions equal on {same:.4f}, depth within {dd:.3e}, "
+          f"landmarks within {dp:.3e} m")
+    assert hit.float().mean().item() >= 0.95 and same >= 0.98 and dd <= 1e-4 and dp <= 1e-4
+
+
+def test_match_stereo_card_matches_cpu(cuda_device):
+    """`match_stereo` on tests/test_stereo.py's pair (seed 11) and its
+    corners, the same inputs on both devices: >= 98% equal ok flags, depth
+    within 1e-4 relative where both accept."""
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.ops import fast, stereo
+    from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
+
+    cam = PinholeCamera.create(320.0, 320.0, 160.0, 120.0)
+    scene = PlaneScene(cam, plane_z=3.0, seed=11, device="cpu")
+    left = scene.render(TSE3.identity(device="cpu"), (240, 320))
+    right = scene.render(TSE3(torch.eye(3), torch.tensor([-0.1, 0.0, 0.0])), (240, 320))
+    c = fast.detect(left, 20.0, cell=16, max_corners=120)
+    out = {dev: stereo.match_stereo(left.to(dev), right.to(dev), c.xy.to(dev), c.mask.to(dev),
+                                    cam.fx, 0.1, min_depth=0.5, max_depth=10.0)
+           for dev in (cuda_device, "cpu")}
+    g, h = out[cuda_device], out["cpu"]
+    agree = (g.ok.cpu() == h.ok).float().mean().item()
+    both = g.ok.cpu() & h.ok
+    rel = ((g.depth.cpu() - h.depth).abs() / h.depth)[both]
+    print(f"match_stereo card against CPU: ok agree {agree:.4f}, {int(both.sum())} in both, "
+          f"depth within {rel.max().item():.3e} relative")
+    assert agree >= 0.98 and int(both.sum()) > 60 and (rel <= 1e-4).float().mean().item() >= 0.98
+
+
+def test_map_file_card_to_cpu_bit_for_bit(cuda_device, tmp_path):
+    """An RGBD map with the DENSE cloud, the vocabulary and archive rows,
+    written on the card, loads on the CPU and back on the card; each writes
+    it again: the three files equal array by array, bit for bit, and the
+    loaded state lies on the System's device."""
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+    from ygz_slam_tpu_torch.system.system import Sensor, System
+    from ygz_slam_tpu_torch.utils.datasets import SyntheticDataset
+
+    cam = PinholeCamera.create(320.0, 320.0, 160.0, 120.0)
+    opts = tvo.VOOptions(kf_min_frames=3, kf_max_trans=0.05, map_K=4, map_type=tvo.MapType.DENSE)
+    s = System(camera=cam, sensor=Sensor.RGBD, options=opts, device=cuda_device)
+    for fd in SyntheticDataset(cam, n_frames=16, shape=(240, 320), with_depth=True,
+                               motion_scale=0.5, device=cuda_device):
+        s.track_rgbd(fd.gray, fd.depth, fd.timestamp)
+    paths = [str(tmp_path / f"m{i}.npz") for i in range(3)]
+    s.save_map(paths[0])
+    for i, dev in ((1, "cpu"), (2, cuda_device)):
+        t = System(camera=cam, sensor=Sensor.RGBD, options=opts, device=dev)
+        t.load_map(paths[i - 1])
+        assert t.vo.server.state.pt_pos.device.type == torch.device(dev).type
+        assert t.vo.kf_images.device.type == torch.device(dev).type
+        t.save_map(paths[i])
+    files = [dict(np.load(p)) for p in paths]
+    assert s.vo.archive.count > 0 and "__aux_cloud" in files[0]
+    assert set(files[0]) == set(files[1]) == set(files[2])
+    for k in files[0]:
+        assert all(f[k].dtype == files[0][k].dtype and np.array_equal(f[k], files[0][k])
+                   for f in files[1:]), k

@@ -247,6 +247,13 @@ def test_unsupported_options_raise(bad):
 
 @pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.RGBD])
 def test_other_sensors_raise(sensor):
+    """The depth sensors construct (with the SPARSE and DENSE maps); what
+    still raises is the SEMI_DENSE map type (ROADMAP queue 1, step 6)."""
     cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
-    with pytest.raises(ValueError, match="MONOCULAR"):
-        System(camera=cam, sensor=sensor, options=mw.mono_options(), device="cpu")
+    for map_type in (tvo.MapType.SPARSE, tvo.MapType.DENSE):
+        s = System(camera=cam, sensor=sensor, options=mw.mono_options(map_type=map_type),
+                   device="cpu")
+        assert s.sensor is sensor and s.vo.o.map_type is map_type
+    with pytest.raises(ValueError, match="map_type=SEMI_DENSE"):
+        System(camera=cam, sensor=sensor, options=mw.mono_options(map_type=tvo.MapType.SEMI_DENSE),
+               device="cpu")

@@ -187,12 +187,20 @@ def test_local_ba_row_order_gives_the_same_result():
 
 # -- System's signature -------------------------------------------------------
 
-def test_system_config_file_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        System("cfg.yaml")
-    with pytest.raises(NotImplementedError):
-        System(config_file="cfg.yaml", camera=PinholeCamera.create(320.0, 320.0, 160.0, 120.0),
-               device="cpu")
+def test_system_config_file_is_not_ported(tmp_path):
+    """Configuration files are ported now: a path is read as YAML (a
+    missing file raises as `open` does) and its camera and options apply."""
+    from ygz_slam_tpu_torch.system.config import Config
+    with pytest.raises(FileNotFoundError):
+        System(str(tmp_path / "missing.yaml"))
+    p = tmp_path / "cfg.yaml"
+    p.write_text("camera:\n  fx: 300.0\n  fy: 300.0\n  cx: 160.0\n  cy: 120.0\n"
+                 "keyframe:\n  min_frames: 7\n")
+    try:
+        s = System(str(p), device="cpu")
+    finally:
+        Config.clear()
+    assert s.vo.cam.fx == 300.0 and s.vo.o.kf_min_frames == 7
 
 
 def test_system_takes_the_camera_by_keyword():

@@ -46,6 +46,7 @@ class MapServer:
         self.Kcap, self.Fcap, self.Lcap = K, F, L
         self.state = ms.empty_map(K, F, L, device=device)
         self.kf_used: list[int] = []   # slots in insertion order
+        self.next_frame_id = 0         # kept for the map file (`__next_frame_id`)
         # Called with the slot just before its contents are invalidated: the
         # VO archives the keyframe there (map/archive.py).
         self.on_evict = None

@@ -44,6 +44,14 @@ into the current one (`_merge_epochs`), or, where its correction is
 significant, is closed by the global Sim(3) pose graph (`_close_loop_global`).
 With `async_mapping` the pass runs on a worker thread, on the caller's
 stream, and every consumer of the map joins it first (`_join_mapping`).
+With a depth sensor (`add_frame(depth=)`, `add_frame(right=)`: the JAX
+package's RGBD and STEREO modes) the map starts on the first frame from the
+sensor's depths (`_init_rgbd`), and keyframes take the JAX package's eager
+branch (`_insert_sensor_keyframe`: triangulation against the last keyframe,
+one K10 launch, overridden by the sensor; host-side seed promotion); the
+DENSE map type collects each sensor keyframe's back-projected depth image.
+`set_vocabulary` / `refresh_vocabulary` swap the BoW vocabulary (a loaded
+map's, or one retrained on the run's descriptors).
 Everything stays on the device: selections that the JAX version makes with
 `jnp.where` are `torch.where` here, and slots are 0-d tensors.
 
@@ -76,6 +84,7 @@ from ..ops import kernels, orb, sparse_align
 from ..ops.align import klt_pyramidal
 from ..ops.hamming import distance_matrix, hamming_distance
 from ..ops.select import top_k
+from ..ops.stereo import match_stereo
 from ..solvers import ba as bam
 from ..solvers import initializer as init_mod
 from ..utils import np_se3
@@ -132,6 +141,15 @@ class VOType(enum.Enum):
     SEMI_DENSE_DIRECT = 2
 
 
+class MapType(enum.Enum):
+    """Map content (system.h:33-37).  SPARSE: landmarks only; SEMI_DENSE:
+    with per-keyframe gradient-pixel depth maps (not ported yet); DENSE: with
+    each sensor keyframe's depth image back-projected (RGBD)."""
+    SPARSE = 0
+    SEMI_DENSE = 1
+    DENSE = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class VOOptions:
     """The fields of the JAX package's VOOptions that the port reads, with
@@ -141,9 +159,10 @@ class VOOptions:
     `archive_map` (the keyframe archive and its relocalization),
     `loop_closing` (within the active window and, with the archive, against
     it: the global pose graph, Sim(3) with `sim3_loops`, and epoch merging)
-    and `async_mapping` (the mapping pass on a worker thread); a `vo_type`
-    other than SPARSE_DIRECT names a frontend it does not run yet:
-    `VisualOdometry` raises for it."""
+    and `async_mapping` (the mapping pass on a worker thread), and the SPARSE
+    and DENSE map types; a `vo_type` other than SPARSE_DIRECT, or the
+    SEMI_DENSE map type, names a part it does not run yet: `VisualOdometry`
+    raises for it."""
     n_levels: int = 3
     detect_threshold: float = 20.0
     grid_cell: int = 16
@@ -188,7 +207,9 @@ class VOOptions:
     global_pg_iters: int = 25             # global pose-graph Gauss-Newton iterations
     sim3_loops: bool = True               # the global pose graph over Sim(3) (else SE(3))
     async_mapping: bool = True
+    stereo_baseline: float = 0.1          # metres (STEREO sensor)
     vo_type: VOType = VOType.SPARSE_DIRECT
+    map_type: MapType = MapType.SPARSE
 
     @property
     def n_select(self) -> int:
@@ -379,6 +400,15 @@ def assemble_keyframe(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px
     return st, kf_images, new_px, depthless, mean_d
 
 
+def presweep(mstate: ms.MapState, found: torch.Tensor) -> ms.MapState:
+    """After an eviction: covisibility refreshed and the landmarks no
+    keyframe observes any more invalidated, sparing those the tracker
+    observes in this frame (`found` [L]; the feature table re-links them to
+    the new keyframe)."""
+    swept = ms.update_covisibility(mstate)
+    return swept._replace(pt_valid=swept.pt_valid & ((swept.pt_obs != 0) | found))
+
+
 def kf_cycle(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px, T_cw7, last_kf_slot,
              nbr2_slot, fid, kf_images, seeds: dfilt.Seeds | None = None, seed_slot=0,
              seed_feat_idx=None):
@@ -420,10 +450,7 @@ def kf_cycle(cam, o: VOOptions, mstate: ms.MapState, pyr, found, obs_px, T_cw7, 
         kf_valid=ms.set_row(mstate.kf_valid, slot, ms.row(mstate.kf_valid, slot) & ~evicted),
         feat_valid=ms.set_row(mstate.feat_valid, slot, f_valid & ~evicted),
         feat_point=ms.set_row(mstate.feat_point, slot, torch.where(evicted, -1, fp)))
-    swept = ms.update_covisibility(m2)
-    orphaned = swept.pt_valid & (swept.pt_obs == 0) & ~found
-    swept = swept._replace(pt_valid=swept.pt_valid & ~orphaned)
-    m2 = ms.MapState(*(torch.where(evicted, a, b) for a, b in zip(swept, m2)))
+    m2 = ms.MapState(*(torch.where(evicted, a, b) for a, b in zip(presweep(m2, found), m2)))
     # --- landmark rows + assembly ---
     rows, n_free = free_rows(m2.pt_valid, Fn)
     st, kf_images, new_px, depthless, mean_d = assemble_keyframe(
@@ -748,19 +775,25 @@ class TrackResult:
 
 
 def _unsupported(o: VOOptions) -> list:
-    return [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else []
+    """The options that name a part of the JAX package not ported yet
+    (ROADMAP queue 1, step 6: the SPARSE_ORB and SEMI_DENSE_DIRECT frontends
+    and the SEMI_DENSE map type)."""
+    bad = [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else []
+    return bad + (["map_type=SEMI_DENSE"] if o.map_type is MapType.SEMI_DENSE else [])
 
 
 class VisualOdometry:
-    """Monocular VO over a fixed-capacity tensor map, on `device` (the card
-    unless the caller names another)."""
+    """VO over a fixed-capacity tensor map, on `device` (the card unless the
+    caller names another): monocular, or with a depth image (RGBD) or a
+    rectified right image (STEREO) per frame (`add_frame(depth=, right=)`)."""
 
     def __init__(self, cam, opts: VOOptions | None = None, device=None):
         o = opts or VOOptions()
         bad = _unsupported(o)
         if bad:
             raise ValueError(f"VOOptions not supported by the port: {', '.join(bad)} "
-                             "(it runs the SPARSE_DIRECT frontend)")
+                             "(it runs the SPARSE_DIRECT frontend with the SPARSE or DENSE map; "
+                             "ROADMAP queue 1, step 6)")
         self.cam = cam
         self.o = o
         self.device = resolve_device(device)
@@ -773,6 +806,10 @@ class VisualOdometry:
         self.prev_T_cw = self._identity()
         self.prev_found = None         # [L] bool landmarks seen last frame
         self.prev_obs_px = None        # [L, 2]
+        self.cur_depth = None          # this frame's depth image [H, W] (RGBD)
+        self.cur_right = None          # this frame's rectified right image (STEREO)
+        self.semidense_cloud: list = []   # [_, 3] arrays loaded with a map (`__aux_cloud`)
+        self.dense_cloud: list = []       # DENSE map: one [_, 3] array per sensor keyframe
         self.init_pyr = None
         self.init_feats = None
         self.init_track_px = None
@@ -832,22 +869,33 @@ class VisualOdometry:
         return SE3.identity(device=self.device)
 
     # ------------------------------------------------------------------
-    def add_frame(self, img, timestamp: float = 0.0) -> TrackResult:
-        """Track one monocular image [H, W] (VisualOdometry::AddFrame,
-        :38-107)."""
+    def add_frame(self, img, timestamp: float = 0.0, depth=None, right=None) -> TrackResult:
+        """Track one image [H, W] (VisualOdometry::AddFrame, :38-107), with
+        its depth image [H, W] in metres (RGBD) or its rectified right image
+        (STEREO) if given: the map then starts from the first frame with
+        depth-initialized landmarks (no two-view bootstrap), and keyframes
+        take new features' depths from the sensor."""
         self._join_mapping()
         self.frame_id += 1
         if self.status is not Status.GOOD:
             self._low_streak = 0       # hysteresis counts GOOD frames only
         pyr = fe.preprocess(torch.as_tensor(img, dtype=torch.float32, device=self.device),
                             self.o.n_levels)
+        self.cur_depth = (None if depth is None else
+                          torch.as_tensor(depth, dtype=torch.float32, device=self.device))
+        self.cur_right = (None if right is None else
+                          torch.as_tensor(right, dtype=torch.float32, device=self.device))
         if self.kf_images is None:
             self.kf_images = torch.zeros((self.o.map_K,) + tuple(pyr[0].shape),
                                          dtype=torch.float32, device=self.device)
         if self.status is Status.NOT_READY:
-            # A surviving map: resume by relocalizing against it.
+            # A surviving (or loaded) map: resume by relocalizing against it;
+            # else a sensor frame starts the map, a monocular one the bootstrap.
             res = (self._resume(pyr) if self.server.kf_used and self.vocab is not None
-                   else None) or self._start_init(pyr)
+                   else None)
+            if res is None:
+                res = (self._init_rgbd(pyr) if depth is not None or right is not None
+                       else self._start_init(pyr))
         elif self.status is Status.INITING:
             res = self._try_init(pyr)
         elif self.status is Status.GOOD:
@@ -880,17 +928,19 @@ class VisualOdometry:
         need descriptor verification or become a keyframe, and that frame
         runs through `add_frame`.  Frames while not GOOD, a tail shorter
         than `chunk`, or a confirmed sub-gate streak take the per-frame
-        path.  The results, trajectory and map equal repeated `add_frame`
-        bit for bit.  Returns a TrackResult per frame."""
+        path, and so does every frame with a map type other than SPARSE.
+        The results, trajectory and map equal repeated `add_frame` bit for
+        bit.  Returns a TrackResult per frame."""
         n = len(imgs)
         ts = list(timestamps) if timestamps is not None else [0.0] * n
         chunk = chunk or self.o.chunk_frames
+        eligible = self.o.map_type is MapType.SPARSE
         results: list[TrackResult] = []
         i = 0
         while i < n:
             # No chunk (nor its graph capture) starts while a mapping pass runs.
             self._join_mapping()
-            if (self.status is not Status.GOOD or n - i < chunk
+            if (not eligible or self.status is not Status.GOOD or n - i < chunk
                     or self._low_streak >= self.o.track_confirm_frames):
                 results.append(self.add_frame(imgs[i], ts[i]))
                 i += 1
@@ -998,6 +1048,69 @@ class VisualOdometry:
         self._init_ref_fid = self.frame_id
         self.status = Status.INITING
         return TrackResult(Status.INITING, self._identity())
+
+    def _sensor_depths(self, pyr, px, valid):
+        """Depths [N] of the pixels px [N, 2] and where they hold, from this
+        frame's sensor: the depth image at the truncated, clipped pixel (z >
+        0.05 and finite), or rectified stereo matching (`ops.stereo`); none
+        without a sensor."""
+        H, W = pyr[0].shape
+        if self.cur_depth is not None:
+            ui = torch.clamp(px[:, 0].to(torch.int32), 0, W - 1).long()
+            vi = torch.clamp(px[:, 1].to(torch.int32), 0, H - 1).long()
+            z = self.cur_depth[vi, ui]
+            return z, valid & (z > 0.05) & torch.isfinite(z)
+        if self.cur_right is not None:
+            sd = match_stereo(pyr[0], self.cur_right, px, valid, self.cam.fx,
+                              self.o.stereo_baseline)
+            return sd.depth, sd.ok
+        return torch.full_like(px[:, 0], -1.0), torch.zeros_like(valid)
+
+    def _init_rgbd(self, pyr) -> TrackResult:
+        """The depth-sensor start (RGBD or stereo): the frame becomes keyframe
+        0 at the identity, its detections with a sensor depth landmarks
+        (TrackRGBD / TrackStereo, system.h:49-57); NOT_READY with fewer than
+        init_min_features / 2 of them."""
+        o, srv, dev = self.o, self.server, self.device
+        feats = self._detect(pyr)
+        z, ok = self._sensor_depths(pyr, feats.px, feats.valid)
+        n_ok = int(ok.sum())
+        if n_ok < o.init_min_features // 2:
+            return TrackResult(Status.NOT_READY, self._identity())
+        T1 = self._identity()
+        pts = self.cam.pixel_to_world(feats.px, T1, depth=z)
+        N = feats.px.shape[0]
+        pad = o.map_F - N
+
+        def padded(x, fill=0):
+            return torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                                            device=dev)])
+
+        rows = torch.arange(N, dtype=torch.int32, device=dev)
+        slot0 = srv.register_keyframe(
+            self.frame_id, T1, padded(feats.px), padded(feats.level), padded(feats.angle),
+            padded(feats.desc), padded(torch.where(ok, z, -1.0), -1.0),
+            padded(torch.where(ok, rows, -1), -1), padded(ok, False))
+        srv.state = ms.add_landmarks(srv.state, rows, ok, pts, feats.desc, slot0,
+                                     ref_feat=slot0 * o.map_F + rows)
+        self.kf_images = ms.set_row(self.kf_images, slot0, pyr[0])
+        self._store_bow(slot0)
+        srv.refresh_covisibility()
+        L = o.map_L
+        self.prev_pyr = pyr
+        self.prev_T_cw = self.T_cw = T1
+        self.prev_found = torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
+            0, rows.long(), ok)
+        self.prev_obs_px = torch.zeros((L, 2), dtype=torch.float32, device=dev).index_copy(
+            0, rows.long(), feats.px)
+        self.velocity = self._identity()
+        self.last_kf_slot = slot0
+        self._last_kf_fid = self.frame_id
+        self._last_kf_pose7 = srv.state.kf_pose7[slot0].cpu().numpy()
+        self.frames_since_kf = 0
+        self.status = Status.GOOD
+        self._refresh_dense(slot0)
+        return TrackResult(Status.GOOD, T1, n_ok)
 
     # -- INITING --------------------------------------------------------
     def _try_init(self, pyr) -> TrackResult:
@@ -1166,9 +1279,13 @@ class VisualOdometry:
         allocation or eviction, assembly, triangulation and fusion, seed
         promotion and re-seeding), one host fetch of the slot, the eviction
         and depth-filter flags and the victim's pose, the victim archived
-        from the cycle's snapshot, then the mapping pass."""
+        from the cycle's snapshot, then the mapping pass.  A frame with a
+        depth sensor takes the eager branch (`_insert_sensor_keyframe`)."""
         o, srv = self.o, self.server
         self.stats["keyframes"] += 1
+        if self.cur_depth is not None or self.cur_right is not None:
+            self._insert_sensor_keyframe(pyr, T_cw, tm)
+            return
         used = srv.kf_used
         nbr2 = used[-4] if len(used) >= 4 else used[0]
         with_seeds = self.seeds is not None
@@ -1202,6 +1319,141 @@ class VisualOdometry:
             self.seed_feat_idx = Fl + torch.arange(o.map_F - Fl, dtype=torch.int32,
                                                    device=self.device)
         self._finish_insert(T_cw, slot)
+
+    def _insert_sensor_keyframe(self, pyr, T_cw: SE3, tm) -> None:
+        """Keyframe insertion with a depth sensor (the JAX package's eager
+        branch of `_insert_keyframe`, :1920-2036, in its order): with a full
+        window, a slot evicted (and archived) first and the presweep; the
+        feature table (the Fl most observed tracked landmarks, Fn new
+        detections away from them); triangulation of the detections against
+        the last keyframe (one K10 launch), overridden where the sensor gives
+        a depth; landmark rows from the host; registration, the BoW row,
+        the tracked landmarks' descriptors refreshed, the new landmarks,
+        the image, fusion with the neighbours (K10); the DENSE cloud; then
+        the depth filter: the last keyframe's converged seeds promoted on the
+        host (`_promote_seeds`) and new seeds on the depthless detections at
+        the map's mean depth; then the mapping pass (`_finish_insert`)."""
+        o, srv, cam, dev = self.o, self.server, self.cam, self.device
+        L, F = o.map_L, o.map_F
+        Fl = F // 2
+        Fn = F - Fl
+        if len(srv.kf_used) >= o.map_K:
+            # Evict now, so the evictee's orphaned landmark rows are free for
+            # this keyframe; landmarks tracked in this frame are spared.
+            srv.alloc_kf_slot()
+            self.stats["evictions"] += 1
+            srv.state = presweep(srv.state, tm.found)
+        mstate = srv.state
+        T_cw7 = T_cw.params7()
+        _, top_rows = top_k(tm.found.to(torch.int32) * (1 + mstate.pt_obs), Fl)
+        lm_rows = top_rows.to(torch.int32)
+        lm_ok = tm.found[top_rows]
+        lm_px = tm.obs_px[top_rows]
+        z = T_cw.apply(mstate.pt_pos[top_rows])[:, 2]
+        feats = self._detect(pyr, lm_px, lm_ok)
+        new_px, new_valid, new_desc = feats.px[:Fn], feats.valid[:Fn], feats.desc[:Fn]
+        new_level, new_angle = feats.level[:Fn], feats.angle[:Fn]
+        dist = neighbour_distances(mstate, new_desc, [self.last_kf_slot])[0]
+        pos_w, good, _ = triangulate(cam, mstate, new_px, new_valid, new_angle, T_cw7,
+                                     self.last_kf_slot, dist)
+        zd, dok = self._sensor_depths(pyr, new_px, new_valid)
+        pos_w = torch.where(dok[:, None], cam.pixel_to_world(new_px, T_cw, depth=zd), pos_w)
+        good = dok | good
+        rows_np = srv.alloc_landmark_rows(Fn)
+        n_free = len(rows_np)
+        rows = torch.full((Fn,), L - 1, dtype=torch.int32, device=dev)
+        rows[:n_free] = torch.as_tensor(rows_np, device=dev)
+        ar_n = torch.arange(Fn, dtype=torch.int32, device=dev)
+        can_write = good & (ar_n < n_free)
+        lm_angle, lm_desc = orb.compute(pyr[0], lm_px)
+        z_new = T_cw.apply(pos_w)[:, 2]
+        slot = srv.register_keyframe(
+            self.frame_id, T_cw, torch.cat([lm_px, new_px]),
+            torch.cat([torch.zeros(Fl, dtype=torch.int32, device=dev), new_level]),
+            torch.cat([lm_angle, new_angle]), torch.cat([lm_desc, new_desc]),
+            torch.cat([torch.where(lm_ok, z, -1.0), torch.where(can_write, z_new, -1.0)]),
+            torch.cat([torch.where(lm_ok, lm_rows, -1), torch.where(can_write, rows, -1)]),
+            torch.cat([lm_ok, new_valid]))
+        self._store_bow(slot)
+        st = srv.state
+        st = st._replace(pt_desc=st.pt_desc.index_copy(
+            0, top_rows, torch.where(lm_ok[:, None], lm_desc, st.pt_desc[top_rows])))
+        srv.state = ms.add_landmarks(st, rows, can_write, pos_w, new_desc, slot,
+                                     ref_feat=slot * F + Fl + ar_n)
+        self.kf_images = ms.set_row(self.kf_images, slot, pyr[0])
+        # Fusion before seeding: a fused feature must not also start a seed.
+        srv.state = lm.search_in_neighbors(srv.state, cam, slot)
+        self._refresh_dense(slot)
+        if o.use_depth_filter:
+            self._promote_seeds()
+            depthless = new_valid & ~can_write & (ms.row(srv.state.feat_point, slot)[Fl:] < 0)
+            if bool(depthless.any()):
+                n_valid = max(int(mstate.pt_valid.sum()), 1)
+                z_map = torch.where(mstate.pt_valid,
+                                    mstate.kf_pose(self.last_kf_slot).apply(mstate.pt_pos)[:, 2],
+                                    0.0)
+                mean_d = float(z_map.sum() / torch.tensor(float(n_valid), device=dev)) or 1.0
+                self.seeds = dfilt.Seeds.init(new_px, depthless, depth_mean=max(mean_d, 0.5),
+                                              depth_min=0.1)
+                self.seed_kf_slot = slot
+                self.seed_feat_idx = Fl + ar_n
+        self._finish_insert(T_cw, slot)
+
+    def _promote_seeds(self) -> None:
+        """The sensor branch's seed promotion, on the host (the JAX
+        `_promote_seeds`, :2295-2341): seeds converged at sigma < z_range /
+        100 become landmarks in rows the server hands out, linked to their
+        still unlinked features of the seed keyframe with the seed's depth;
+        the seeds are dropped either way."""
+        seeds = self.seeds
+        if seeds is None:
+            return
+        self.seeds = None
+        conv = seeds.converged(ratio=100.0) & seeds.valid
+        if int(conv.sum()) == 0:
+            return
+        o, srv, dev = self.o, self.server, self.device
+        n = conv.shape[0]
+        rows_np = srv.alloc_landmark_rows(n)
+        rows = torch.full((n,), o.map_L - 1, dtype=torch.int32, device=dev)
+        rows[:len(rows_np)] = torch.as_tensor(rows_np, device=dev)
+        slot, idx = self.seed_kf_slot, self.seed_feat_idx.long()
+        m = srv.state
+        fp = ms.row(m.feat_point, slot)
+        can = conv & (fp[idx] < 0) & (torch.arange(n, device=dev) < len(rows_np))
+        depth = seeds.depth()
+        pos_w = self.cam.pixel_to_world(seeds.px, m.kf_pose(slot), depth=depth)
+        m = ms.add_landmarks(m, rows, can, pos_w, ms.row(m.feat_desc, slot)[idx], slot,
+                             ref_feat=slot * o.map_F + self.seed_feat_idx.to(torch.int32))
+        fd = ms.row(m.feat_depth, slot)
+        srv.state = m._replace(
+            feat_point=ms.set_row(m.feat_point, slot,
+                                  fp.index_copy(0, idx, torch.where(can, rows, fp[idx]))),
+            feat_depth=ms.set_row(m.feat_depth, slot,
+                                  fd.index_copy(0, idx, torch.where(can, depth, fd[idx]))))
+        self.stats["seeds_promoted"] += int(can.sum())
+
+    def _refresh_dense(self, slot: int) -> None:
+        """The DENSE map type's part of the JAX `_refresh_semidense`: with a
+        depth image, keyframe `slot`'s back-projection joins the cloud."""
+        if self.o.map_type is MapType.DENSE and self.cur_depth is not None:
+            self._accumulate_dense(slot)
+
+    def _accumulate_dense(self, slot: int, stride: int = 4) -> None:
+        """Every `stride`-th pixel of the depth image in both directions with
+        z > 0.05, back-projected from keyframe `slot`'s pose, appended to
+        `dense_cloud` as an [N, 3] host array."""
+        d = self.cur_depth
+        H, W = d.shape
+        ys, xs = torch.meshgrid(torch.arange(0, H, stride, device=self.device),
+                                torch.arange(0, W, stride, device=self.device), indexing="ij")
+        z = d[::stride, ::stride].reshape(-1)
+        ok = torch.isfinite(z) & (z > 0.05)
+        if not bool(ok.any()):
+            return
+        px = torch.stack([xs.reshape(-1)[ok], ys.reshape(-1)[ok]], dim=-1).to(torch.float32)
+        pts = self.cam.pixel_to_world(px, self.server.state.kf_pose(slot), depth=z[ok])
+        self.dense_cloud.append(pts.cpu().numpy())
 
     def _store_bow(self, slot) -> None:
         """The BoW row and nodes of keyframe `slot` (an int or a device
@@ -1729,6 +1981,8 @@ class VisualOdometry:
         self.seeds = None
         self.seed_kf_slot = -1
         self.seed_feat_idx = None
+        self.semidense_cloud = []
+        self.dense_cloud = []
         self._last_kf_fid = -1
         if self.vocab is not None:           # the vocabulary stays
             self.kf_bow = torch.zeros_like(self.kf_bow)
@@ -1750,8 +2004,64 @@ class VisualOdometry:
         return out
 
     def export_point_cloud(self) -> np.ndarray:
-        """The SPARSE map's points: the valid landmarks' world positions
-        [N, 3] (float32, on the host)."""
+        """The map's points as [N, 3] world positions (float32, on the host):
+        the valid landmarks, then a loaded map's auxiliary cloud, then the
+        DENSE map's back-projected keyframe depth images."""
         self._join_mapping()
         m = self.server.state
-        return m.pt_pos[m.pt_valid].cpu().numpy()
+        return np.concatenate([m.pt_pos[m.pt_valid].cpu().numpy()] + self.semidense_cloud
+                              + self.dense_cloud, axis=0)
+
+    def set_vocabulary(self, vocab: voc.Vocabulary, recompute: bool = True) -> None:
+        """Swap in another BoW vocabulary (one loaded with a map, or
+        retrained; the JAX `set_vocabulary`, :2828-2858).  With `recompute`,
+        every valid slot's BoW row and vocabulary nodes are computed again
+        under it, and every archive row's (`KeyframeArchive.recompute_bow`);
+        without it the window's rows are cleared for the caller to set, and
+        the archive's rows are recomputed only if the vocabulary's width
+        changes (its fixed-width buffers cannot hold rows of another).  No
+        ChunkStep holds the vocabulary (the tracking step does not read it)."""
+        self._join_mapping()
+        o, m, dev = self.o, self.server.state, self.device
+        self.vocab = vocab
+        W = vocab.n_words
+        if recompute:
+            bows, nodes = zip(*(keyframe_bow(vocab, m, s) for s in range(o.map_K)))
+            valid = m.kf_valid[:, None]
+            self.kf_bow = torch.where(valid, torch.stack(bows), 0.0)
+            self.kf_nodes = torch.where(valid, torch.stack(nodes), -1)
+        else:
+            self.kf_bow = torch.zeros((o.map_K, W), dtype=torch.float32, device=dev)
+            self.kf_nodes = torch.full((o.map_K, o.map_F), -1, dtype=torch.int32, device=dev)
+        arc = self.archive
+        if arc is not None and (recompute or arc.W != W):
+            def fn(desc, valid):
+                words, nodes_ = voc.transform(vocab, desc, valid)
+                return voc.bow_vector(vocab, words, valid), nodes_
+
+            arc.recompute_bow(fn, W)
+
+    def refresh_vocabulary(self, k: int | None = None, depth: int | None = None,
+                           min_descriptors: int = 200) -> bool:
+        """Retrain the vocabulary (`vocabulary.train`, 4 iterations) on this
+        run's keyframe descriptors, the window's valid features then every
+        archive row's, and swap it in with every BoW row recomputed (the JAX
+        `refresh_vocabulary`, :2860-2890).  Returns False, changing nothing,
+        without a vocabulary or with fewer than `min_descriptors`."""
+        if self.vocab is None:
+            return False
+        self._join_mapping()
+        m = self.server.state
+        descs = [m.feat_desc[m.feat_valid & m.kf_valid[:, None]]]
+        if self.archive is not None and self.archive.count:
+            n = self.archive.count
+            buf = self.archive.device_view()
+            descs.append(buf.desc[:n][buf.feat_valid[:n]])
+        all_desc = torch.cat(descs).cpu().numpy()
+        if all_desc.shape[0] < min_descriptors:
+            return False
+        new = voc.train(all_desc, k=k or self.vocab.k, depth=depth or self.vocab.depth, iters=4,
+                        device=self.device)
+        self.set_vocabulary(new, recompute=True)
+        self.stats["vocab_refreshes"] += 1
+        return True
