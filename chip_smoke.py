@@ -154,7 +154,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    some runs past frame ~190 and drifts in others, ROADMAP section 3): the
    GOOD share, first LOST, resets, evictions, keyframes, seeds promoted per
    keyframe, valid landmark rows every DF_ROWS_EVERY frames, mean inliers
-   and the ATE over the first 160-400 frames; it holds path 4's launch
+   and the ATE over the first 160-240 frames; it holds path 4's launch
    counts (the seed update launches no
    kernel of the port's own: it is plain PyTorch, as the JAX package's is
    jnp).  The seed update of frame SEED_FRAME, recorded, runs again on the
@@ -189,7 +189,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    plain and library ms and bounds.  (d) Path 8a's frames and options with
    the vocabulary on: 8a's gates, equal to 8a bit for bit up to the first
    frame that attempts a relocalization (the whole run if none does); the
-   attempts, relocalizations, resets and ATE over 160-400 frames reported.
+   attempts, relocalizations, resets and ATE over 160-240 frames reported.
    (e) Path 6b's frames and options (no depth filter; 6b loses track past
    frame ~180) with the vocabulary on: equal to 6b bit for bit up to the
    first attempt; attempts, relocalizations, resets and ATE reported
@@ -280,6 +280,27 @@ Phases, each raising (and so exiting non-zero) on failure:
    its third keyframe and the next GOOD, the second with > 50 inliers,
    test_system.py::test_resume_from_saved_map's gates) with its K10 and K8
    launches counted; `save_map` / `load_map` ms and the files' bytes.
+5k. Main path 13: the other frontends, `VOOptions()` with only the mode
+   changed (`mono_workload.frontend_options`), on path 4's camera and
+   frames (640x480, 160), at the map's full width (K=10, F=256, L=3072,
+   sd_budget 512).  (a) SPARSE_ORB: per tracker call two K10 [3072, 256]
+   and two K5 [3072] launches (four and four on a second-chance frame) and
+   no K1-K4; its GOOD share at least the JAX package's CPU run of the same
+   frames (ORB13_REF) and its ATE within ATE13_SLACK of it; tracker call
+   P13_REC's launches recorded, each held to its plain version with times
+   and bounds at these shapes, and its first `match_by_projection` run on
+   the card and on the CPU: decisions equal on >= MIN13_MATCH_AGREE of the
+   landmarks and equal observations where both match.  (b)
+   SEMI_DENSE_DIRECT with the SEMI_DENSE map: per tracker call K1 twice, K3
+   once at 768 points (map_F + sd_budget), K2, K4 and K5 once at 3072 rows;
+   the exported cloud larger than the landmarks, the last keyframe's usable
+   seeds' depth spread on the plane < SEED_SPREAD13, the GOOD share and ATE
+   against SD13_REF as in (a); the recorded call's kernels as in (a).  Both
+   run frames P13_PROFILE under the profiler (device kernels and µs per
+   frame).  (c) tests/test_vo_types.py's second-chance spike (240x320, 13
+   frames, 0.25 m at frame SPIKE_AT): the spike frame GOOD with >= 1 hit,
+   its launches four K10 and four K5.  Each holds want_loops' counts plus
+   its trackers'.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -300,7 +321,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    (host operators too where their names are checked: path 4's).  Every
    phase prints the clock it starts at.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-12), then the last line {"ok": true, "device": {...}}.
+   paths 1-13), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -329,7 +350,9 @@ EVICT_K, EVICT_FRAMES = 6, 200   # path 6c: a map of 6 slots, evicted from ~fram
 BOX_SHAPE = (480, 640)
 CHUNK = 32               # main path 7's chunk (VOOptions.chunk_frames)
 P7_PROFILE = (32, 96, 160)    # path 7: per-frame to 32, chunked to 96, profiled to 160
-N_DF = 400               # main path 8: BoxScene frames with the depth filter
+N_DF = 240               # main path 8: BoxScene frames with the depth filter (no gate reads
+                         # past frame 240: 8a's and 9d's read BOX_SPAN, 10c's N_LOOP, 11c's
+                         # BOX_SPAN + 1)
 DF_ATE = 0.10            # path 8's gate on the Sim(3)-aligned ATE over its first BOX_SPAN
                          # frames (path 6b's span; past it the run is reported: in both
                          # packages this configuration loses track in some runs and
@@ -342,6 +365,17 @@ SEED_SPREAD = 2.0        # ... else this many times the CPU's own float32 error 
                          # float64): tests/test_torch_depth_filter.py's rule, the CPU
                          # run standing where the JAX package's jit run stands there
 MIN_SEED_AGREE = 0.98    # seeds updated on the card and on the CPU, share of valid rows
+P13_REC = 20             # main path 13: the tracker call whose launches are recorded
+P13_PROFILE = (100, 120)  # main path 13's frames under the profiler
+SPIKE_AT = 10            # path 13c: the frame the camera jumps 0.25 m (tests/test_vo_types.py)
+# Path 13's references: the JAX package's VisualOdometry on the CPU over the
+# same frames and options (`JAX_PLATFORMS=cpu python tests/_torch_port.py
+# frontend jax VO MAP 2`): its GOOD share and Sim(3)-aligned ATE, m.
+ORB13_REF = dict(good=0.93125, ate=0.0123146722443671)      # SPARSE_ORB
+SD13_REF = dict(good=0.93125, ate=0.002765455801914738)     # SEMI_DENSE_DIRECT, SEMI_DENSE map
+ATE13_SLACK = 1.25       # path 13's ATE bound, times the JAX run's (the port on the CPU: 1.041x)
+MIN13_MATCH_AGREE = 0.99  # path 13a: match decisions, card against CPU, share of landmarks
+SEED_SPREAD13 = 0.15     # path 13b: seed depth spread on the plane (tests/test_vo_types.py)
 N_SENSOR = 60            # main path 12: SyntheticDataset frames (its default length) ...
 SENSOR_SHAPE = (480, 640)   # ... at its default size
 SENSOR_ATE = 0.03        # path 12's gate on the rigid ATE (tests/test_system.py, test_stereo.py)
@@ -3558,6 +3592,289 @@ def main() -> int:
     print(f"main path 12: {time.perf_counter() - t12:.1f} s", flush=True)
     del s12, s12d, s12s, s_r, rep12, loaded, fr12, right12
 
+    # -- 5k. main path 13: the SPARSE_ORB and SEMI_DENSE_DIRECT frontends ----
+    print(f"clock: phase 5k starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    from ygz_slam_tpu_torch.models import orb_tracking as orbt
+    from ygz_slam_tpu_torch.models.frontend import Features
+    from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
+
+    t13 = time.perf_counter()
+    trackers13 = ("track_orb", "track_orb_wide", "track_sd")
+    latency13 = {}
+
+    def want13(n_track, vo, rec, calls):
+        """`want_loops` plus, per SPARSE_ORB pass (`track_orb`, and
+        `track_orb_wide` on a second-chance frame), two K10 [L, F] and two K5
+        [L] launches; per SEMI_DENSE_DIRECT frame (`track_sd`) K1 twice (the
+        keyframe's 7x7 reference levels, the frame's windows), K3 once at
+        map_F + sd_budget points and K2, K4 and K5 once at L rows."""
+        want = want_loops(n_track, vo, rec)
+        n_orb = calls["track_orb"] + calls["track_orb_wide"]
+        n_sd = calls["track_sd"]
+        want["distance_matrix"] += 2 * n_orb
+        want["pose_ba_gn"] += 2 * n_orb + n_sd
+        want["gather_windows_levels"] += 2 * n_sd
+        for name in ("mega_gn", "gather_windows_multi", "a2d_gn"):
+            want[name] += n_sd
+        return want
+
+    def frontend_run(system, frames_, label, rec_call=None, profile_at=None, on_frame=None):
+        """Every frame of frames_ through `system.track_monocular` under
+        `instrumented` (launches, calls of `track`, loop passes and archive
+        detections counted), each frontend tracker's calls counted; call
+        `rec_call` of `track_orb` or `track_sd` runs with its launches
+        recorded (and, for SPARSE_ORB, its first `match_by_projection`
+        call's arguments); frames profile_at[0]..profile_at[1] - 1 run under
+        the profiler.  Each other frame's return latency (host clock) lands
+        in `latency13[label]`.  Returns (statuses, T7 as tracked, wall s,
+        launches, calls of track, tracker calls, instrumented's record, the
+        recorded call, the profile window's rows)."""
+        calls = dict.fromkeys(trackers13, 0)
+        recorded, prof = {}, {}
+        lat = latency13.setdefault(label, [])
+        reals = {n: getattr(vo_mod, n) for n in trackers13}
+        real_match = orbt.match_by_projection
+
+        def wrap(name):
+            def fn(*a, **kw):
+                calls[name] += 1
+                if name == "track_orb_wide" or calls[name] != rec_call:
+                    return reals[name](*a, **kw)
+
+                def match(*ma, **mkw):
+                    recorded.setdefault("match", (ma, mkw))
+                    return real_match(*ma, **mkw)
+
+                orbt.match_by_projection = match
+                try:
+                    with kernels.record_launches() as r:
+                        out = reals[name](*a, **kw)
+                finally:
+                    orbt.match_by_projection = real_match
+                recorded["launches"] = r
+                return out
+            return fn
+
+        def run():
+            statuses, k, n = [], 0, frames_.shape[0]
+            while k < n:
+                if profile_at is not None and k == profile_at[0]:
+                    a, b = profile_at
+                    prof["rows"] = _profile(
+                        torch, lambda: statuses.extend(
+                            system.track_monocular(frames_[j], float(j)).status
+                            for j in range(a, b)),
+                        b - a, f"main path {label} (frames {a}-{b - 1})", again=False)
+                    k = b
+                    continue
+                t = time.perf_counter()
+                statuses.append(system.track_monocular(frames_[k], float(k)).status)
+                lat.append(1e3 * (time.perf_counter() - t))
+                if on_frame is not None:
+                    on_frame(k, system.vo)
+                k += 1
+            system.shutdown()
+            return statuses
+
+        for n in trackers13:
+            setattr(vo_mod, n, wrap(n))
+        try:
+            (st, wall, launches, n_tr), rec = instrumented(run, timed=False)
+        finally:
+            for n, f in reals.items():
+                setattr(vo_mod, n, f)
+        T7 = np.stack([p for _, p in system.vo.trajectory])
+        return st, T7, wall, launches, n_tr, calls, rec, recorded, prof.get("rows")
+
+    def kernel_rows13(recorded, tag):
+        """Each kernel of a recorded frame against its plain version (the
+        phase-2 checks) at path 13's shapes, with its CUDA-event ms, plain
+        ms, library ms and bound printed."""
+        rows = {}
+        by = {}
+        for fn, args in recorded["launches"]:
+            by.setdefault(fn.__name__, []).append(args)
+        if "gather_windows_levels" in by:
+            g1 = by["gather_windows_levels"]
+            e = check_k1(g1, tag)
+            rows["K1"] = dict(err=e, ms=sum(_time_kernel(torch, lambda g=g: k1_call(g)) for g in g1),
+                              plain=sum(_time_host(torch, lambda g=g: k1_call(g, plain=True))
+                                        for g in g1),
+                              lib=None, bound=_bound(sum(_gather_bytes(torch, k1_levels(g))
+                                                         for g in g1), 0.0),
+                              shape=[f"{len(g[0])} levels x {g[1].shape[1]} x {g[3]}^2"
+                                     for g in g1])
+        if "mega_gn" in by:
+            (a3_,) = by["mega_gn"]
+            e, st3_ = check_k3(a3_, tag)
+            Lq, Nq = a3_[4].shape
+            rows["K3"] = dict(err=e, ms=_time_kernel(torch, lambda: k3.mega_gn(*a3_)),
+                              plain=_time_host(torch, lambda: k3.mega_gn_plain(*a3_)), lib=None,
+                              bound=_bound(Lq * Nq * (256 + 16 + 96 + 1 + 2) * 4 + Nq * 12 + 100,
+                                           sum(Nq * (700 + 400 * p) for p in st3_["passes"])),
+                              shape=f"N={Nq}", passes=sum(st3_["passes"]))
+        if "gather_windows_multi" in by:
+            (a2_,) = by["gather_windows_multi"]
+            e = check_k2(a2_, tag + f", a table of the {len(a2_[0])} levels")
+            r = k2_times(a2_, tag)
+            rows["K2"] = dict(r, err=e, shape=f"N={a2_[1].shape[0]}")
+        if "a2d_gn" in by:
+            (a4_,) = by["a2d_gn"]
+            xy0_ = a4_[7]
+            e = check_k4((a4_, xy0_, (xy0_ != k1.PATCH + 2.0).any(dim=1), *frames_m.shape[1:]),
+                         tag)
+            Nq = xy0_.shape[0]
+            rows["K4"] = dict(err=e, ms=_time_kernel(torch, lambda: k4.a2d_gn(*a4_)),
+                              plain=_time_host(torch, lambda: k4.a2d_gn_plain(*a4_)), lib=None,
+                              bound=_bound(Nq * (1024 * 4 + 3 * 64 * 4 + 36 + 8 + 8 + 16),
+                                           k4_ops(a4_)), shape=f"N={Nq}")
+        for i, a5_ in enumerate(by.get("pose_ba_gn", [])):
+            e, st5_ = check_k5(a5_, tag + f", solve {i + 1}")
+            Nq = a5_[0].shape[0]
+            rows[f"K5.{i + 1}"] = dict(
+                err=e, ms=_time_kernel(torch, lambda: k5.pose_ba_gn(*a5_)),
+                plain=_time_host(torch, lambda: k5.pose_ba_gn_plain(*a5_)), lib=None,
+                bound=_bound(Nq * (12 + 8 + 4) + 48 + Nq * 4 + 52,
+                             Nq * (180 * st5_["normal_eqs"] + 27 * 25 + 4 * 30)),
+                shape=f"N={Nq} ({int(a5_[2].sum())} matched)", links=_k5_links(st5_["normal_eqs"]))
+        for i, (a, b) in enumerate(by.get("distance_matrix", [])):
+            e = check_exact("K10 hamming distance_matrix", [k10.distance_matrix(a, b)],
+                            [k10.distance_matrix_plain(a, b)], tag + f", {a.shape[0]} x {b.shape[0]}")
+            ab, bb = unpack_bits(a), unpack_bits(b)
+            rows[f"K10.{i + 1}"] = dict(
+                err=e, ms=_time_kernel(torch, lambda: k10.distance_matrix(a, b)),
+                plain=_time_host(torch, lambda: k10.distance_matrix_plain(a, b)),
+                lib=_time_kernel(torch, lambda: torch.cdist(ab, bb, p=0)), bound=k10_bound(a, b),
+                shape=f"[{a.shape[0]}, {b.shape[0]}]")
+        for k, r in rows.items():
+            lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
+            print(f"path 13 {tag}: {k} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain']:.4f} ms, library {lib} ms, bound {r['bound'][0]:.6f} ms "
+                  f"({r['bound'][1]})" + (f", {r['passes']} passes" if "passes" in r else "")
+                  + (f", {r['links']} reductions" if "links" in r else ""), flush=True)
+
+    def frontend_gate(label, st, T7, ref, vo, wall, prof, n_calls):
+        """The run's report and its gates against the JAX package's CPU run
+        of the same frames (`ref`: GOOD share, ATE): a GOOD share at least
+        the reference's, an ATE at most ATE13_SLACK x the reference's."""
+        sd = None if vo.sd is None else (vo.sd.px.cpu().numpy(), vo.sd.usable().cpu().numpy(),
+                                         vo.sd.depths().cpu().numpy(), vo.sd.kf_slot)
+        out = mw.frontend_report(st, T7, T_gt_m, vo.export_point_cloud(),
+                                 int(vo.server.state.pt_valid.sum()), dict(vo.stats), sd,
+                                 vo.server.state.kf_id.cpu().numpy(), cam_m)
+        k_f, us_f = _totals(prof, P13_PROFILE[1] - P13_PROFILE[0])
+        lat = sorted(latency13[label])
+        ok = out["good"] >= ref["good"] and out["ate"] <= ATE13_SLACK * ref["ate"]
+        print(f"main path {label}: {len(st)} frames in {wall:.3f} s = {wall * 1e3 / len(st):.2f} "
+              f"ms per frame (return latency outside the profile window: median "
+              f"{statistics.median(lat):.2f} ms, 90th percentile {lat[int(0.9 * len(lat))]:.2f}, "
+              f"max {lat[-1]:.2f}); {n_calls} tracker calls; GOOD {out['good']:.4f} (JAX CPU "
+              f"{ref['good']:.4f}), ATE {out['ate']!r} m (JAX CPU {ref['ate']!r}, bound "
+              f"{ATE13_SLACK} x): {'pass' if ok else 'FAIL'}; report {out}; profile window "
+              f"{_nm(k_f, '.1f')} device kernels and {_nm(us_f, '.1f', ' us')} of device time per "
+              f"frame; stats {dict(vo.stats)}", flush=True)
+        return ok, out
+
+    # (a) SPARSE_ORB, VOOptions() otherwise, path 4's 160 frames.
+    opts13a = mw.frontend_options(vo_mod.VOType.SPARSE_ORB)
+    s13a = System(camera=cam_m, options=opts13a, device=dev)
+    st13a, T7_13a, wall13a, launches13a, n_tr13a, calls13a, rec13a, recd13a, prof13a = \
+        frontend_run(s13a, frames_m, "13a, SPARSE_ORB", rec_call=P13_REC, profile_at=P13_PROFILE)
+    want13a = want13(n_tr13a, s13a.vo, rec13a, calls13a)
+    ok13a, _ = frontend_gate("13a, SPARSE_ORB", st13a, T7_13a, ORB13_REF,
+                                          s13a.vo, wall13a, prof13a, calls13a)
+    names13a = [fn.__name__ for fn, _ in recd13a["launches"]]
+    print(f"main path 13a launches {launches13a} (expected {want13a}); tracker call {P13_REC} "
+          f"launched {names13a}", flush=True)
+    if (not ok13a or launches13a != want13a or n_tr13a != 0
+            or names13a != ["distance_matrix", "pose_ba_gn"] * 2):
+        raise AssertionError("main path 13a failed its gates or launch counts")
+    # The card's matches against the CPU's on the recorded frame's first pass.
+    (ma13, mkw13) = recd13a["match"]
+    m_card, obs_card, _ = orbt.match_by_projection(*ma13, **mkw13)
+    cam13, T13, pts13, val13, desc13, feats13 = ma13
+    m_cpu, obs_cpu, _ = orbt.match_by_projection(
+        cam13, SE3(T13.R.cpu(), T13.t.cpu()), pts13.cpu(), val13.cpu(), desc13.cpu(),
+        Features(*(x.cpu() for x in feats13)), **mkw13)
+    m_card, obs_card = m_card.cpu(), obs_card.cpu()
+    agree13 = float((m_card == m_cpu).float().mean())
+    both13 = m_card & m_cpu
+    obs_same = torch.equal(obs_card[both13], obs_cpu[both13])
+    print(f"main path 13a tracker call {P13_REC}, match_by_projection card against CPU: "
+          f"{int(m_card.sum())} / {int(m_cpu.sum())} matched, decisions agree on {agree13:.4f} "
+          f"of {m_card.shape[0]} landmarks (need {MIN13_MATCH_AGREE}), observations where both "
+          f"match {'equal' if obs_same else 'DIFFERENT'}", flush=True)
+    if agree13 < MIN13_MATCH_AGREE or not obs_same:
+        raise AssertionError("main path 13a: the card matches otherwise than the CPU")
+    kernel_rows13(recd13a, f"13a tracker call {P13_REC}")
+    del s13a
+
+    # (b) SEMI_DENSE_DIRECT with the SEMI_DENSE map, VOOptions() otherwise.
+    opts13b = mw.frontend_options(vo_mod.VOType.SEMI_DENSE_DIRECT, vo_mod.MapType.SEMI_DENSE)
+    s13b = System(camera=cam_m, options=opts13b, device=dev)
+    st13b, T7_13b, wall13b, launches13b, n_tr13b, calls13b, rec13b, recd13b, prof13b = \
+        frontend_run(s13b, frames_m, "13b, SEMI_DENSE_DIRECT", rec_call=P13_REC,
+                     profile_at=P13_PROFILE)
+    want13b = want13(n_tr13b, s13b.vo, rec13b, calls13b)
+    ok13b, out13b = frontend_gate("13b, SEMI_DENSE_DIRECT", st13b,
+                                          T7_13b, SD13_REF, s13b.vo, wall13b, prof13b, calls13b)
+    names13b = [fn.__name__ for fn, _ in recd13b["launches"]]
+    shapes13b = {fn.__name__: tuple(a[4].shape) if fn is k3.mega_gn else
+                 (a[0].shape[0] if fn is k5.pose_ba_gn else None) for fn, a in recd13b["launches"]}
+    want_names13b = (["gather_windows_levels"] * 2
+                     + ["mega_gn", "gather_windows_multi", "a2d_gn", "pose_ba_gn"])
+    ok13b = (ok13b and out13b["cloud"] > out13b["landmarks"]
+             and out13b.get("seed_spread", 1.0) < SEED_SPREAD13)
+    print(f"main path 13b launches {launches13b} (expected {want13b}); tracker call {P13_REC} "
+          f"launched {names13b} (K3 levels x points, K5 rows: {shapes13b}); cloud "
+          f"{out13b['cloud']} > landmarks {out13b['landmarks']}, seed depth spread "
+          f"{out13b.get('seed_spread')} (< {SEED_SPREAD13}): {'pass' if ok13b else 'FAIL'}",
+          flush=True)
+    L13 = opts13b.map_L
+    if (not ok13b or launches13b != want13b or n_tr13b != 0 or names13b != want_names13b
+            or shapes13b["mega_gn"][1] != opts13b.map_F + opts13b.sd_budget
+            or shapes13b["pose_ba_gn"] != L13):
+        raise AssertionError("main path 13b failed its gates or launch counts")
+    kernel_rows13(recd13b, f"13b tracker call {P13_REC}")
+    del s13b
+
+    # (c) tests/test_vo_types.py's second-chance spike at 240x320: the spike
+    # frame GOOD through the widened pass (two more K10 and K5 launches).
+    cam_c, _, _ = mw.make_mono_workload(1, device=dev, shape=(240, 320), du=1.0 / 23)
+    scene_c = PlaneScene(cam_c, plane_z=3.0, seed=0, device=dev)
+    dT_c = se3.exp(torch.tensor([0.25, 0.0, 0.0, 0.0, 0.0, 0.0], device=dev))
+    frames_c13 = torch.stack([scene_c.render(T if k < SPIKE_AT else dT_c.compose(T), (240, 320))
+                              for k, T in enumerate(mw.trajectory(13, 1.0 / 23, dev))])
+    s13c = System(camera=cam_c, options=vo_mod.VOOptions(vo_type=vo_mod.VOType.SPARSE_ORB,
+                                                         **mw.VO_OPTS), device=dev)
+    spike = {}
+
+    def on_spike(k, vo):
+        if k == SPIKE_AT - 1:
+            spike["before"] = ({c.__name__: c.launches for c in counters4},
+                               vo.stats["orb_second_chance_hits"], vo.stats["keyframes"])
+        elif k == SPIKE_AT:
+            spike["after"] = ({c.__name__: c.launches for c in counters4},
+                              vo.stats["orb_second_chance_hits"], vo.stats["keyframes"])
+
+    st13c, _, wall13c, launches13c, n_tr13c, calls13c, rec13c, _, _ = frontend_run(
+        s13c, frames_c13, "13c", on_frame=on_spike)
+    want13c = want13(n_tr13c, s13c.vo, rec13c, calls13c)
+    (c0, h0, kf0), (c1, h1, kf1) = spike["before"], spike["after"]
+    spike_launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    ok13c = (st13c[SPIKE_AT] is vo_mod.Status.GOOD and s13c.vo.stats["orb_second_chance_hits"] >= 1
+             and launches13c == want13c
+             and (h1 == h0 or kf1 != kf0
+                  or spike_launches == {"distance_matrix": 4, "pose_ba_gn": 4}))
+    print(f"main path 13c (second-chance spike, 240x320, 13 frames, spike at {SPIKE_AT}): "
+          f"{[s.name for s in st13c]}, {s13c.vo.stats['orb_second_chance_hits']} hits "
+          f"({h1 - h0} on the spike frame, whose launches were {spike_launches}); launches "
+          f"{launches13c} (expected {want13c}): {'pass' if ok13c else 'FAIL'}", flush=True)
+    if not ok13c:
+        raise AssertionError("main path 13c failed its gate")
+    del s13c
+    print(f"main path 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
     # -- 6. profile windows ----------------------------------------------------
     print(f"clock: phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     prof = {}
@@ -3717,7 +4034,7 @@ def main() -> int:
                 + launches9e[name] + launches10a[name] + launches10c[name] + launches11a[name]
                 + launches11b[name] + sum(l_[name] for l_ in launches11c_all)
                 + launches11d[name] + launches12a[name] + launches12d[name] + launches12b[name]
-                + launches12c[name])
+                + launches12c[name] + launches13a[name] + launches13b[name] + launches13c[name])
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

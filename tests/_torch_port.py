@@ -19,13 +19,28 @@ prints one JSON line: the ATE over the run and over its first n frames,
 the GOOD share, the first LOST frame, segments, valid landmark rows every
 40 frames, seeds promoted per keyframe (port) and the stats.  A run's
 outcome moves with float32 rounding (the thread count changes it), so
-compare several."""
+compare several.
+
+    JAX_PLATFORMS=cpu python tests/_torch_port.py frontend PACKAGE VO MAP [THREADS]
+
+runs chip_smoke.py's path 13 (`VOOptions()` with only the frontend VO,
+e.g. sparse_orb, and the map type MAP changed, over the 640x480 monocular
+workload) through the JAX ("jax") or the port's ("port") VisualOdometry on
+the CPU and prints one JSON line: the GOOD share, the ATE over the GOOD
+frames, keyframes, the exported cloud and the landmarks, and for a
+gradient-pixel set its seeds' depth spread on the plane: the reference of
+path 13's gates."""
 import contextlib
 import functools
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
+
+if __name__ == "__main__":      # run as a script: the repository root on the path
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @contextlib.contextmanager
@@ -326,14 +341,46 @@ def box_depth_filter_run(package: str, shape, n: int) -> dict:
                 stats={k: int(v) for k, v in stats.items()})
 
 
-if __name__ == "__main__":
-    import json
-    import os
-    import sys
+def frontend_run(package: str, vo_name: str, map_name: str) -> dict:
+    """chip_smoke.py's path 13 on the CPU: `VOOptions()` with only the
+    frontend and the map type changed, over the monocular workload
+    (models/mono_workload.py, 640x480, 160 frames), through the JAX
+    VisualOdometry ("jax") or the port's ("port").  Returns the run's
+    outcome (`mono_workload.frontend_report`) with its wall seconds."""
     import time
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
 
+    cam, frames, T_gt7 = mw.make_mono_workload(device="cpu")
+    opts = mw.frontend_options(tvo.VOType[vo_name.upper()], tvo.MapType[map_name.upper()])
+    t0 = time.perf_counter()
+    if package == "port":
+        vo = tvo.VisualOdometry(cam, opts, device="cpu")
+        names = [vo.add_frame(frames[k], float(k)).status.name for k in range(len(frames))]
+        T7 = np.stack([p for _, p in vo.trajectory])
+    else:
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        names, T7, _, vo = jax_mono_run(cam, frames, jax_vo_options(opts))
+    wall = time.perf_counter() - t0
+    sd = None if vo.sd is None else (np32(vo.sd.px), np32(vo.sd.usable()),
+                                     np32(vo.sd.depths()), int(vo.sd.kf_slot))
+    out = mw.frontend_report(names, T7, T_gt7, vo.export_point_cloud(),
+                             int(np32(vo.server.state.pt_valid).sum()), dict(vo.stats), sd,
+                             np32(vo.server.state.kf_id), cam)
+    return dict(out, package=package, wall_s=wall)
+
+
+if __name__ == "__main__":
+    import json
+    import time
+
+    if sys.argv[1:2] == ["frontend"]:
+        torch.set_num_threads(int(sys.argv[5]) if len(sys.argv) > 5 else 1)
+        print(json.dumps(frontend_run(sys.argv[2], sys.argv[3], sys.argv[4])))
+        sys.exit(0)
     if sys.argv[1:2] == ["box"]:
         package, H, W, n, threads = sys.argv[2], *map(int, sys.argv[3:7])
         torch.set_num_threads(threads)

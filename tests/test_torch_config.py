@@ -4,8 +4,8 @@ the port on the CPU.
 - `system/config.py`: tests/test_system.py's `TestConfig` (a YAML round
   trip, flat keys, `camera_from_config`); `apply_to` with `VO_CONFIG_KEYS`
   equal to the JAX package's on the same YAML; `System(config_file=...)`
-  with system.sensor / system.vo / system.map, refusing only the step-6
-  modes.  `Config` is process-global: every test that sets it clears it.
+  with system.sensor / system.vo / system.map, every frontend and map
+  type among them.  `Config` is process-global: every test that sets it clears it.
 - `utils/datasets.py`: `TumDataset` (associate.txt, and nearest-timestamp
   pairing), `EurocDataset` and `SyntheticDataset` yield the same frames,
   depths, stamps and ground truth as the JAX loaders on fixtures written
@@ -34,6 +34,7 @@ from ygz_slam_tpu.models import visual_odometry as jvo
 from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry import so3
 from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+from ygz_slam_tpu_torch.models import mono_workload as mw
 from ygz_slam_tpu_torch.models import visual_odometry as tvo
 from ygz_slam_tpu_torch.system import trajectory as traj
 from ygz_slam_tpu_torch.system import viewer
@@ -105,7 +106,8 @@ def test_apply_to_matches_jax(tmp_path, clear_config):
 
 def test_system_from_config_file(tmp_path, clear_config):
     """system.sensor / system.vo / system.map and the camera from the file;
-    the step-6 modes raise (no fallback)."""
+    the SPARSE_ORB and SEMI_DENSE_DIRECT frontends and the SEMI_DENSE map
+    construct from it."""
     def cfg(extra: str) -> str:
         p = tmp_path / "cfg.yaml"
         p.write_text(YAML + extra)
@@ -117,9 +119,28 @@ def test_system_from_config_file(tmp_path, clear_config):
     assert s.vo.cam.fx == 321.0 and s.vo.o.kf_min_frames == 6 and s.vo.o.map_K == 8
     s = System(config_file=cfg("system:\n  sensor: stereo\n"), device="cpu")
     assert s.sensor is Sensor.STEREO and s.vo.o.map_type is tvo.MapType.SPARSE
-    for bad in ("  vo: sparse_orb\n", "  vo: semi_dense_direct\n", "  map: semi_dense\n"):
-        with pytest.raises(ValueError, match="step 6"):
-            System(config_file=cfg("system:\n" + bad), device="cpu")
+    for line, field, value in (("  vo: sparse_orb\n", "vo_type", tvo.VOType.SPARSE_ORB),
+                               ("  vo: semi_dense_direct\n", "vo_type",
+                                tvo.VOType.SEMI_DENSE_DIRECT),
+                               ("  map: semi_dense\n", "map_type", tvo.MapType.SEMI_DENSE)):
+        s = System(config_file=cfg("system:\n" + line), device="cpu")
+        assert getattr(s.vo.o, field) is value and s.vo.cam.fx == 321.0
+
+
+def test_config_file_with_orb_and_semidense_map_runs(tmp_path, clear_config):
+    """A config file naming `system.vo: sparse_orb` and `system.map:
+    semi_dense` loads and tracks tests/test_vo.py's first two frames
+    (INITING: the monocular bootstrap waits for parallax)."""
+    p = tmp_path / "cfg.yaml"
+    p.write_text("camera:\n  fx: 320.0\n  fy: 320.0\n  cx: 160.0\n  cy: 120.0\n"
+                 "system:\n  vo: sparse_orb\n  map: semi_dense\n")
+    s = System(config_file=str(p), device="cpu")
+    assert s.vo.o.vo_type is tvo.VOType.SPARSE_ORB and s.vo.o.map_type is tvo.MapType.SEMI_DENSE
+    scene = PlaneScene(CAM, plane_z=3.0, seed=0, device="cpu")
+    res = [s.track_monocular(scene.render(T, SHAPE), float(k))
+           for k, T in enumerate(mw.trajectory(2, 1.0 / 39, "cpu"))]
+    s.shutdown()
+    assert [r.status for r in res] == [tvo.Status.INITING, tvo.Status.INITING]
 
 
 def _tum_fixture(root: str, n: int, with_assoc: bool = True):
@@ -298,10 +319,16 @@ def test_run_tum_main_end_to_end(tmp_path):
         assert os.path.exists(os.path.join(out, name)), name
     stamps, _ = traj.load_tum(os.path.join(out, "trajectory_tum.txt"))
     assert len(stamps) == 20
-    bad = subprocess.run([sys.executable, "-m", "ygz_slam_tpu_torch.run_tum", root, "--vo",
-                          "sparse_orb", "--out", out, "--device", "cpu"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "step 6" in bad.stderr
+    # The other frontends run from the command line too (a 4-frame folder).
+    root4, out4 = str(tmp_path / "seq4"), str(tmp_path / "out4")
+    _tum_fixture(root4, 4)
+    orb_run = subprocess.run([sys.executable, "-m", "ygz_slam_tpu_torch.run_tum", root4, "--vo",
+                              "sparse_orb", "--map", "semi_dense", "--config", str(cfg), "--out",
+                              out4, "--device", "cpu"], cwd=REPO, env=env, capture_output=True,
+                             text=True, timeout=300)
+    print(orb_run.stdout[-1000:], orb_run.stderr[-1000:])
+    assert orb_run.returncode == 0
+    assert len(traj.load_tum(os.path.join(out4, "trajectory_tum.txt"))[0]) == 4
 
 
 def test_run_tum_tracks_a_frame_without_depth(tmp_path):

@@ -38,7 +38,9 @@ card's P3P draws, and the default options with async mapping equal to the
 synchronous run, per frame and chunked (graphs captured and replayed); the
 RGBD and stereo starts, `match_stereo` and an RGBD map file (the DENSE
 cloud, the vocabulary, archive rows) on the card against the CPU, the file
-written on the card, loaded on the CPU and back bit for bit.
+written on the card, loaded on the CPU and back bit for bit; one step of
+SPARSE_ORB (`track_map_orb`, its matching) and of SEMI_DENSE_DIRECT
+(`track_sd`) on a CPU run's map on the card against the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -1960,3 +1962,90 @@ def test_map_file_card_to_cpu_bit_for_bit(cuda_device, tmp_path):
     for k in files[0]:
         assert all(f[k].dtype == files[0][k].dtype and np.array_equal(f[k], files[0][k])
                    for f in files[1:]), k
+
+
+def _frontend_vo_on_cpu(vo_type, n: int = 14):
+    """The port's VisualOdometry with `vo_type` (and the SEMI_DENSE map) on
+    the CPU over tests/test_vo.py's first n frames at 240x320, the
+    vocabulary, archive, loops and async mapping off: (camera, frames, the
+    VisualOdometry, the motion model's prediction for frame n)."""
+    from ygz_slam_tpu_torch.models import mono_workload as mw
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    cam, frames, _ = mw.make_mono_workload(n + 1, device="cpu", shape=(240, 320), du=1.0 / 39)
+    opts = tvo.VOOptions(vo_type=vo_type, map_type=tvo.MapType.SEMI_DENSE, use_vocabulary=False,
+                         archive_map=False, loop_closing=False, async_mapping=False,
+                         **mw.VO_OPTS)
+    vo = tvo.VisualOdometry(cam, opts, device="cpu")
+    for k in range(n):
+        vo.add_frame(frames[k], float(k))
+    assert vo.status is tvo.Status.GOOD
+    return cam, frames, vo, vo.velocity.compose(vo.prev_T_cw)
+
+
+def test_orb_tracking_card_matches_cpu(cuda_device):
+    """SPARSE_ORB on the card against the CPU: frame 14 of tests/test_vo.py's
+    sequence through `track_map_orb` with the map of a SPARSE_ORB
+    VisualOdometry run on the CPU and the same detections on both devices:
+    pass 1's match decisions equal on >= 99% of the 3072 landmarks (and the
+    observations where both match), the pose within TOL_POSE, inlier sets
+    equal on >= 99%."""
+    from ygz_slam_tpu_torch.models import frontend as tfe
+    from ygz_slam_tpu_torch.models import orb_tracking as torb
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    cam, frames, vo, T_pred = _frontend_vo_on_cpu(tvo.VOType.SPARSE_ORB)
+    o, st = vo.o, vo.server.state
+    pyr = tfe.preprocess(frames[14], o.n_levels)
+    feats = tfe.detect_multilevel(pyr, o.detect_threshold, o.grid_cell, o.feat_budgets)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = (cam, _to(T_pred, dev), st.pt_pos.to(dev), st.pt_valid.to(dev),
+                st.pt_desc.to(dev), _to(feats, dev))
+        m, obs, _ = torb.match_by_projection(*args, radius=o.orb_match_radius,
+                                             max_dist=o.orb_max_hamming)
+        tm = torb.track_map_orb((240, 320), *args, radius_coarse=o.orb_match_radius,
+                                max_dist=o.orb_max_hamming, max_step_motion=o.max_step_motion)
+        out.append((m.cpu(), obs.cpu(), _to(tm, "cpu")))
+    (m_g, obs_g, tm_g), (m_h, obs_h, tm_h) = out
+    both = m_g & m_h
+    agree = (m_g == m_h).float().mean().item()
+    inl = (tm_g.found == tm_h.found).float().mean().item()
+    d = float(tse3.distance(tm_g.T_cw, tm_h.T_cw))
+    print(f"SPARSE_ORB card against CPU: {int(m_g.sum())} / {int(m_h.sum())} matched, decisions "
+          f"agree {agree:.4f}; pose {d:.2e} apart; inliers {int(tm_g.n_inliers)} / "
+          f"{int(tm_h.n_inliers)}, sets agree {inl:.4f}")
+    assert agree >= 0.99 and torch.equal(obs_g[both], obs_h[both]) and int(both.sum()) > 30
+    assert d <= TOL_POSE and inl >= 0.99
+
+
+def test_semidense_step_card_matches_cpu(cuda_device):
+    """SEMI_DENSE_DIRECT on the card against the CPU: frame 14 of
+    tests/test_vo.py's sequence through `track_sd` (alignment over 256 +
+    512 points, map tracking over 3072 rows, the gradient pixels' seed
+    update) with the map and gradient-pixel set of a VisualOdometry run on
+    the CPU: the pose within TOL_SLICE, inlier sets and the seeds updated
+    equal on >= 98% of the rows."""
+    from ygz_slam_tpu_torch.map import state as ms
+    from ygz_slam_tpu_torch.models import frontend as tfe
+    from ygz_slam_tpu_torch.models import visual_odometry as tvo
+
+    cam, frames, vo, T_pred = _frontend_vo_on_cpu(tvo.VOType.SEMI_DENSE_DIRECT)
+    o, sd = vo.o, vo.sd
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sd_d = sd._replace(px=sd.px.to(dev), seeds=_to(sd.seeds, dev))
+        kf_images = vo.kf_images.to(dev)
+        tm, _, ok, sd_new = tvo.track_sd(
+            cam, o, sd_d, ms.row(kf_images, sd.kf_slot), tfe.preprocess(frames[14].to(dev),
+                                                                          o.n_levels),
+            T_pred.params7().to(dev), _to(vo.server.state, dev), kf_images)
+        out.append((_to(tm, "cpu"), sd_new.seeds.sigma2.cpu()))
+    (tm_g, s_g), (tm_h, s_h) = out
+    d = float(tse3.distance(tm_g.T_cw, tm_h.T_cw))
+    inl = (tm_g.found == tm_h.found).float().mean().item()
+    upd = ((s_g != sd.seeds.sigma2) == (s_h != sd.seeds.sigma2)).float().mean().item()
+    print(f"SEMI_DENSE_DIRECT card against CPU: pose {d:.2e} apart; inliers "
+          f"{int(tm_g.n_inliers)} / {int(tm_h.n_inliers)}, sets agree {inl:.4f}; updated seeds "
+          f"agree {upd:.4f}")
+    assert d <= TOL_SLICE and inl >= 0.98 and upd >= 0.98 and int(tm_h.n_inliers) > 30

@@ -17,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from ygz_slam_tpu_torch.geometry.se3 import SE3
 from ygz_slam_tpu_torch.models import mono_workload as mw
 from ygz_slam_tpu_torch.models import visual_odometry as tvo
 from ygz_slam_tpu_torch.solvers import initializer as tin
 from ygz_slam_tpu_torch.system import trajectory as traj
 from ygz_slam_tpu_torch.system.system import Sensor, System
+from ygz_slam_tpu_torch.utils.synthetic import PlaneScene
 
 from _torch_port import jax_mono_run, jax_ransac_indices, jax_vo_options, np32
 
@@ -226,34 +228,65 @@ def test_depth_filter_runs_and_reset_clears_seeds(runs):
     assert r.status in (tvo.Status.INITING, tvo.Status.GOOD)
 
 
-@pytest.mark.parametrize("bad", [dict(use_vocabulary=True, archive_map=True),
+def _tracker_taken(vo, frame, monkeypatch) -> list:
+    """The trackers `vo._run_tracker` calls on `frame` (each stubbed: only
+    the dispatch is read), with a gradient-pixel set on slot 0 for
+    SEMI_DENSE_DIRECT."""
+    calls = []
+    for name in ("track", "track_orb", "track_sd"):
+        monkeypatch.setattr(tvo, name, lambda *a, _n=name, **kw: calls.append(_n))
+    pyr = tvo.fe.preprocess(frame, vo.o.n_levels)
+    vo.kf_images = torch.zeros((vo.o.map_K,) + tuple(frame.shape))
+    if vo.o.vo_type is tvo.VOType.SEMI_DENSE_DIRECT:
+        vo.sd = tvo.sd_init(vo.o, pyr[0], 0, 1.0)
+    try:
+        vo._run_tracker(pyr, vo.T_cw)
+    except TypeError:                     # the stub's None does not unpack
+        pass
+    return calls
+
+
+@pytest.mark.parametrize("opt", [dict(use_vocabulary=True, archive_map=True),
                                  dict(vo_type=tvo.VOType.SEMI_DENSE_DIRECT),
                                  dict(async_mapping=True), dict(vo_type=tvo.VOType.SPARSE_ORB)],
                          ids=["use_vocabulary", "vo_type_semi_dense", "async_mapping", "vo_type"])
-def test_unsupported_options_raise(bad):
-    """A frontend the port does not run raises; the archive loops (the
-    vocabulary with the archive and loop closing) and async mapping, once
-    unsupported, now construct."""
-    cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
-    if "vo_type" not in bad:
-        vo = System(camera=cam, options=mw.mono_options(**bad), device="cpu").vo
-        assert tvo._unsupported(vo.o) == []
-        if bad.get("archive_map"):
-            assert vo.archive is not None and vo.vocab is not None and vo.o.loop_closing
-        return
-    with pytest.raises(ValueError, match="not supported by the port"):
-        System(camera=cam, options=mw.mono_options(**bad), device="cpu")
+def test_options_construct(opt, monkeypatch):
+    """Options once unsupported construct: the archive loops (the vocabulary
+    with the archive and loop closing), async mapping, and the SPARSE_ORB
+    and SEMI_DENSE_DIRECT frontends, each of which takes its own tracker
+    (`track_orb`, `track_sd`)."""
+    cam, frames, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
+    vo = System(camera=cam, options=mw.mono_options(**opt), device="cpu").vo
+    assert not hasattr(tvo, "_unsupported")
+    if opt.get("archive_map"):
+        assert vo.archive is not None and vo.vocab is not None and vo.o.loop_closing
+    if "vo_type" in opt:
+        want = "track_orb" if opt["vo_type"] is tvo.VOType.SPARSE_ORB else "track_sd"
+        assert vo.o.vo_type is opt["vo_type"]
+        assert _tracker_taken(vo, frames[0], monkeypatch) == [want]
 
 
 @pytest.mark.parametrize("sensor", [Sensor.STEREO, Sensor.RGBD])
-def test_other_sensors_raise(sensor):
-    """The depth sensors construct (with the SPARSE and DENSE maps); what
-    still raises is the SEMI_DENSE map type (ROADMAP queue 1, step 6)."""
-    cam, _, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
+def test_other_sensors_construct(sensor):
+    """The depth sensors construct with every map type; with the SEMI_DENSE
+    map (the last step-6 part to raise) the sensor start seeds the first
+    keyframe's gradient-pixel set."""
+    cam, frames, _ = mw.make_mono_workload(1, device="cpu", shape=SHAPE, du=DU)
     for map_type in (tvo.MapType.SPARSE, tvo.MapType.DENSE):
         s = System(camera=cam, sensor=sensor, options=mw.mono_options(map_type=map_type),
                    device="cpu")
         assert s.sensor is sensor and s.vo.o.map_type is map_type
-    with pytest.raises(ValueError, match="map_type=SEMI_DENSE"):
-        System(camera=cam, sensor=sensor, options=mw.mono_options(map_type=tvo.MapType.SEMI_DENSE),
-               device="cpu")
+    s = System(camera=cam, sensor=sensor,
+               options=mw.mono_options(map_type=tvo.MapType.SEMI_DENSE), device="cpu")
+    assert s.sensor is sensor and s.vo.o.map_type is tvo.MapType.SEMI_DENSE and s.vo.sd is None
+    # Frame 0 is at the identity, in front of the plane at z = 3: its depth
+    # image, or its rectified right view 0.1 m (the default baseline) aside.
+    right = depth = None
+    if sensor is Sensor.STEREO:
+        T_right = SE3(torch.eye(3), torch.tensor([-s.vo.o.stereo_baseline, 0.0, 0.0]))
+        right = PlaneScene(cam, plane_z=3.0, seed=0, device="cpu").render(T_right, SHAPE)
+    else:
+        depth = torch.full_like(frames[0], 3.0)
+    r = s.vo.add_frame(frames[0], 0.0, depth=depth, right=right)
+    assert r.status is tvo.Status.GOOD
+    assert s.vo.sd is not None and s.vo.sd.kf_slot == s.vo.last_kf_slot

@@ -14,7 +14,9 @@ is ever evicted here; `chip_smoke.py`'s main paths 6b and 6c run the
 System on BoxScene (`models/nonplanar_workload.py`), and 6c gates its
 evictions.  Options:
 tests/test_vo.py's keyframe gates on the port's configuration (no
-vocabulary, depth filter, archive or async mapping).
+vocabulary, depth filter, archive or async mapping).  The same frames
+with `VOOptions()` and another frontend (`frontend_options`,
+`frontend_report`) are `chip_smoke.py`'s path 13.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from ..geometry.camera import PinholeCamera
 from ..system import trajectory as traj
 from ..system.system import System
 from ..utils.synthetic import PlaneScene
-from .visual_odometry import Status, VOOptions
+from .visual_odometry import MapType, Status, VOOptions, VOType
 
 H, W = 480, 640
 N_FRAMES = 160
@@ -110,3 +112,50 @@ def mono_gate(statuses, T7, T_gt7, ate_bound: float = ATE_FLOOR):
     ok = (k0 < INIT_WITHIN and all(s is not Status.LOST for s in statuses[k0:])
           and ate < ate_bound)                  # False for a NaN ATE
     return k0, ate, ok
+
+
+def frontend_options(vo_type: VOType, map_type: MapType = MapType.SPARSE) -> VOOptions:
+    """The other frontends' configuration (`chip_smoke.py` path 13):
+    `VOOptions()` with only the frontend and the map type changed, so the
+    JAX defaults otherwise (the depth filter, the vocabulary, the archive,
+    loop closing, async mapping) at the map's full width (map_K=10,
+    map_F=256, map_L=3072, sd_budget=512)."""
+    return VOOptions(vo_type=vo_type, map_type=map_type)
+
+
+def seed_depth_spread(sd_px, usable, depths, kf_frame: int, cam) -> float:
+    """The relative spread (std / mean) of the usable gradient-pixel seeds'
+    depths over the plane's true depths at their keyframe (frame
+    `kf_frame` of the workload): one global scale, so a small spread means
+    the seeds converged to the scene (tests/test_vo_types.py's gate: <
+    0.15).  Host arrays in, computed on the CPU."""
+    T = trajectory(kf_frame + 1, DU, "cpu")[kf_frame]
+    scene = PlaneScene(cam, plane_z=3.0, seed=0, device="cpu")
+    px = torch.as_tensor(np.asarray(sd_px)[np.asarray(usable)])
+    ratio = np.asarray(depths)[np.asarray(usable)] / scene.depth(px, T).numpy()
+    return float(np.std(ratio) / np.mean(ratio))
+
+
+def frontend_report(names, T7, T_gt7, cloud, n_landmarks: int, stats: dict, sd, kf_id,
+                    cam) -> dict:
+    """A frontend run's outcome on the workload: the GOOD share, the
+    Sim(3)-aligned ATE of the GOOD frames' camera centres, the first LOST
+    frame, keyframes, the exported cloud's size beside the valid
+    landmarks, SPARSE_ORB's second-chance hits and, with a gradient-pixel
+    set `sd` = (px, usable, depths, keyframe slot) on the host, its usable
+    seeds and their depth spread on the plane (`seed_depth_spread`)."""
+    statuses = [n if isinstance(n, Status) else Status[n] for n in names]
+    out = dict(frames=len(statuses), good=statuses.count(Status.GOOD) / len(statuses),
+               ate=good_ate(statuses, np.asarray(T7), T_gt7),
+               first_lost=statuses.index(Status.LOST) if Status.LOST in statuses else None,
+               init_frame=init_frame(statuses), keyframes=int(stats.get("keyframes", 0)),
+               cloud=int(cloud.shape[0]), landmarks=n_landmarks,
+               second_chance_hits=int(stats.get("orb_second_chance_hits", 0)),
+               reloc_attempts=int(stats.get("reloc_attempts", 0)))
+    if sd is not None:
+        px, usable, depths, slot = sd
+        kf_frame = int(np.asarray(kf_id)[slot])
+        out.update(sd_usable=int(np.asarray(usable).sum()), sd_kf_frame=kf_frame,
+                   seed_spread=(seed_depth_spread(px, usable, depths, kf_frame, cam)
+                                if np.asarray(usable).sum() else float("nan")))
+    return out

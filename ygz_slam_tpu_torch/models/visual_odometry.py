@@ -1,10 +1,10 @@
 """VisualOdometry: the monocular frontend state machine over the VO's
 per-frame map-tracking step and keyframe cycle (counterpart of
-ygz_slam_tpu/models/visual_odometry.py, SPARSE_DIRECT: with the JAX
-package's defaults, the depth filter, the BoW vocabulary, relocalization
-against the active keyframe window and the keyframe archive, loop closing
-within the window and against the archive, epoch merging and async
-mapping).
+ygz_slam_tpu/models/visual_odometry.py: the three frontends and map types,
+with the JAX package's defaults, the depth filter, the BoW vocabulary,
+relocalization against the active keyframe window and the keyframe archive,
+loop closing within the window and against the archive, epoch merging and
+async mapping).
 
 The device steps are plain functions over MapState (`track`,
 `triangulate`, `free_rows`, `assemble_keyframe`, `kf_cycle`,
@@ -52,6 +52,16 @@ one K10 launch, overridden by the sensor; host-side seed promotion); the
 DENSE map type collects each sensor keyframe's back-projected depth image.
 `set_vocabulary` / `refresh_vocabulary` swap the BoW vocabulary (a loaded
 map's, or one retrained on the run's descriptors).
+The other frontends replace the per-frame step (`_run_tracker`):
+SPARSE_ORB (`track_orb`: detection, then `models/orb_tracking.py`'s
+projection matching and pose BA twice, two K10 and two K5 launches, and a
+widened second-chance pass, `track_orb_wide`, for a frame under the inlier
+gate) and SEMI_DENSE_DIRECT (`track_sd`: alignment against the last
+keyframe over its features and gradient pixels, `models/semidense.py`,
+then map tracking over all landmarks and the gradient pixels' seed
+update).  With SEMI_DENSE_DIRECT or the SEMI_DENSE map every keyframe
+seeds a gradient-pixel set (`sd_init`) and exports the last one's
+converged seeds into the semi-dense cloud (`_refresh_semidense`).
 Everything stays on the device: selections that the JAX version makes with
 `jnp.where` are `torch.where` here, and slots are 0-d tensors.
 
@@ -90,7 +100,9 @@ from ..solvers import initializer as init_mod
 from ..utils import np_se3
 from . import frontend as fe
 from . import local_mapping as lm
+from . import orb_tracking as orbt
 from . import relocalization as reloc
+from . import semidense as sdm
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -135,7 +147,10 @@ class Status(enum.Enum):
 
 
 class VOType(enum.Enum):
-    """Frontend method (system.h:26-30); the port runs SPARSE_DIRECT."""
+    """Frontend method (system.h:26-30): SPARSE_DIRECT (photometric
+    alignment, then map patch tracking), SPARSE_ORB (descriptor matching by
+    projection, `models/orb_tracking.py`) or SEMI_DENSE_DIRECT (alignment
+    over the keyframe's features and gradient pixels, `models/semidense.py`)."""
     SPARSE_DIRECT = 0
     SPARSE_ORB = 1
     SEMI_DENSE_DIRECT = 2
@@ -143,8 +158,8 @@ class VOType(enum.Enum):
 
 class MapType(enum.Enum):
     """Map content (system.h:33-37).  SPARSE: landmarks only; SEMI_DENSE:
-    with per-keyframe gradient-pixel depth maps (not ported yet); DENSE: with
-    each sensor keyframe's depth image back-projected (RGBD)."""
+    with each keyframe's converged gradient-pixel seeds back-projected; DENSE:
+    with each sensor keyframe's depth image back-projected (RGBD)."""
     SPARSE = 0
     SEMI_DENSE = 1
     DENSE = 2
@@ -159,10 +174,10 @@ class VOOptions:
     `archive_map` (the keyframe archive and its relocalization),
     `loop_closing` (within the active window and, with the archive, against
     it: the global pose graph, Sim(3) with `sim3_loops`, and epoch merging)
-    and `async_mapping` (the mapping pass on a worker thread), and the SPARSE
-    and DENSE map types; a `vo_type` other than SPARSE_DIRECT, or the
-    SEMI_DENSE map type, names a part it does not run yet: `VisualOdometry`
-    raises for it."""
+    and `async_mapping` (the mapping pass on a worker thread), every
+    `vo_type` (the `orb_*` fields: SPARSE_ORB's windows, Hamming bound and
+    second-chance search; the `sd_*` fields: the gradient pixels of
+    SEMI_DENSE_DIRECT and of the SEMI_DENSE map) and every `map_type`."""
     n_levels: int = 3
     detect_threshold: float = 20.0
     grid_cell: int = 16
@@ -210,6 +225,13 @@ class VOOptions:
     stereo_baseline: float = 0.1          # metres (STEREO sensor)
     vo_type: VOType = VOType.SPARSE_DIRECT
     map_type: MapType = MapType.SPARSE
+    orb_match_radius: float = 15.0        # SPARSE_ORB projection window, px at level 0
+    orb_second_chance: bool = True        # a widened re-search before a sub-gate frame counts
+    orb_wide_radius_mult: float = 3.0     # its window multiplier
+    orb_max_hamming: int = 80             # projection matching bound (ORB-SLAM's TH_HIGH)
+    sd_budget: int = 512                  # gradient pixels per keyframe (semi-dense)
+    sd_cell: int = 8                      # their grid cell, px
+    sd_min_grad: float = 8.0              # their gradient magnitude floor
 
     @property
     def n_select(self) -> int:
@@ -293,9 +315,98 @@ def track(cam, o: VOOptions, prev_pyr, cur_pyr, prev_T_cw7, T_pred7, mstate: ms.
             0, sel2, tm_s.obs_px))
     stage_done("local_map")
     # (d) Landmark statistics (MapPoint _cnt_visible / _cnt_found).
-    mstate = mstate._replace(pt_visible=mstate.pt_visible + tm.candidate.to(torch.int32),
-                             pt_found=mstate.pt_found + tm.found.to(torch.int32))
-    return tm, mstate, tr.ok
+    return tm, count_landmarks(mstate, tm), tr.ok
+
+
+def count_landmarks(mstate: ms.MapState, tm: fe.TrackMapResult) -> ms.MapState:
+    """The landmark statistics after a tracked frame: candidates counted
+    visible, inliers found (MapPoint _cnt_visible / _cnt_found)."""
+    return mstate._replace(pt_visible=mstate.pt_visible + tm.candidate.to(torch.int32),
+                           pt_found=mstate.pt_found + tm.found.to(torch.int32))
+
+
+def _orb_pass(cam, o: VOOptions, cur_pyr, T_pred7, mstate: ms.MapState, **kw):
+    """Detection over the pyramid with the keyframe budgets, then
+    `orb_tracking.track_map_orb` of the map's landmarks from T_pred7 (two
+    K10 and two K5 launches) with the windows and bounds `kw`; no
+    rotation-histogram gate (a landmark's creation-time ORB angle drifts
+    across views)."""
+    feats = fe.detect_multilevel(cur_pyr, o.detect_threshold, o.grid_cell, o.feat_budgets)
+    return orbt.track_map_orb(tuple(cur_pyr[0].shape), cam, SE3.from_params7(T_pred7),
+                              mstate.pt_pos, mstate.pt_valid, mstate.pt_desc, feats, **kw)
+
+
+def track_orb(cam, o: VOOptions, cur_pyr, T_pred7, mstate: ms.MapState):
+    """One SPARSE_ORB frame from the motion model's pose (the JAX package's
+    `_track_orb`; no photometric alignment).  Returns (TrackMapResult over
+    all L landmark rows, MapState with updated statistics)."""
+    tm = _orb_pass(cam, o, cur_pyr, T_pred7, mstate, radius_coarse=o.orb_match_radius,
+                   max_dist=o.orb_max_hamming, max_step_motion=o.max_step_motion)
+    return tm, count_landmarks(mstate, tm)
+
+
+def track_orb_wide(cam, o: VOOptions, cur_pyr, T_pred7, mstate: ms.MapState):
+    """SPARSE_ORB's second-chance pass (the JAX `_track_orb_wide`), for a
+    frame whose motion-model window missed: windows `orb_wide_radius_mult`
+    times wider (coarse and fine), the Hamming bound relaxed by 20 (at most
+    128) and the step gate doubled, from the pose the caller gives (the
+    previous frame's).  The landmark statistics are left to the caller (a
+    failed wide pass must not lower found ratios).  Returns the
+    TrackMapResult."""
+    return _orb_pass(cam, o, cur_pyr, T_pred7, mstate,
+                     radius_coarse=o.orb_match_radius * o.orb_wide_radius_mult,
+                     radius_fine=6.0 * o.orb_wide_radius_mult,
+                     max_dist=min(o.orb_max_hamming + 20, 128),
+                     max_step_motion=2.0 * o.max_step_motion)
+
+
+def track_sd(cam, o: VOOptions, sd: sdm.SemiDensePoints, kf_img, cur_pyr, T_pred7,
+             mstate: ms.MapState, kf_images):
+    """One SEMI_DENSE_DIRECT frame (the JAX `_track_sd`): the keyframe's
+    pyramid built from `kf_img` (its level 0), sparse-direct alignment
+    against it over its features with a depth and its usable gradient
+    pixels (`track_ref_frame`: K1 x 2 and K3 at map_F + sd_budget points),
+    the affine-warped reference patches of all L landmarks, map tracking
+    over all of them (K2, K4, K5 at L rows) and their statistics, then the
+    gradient pixels' seeds updated at the refined pose.  Returns
+    (TrackMapResult, MapState, the alignment's motion-gate flag, the
+    updated SemiDensePoints)."""
+    slot = sd.kf_slot
+    T_kf = mstate.kf_pose(slot)
+    kf_pyr = fe.preprocess(kf_img, o.n_levels)
+    px, depth, pmask = sdm.alignment_point_set(sd, ms.row(mstate.feat_px, slot),
+                                               ms.row(mstate.feat_depth, slot),
+                                               ms.row(mstate.feat_valid, slot))
+    tr = fe.track_ref_frame(kf_pyr, cur_pyr, cam, T_kf, px, depth, pmask,
+                            SE3.from_params7(T_pred7), max_motion=o.max_alignment_motion)
+    patches, patch_ok, search_lvl = fe.reference_patches_for_landmarks(
+        kf_images, mstate.kf_pose7, mstate.feat_px.reshape(-1, 2), mstate.feat_level.reshape(-1),
+        mstate.pt_ref_feat, mstate.pt_pos, mstate.pt_valid, cam, tr.T_cw,
+        max_level=o.n_levels - 1)
+    tm = fe.track_local_map(cur_pyr, cam, tr.T_cw, mstate.pt_pos, mstate.pt_valid, patches,
+                            patch_ok, search_lvl, max_step_motion=o.max_step_motion)
+    sd = sdm.update(sd, kf_img, cur_pyr[0], cam, tm.T_cw.compose(T_kf.inverse()))
+    return tm, count_landmarks(mstate, tm), tr.ok, sd
+
+
+def sd_init(o: VOOptions, img, slot: int, depth_mean: float) -> sdm.SemiDensePoints:
+    """The gradient pixels of keyframe `slot` (image `img`, its level 0)
+    with unit-depth seeds rescaled to the scene's mean depth `depth_mean`
+    (the JAX `_sd_init`, in its order and float32 arithmetic: mu / d,
+    z_range / max(d, 1e-3), sigma2 / max(d, 1e-3)^2)."""
+    px, valid = sdm.select_gradient_pixels(img, cell=o.sd_cell, budget=o.sd_budget,
+                                           min_grad=o.sd_min_grad)
+    seeds = dfilt.Seeds.init(px, valid, depth_mean=1.0, depth_min=0.1)
+    d = torch.tensor(depth_mean, dtype=torch.float32, device=img.device)
+    dc = torch.clamp(d, min=1e-3)
+    seeds = seeds._replace(mu=seeds.mu / d, z_range=seeds.z_range / dc, sigma2=seeds.sigma2 / dc ** 2)
+    return sdm.SemiDensePoints(px=px, seeds=seeds, kf_slot=int(slot))
+
+
+def sd_export(cam, sd: sdm.SemiDensePoints, mstate: ms.MapState):
+    """The converged gradient-pixel seeds of `sd` as world points at its
+    keyframe's current pose: (points [M, 3], valid [M])."""
+    return sdm.export_points(sd, mstate.kf_pose(sd.kf_slot), cam)
 
 
 def triangulate(cam, mstate: ms.MapState, feats_px, feats_valid, feats_angle, T_new7,
@@ -511,14 +622,19 @@ def promote_seeds(cam, o: VOOptions, st: ms.MapState, seeds: dfilt.Seeds, seed_s
 
 
 def update_seeds(cam, seeds: dfilt.Seeds, kf_pose7, kf_images, seed_slot, cur_img,
-                 T_cw: SE3) -> dfilt.Seeds:
+                 T_cw: SE3, via_params7: bool = False) -> dfilt.Seeds:
     """The depth filter's per-frame step (the JAX package's
     `_track_with_seeds` after `_track`): the seeds of keyframe `seed_slot`
     (a Python int or a device index) updated against a frame's level 0 at
-    its refined pose T_cw."""
+    its refined pose T_cw.  With `via_params7` the keyframe-to-frame motion
+    goes through its params7 first, as the JAX package's separate dispatch
+    for the other frontends (`_update_seeds`) takes it."""
     T_seed = SE3.from_params7(ms.row(kf_pose7, seed_slot))
+    T_cur_ref = T_cw.compose(T_seed.inverse())
+    if via_params7:
+        T_cur_ref = SE3.from_params7(T_cur_ref.params7())
     return dfilt.update_seeds_from_frame(seeds, ms.row(kf_images, seed_slot), cur_img, cam,
-                                         T_cw.compose(T_seed.inverse()))
+                                         T_cur_ref)
 
 
 def keyframe_bow(vocab: voc.Vocabulary, mstate: ms.MapState, slot):
@@ -774,14 +890,6 @@ class TrackResult:
     n_inliers: int = 0
 
 
-def _unsupported(o: VOOptions) -> list:
-    """The options that name a part of the JAX package not ported yet
-    (ROADMAP queue 1, step 6: the SPARSE_ORB and SEMI_DENSE_DIRECT frontends
-    and the SEMI_DENSE map type)."""
-    bad = [f"vo_type={o.vo_type.name}"] if o.vo_type is not VOType.SPARSE_DIRECT else []
-    return bad + (["map_type=SEMI_DENSE"] if o.map_type is MapType.SEMI_DENSE else [])
-
-
 class VisualOdometry:
     """VO over a fixed-capacity tensor map, on `device` (the card unless the
     caller names another): monocular, or with a depth image (RGBD) or a
@@ -789,11 +897,6 @@ class VisualOdometry:
 
     def __init__(self, cam, opts: VOOptions | None = None, device=None):
         o = opts or VOOptions()
-        bad = _unsupported(o)
-        if bad:
-            raise ValueError(f"VOOptions not supported by the port: {', '.join(bad)} "
-                             "(it runs the SPARSE_DIRECT frontend with the SPARSE or DENSE map; "
-                             "ROADMAP queue 1, step 6)")
         self.cam = cam
         self.o = o
         self.device = resolve_device(device)
@@ -808,7 +911,8 @@ class VisualOdometry:
         self.prev_obs_px = None        # [L, 2]
         self.cur_depth = None          # this frame's depth image [H, W] (RGBD)
         self.cur_right = None          # this frame's rectified right image (STEREO)
-        self.semidense_cloud: list = []   # [_, 3] arrays loaded with a map (`__aux_cloud`)
+        self.semidense_cloud: list = []   # [_, 3] arrays: earlier keyframes' converged seeds,
+                                          # or a loaded map's `__aux_cloud`
         self.dense_cloud: list = []       # DENSE map: one [_, 3] array per sensor keyframe
         self.init_pyr = None
         self.init_feats = None
@@ -820,6 +924,9 @@ class VisualOdometry:
         self.seeds: dfilt.Seeds | None = None   # depth-filter seeds of the last keyframe
         self.seed_kf_slot = -1
         self.seed_feat_idx = None      # [Fn] their feature rows in that keyframe
+        # The last keyframe's gradient pixels and their seeds
+        # (SEMI_DENSE_DIRECT or the SEMI_DENSE map).
+        self.sd: sdm.SemiDensePoints | None = None
         self.frame_id = -1
         self.lost_count = 0
         self._low_streak = 0           # consecutive sub-gate GOOD frames
@@ -928,13 +1035,14 @@ class VisualOdometry:
         need descriptor verification or become a keyframe, and that frame
         runs through `add_frame`.  Frames while not GOOD, a tail shorter
         than `chunk`, or a confirmed sub-gate streak take the per-frame
-        path, and so does every frame with a map type other than SPARSE.
+        path, and so does every frame of a frontend other than SPARSE_DIRECT
+        or a map type other than SPARSE.
         The results, trajectory and map equal repeated `add_frame` bit for
         bit.  Returns a TrackResult per frame."""
         n = len(imgs)
         ts = list(timestamps) if timestamps is not None else [0.0] * n
         chunk = chunk or self.o.chunk_frames
-        eligible = self.o.map_type is MapType.SPARSE
+        eligible = self.o.vo_type is VOType.SPARSE_DIRECT and self.o.map_type is MapType.SPARSE
         results: list[TrackResult] = []
         i = 0
         while i < n:
@@ -1109,7 +1217,7 @@ class VisualOdometry:
         self._last_kf_pose7 = srv.state.kf_pose7[slot0].cpu().numpy()
         self.frames_since_kf = 0
         self.status = Status.GOOD
-        self._refresh_dense(slot0)
+        self._refresh_semidense(pyr, slot0)
         return TrackResult(Status.GOOD, T1, n_ok)
 
     # -- INITING --------------------------------------------------------
@@ -1202,10 +1310,25 @@ class VisualOdometry:
         self._last_kf_fid = self.frame_id
         self._last_kf_pose7 = srv.state.kf_pose7[slot1].cpu().numpy()
         self.frames_since_kf = 0
+        self._refresh_semidense(pyr, slot1)
 
     # -- GOOD -----------------------------------------------------------
     def _run_tracker(self, pyr, T_pred: SE3):
-        return track(self.cam, self.o, self.prev_pyr, pyr, self.prev_T_cw.params7(),
+        """One frame through the configured frontend from T_pred: (its
+        TrackMapResult, the MapState with the landmark statistics, the
+        alignment's motion-gate flag).  SEMI_DENSE_DIRECT updates its
+        gradient pixels' seeds here, whatever the frame's outcome, and runs
+        the SPARSE_DIRECT step until its first keyframe holds a set."""
+        o = self.o
+        if o.vo_type is VOType.SPARSE_ORB:
+            tm, new_state = track_orb(self.cam, o, pyr, T_pred.params7(), self.server.state)
+            return tm, new_state, True
+        if o.vo_type is VOType.SEMI_DENSE_DIRECT and self.sd is not None:
+            tm, new_state, ok, self.sd = track_sd(
+                self.cam, o, self.sd, ms.row(self.kf_images, self.sd.kf_slot), pyr,
+                T_pred.params7(), self.server.state, self.kf_images)
+            return tm, new_state, ok
+        return track(self.cam, o, self.prev_pyr, pyr, self.prev_T_cw.params7(),
                      T_pred.params7(), self.server.state, self.kf_images, self.prev_found,
                      self.prev_obs_px)
 
@@ -1225,6 +1348,15 @@ class VisualOdometry:
         T_pred = self.velocity.compose(self.prev_T_cw)
         tm, new_state, _ = self._run_tracker(pyr, T_pred)
         n_inl = int(tm.n_inliers)
+        if n_inl < o.min_track_inliers and o.vo_type is VOType.SPARSE_ORB and o.orb_second_chance:
+            # The widened search from the previous pose (the motion model is
+            # what just failed); a pass that clears the gate replaces the frame's.
+            tm2 = track_orb_wide(self.cam, o, pyr, self.prev_T_cw.params7(), self.server.state)
+            n2 = int(tm2.n_inliers)
+            if n2 >= o.min_track_inliers:
+                self.stats["orb_second_chance_hits"] += 1
+                tm, n_inl = tm2, n2
+                new_state = count_landmarks(self.server.state, tm2)
         marginal = n_inl < o.min_track_inliers
         if marginal:
             # Hysteresis: a single sub-gate frame is tracked through; a
@@ -1246,7 +1378,8 @@ class VisualOdometry:
         if self.seeds is not None:
             # The depth filter at the refined pose; a LOST frame keeps the seeds.
             self.seeds = update_seeds(self.cam, self.seeds, new_state.kf_pose7, self.kf_images,
-                                      self.seed_kf_slot, pyr[0], T_cw)
+                                      self.seed_kf_slot, pyr[0], T_cw,
+                                      via_params7=o.vo_type is not VOType.SPARSE_DIRECT)
         self.velocity = T_cw.compose(self.prev_T_cw.inverse())
         self.prev_pyr = pyr
         self.prev_T_cw = T_cw
@@ -1311,6 +1444,7 @@ class VisualOdometry:
                                   np.asarray(host[5:12], np.float32))
             srv.kf_used.remove(slot)
         srv.kf_used.append(slot)
+        self._refresh_semidense(pyr, slot)
         if o.use_depth_filter:
             self.stats["seeds_promoted"] += n_promoted
             self.seeds = new_seeds if d_any else None
@@ -1383,7 +1517,7 @@ class VisualOdometry:
         self.kf_images = ms.set_row(self.kf_images, slot, pyr[0])
         # Fusion before seeding: a fused feature must not also start a seed.
         srv.state = lm.search_in_neighbors(srv.state, cam, slot)
-        self._refresh_dense(slot)
+        self._refresh_semidense(pyr, slot)
         if o.use_depth_filter:
             self._promote_seeds()
             depthless = new_valid & ~can_write & (ms.row(srv.state.feat_point, slot)[Fl:] < 0)
@@ -1433,11 +1567,34 @@ class VisualOdometry:
                                   fd.index_copy(0, idx, torch.where(can, depth, fd[idx]))))
         self.stats["seeds_promoted"] += int(can.sum())
 
-    def _refresh_dense(self, slot: int) -> None:
-        """The DENSE map type's part of the JAX `_refresh_semidense`: with a
-        depth image, keyframe `slot`'s back-projection joins the cloud."""
-        if self.o.map_type is MapType.DENSE and self.cur_depth is not None:
+    def _mean_map_depth(self, slot: int) -> float:
+        """The mean camera z, in keyframe `slot`, of the valid landmarks in
+        front of it (z > 0.05); 1.0 without one."""
+        m = self.server.state
+        z = m.kf_pose(slot).apply(m.pt_pos)[:, 2]
+        sel = m.pt_valid & (z > 0.05)
+        n = int(sel.sum())
+        if n == 0:
+            return 1.0
+        return float(torch.where(sel, z, 0.0).sum() / n)
+
+    def _refresh_semidense(self, pyr, slot: int) -> None:
+        """At each new keyframe `slot` (the JAX `_refresh_semidense`): with
+        the DENSE map and a depth image, its back-projection joins the
+        cloud; with SEMI_DENSE_DIRECT or the SEMI_DENSE map, the outgoing
+        keyframe's converged gradient-pixel seeds join the semi-dense cloud
+        and a fresh gradient-pixel set is seeded on this keyframe's image at
+        the map's mean depth."""
+        o = self.o
+        if o.map_type is MapType.DENSE and self.cur_depth is not None:
             self._accumulate_dense(slot)
+        if o.vo_type is not VOType.SEMI_DENSE_DIRECT and o.map_type is not MapType.SEMI_DENSE:
+            return
+        if self.sd is not None:
+            pts, ok = sd_export(self.cam, self.sd, self.server.state)
+            if bool(ok.any()):
+                self.semidense_cloud.append(pts[ok].cpu().numpy())
+        self.sd = sd_init(o, pyr[0], slot, max(self._mean_map_depth(slot), 1e-2))
 
     def _accumulate_dense(self, slot: int, stride: int = 4) -> None:
         """Every `stride`-th pixel of the depth image in both directions with
@@ -1664,6 +1821,7 @@ class VisualOdometry:
         self.archive.rebase_epoch(self.epoch, fn_pose7, fn_points)
         self.archive.set_epoch(self.epoch, row_epoch)
         self.seeds = None                  # scale-dependent
+        self.sd = None
         self.epoch = row_epoch
 
     def _loop_correction_significant(self, slot: int, lp: reloc.LoopResult) -> bool:
@@ -1981,6 +2139,7 @@ class VisualOdometry:
         self.seeds = None
         self.seed_kf_slot = -1
         self.seed_feat_idx = None
+        self.sd = None
         self.semidense_cloud = []
         self.dense_cloud = []
         self._last_kf_fid = -1
@@ -2005,12 +2164,17 @@ class VisualOdometry:
 
     def export_point_cloud(self) -> np.ndarray:
         """The map's points as [N, 3] world positions (float32, on the host):
-        the valid landmarks, then a loaded map's auxiliary cloud, then the
-        DENSE map's back-projected keyframe depth images."""
+        the valid landmarks, the last keyframe's converged gradient-pixel
+        seeds (semi-dense), the earlier keyframes' (or a loaded map's
+        auxiliary cloud), then the DENSE map's back-projected keyframe depth
+        images."""
         self._join_mapping()
         m = self.server.state
-        return np.concatenate([m.pt_pos[m.pt_valid].cpu().numpy()] + self.semidense_cloud
-                              + self.dense_cloud, axis=0)
+        clouds = [m.pt_pos[m.pt_valid].cpu().numpy()]
+        if self.sd is not None:
+            pts, ok = sd_export(self.cam, self.sd, m)
+            clouds.append(pts[ok].cpu().numpy())
+        return np.concatenate(clouds + self.semidense_cloud + self.dense_cloud, axis=0)
 
     def set_vocabulary(self, vocab: voc.Vocabulary, recompute: bool = True) -> None:
         """Swap in another BoW vocabulary (one loaded with a map, or

@@ -3,7 +3,8 @@ examples/run_tum.py; the reference's test_vo_init.cpp / test_tum_vo.cpp
 programs):
 
     python -m ygz_slam_tpu_torch.run_tum DATASET [--sensor rgbd|monocular]
-        [--vo sparse_direct] [--map sparse|dense] [--config CFG.yaml]
+        [--vo sparse_direct|sparse_orb|semi_dense_direct]
+        [--map sparse|semi_dense|dense] [--config CFG.yaml]
         [--out DIR] [--device cuda|cpu]
 
 DATASET is the standard TUM layout (rgb/, depth/, rgb.txt, depth.txt,
@@ -13,8 +14,7 @@ streaming), writes trajectory_tum.txt, map.npz, cloud.ply and, where
 matplotlib is installed, trajectory.png and map.png to DIR, and prints the
 ATE RMSE against groundtruth.txt when present (rigid for RGBD, Sim(3) for
 monocular).  The camera defaults to TUM freiburg1's intrinsics; a config
-file's camera.* keys replace them.  A frontend or map type the port does
-not run yet raises (no fallback).
+file's camera.* keys replace them.
 """
 from __future__ import annotations
 

@@ -10,6 +10,8 @@ type (system.map) and the fields of `VO_CONFIG_KEYS`.  With `VOOptions()`
 unchanged it runs the JAX package's default configuration: SPARSE_DIRECT
 with the depth filter, the vocabulary, relocalization, the keyframe
 archive, loop closing against the window and the archive and async mapping.
+Every frontend (SPARSE_DIRECT, SPARSE_ORB, SEMI_DENSE_DIRECT) runs with
+every map type (SPARSE, SEMI_DENSE, DENSE) and every sensor.
 Sensors: MONOCULAR (`track_monocular`, and `track_monocular_chunk` /
 `track_monocular_stream` through chunked tracking), RGBD (`track_rgbd`: a
 depth image in metres) and rectified STEREO (`track_stereo`).  `save_map` /
@@ -18,10 +20,7 @@ on a VisualOdometry) write and read the JAX package's npz layout, so a map
 file of either package loads in the other; a loaded map resumes by
 relocalization.
 `warmup` runs the archive's capacity buckets ahead, `shutdown` waits for
-the mapping worker, `export_point_cloud` returns the map's points.  Not
-ported yet (ROADMAP queue 1, step 6): the SPARSE_ORB and
-SEMI_DENSE_DIRECT frontends and the SEMI_DENSE map type (VisualOdometry
-raises for them).
+the mapping worker, `export_point_cloud` returns the map's points.
 """
 from __future__ import annotations
 
