@@ -301,6 +301,29 @@ Phases, each raising (and so exiting non-zero) on failure:
    frames, 0.25 m at frame SPIKE_AT): the spike frame GOOD with >= 1 hit,
    its launches four K10 and four K5.  Each holds want_loops' counts plus
    its trackers'.
+5l. Main path 14: scale-out on an NCCL process group (a world of one
+   rank, the card; no gloo and no CPU fallback).  (a) `sharded_local_ba`
+   at the map's full width: bench_scaling.py's problem (K=10, L=P14_L
+   landmarks, 5 observations each, 0.3 px noise, two gauge-fixed poses,
+   default_rng(0)), 10 iterations, on one rank holding 1, 2, 4 and 8
+   shards: the gauge poses unmoved (< 1e-6), the mean pose error at most
+   1.1x the port's single-device `local_ba` error + 1e-4, bench_scaling's
+   pose error < 0.05, every shard count within TOL14_POSE / TOL14_POINT of
+   one shard, and the 8-shard solve run again equal bit for bit; per
+   iteration the synchronised ms (`utils/profiling.Timers`), the all_reduce
+   calls and bytes, and at 8 shards the device kernels and µs in one
+   profiler window.  (b) `sharded_batch_align` on path 2's frame-1 inputs
+   (S=8) over 8 shards: equal bit for bit to `batched_sparse_align` on the
+   same keyframe preps, launching K1 8 times (each sequence's
+   ReferencePrep), K6 once and K3 8 times.  (c) `sharded_batch_align` on
+   the same inputs with n_iter=3 (K3 below its cap of 12: at least one
+   level stopped by the cap) and `dryrun_multichip()` on the card, every
+   K1, K6 and K3 launch of both recorded and held to its plain version on
+   the same inputs (K1 and K6 exact, K3 within TOL_POSE); then
+   `point_only_ba`, `optimize_current`, `gauss_newton` and
+   `levenberg_marquardt` on tests/test_solvers.py's problems
+   (`models/ba_workload.py`), card against CPU.  The launches of (b) and
+   (c) count in the kernels line.  The process group ends with the path.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -321,7 +344,7 @@ Phases, each raising (and so exiting non-zero) on failure:
    (host operators too where their names are checked: path 4's).  Every
    phase prints the clock it starts at.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-13), then the last line {"ok": true, "device": {...}}.
+   paths 1-14), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
@@ -376,6 +399,14 @@ SD13_REF = dict(good=0.93125, ate=0.002765455801914738)     # SEMI_DENSE_DIRECT,
 ATE13_SLACK = 1.25       # path 13's ATE bound, times the JAX run's (the port on the CPU: 1.041x)
 MIN13_MATCH_AGREE = 0.99  # path 13a: match decisions, card against CPU, share of landmarks
 SEED_SPREAD13 = 0.15     # path 13b: seed depth spread on the plane (tests/test_vo_types.py)
+P14_L, P14_K, P14_OBS = 3072, 10, 5   # main path 14a: bench_scaling.py's problem at path 3's L
+P14_ITERS = 10           # its LM iterations (bench_scaling.py's --iters)
+P14_SHARDS = (1, 2, 4, 8)   # the shards one rank of the NCCL world holds, in turn
+P14_REPS = 3             # timed solves per shard count
+TOL14_POSE = 2e-5        # shard counts against each other: params7 (tests/test_torch_sharded_ba.py)
+TOL14_POINT = 2e-4       # ... and landmarks, m
+TOL14_CPU = 1e-4         # 14c, card against CPU: landmarks (m) and the solvers' x, relative
+TOL14_CPU_POSE = 1e-5    # 14c: optimize_current's free pose (tests/test_torch_solvers.py)
 N_SENSOR = 60            # main path 12: SyntheticDataset frames (its default length) ...
 SENSOR_SHAPE = (480, 640)   # ... at its default size
 SENSOR_ATE = 0.03        # path 12's gate on the rigid ATE (tests/test_system.py, test_stereo.py)
@@ -632,6 +663,206 @@ def _totals(prof, n=1):
     if prof is None:
         return None, None
     return (sum(v[1] for v in prof.values()) / n, sum(v[0] for v in prof.values()) / n)
+
+
+def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
+    """Main path 14: scale-out on an NCCL process group (a world of one
+    rank, the card).  `checks` holds phase 2's checks of K1, K3 and K6
+    against their plain versions.  Returns the launch counts of 14b's and
+    14c's calls."""
+    import torch.distributed as dist
+
+    from ygz_slam_tpu_torch.entry import dryrun_multichip
+    from ygz_slam_tpu_torch.geometry import se3
+    from ygz_slam_tpu_torch.geometry.se3 import SE3
+    from ygz_slam_tpu_torch.models import ba_workload as bw
+    from ygz_slam_tpu_torch.ops import kernels, pyramid, sparse_align
+    from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k1
+    from ygz_slam_tpu_torch.parallel import batch_tracking as bt
+    from ygz_slam_tpu_torch.parallel import mesh as pmesh
+    from ygz_slam_tpu_torch.parallel import sharded_ba as sba
+    from ygz_slam_tpu_torch.solvers import ba, nlls
+    from ygz_slam_tpu_torch.utils import profiling
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is already running before path 14")
+    # 14a. sharded_local_ba at the map's full width, 1, 2, 4 and 8 shards.
+    p = bw.ba_problem(P14_L, P14_K, P14_OBS, device=dev)
+    res1 = ba.local_ba(p.noisy_poses, p.noisy_points, p.obs, p.cam, p.fixed, n_iter=P14_ITERS)
+    err1, bs1 = bw.pose_gate(res1.poses, p)
+    timers = profiling.Timers()
+    outs, lines = {}, []
+    for n in P14_SHARDS:
+        mesh = pmesh.make_mesh(n, device=dev)
+        if dist.get_backend(mesh.group) != "nccl" or mesh.world != 1 or mesh.local != n:
+            raise AssertionError(f"path 14a's mesh runs {dist.get_backend(mesh.group)} over "
+                                 f"{mesh.world} "
+                                 f"rank(s) holding {mesh.local} shards")
+        args = bw.shard_inputs(mesh, p)
+
+        def run():
+            return sba.sharded_local_ba(mesh, *args, p.cam, p.fixed, n_iter=P14_ITERS)
+
+        out = run()
+        c0, b0 = pmesh.reduce_sum.calls, pmesh.reduce_sum.bytes
+        for _ in range(P14_REPS):
+            with timers.time(f"14a n={n}", block_on=p.points):
+                out = run()
+        n_it = P14_REPS * P14_ITERS
+        calls, nbytes = (pmesh.reduce_sum.calls - c0) / n_it, (pmesh.reduce_sum.bytes - b0) / n_it
+        P, X, C = out
+        gauge = float(se3.distance(SE3(P.R[:2], P.t[:2]),
+                                   SE3(p.noisy_poses.R[:2], p.noisy_poses.t[:2])).max())
+        err, bs = bw.pose_gate(P, p)
+        ms = 1e3 * timers.total[f"14a n={n}"] / n_it
+        ok = (gauge < 1e-6 and err <= 1.1 * err1 + 1e-4 and bs < 0.05
+              and bool(torch.isfinite(C)))
+        outs[n] = (P.params7(), X[:P14_L])
+        lines.append(ms)
+        print(f"main path 14a, {n} shard(s) on 1 NCCL rank: {ms:.3f} ms per iteration "
+              f"(synchronised, {P14_REPS} solves of {P14_ITERS}), {calls:.1f} all_reduce calls "
+              f"and {nbytes:.0f} bytes reduced per iteration; chi2 {float(C):.4f}, gauge poses "
+              f"moved {gauge:.1e} (< 1e-6), mean pose error {err:.6f} (local_ba {err1:.6f}, "
+              f"bound {1.1 * err1 + 1e-4:.6f}), bench_scaling's error {bs:.6f} (< 0.05): "
+              f"{'pass' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"main path 14a failed its gates at {n} shard(s)")
+    for n in P14_SHARDS[1:]:
+        dp = float((outs[n][0] - outs[1][0]).abs().max())
+        dx = float((outs[n][1] - outs[1][1]).abs().max())
+        print(f"main path 14a, {n} shards against 1: params7 {dp:.2e} (<= {TOL14_POSE}), "
+              f"landmarks {dx:.2e} (<= {TOL14_POINT})", flush=True)
+        if dp > TOL14_POSE or dx > TOL14_POINT:
+            raise AssertionError(f"main path 14a: {n} shards disagree with one")
+    again = run()
+    same = all(torch.equal(a, b) for a, b in zip((*again[0], again[1], again[2]),
+                                                  (*out[0], out[1], out[2])))
+    print(f"main path 14a, 8 shards run again: {'equal bit for bit' if same else 'DIFFERENT'}",
+          flush=True)
+    if not same:
+        raise AssertionError("main path 14a: the 8-shard solve does not repeat bit for bit")
+    prof = _profile(torch, run, P14_ITERS, f"main path 14a, {P14_SHARDS[-1]} shards (per "
+                    f"iteration, {P14_ITERS} iterations)")
+    k14, us14 = _totals(prof, P14_ITERS)
+    print(f"main path 14a per iteration at {P14_SHARDS[-1]} shards: {_nm(k14, '.1f')} device "
+          f"kernels, {_nm(us14, '.1f', ' us')} of device time; local_ba on one device "
+          f"{float(res1.chi2):.4f} chi2", flush=True)
+
+    # 14b. sharded_batch_align on path 2's frame-1 inputs, 8 sequences.
+    S = bstate.px.shape[0]
+    mesh8 = pmesh.make_mesh(S, device=dev)
+    cur_pyrs = pyramid.build_pyramid(frames_b[1], len(bstate.ref_pyrs))
+    T0 = SE3.from_params7(T7_1)
+    preps = [sparse_align.prepare_reference(tuple(r[s] for r in bstate.ref_pyrs), bstate.cam,
+                                            bstate.px[s], bstate.depth[s], bstate.mask[s],
+                                            distorted=bt.DISTORTED) for s in range(S)]
+    ref = bt.batched_sparse_align(bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
+                                  bstate.depth, bstate.mask, T0, preps).params7()
+    reset()
+    T = bt.sharded_batch_align(mesh8, bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
+                               bstate.depth, bstate.mask, T0)
+    torch.cuda.synchronize()
+    launches14b = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters}
+    want.update(gather_windows_levels=S, gather_windows_grouped=1, mega_gn=S)
+    same = torch.equal(T.params7(), ref)
+    print(f"main path 14b (sharded_batch_align, {S} sequences on {mesh8.local} shards of 1 NCCL "
+          f"rank): equal to batched_sparse_align bit for bit: {same}; launches {launches14b} "
+          f"(expected {want})", flush=True)
+    if not same or launches14b != want:
+        raise AssertionError("main path 14b failed")
+
+    # 14c. sharded_batch_align below K3's iteration cap and dryrun_multichip,
+    # every launch recorded and replayed against its plain version; then the
+    # solvers with no caller on a path, card against CPU.
+    reset()
+    with kernels.record_launches() as rec:
+        T3 = bt.sharded_batch_align(mesh8, bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
+                                    bstate.depth, bstate.mask, T0, n_iter=3)
+        n3 = len(rec)
+        _, dx, dc, dT = dryrun_multichip(device=dev)
+        torch.cuda.synchronize()
+    launches14c = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters}
+    want.update(gather_windows_levels=S + dT.R.shape[0], gather_windows_grouped=2,
+                mega_gn=S + dT.R.shape[0])
+    print(f"main path 14c: sharded_batch_align with n_iter=3 ({S} sequences) and "
+          f"dryrun_multichip() on the card ({dx.shape[0]} landmark rows, chi2 {float(dc):.3e}, "
+          f"{dT.R.shape[0]} sequence(s)); launches {launches14c} (expected {want})", flush=True)
+    if (launches14c != want or not bool(torch.isfinite(T3.params7()).all())
+            or torch.equal(T3.params7(), T.params7())):
+        raise AssertionError("main path 14c: the n_iter=3 call or dryrun_multichip failed")
+    capped = 0
+    for i, (fn, args) in enumerate(rec):
+        tag = (f"main path 14c, {'n_iter=3 call' if i < n3 else 'dryrun_multichip'}, "
+               f"launch {i}")
+        if fn.__name__ == "mega_gn":
+            if args[12] != 3:
+                raise AssertionError(f"{tag}: K3 launched with n_iter {args[12]}, not 3")
+            _, st = checks["K3"](args, tag)
+            capped += i < n3 and max(st["passes"]) == 4
+        elif fn.__name__ == "gather_windows_grouped":
+            checks["exact"]("K6 gather_windows_grouped", k1.gather_windows_grouped(*args),
+                            k1.gather_windows_grouped_plain(*args), tag)
+        elif fn.__name__ == "gather_windows_levels":
+            checks["K1"]([args], tag, with_library=False)
+        else:
+            raise AssertionError(f"{tag}: {fn.__name__} launched")
+    print(f"main path 14c: {len(rec)} launches replayed against their plain versions; K3 "
+          f"levels stopped by the cap of 3 in {capped} of {S} sequences", flush=True)
+    if not capped:
+        raise AssertionError("main path 14c: no K3 level of the n_iter=3 call reached the cap")
+    cpu = torch.device("cpu")
+    errs = {}
+    cam, poses, truth, noisy, obs = bw.point_problem(dev)
+    out_d = ba.point_only_ba(poses, noisy, obs, cam)
+    cam_c, poses_c, truth_c, noisy_c, obs_c = bw.point_problem(cpu)
+    out_c = ba.point_only_ba(poses_c, noisy_c, obs_c, cam_c)
+    errs["point_only_ba"] = float((out_d.cpu() - out_c).abs().max())
+    (cam, gt, start, pts, noisy, obs, cur), (cam_c, gt_c, start_c, pts_c, noisy_c, obs_c, _) = (
+        bw.current_problem(dev), bw.current_problem(cpu))
+    rd = ba.optimize_current(start, noisy, obs, cam, cur, n_iter=15)
+    rc = ba.optimize_current(start_c, noisy_c, obs_c, cam_c, cur, n_iter=15)
+    errs["optimize_current points"] = float((rd.points.cpu() - rc.points).abs().max())
+    errs["optimize_current pose"] = float(se3.distance(
+        SE3(rd.poses.R[cur].cpu(), rd.poses.t[cur].cpu()), SE3(rc.poses.R[cur], rc.poses.t[cur])))
+    inl_same = torch.equal(rd.inlier.cpu(), rc.inlier)
+
+    def rosenbrock(p):
+        x, y = p[0], p[1]
+        r = torch.stack([1.0 - x, 10.0 * (y - x * x)])
+        J = torch.stack([torch.stack([-torch.ones_like(x), torch.zeros_like(x)]),
+                         torch.stack([-20.0 * x, 10.0 * torch.ones_like(x)])])
+        return J.T @ J, -J.T @ r, torch.sum(r * r)
+
+    def line_fit(xs):
+        def compute(p):
+            r = p[0] * xs + p[1] - (3.0 * xs + 0.5)
+            J = torch.stack([xs, torch.ones_like(xs)], dim=-1)
+            return J.T @ J, -J.T @ r, torch.sum(r * r)
+        return compute
+
+    for name, solver, model, x0, n_iter in (
+            ("gauss_newton", nlls.gauss_newton, line_fit, [0.0, 0.0], 5),
+            ("levenberg_marquardt", nlls.levenberg_marquardt, None, [-1.2, 1.0], 60)):
+        xs = []
+        for d in (dev, cpu):
+            compute = rosenbrock if model is None else model(torch.linspace(0, 1, 50, device=d))
+            xs.append(solver(compute, lambda x, dx: x + dx, torch.tensor(x0, device=d),
+                             n_iter=n_iter)[0].cpu())
+        errs[name] = float((xs[0] - xs[1]).abs().max())
+    ok = (errs["point_only_ba"] <= TOL14_CPU and errs["optimize_current points"] <= TOL14_CPU
+          and errs["optimize_current pose"] <= TOL14_CPU_POSE and inl_same
+          and errs["gauss_newton"] <= TOL14_CPU and errs["levenberg_marquardt"] <= TOL14_CPU)
+    print(f"main path 14c, card against CPU: {errs} (landmarks and x <= {TOL14_CPU}, the pose "
+          f"<= {TOL14_CPU_POSE}); optimize_current inliers equal: {inl_same}: "
+          f"{'pass' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("main path 14c: a solver on the card disagrees with the CPU")
+    dist.destroy_process_group()
+    print(f"main path 14a ms per iteration at {P14_SHARDS}: {[round(m, 3) for m in lines]}",
+          flush=True)
+    return {k: launches14b[k] + launches14c[k] for k in launches14b}
 
 
 def main() -> int:
@@ -3875,6 +4106,14 @@ def main() -> int:
     del s13c
     print(f"main path 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # -- 5l. main path 14: scale-out on an NCCL process group -------------------
+    print(f"clock: path 14 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    launches14 = _path14(torch, dev, reset, counters,
+                         dict(K1=check_k1, K3=check_k3, exact=check_exact),
+                         bstate, frames_b, T7_1)
+    print(f"main path 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
     # -- 6. profile windows ----------------------------------------------------
     print(f"clock: phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     prof = {}
@@ -4034,7 +4273,8 @@ def main() -> int:
                 + launches9e[name] + launches10a[name] + launches10c[name] + launches11a[name]
                 + launches11b[name] + sum(l_[name] for l_ in launches11c_all)
                 + launches11d[name] + launches12a[name] + launches12d[name] + launches12b[name]
-                + launches12c[name] + launches13a[name] + launches13b[name] + launches13c[name])
+                + launches12c[name] + launches13a[name] + launches13b[name] + launches13c[name]
+                + launches14.get(name, 0))
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

@@ -40,7 +40,8 @@ RGBD and stereo starts, `match_stereo` and an RGBD map file (the DENSE
 cloud, the vocabulary, archive rows) on the card against the CPU, the file
 written on the card, loaded on the CPU and back bit for bit; one step of
 SPARSE_ORB (`track_map_orb`, its matching) and of SEMI_DENSE_DIRECT
-(`track_sd`) on a CPU run's map on the card against the CPU.
+(`track_sd`) on a CPU run's map on the card against the CPU; the sharded
+local BA in an NCCL world of one against a gloo world on the CPU.
 chip_smoke.py holds every kernel against its plain version on the main
 paths' own inputs.
 
@@ -796,6 +797,25 @@ def _k5_args(dev, n, seed=4):
     mask = st.mask.clone()
     mask[k:k + n // 20] = False
     return tk5.pose_ba_args(TSE3.from_params7(T_gt7[0]), st.pts_w, obs, mask, cam)
+
+
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_sparse_align_mega_iteration_cap(cuda_device, n_iter):
+    """K3 below its cap of 12 GN iterations per level (sharded_batch_align's
+    n_iter, dryrun_multichip's 3) against its plain version at the same
+    cap, on the 200-point frame; the cap stops at least one level, and two
+    launches are equal bit for bit."""
+    args = _k3_args(cuda_device, 200)[:12] + (n_iter,)
+    out = tk3.mega_gn(*args)
+    stats = {}
+    ref = tk3.mega_gn_plain(*args, stats=stats)
+    d = float(tse3.distance(_pose(out), _pose(ref)))
+    print(f"K3 n_iter={n_iter}: pose distance {d:.3e}, passes {stats['passes']}")
+    assert d <= TOL_POSE and bool(torch.isfinite(out).all())
+    assert abs(float(out[12]) - float(ref[12])) <= 1e-4 * max(abs(float(ref[12])), 1e-6)
+    assert max(stats["passes"]) == n_iter + 1
+    assert torch.equal(tk3.mega_gn(*args), out)
+    assert not torch.equal(out, tk3.mega_gn(*args[:12]))
 
 
 @pytest.mark.parametrize("n", [1, 31, 200, 512, 1500])
@@ -2049,3 +2069,35 @@ def test_semidense_step_card_matches_cpu(cuda_device):
           f"{int(tm_g.n_inliers)} / {int(tm_h.n_inliers)}, sets agree {inl:.4f}; updated seeds "
           f"agree {upd:.4f}")
     assert d <= TOL_SLICE and inl >= 0.98 and upd >= 0.98 and int(tm_h.n_inliers) > 30
+
+
+def test_sharded_local_ba_nccl_matches_cpu(cuda_device):
+    """Main path 14a at a small size: bench_scaling.py's problem at 256
+    landmarks on 4 shards of one rank, in an NCCL world of one on the card
+    and a gloo world of one on the CPU (one after the other: a process
+    group has one backend), held to each other at the tolerances of
+    tests/test_torch_sharded_ba.py; two all_reduce calls per iteration."""
+    import torch.distributed as dist
+    from ygz_slam_tpu_torch.models import ba_workload as bw
+    from ygz_slam_tpu_torch.parallel import mesh as pmesh
+    from ygz_slam_tpu_torch.parallel import sharded_ba as sba
+
+    assert not dist.is_initialized()
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        p = bw.ba_problem(256, device=dev)
+        mesh = pmesh.make_mesh(4, device=dev)
+        try:
+            assert dist.get_backend() == pmesh.backend_for(dev)
+            c0 = pmesh.reduce_sum.calls
+            P, X, C = sba.sharded_local_ba(mesh, *bw.shard_inputs(mesh, p), p.cam, p.fixed)
+            assert pmesh.reduce_sum.calls - c0 == 20
+            out.append((P.params7().cpu(), X.cpu(), float(C), bw.pose_gate(P, p)))
+        finally:
+            dist.destroy_process_group()
+    (pg, xg, cg, eg), (ph, xh, ch, eh) = out
+    dp, dx = float((pg - ph).abs().max()), float((xg - xh).abs().max())
+    print(f"sharded local BA, NCCL on the card against gloo on the CPU: params7 {dp:.2e}, "
+          f"landmarks {dx:.2e}, chi2 {cg:.4f} / {ch:.4f}; pose errors {eg} / {eh}")
+    assert dp <= 2e-5 and dx <= 2e-4 and abs(cg - ch) <= 1e-4 * ch
+    assert eg[1] < 0.05

@@ -59,3 +59,103 @@ def test_fn_matches_jax(both):
     assert d <= TOL_POSE
     assert int(n_inl) == int(jn) == 200
     assert e <= TOL_CHI2_REL
+
+
+# -- dryrun_multichip ----------------------------------------------------------
+
+TOL_DRY_POSE = 2e-5      # test_torch_sharded_ba.py's tolerances
+TOL_DRY_POINT = 2e-4
+TOL_DRY_CHI2 = 1e-6      # absolute: the 2-iteration solve of noise-free pixels ends at ~1e-9
+TOL_DRY_SEQ = 1e-4       # the sequences align a pyramid to itself: both stay at the identity
+
+
+def _jax_dryrun(n):
+    """`__graft_entry__.dryrun_multichip(n)`'s two programs on the same draws,
+    returning what it only asserts on: (poses params7, landmark rows, chi2,
+    sequence poses params7)."""
+    import jax.numpy as jnp
+    from ygz_slam_tpu.geometry import SE3, PinholeCamera, so3
+    from ygz_slam_tpu.ops import pyramid as jpyr
+    from ygz_slam_tpu.parallel import make_mesh, partition_observations, sharded_local_ba
+    from ygz_slam_tpu.parallel.batch_tracking import sharded_batch_align
+
+    rng = np.random.default_rng(0)
+    K, L = 4, 8 * n
+    cam = PinholeCamera.create(100.0, 100.0, 64.0, 48.0)
+    pts = np.c_[rng.uniform(-1, 1, (L, 2)), rng.uniform(3, 5, L)].astype(np.float32)
+    poses = [SE3(so3.exp(jnp.asarray(rng.normal(size=3) * 0.02, jnp.float32)),
+                 jnp.asarray([0.1 * k, 0, 0], jnp.float32)) for k in range(K)]
+    poses = jax.tree.map(lambda *xs: jnp.stack(xs), *poses)
+    px = jax.vmap(lambda T: cam.world_to_pixel(jnp.asarray(pts), T, distorted=False))(poses)
+    kf_idx = np.repeat(np.arange(K, dtype=np.int32), L)
+    pt_idx = np.tile(np.arange(L, dtype=np.int32), K)
+    mesh = make_mesh(n)
+    sobs, L_pad = partition_observations(kf_idx, pt_idx, np.asarray(px).reshape(-1, 2),
+                                         np.ones(K * L, bool), L, n)
+    p, x, chi2 = jax.jit(lambda p, x, o: sharded_local_ba(
+        mesh, p, x, o, cam, jnp.zeros(K, bool).at[0].set(True), n_iter=2))(
+        poses, jnp.concatenate([jnp.asarray(pts), jnp.zeros((L_pad - L, 3))]), sobs)
+    S, N, h, w = n, 16, 64, 64
+    cam2 = PinholeCamera.create(40.0, 40.0, w / 2, h / 2)
+    imgs = jnp.asarray(rng.uniform(0, 255, (S, h, w)), jnp.float32)
+    pyrs = tuple(jax.vmap(lambda im: jpyr.build_pyramid(im, 3))(imgs))
+    px2 = jnp.asarray(np.stack([np.c_[rng.uniform(10, w - 10, N), rng.uniform(10, h - 10, N)]
+                                for _ in range(S)]), jnp.float32)
+    d2 = jnp.asarray(rng.uniform(2.0, 4.0, (S, N)), jnp.float32)
+    T7 = jax.jit(lambda pyrs, px2, d2: sharded_batch_align(
+        mesh, pyrs, pyrs, cam2, px2, d2, jnp.ones((S, N), bool), SE3.identity((S,)),
+        n_iter=3).params7())(pyrs, px2, d2)
+    return np32(p.params7()), np32(x), float(chi2), np32(T7)
+
+
+def test_dryrun_multichip_matches_jax():
+    """`dryrun_multichip(8, device="cpu")` (a rank holding 8 shards) against
+    the JAX function's two programs on `make_mesh(8)`, on the same draws."""
+    import torch.distributed as dist
+    from ygz_slam_tpu_torch.entry import dryrun_multichip
+
+    p, x, chi2, T = dryrun_multichip(8, device="cpu")
+    assert not dist.is_initialized()            # the world of one it started has ended
+    jp7, jx, jchi2, jT7 = _jax_dryrun(8)
+    dp, dx = np.abs(np32(p.params7()) - jp7).max(), np.abs(np32(x) - jx).max()
+    ds = float(tse3.distance(T, TSE3.from_params7(torch.tensor(jT7))).max())
+    print(f"measured: dryrun_multichip(8) port against JAX: params7 {dp:.2e}, points {dx:.2e}, "
+          f"chi2 {float(chi2):.3e} vs {jchi2:.3e}, sequence poses {ds:.2e}")
+    assert x.shape == (64, 3) and T.R.shape == (8, 3, 3)
+    assert dp <= TOL_DRY_POSE and dx <= TOL_DRY_POINT and abs(float(chi2) - jchi2) <= TOL_DRY_CHI2
+    assert ds <= TOL_DRY_SEQ
+
+
+# -- utils/profiling ------------------------------------------------------------
+
+def test_timers_and_bench_log(tmp_path):
+    import json
+    from ygz_slam_tpu_torch.utils import profiling
+
+    timers = profiling.Timers()
+    x = torch.ones(1000)
+    for _ in range(3):
+        with timers.time("sum", block_on=(x, [x])):
+            (x * 2).sum()
+    with timers.time("other"):
+        pass
+    s = timers.summary()
+    assert list(s) == ["other", "sum"] and s["sum"]["count"] == 3 and s["other"]["count"] == 1
+    assert json.loads(timers.log_line()) == s
+    timers.reset()
+    assert timers.summary() == {}
+    log = tmp_path / "bench.jsonl"
+    profiling.append_bench_log(str(log), {"metric": "a", "value": 1.5})
+    profiling.append_bench_log(str(log), {"metric": "b", "t": 7})
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    assert rows[0]["metric"] == "a" and rows[0]["value"] == 1.5 and "t" in rows[0]
+    assert rows[1] == {"metric": "b", "t": 7}
+
+
+def test_device_trace_writes_a_trace(tmp_path):
+    from ygz_slam_tpu_torch.utils import profiling
+
+    with profiling.device_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    assert any("mm" in e.key for e in prof.key_averages())

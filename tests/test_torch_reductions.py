@@ -151,7 +151,8 @@ def test_assemble_is_independent_of_row_order(seed):
     for name, a, b in zip(("Hcc", "Hll", "W", "bc", "bl"), out[:5], pout[:5]):
         assert torch.equal(a, b), name
     # chi2 is a plain sum over the rows (order-dependent in the last bits).
-    assert abs(float(out[5]) - float(pout[5])) <= 1e-5 * float(out[5])
+    chi2, pchi2 = float(out[5].sum()), float(pout[5].sum())
+    assert abs(chi2 - pchi2) <= 1e-5 * chi2
     # With frozen weights too, as the LM loop calls it.
     r, _, _, valid = ba.reproject(poses, pts, obs, cam)
     w = ba._irls_weights(r, valid, 2.0)

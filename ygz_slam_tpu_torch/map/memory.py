@@ -6,7 +6,8 @@ array contents live on the device in MapState (map/state.py); the server
 keeps the used slots in insertion order and pulls small masks to the host
 at keyframe rate, never per frame.  Slot choice and free-row search are the
 numpy code paths of ygz_slam_tpu/native.py (`alloc_kf_slot`, `free_rows`),
-copied; no native library is loaded.
+copied, and `partition_obs`, a numpy copy of the native observation
+partitioner (native/map_store.cpp); no native library is loaded.
 """
 from __future__ import annotations
 
@@ -32,6 +33,43 @@ def alloc_kf_slot(used: np.ndarray, cov: np.ndarray, ref_slot: int,
 def free_rows(valid: np.ndarray, want: int) -> np.ndarray:
     """Up to `want` free rows of the validity mask, ascending."""
     return np.where(valid == 0)[0][:want].astype(np.int32)
+
+
+def partition_obs(kf_idx, pt_idx, px, mask, L: int, n_shards: int):
+    """Observations grouped by landmark shard (shard s owns landmark rows
+    [s * Ls, (s + 1) * Ls), Ls = ceil(L / n_shards)), each shard padded to
+    the largest count (at least 1): (out_kf, out_pt shard-local, out_px,
+    out_mask bool, o_shard), flat [n_shards * o_shard, ...].  Masked rows
+    and rows of no shard are dropped; a shard's rows keep their table order
+    and its padding is zero, exactly as the native partitioner
+    (ms_partition_obs) writes them: that order sets the order of the
+    segmented sums downstream."""
+    kf = np.ascontiguousarray(kf_idx, np.int32)
+    pt = np.ascontiguousarray(pt_idx, np.int32)
+    px = np.ascontiguousarray(px, np.float32).reshape(-1, 2)
+    mask = np.asarray(mask).astype(bool)
+    Ls = -(-L // n_shards)
+    # C++ integer division truncates toward zero.
+    shard = np.where(pt >= 0, pt // Ls, -(-pt // Ls))
+    keep = mask & (shard >= 0) & (shard < n_shards)
+    rows = np.nonzero(keep)[0]
+    s = shard[rows]
+    counts = np.bincount(s, minlength=n_shards)
+    o_shard = int(max(1, counts.max(initial=0)))
+    rows = rows[np.argsort(s, kind="stable")]
+    s = shard[rows]
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out = s * o_shard + np.arange(rows.shape[0]) - first[s]
+    n = n_shards * o_shard
+    out_kf = np.zeros(n, np.int32)
+    out_pt = np.zeros(n, np.int32)
+    out_px = np.zeros((n, 2), np.float32)
+    out_mask = np.zeros(n, bool)
+    out_kf[out] = kf[rows]
+    out_pt[out] = pt[rows] - s * Ls
+    out_px[out] = px[rows]
+    out_mask[out] = True
+    return out_kf, out_pt, out_px, out_mask, o_shard
 
 
 def refresh_covisibility(state: ms.MapState) -> ms.MapState:

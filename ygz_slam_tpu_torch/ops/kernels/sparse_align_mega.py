@@ -159,7 +159,7 @@ def level_passes(w_l, rp_l, J_l, vis, ox_l, oy_l, p_ref, cam, distorted: bool,
 
 
 def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
-                  H0, W0, stats: dict | None = None, n_iter: int = MAX_ITER):
+                  H0, W0, n_iter: int = MAX_ITER, stats: dict | None = None):
     """Plain version of K3 (and of K11's first stage).
 
     wins [L, N, 16, 16], refp [L, N, 16], jac [L, N, 16, 6], p_ref [N, 3],
@@ -197,12 +197,15 @@ def mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
     return _gn6.pose_to_tensor(R, t, chi2, wins.device)
 
 
-def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0):
+def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0,
+            n_iter: int = MAX_ITER):
     """K3 on the card, its plain version on the CPU; arguments as for
-    `mega_gn_plain`."""
+    `mega_gn_plain` (n_iter at most MAX_ITER)."""
+    if not 0 <= n_iter <= MAX_ITER:
+        raise ValueError(f"n_iter must lie in 0..{MAX_ITER}, not {n_iter}")
     if not on_card(wins):
         return mega_gn_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam,
-                             distorted, H0, W0)
+                             distorted, H0, W0, n_iter)
     L, N = lvis.shape
     dev = wins.device
     require(wins, "wins", torch.float32, (L, N, CWIN, CWIN), dev)
@@ -219,9 +222,9 @@ def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
            [P] * 9 + [I] * 4 + [Fl] * 8 + [I, Fl, P],
            wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(),
            lvis.data_ptr(), ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(),
-           N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, MAX_ITER, STOP_STEP,
+           N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, n_iter, STOP_STEP,
            stream(dev))
-    launched(mega_gn, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0)
+    launched(mega_gn, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0, n_iter)
     return out
 
 
@@ -229,13 +232,14 @@ mega_gn.launches = 0
 
 
 def mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool, n_levels: int,
-              mega_refp, mega_jl, pregathered: MegaWindows | None = None):
+              mega_refp, mega_jl, pregathered: MegaWindows | None = None,
+              n_iter: int = MAX_ITER):
     """K3's inputs for one frame: the windows of every level gathered at
     the frame-init pose (one launch of K1), or `pregathered` (fetched at that pose
     beforehand, by K6), plus the keyframe constants (`mega_refp` /
     `mega_jl`: every level's patches and Jacobians stacked, as
-    ReferencePrep holds them).  Returns (args of `mega_gn`, the
-    MegaWindows)."""
+    ReferencePrep holds them), and the iteration cap per level.  Returns
+    (args of `mega_gn`, the MegaWindows)."""
     mw = pregathered
     if mw is None:
         pc0, px0_l0, ox, oy = mega_window_origins(cur_pyr, p_ref, R0, t0, cam, distorted,
@@ -246,20 +250,22 @@ def mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool, n_levels
     pose0 = torch.cat([R0.reshape(9), t0.reshape(3)]).to(torch.float32).contiguous()
     H0, W0 = cur_pyr[0].shape
     args = (mw.wins, mega_refp, mega_jl, p_ref.contiguous(), lvis, mw.ox, mw.oy, pose0, cam,
-            distorted, H0, W0)
+            distorted, H0, W0, n_iter)
     return args, mw
 
 
 def sparse_align_mega(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool,
-                      max_level: int, mega_refp, mega_jl, pregathered=None):
-    """All levels max_level..0 of sparse-direct alignment in one kernel.
+                      max_level: int, mega_refp, mega_jl, pregathered=None,
+                      n_iter: int = MAX_ITER):
+    """All levels max_level..0 of sparse-direct alignment in one kernel, at
+    most n_iter GN iterations per level.
 
     Windows for every level are gathered (K1) at the frame-init pose,
     unless `pregathered` (a MegaWindows) holds them.  Returns (R, t, chi2,
     H) with H the finest level's frozen Hessian (Fisher information for
     AlignStats, a plain product here)."""
     args, mw = mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted, max_level + 1,
-                         mega_refp, mega_jl, pregathered)
+                         mega_refp, mega_jl, pregathered, n_iter)
     pc0, px0_l0 = mw.pc0, mw.px0_l0
     out = mega_gn(*args)
     H0, W0 = cur_pyr[0].shape

@@ -153,7 +153,8 @@ def track_args(cur_pyr, level_refs, p_ref_sp, a2d_prep: Align2DPrep, p_ref_a2, a
     img0 = cur_pyr[0]
     pxa0 = torch.nan_to_num(cam.camera_to_pixel(p_ref_a2 @ R0.T + t0, distorted=distorted))
     ox, oy = a2d_window_origins(pxa0, *img0.shape)
-    return a3 + (gather_windows(img0, ox, oy, CACHE_WIN), a2d_prep.ref, a2d_prep.jx,
+    # K3's arguments without its iteration cap (K11 takes `sp_iter`).
+    return a3[:12] + (gather_windows(img0, ox, oy, CACHE_WIN), a2d_prep.ref, a2d_prep.jx,
                  a2d_prep.jy, a2d_prep.hinv, ox, oy, p_ref_a2.contiguous(),
                  a2_mask.to(torch.bool).contiguous())
 

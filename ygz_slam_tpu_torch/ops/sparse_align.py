@@ -31,7 +31,8 @@ from .kernels.align2d_fused import A2DWindows, a2d_window_origins
 from .kernels.align2d_kernel import (CACHE_WIN, MAX_GROUPS, bilinear_patches_levels,
                                      gather_windows_grouped, level_consts)
 from .kernels.sparse_align_fused import level_align_fused, level_align_fused_v2
-from .kernels.sparse_align_mega import CWIN, MegaWindows, mega_window_origins, sparse_align_mega
+from .kernels.sparse_align_mega import (CWIN, MAX_ITER, MegaWindows, mega_window_origins,
+                                        sparse_align_mega)
 
 PATCH_HALF = 2
 PATCH = 2 * PATCH_HALF          # 4x4 patches (SparseImageAlign.h)
@@ -151,14 +152,17 @@ def sparse_image_align(ref_pyr, cur_pyr, cam, px_ref, depth_ref, mask, T_init: S
                        max_level: int | None = None,
                        distorted: bool = True,
                        ref_prep: ReferencePrep | None = None,
-                       frame_windows: FrameWindows | None = None) -> AlignStats:
+                       frame_windows: FrameWindows | None = None,
+                       n_iter: int = MAX_ITER) -> AlignStats:
     """Coarse-to-fine sparse-direct alignment of the current frame to the
-    reference frame: levels max_level..0, at most MAX_ITER (12) GN
-    iterations each, by the route FUSED_VARIANT names (module docstring).
-    Under variant 3 the level windows are gathered by K1, or taken from
-    `frame_windows` (gathered by K6 at the same T_init).  Returns
-    AlignStats with the refined relative pose T_cur_ref, and chi2 and H of
-    the finest level."""
+    reference frame: levels max_level..0, at most min(n_iter, MAX_ITER)
+    GN iterations each (MAX_ITER = 12, the JAX package's cap), by the route
+    FUSED_VARIANT names (module docstring).  Under variant 3 the level
+    windows are gathered by K1, or taken from `frame_windows` (gathered by
+    K6 at the same T_init), and n_iter reaches K3; variants 1 and 2 run
+    MAX_ITER and raise for fewer.  Returns AlignStats with the refined
+    relative pose T_cur_ref, and chi2 and H of the finest level."""
+    n_iter = min(n_iter, MAX_ITER)
     if max_level is None:
         max_level = len(ref_pyr) - 1
     if ref_prep is None:
@@ -172,10 +176,14 @@ def sparse_image_align(ref_pyr, cur_pyr, cam, px_ref, depth_ref, mask, T_init: S
             distorted=distorted, max_level=max_level,
             mega_refp=ref_prep.mega_refp[:max_level + 1],
             mega_jl=ref_prep.mega_jl[:max_level + 1],
-            pregathered=None if frame_windows is None else frame_windows.mega_wins)
+            pregathered=None if frame_windows is None else frame_windows.mega_wins,
+            n_iter=n_iter)
         return AlignStats(T_cur_ref=SE3(R, t), chi2=chi2, n_visible=n_visible, H=H)
     if variant not in (1, 2):
         raise ValueError(f"FUSED_VARIANT must be 1, 2 or 3, not {variant!r}")
+    if n_iter != MAX_ITER:
+        raise ValueError(f"FUSED_VARIANT {variant} runs {MAX_ITER} iterations per level, not "
+                         f"{n_iter}")
     level_align = level_align_fused_v2 if variant == 2 else level_align_fused
     T = T_init
     for level in range(max_level, -1, -1):

@@ -1,6 +1,6 @@
 """Multi-sequence batch tracking: S sequences advance one frame together
-(counterpart of ygz_slam_tpu/parallel/batch_tracking.py, its kernel path
-only).
+(counterpart of ygz_slam_tpu/parallel/batch_tracking.py, its kernel path;
+the port runs it on every device).
 
 Per frame: every level's sparse-align windows of all S sequences in one
 launch of K6, then each sequence's coarse-to-fine alignment in one launch
@@ -11,9 +11,11 @@ in one launch of K8.  `batched_track_step` is those three stages in a row:
 (`project_landmarks`), and `pose_only_ba_fused_batch` on
 `batched_pose_ba_inputs`.  The keyframe side (one ReferencePrep per
 sequence, the Align2DPrep of the flattened patches) is computed once by
-the caller.  The JAX package's other formulations (per-iteration
-multi-image gathers with segment-sum GN, `align2d_pallas_multi`, the
-off-TPU `vmap` fallbacks) and `sharded_batch_align` are not ported.
+the caller.  `sharded_batch_align` splits the sequences over a mesh (pure
+data parallelism, no collective): each rank aligns its own.  The JAX
+package's other formulations of the same step (per-iteration multi-image
+gathers with segment-sum GN, `align2d_pallas_multi`, the off-TPU `vmap`
+fallbacks) are not ported.
 """
 from __future__ import annotations
 
@@ -25,20 +27,22 @@ from ..ops.align import accepted, substitute_inits
 from ..ops.kernels.align2d_fused import A2DWindows, a2d_window_origins, align2d_fused
 from ..ops.kernels.align2d_kernel import CACHE_WIN, gather_windows_multi
 from ..ops.kernels.pose_ba_fused_batch import pose_only_ba_fused_batch
+from .mesh import Mesh
 
 DISTORTED = True        # the JAX batch path projects through the distortion model
 
 
 def batched_sparse_align(ref_pyrs, cur_pyrs, cam, px_ref: torch.Tensor,
                          depth_ref: torch.Tensor, mask: torch.Tensor, T_init: SE3,
-                         ref_preps) -> SE3:
+                         ref_preps, n_iter: int = 15) -> SE3:
     """One coarse-to-fine sparse-direct alignment step for S sequences.
 
     ref_pyrs / cur_pyrs: per level [S, h, w]; px_ref [S, N, 2], depth_ref
     and mask [S, N]; T_init batched [S]; `ref_preps`, one ReferencePrep per
-    sequence (keyframe constants).  Every sequence's windows are gathered
-    first, in one launch of K6 (`gather_frames_windows`), then the S
-    alignments run.  Returns the refined poses, SE3 batched [S]."""
+    sequence (keyframe constants); at most min(n_iter, 12) GN iterations per
+    level.  Every sequence's windows are gathered first, in one launch of K6
+    (`gather_frames_windows`), then the S alignments run (K3 each).
+    Returns the refined poses, SE3 batched [S]."""
     T7_in = T_init.params7()
     S = len(ref_preps)
     T0s = [SE3.from_params7(T7_in[s]) for s in range(S)]
@@ -48,9 +52,29 @@ def batched_sparse_align(ref_pyrs, cur_pyrs, cam, px_ref: torch.Tensor,
     for s, prep in enumerate(ref_preps):
         rp = tuple(r[s] for r in ref_pyrs)
         st = sa.sparse_image_align(rp, cps[s], cam, px_ref[s], depth_ref[s], mask[s], T0s[s],
-                                   distorted=DISTORTED, ref_prep=prep, frame_windows=fws[s])
+                                   distorted=DISTORTED, ref_prep=prep, frame_windows=fws[s],
+                                   n_iter=n_iter)
         T7s.append(st.T_cur_ref.params7())
     return SE3.from_params7(torch.stack(T7s))
+
+
+def sharded_batch_align(mesh: Mesh, ref_pyrs, cur_pyrs, cam, px: torch.Tensor,
+                        depth: torch.Tensor, mask: torch.Tensor, T_init: SE3,
+                        n_iter: int = 15) -> SE3:
+    """The sequence axis split over `mesh`'s shards: pure data parallelism,
+    no collective.  Every argument holds this rank's sequences
+    (`mesh.local_rows` of the mesh-wide batch, a whole number per shard), as
+    `batched_sparse_align` takes them; the rank prepares each sequence's
+    keyframe side (`prepare_reference`, one K1 launch each), then aligns all
+    its sequences in one `batched_sparse_align` (one K6 launch, then K3 per
+    sequence).  Returns this rank's poses, SE3 [S_local]."""
+    S = px.shape[0]
+    if S % mesh.local:
+        raise ValueError(f"{S} sequences do not split over this rank's {mesh.local} shards")
+    preps = [sa.prepare_reference(tuple(r[s] for r in ref_pyrs), cam, px[s], depth[s], mask[s],
+                                  distorted=DISTORTED) for s in range(S)]
+    return batched_sparse_align(ref_pyrs, cur_pyrs, cam, px, depth, mask, T_init, preps,
+                                n_iter=n_iter)
 
 
 def project_landmarks(cam, pts_w: torch.Tensor, T: SE3) -> torch.Tensor:

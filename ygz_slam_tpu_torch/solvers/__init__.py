@@ -1,1 +1,4 @@
-"""Solvers: robust costs and pose-only bundle adjustment."""
+"""Solvers: robust costs, the Gauss-Newton / Levenberg-Marquardt engine
+(`nlls`), bundle adjustment (pose-only, point-only, local, two-view,
+`optimize_current`), the two-view initializer, P3P-RANSAC and the pose
+graphs."""

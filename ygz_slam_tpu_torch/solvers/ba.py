@@ -10,8 +10,10 @@ pair) in a canonical order: the table is sorted once per BA call, by
 (camera, landmark) and by (landmark, camera), and every sum is a segmented
 reduction over the sorted rows.  No float atomics, so a run repeats bit for
 bit on the card, and any order of the table's rows gives the same sums.
-The reduced camera system is one dense [6K, 6K] solve.
-Not ported: point_only_ba, optimize_current.
+The reduced camera system is one dense [6K, 6K] solve.  `point_only_ba`
+refines the landmarks against fixed poses; `optimize_current` is local BA
+with one free camera and only the landmarks it observes free
+(`local_ba(fixed_point=)`).
 """
 from __future__ import annotations
 
@@ -139,17 +141,22 @@ class BlockSegments(NamedTuple):
     pair: Segments
 
 
-def block_segments(obs: Observations, K: int, L: int) -> BlockSegments:
+def block_segments(obs: Observations, K: int, L: int, shards: int = 1) -> BlockSegments:
     """Each segment's rows in a canonical order, whatever the table's: a
     camera's by landmark, a landmark's by camera (rows of one camera and
     landmark, which the map never holds, keep table order).  Two sorts per
-    BA call; the table does not change inside it."""
+    BA call; the table does not change inside it.  With `shards` > 1 the
+    landmark rows split into that many equal blocks and a camera's rows
+    into one segment per block (camera-major: segment k * shards + s), each
+    holding the rows that a call on block s alone would sum, in its order."""
     kf, pt = obs.kf_idx.long(), obs.pt_idx.long()
     dev = kf.device
     key_c, order_c = _sorted_by(kf, pt, K, L, obs.mask)
     key_l, order_l = _sorted_by(pt, kf, L, K, obs.mask)
+    first = (torch.arange(K, device=dev)[:, None] * L
+             + torch.arange(shards, device=dev)[None, :] * (L // shards)).reshape(-1)
     return BlockSegments(
-        kf=_segments(key_c, order_c, torch.arange(K + 1, device=dev) * L),
+        kf=_segments(key_c, order_c, torch.cat([first, first.new_full((1,), K * L)])),
         pt=_segments(key_l, order_l, torch.arange(L + 1, device=dev) * K),
         pair=_segments(key_c, order_c, torch.arange(K * L + 1, device=dev)))
 
@@ -163,45 +170,66 @@ def segment_sum(v: torch.Tensor, seg: Segments) -> torch.Tensor:
                                 unsafe=True)[:-1]
 
 
-def _assemble(poses, points, obs, cam, fixed_pose, huber_delta, seg: BlockSegments,
-              w_frozen=None):
-    """Every Hessian block and gradient at the current state, summed over
-    `seg` (`block_segments` of obs).  With `w_frozen` (already masked) the
-    IRLS weights are held, so an LM accept compares chi2 under one
-    objective.  Fixed cameras get zero Jacobians."""
+def _weighted_jacobians(poses, points, obs, cam, fixed_pose, huber_delta, w_frozen=None,
+                        fixed_point=None):
+    """Residuals, the IRLS weights and the Jacobians with the fixed blocks'
+    zeroed: (r, w, Jp, Jl).  With `w_frozen` (already masked) the weights
+    are held, so an LM accept compares chi2 under one objective.  Fixed
+    cameras get zero pose Jacobians and, given `fixed_point` [L] bool,
+    fixed landmarks zero point Jacobians (zero Hll, W and bl blocks: with
+    the LM damping on Hll their update is exactly zero)."""
     r, Jp, Jl, valid = reproject(poses, points, obs, cam)
     if w_frozen is None:
         w = _irls_weights(r, valid, huber_delta)
     else:
         w = torch.where(valid, w_frozen, 0.0)
-    K, L = fixed_pose.shape[0], points.shape[0]
     kf = obs.kf_idx.long()
     Jp = Jp * (~fixed_pose)[kf].to(Jp.dtype)[:, None, None]
+    if fixed_point is not None:
+        Jl = Jl * (~fixed_point)[obs.pt_idx.long()].to(Jl.dtype)[:, None, None]
+    return r, w, Jp, Jl
+
+
+def _assemble(poses, points, obs, cam, fixed_pose, huber_delta, seg: BlockSegments,
+              w_frozen=None, fixed_point=None):
+    """Every Hessian block and gradient at the current state, summed over
+    `seg` (`block_segments` of obs); weights and fixed blocks as
+    `_weighted_jacobians` sets them.  Returns (Hcc [K * shards, 6, 6], Hll,
+    W [K, L, 6, 3], bc [K * shards, 6], bl, the weighted squared residual of
+    every row [O]): each caller sums the last its own way."""
+    r, w, Jp, Jl = _weighted_jacobians(poses, points, obs, cam, fixed_pose, huber_delta,
+                                       w_frozen, fixed_point)
+    K, L = fixed_pose.shape[0], points.shape[0]
     Hcc = segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jp), seg.kf)
     Hll = segment_sum(torch.einsum("oia,o,oib->oab", Jl, w, Jl), seg.pt)
     bc = segment_sum(-torch.einsum("oia,o,oi->oa", Jp, w, r), seg.kf)
     bl = segment_sum(-torch.einsum("oia,o,oi->oa", Jl, w, r), seg.pt)
     # Camera-landmark coupling blocks W[k, l, 6, 3].
     W = segment_sum(torch.einsum("oia,o,oib->oab", Jp, w, Jl), seg.pair).reshape(K, L, 6, 3)
-    chi2 = torch.sum(w * torch.sum(r * r, dim=-1))
-    return Hcc, Hll, W, bc, bl, chi2
+    return Hcc, Hll, W, bc, bl, w * torch.sum(r * r, dim=-1)
 
 
-def _schur_solve(Hcc, Hll, W, bc, bl, fixed_pose, lam):
-    """Marginalize the landmarks and solve the reduced camera system:
-    S = Hcc - W Hll^-1 W^T (dense [6K, 6K]), then dl = Hll^-1 (bl - W^T dc).
-    `lam` (LM damping) is added to both diagonals; fixed cameras get
-    identity blocks, so their update is exactly zero.  A solve that fails
-    gives a zero step (jnp.linalg.solve's non-finite result, masked)."""
-    K, L = W.shape[0], W.shape[1]
-    eye3 = torch.eye(3, dtype=Hcc.dtype, device=Hcc.device)
-    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+def _schur_pieces(Hll, W, bl, lam):
+    """The landmarks' share of the reduced camera system: (Hll^-1 of the
+    damped blocks [L, 3, 3], -W Hll^-1 W^T [K, K, 6, 6], -W Hll^-1 bl
+    [K, 6])."""
+    eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     Hll_inv = inv3x3(Hll + (lam + 1e-6) * eye3)                        # [L, 3, 3]
     A = torch.einsum("klab,lbc->klac", W, Hll_inv)                     # [K, L, 6, 3]
     S = -torch.einsum("klac,mlbc->kmab", A, W)                         # [K, K, 6, 6]
+    return Hll_inv, S, -torch.einsum("klac,lc->ka", A, bl)
+
+
+def _camera_step(S, b_red, Hcc, fixed_pose, lam):
+    """Solve the reduced camera system: S [K, K, 6, 6] (the landmarks'
+    share) plus Hcc and the damping on its diagonal blocks; fixed cameras
+    get identity blocks, so their update is exactly zero.  A solve that
+    fails gives a zero step (jnp.linalg.solve's non-finite result,
+    masked).  Returns dc [K, 6]."""
+    K = S.shape[0]
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     ar = torch.arange(K, device=Hcc.device)
     S[ar, ar] += Hcc + lam * eye6
-    b_red = bc - torch.einsum("klac,lc->ka", A, bl)                    # [K, 6]
     free = (~fixed_pose).to(Hcc.dtype)
     S = S * free[:, None, None, None] * free[None, :, None, None]
     S[ar, ar] += eye6[None] * fixed_pose.to(Hcc.dtype)[:, None, None]
@@ -210,48 +238,110 @@ def _schur_solve(Hcc, Hll, W, bc, bl, fixed_pose, lam):
     dc, info = torch.linalg.solve_ex(S_mat + 1e-8 * torch.eye(K * 6, dtype=Hcc.dtype,
                                                               device=Hcc.device),
                                      b_red.reshape(K * 6))
-    dc = torch.where((info == 0) & torch.isfinite(dc), dc, 0.0).reshape(K, 6)
+    return torch.where((info == 0) & torch.isfinite(dc), dc, 0.0).reshape(K, 6)
+
+
+def _lm_update(T: SE3, pts, T_new: SE3, pts_new, lam, chi2, chi2_new):
+    """The LM accept / reject of a trial step and the damping schedule,
+    decided on the device: (poses, landmarks, damping, chi2, accept)."""
+    accept = chi2_new < chi2
+    T = SE3(torch.where(accept, T_new.R, T.R), torch.where(accept, T_new.t, T.t))
+    return (T, torch.where(accept, pts_new, pts),
+            torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4),
+            torch.where(accept, chi2_new, chi2), accept)
+
+
+def _landmark_step(Hll_inv, W, bl, dc):
+    """Back-substitution dl = Hll^-1 (bl - W^T dc) [L, 3], non-finite rows 0."""
     dl = torch.einsum("lab,lb->la", Hll_inv, bl - torch.einsum("klab,ka->lb", W, dc))
-    return dc, torch.where(torch.isfinite(dl), dl, 0.0)
+    return torch.where(torch.isfinite(dl), dl, 0.0)
+
+
+def _schur_solve(Hcc, Hll, W, bc, bl, fixed_pose, lam):
+    """Marginalize the landmarks and solve the reduced camera system:
+    S = Hcc - W Hll^-1 W^T (dense [6K, 6K]), then dl = Hll^-1 (bl - W^T dc).
+    `lam` (LM damping) is added to both diagonals."""
+    Hll_inv, S, b_l = _schur_pieces(Hll, W, bl, lam)
+    dc = _camera_step(S, bc + b_l, Hcc, fixed_pose, lam)
+    return dc, _landmark_step(Hll_inv, W, bl, dc)
 
 
 def local_ba(poses: SE3, points: torch.Tensor, obs: Observations, cam,
              fixed_pose: torch.Tensor, n_iter: int = 10,
-             huber_delta: float = math.sqrt(CHI2_2D), chi2_th: float = CHI2_2D) -> BAResult:
+             huber_delta: float = math.sqrt(CHI2_2D), chi2_th: float = CHI2_2D,
+             fixed_point: torch.Tensor | None = None) -> BAResult:
     """Windowed BA over SE3[K] poses and [L, 3] landmarks with an LM
     accept/reject schedule (LocalBAG2O, BA.cpp:386-543: Huber delta
     sqrt(5.991), marginalized landmark blocks, outlier marking at the end).
-    fixed_pose [K] bool: gauge-fixed cameras.  obs.px are raw detections,
+    fixed_pose [K] bool: gauge-fixed cameras; fixed_point [L] bool, if
+    given: landmarks held where they are.  obs.px are raw detections,
     undistorted here."""
     obs = obs._replace(px=cam.undistort_px(obs.px))
-    return _local_ba(poses, points, obs, cam, fixed_pose, n_iter, huber_delta, chi2_th)
+    return _local_ba(poses, points, obs, cam, fixed_pose, n_iter, huber_delta, chi2_th,
+                     fixed_point)
 
 
-def _local_ba(poses, points, obs, cam, fixed_pose, n_iter, huber_delta, chi2_th):
+def _local_ba(poses, points, obs, cam, fixed_pose, n_iter, huber_delta, chi2_th,
+              fixed_point=None):
     seg = block_segments(obs, fixed_pose.shape[0], points.shape[0])
     T, pts = poses, points
     lam = torch.tensor(1e-4, dtype=points.dtype, device=points.device)
-    chi2 = _assemble(T, pts, obs, cam, fixed_pose, huber_delta, seg)[5]
+    chi2 = torch.sum(_assemble(T, pts, obs, cam, fixed_pose, huber_delta, seg)[5])
     for _ in range(n_iter):
         # IRLS weights frozen at the iteration's start state.
         r, _, _, valid = reproject(T, pts, obs, cam)
         w_frozen = _irls_weights(r, valid, huber_delta)
-        Hcc, Hll, W, bc, bl, chi2_old = _assemble(T, pts, obs, cam, fixed_pose, huber_delta,
-                                                  seg, w_frozen)
+        Hcc, Hll, W, bc, bl, e = _assemble(T, pts, obs, cam, fixed_pose, huber_delta, seg,
+                                           w_frozen, fixed_point)
+        chi2_old = torch.sum(e)
         dc, dl = _schur_solve(Hcc, Hll, W, bc, bl, fixed_pose, lam)
         T_new = se3m.boxplus(T, dc)
         pts_new = pts + dl
-        chi2_new = _assemble(T_new, pts_new, obs, cam, fixed_pose, huber_delta, seg,
-                             w_frozen)[5]
-        accept = chi2_new < chi2_old
-        T = SE3(torch.where(accept, T_new.R, T.R), torch.where(accept, T_new.t, T.t))
-        pts = torch.where(accept, pts_new, pts)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4)
-        chi2 = torch.where(accept, chi2_new, chi2_old)
+        chi2_new = torch.sum(_assemble(T_new, pts_new, obs, cam, fixed_pose, huber_delta, seg,
+                                       w_frozen, fixed_point)[5])
+        T, pts, lam, chi2, _ = _lm_update(T, pts, T_new, pts_new, lam, chi2_old, chi2_new)
     # Final outlier marking (BA.cpp:519-537).
     r, _, _, valid = reproject(T, pts, obs, cam)
     inlier = valid & (torch.sum(r * r, dim=-1) < chi2_th)
     return BAResult(poses=T, points=pts, chi2=chi2, inlier=inlier)
+
+
+def point_only_ba(poses: SE3, points: torch.Tensor, obs: Observations, cam, n_iter: int = 5,
+                  huber_delta: float = math.sqrt(CHI2_2D)) -> torch.Tensor:
+    """Every landmark refined against fixed poses (BA.cpp:266-322): L
+    independent 3x3 robust Gauss-Newton problems, n_iter steps each, the
+    observation blocks summed per landmark.  obs.px are raw detections,
+    undistorted here.  Returns the landmarks [L, 3]."""
+    obs = obs._replace(px=cam.undistort_px(obs.px))
+    seg = block_segments(obs, poses.R.shape[0], points.shape[0]).pt
+    eye3 = torch.eye(3, dtype=points.dtype, device=points.device)
+    pts = points
+    for _ in range(n_iter):
+        r, _, Jl, valid = reproject(poses, pts, obs, cam)
+        w = _irls_weights(r, valid, huber_delta)
+        H = segment_sum(torch.einsum("oia,o,oib->oab", Jl, w, Jl), seg) + 1e-6 * eye3
+        b = segment_sum(-torch.einsum("oia,o,oi->oa", Jl, w, r), seg)
+        dx = torch.einsum("lab,lb->la", inv3x3(H), b)
+        pts = pts + torch.where(torch.isfinite(dx), dx, 0.0)
+    return pts
+
+
+def optimize_current(poses: SE3, points: torch.Tensor, obs: Observations, cam, cur_k: int,
+                     n_iter: int = 10, huber_delta: float = math.sqrt(CHI2_2D),
+                     chi2_th: float = 4.0 * CHI2_2D) -> BAResult:
+    """One camera pose and the landmarks it observes, refined jointly
+    (OptimizeCurrent, BA.cpp:91-186): local BA with every pose but `cur_k`
+    fixed and every landmark that `cur_k` does not observe fixed, so the
+    other keyframes' observations anchor the landmarks, and the inlier mask
+    classified at 4 x 5.991 px^2."""
+    K, L = poses.R.shape[0], points.shape[0]
+    dev = points.device
+    fixed_pose = torch.arange(K, device=dev) != cur_k
+    sel = ((obs.kf_idx == cur_k) & obs.mask).to(torch.int32)
+    seen = torch.zeros(L, dtype=torch.int32, device=dev).index_add_(0, obs.pt_idx.long(),
+                                                                     sel) > 0
+    return local_ba(poses, points, obs, cam, fixed_pose, n_iter=n_iter,
+                    huber_delta=huber_delta, chi2_th=chi2_th, fixed_point=~seen)
 
 
 def two_view_ba(T_ref: SE3, T_cur: SE3, points: torch.Tensor, px_ref: torch.Tensor,
