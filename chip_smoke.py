@@ -324,6 +324,23 @@ Phases, each raising (and so exiting non-zero) on failure:
    `levenberg_marquardt` on tests/test_solvers.py's problems
    (`models/ba_workload.py`), card against CPU.  The launches of (b) and
    (c) count in the kernels line.  The process group ends with the path.
+5m. Main path 15: the last public surface.  (a) `python -m
+   ygz_slam_tpu_torch.run_synthetic_mono`'s `main` over N15 frames on the
+   card (the JAX example's settings: SyntheticDataset's plane at 240x320,
+   VOOptions() with its four init and keyframe fields) inside
+   `record_launches`, the counters at 0 first: GOOD reached, the Sim(3)
+   ATE < ATE15, the trajectory file holding every frame, the launches equal
+   to `want_loops` (K1 twice, K2, K3, K4 and K5 per tracked frame, K10 per
+   keyframe, K5 and K10 per mapping pass with the loop block, K8 per
+   archive detection) and to the recorded ones; frames per second
+   synchronised and launches per frame; every recorded launch replayed
+   against its plain version with phase 2's checks.  (b) Each helper that
+   no other path calls (`so3.vee` / `normalize`, `SE3.matrix` /
+   `normalize`, the camera's `K`, `distort_px`, `world_to_camera`,
+   `camera_to_world`, `in_frame`, `dnorm_dxi`, `image_gradients`,
+   `rpe_rmse`, `warp_patches`, `popcount_u32`) once on the card against
+   the CPU at tests/test_torch_helpers.py's tolerances, image_gradients and
+   popcount_u32 exactly.  The launches of (a) count in the kernels line.
 6. A short torch.profiler window over each main path (path 4 under
    variants 2 and 1, frames 30-49, keyframes in the window; under
    variant 2 no operator named cholesky may run; paths 6b and 7 on the
@@ -344,13 +361,15 @@ Phases, each raising (and so exiting non-zero) on failure:
    (host operators too where their names are checked: path 4's).  Every
    phase prints the clock it starts at.
 7. One JSON line {"kernels": [...]} (launches summed over the main
-   paths 1-14), then the last line {"ok": true, "device": {...}}.
+   paths 1-15), then the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when no CUDA device is available
 or the package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -463,6 +482,17 @@ NO_SPILL = ("sparse_align_mega_kernel", "pose_ba_fused_kernel",    # must not sp
             "align2d_fused_kernel")
 TOL_ENTRY = 1e-3        # entry(), card versus CPU: K3's and K5's solves in a
                         # row on noise images (the pyramids' sums differ too)
+N15 = 40                 # main path 15: run_synthetic_mono's frames (its default)
+ATE15 = 0.05             # path 15a's ATE bound, m (tests/test_vo.py:99; the JAX example's
+                         # own CPU run over the same 40 frames: 29 GOOD, 0.0078 m)
+# Path 15b, each helper on the card against the CPU, at the tolerances of
+# tests/test_torch_helpers.py (which holds the CPU against the JAX package).
+TOL15_GEOM = 2e-5        # elementwise float32 geometry, absolute
+TOL15_PX = 1e-3          # distort_px, px
+TOL15_SVD = 1e-5         # so3.normalize / SE3.normalize (two SVDs)
+TOL15_PATCH = 1e-2       # warp_patches: one float32 step of a sample coordinate near
+TOL15_PATCH_MEAN = 1e-4  # x = 300 px times the texture's 255 per px step; the mean
+TOL15_RPE = 1e-5         # rpe_rmse, relative
 
 
 def _rel(a, b):
@@ -663,6 +693,221 @@ def _totals(prof, n=1):
     if prof is None:
         return None, None
     return (sum(v[1] for v in prof.values()) / n, sum(v[0] for v in prof.values()) / n)
+
+
+def _path15(torch, dev, checks, instrumented, want_loops):
+    """Main path 15a: `python -m ygz_slam_tpu_torch.run_synthetic_mono`'s
+    `main` over N15 frames on the card, inside `instrumented` (the counters
+    at 0 first; calls of `track` and mapping passes with the loop block
+    counted) and `record_launches`: its gates, its launches against
+    `want_loops`, and every recorded launch replayed against its plain
+    version by `checks` (phase 2's checks of K1, K2, K3, K4, K5, K8 and the
+    exact K10 comparison).  Returns its launch counts."""
+    from ygz_slam_tpu_torch import run_synthetic_mono as rsm
+    from ygz_slam_tpu_torch.ops import kernels
+    from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k1
+    from ygz_slam_tpu_torch.ops.kernels import hamming_kernel as k10
+
+    tmp15 = tempfile.mkdtemp(prefix="ygz_demo_")
+    made15, kf15 = [], []        # the VisualOdometry the script makes; its keyframes per frame
+    real_vo15 = rsm.VisualOdometry
+
+    def vo15(*a, **kw):
+        vo = real_vo15(*a, **kw)
+        real_add = vo.add_frame
+
+        def add_frame(*fa, **fkw):
+            out = real_add(*fa, **fkw)
+            kf15.append(vo.stats["keyframes"])
+            return out
+
+        vo.add_frame = add_frame
+        made15.append(vo)
+        return vo
+
+    def run15():
+        with kernels.record_launches() as r:
+            out = rsm.main(["--frames", str(N15), "--device", str(dev), "--out", tmp15])
+        return out, r
+
+    rsm.VisualOdometry = vo15
+    try:
+        ((recs15, rec15), wall15, launches15, n_tr15), irec15 = instrumented(run15, timed=False)
+    finally:
+        rsm.VisualOdometry = real_vo15
+    want15 = want_loops(n_tr15, made15[0], irec15)
+    recorded15 = {}
+    for fn, _ in rec15:
+        recorded15[fn.__name__] = recorded15.get(fn.__name__, 0) + 1
+    path15_kernels = ("gather_windows_levels", "gather_windows_multi", "mega_gn", "a2d_gn",
+                      "pose_ba_gn", "distance_matrix")
+    ate15 = rsm.ate(recs15)
+    tum15 = os.path.join(tmp15, "trajectory_tum.txt")
+    n_tum15 = len(open(tum15).read().splitlines()) if os.path.exists(tum15) else 0
+    st15 = [r.status for r in recs15]
+    ok15 = ("GOOD" in st15 and ate15 is not None and ate15 < ATE15 and n_tum15 == N15
+            and launches15 == want15 and all(launches15[k] for k in path15_kernels)
+            and recorded15 == {k: v for k, v in launches15.items() if v})
+    print(f"main path 15a (run_synthetic_mono.main, {N15} frames 240x320 on the card): "
+          f"statuses {' '.join(f'{s[0]}' for s in st15)} (I INITING, G GOOD), "
+          f"{st15.count('GOOD')} GOOD, {recs15[-1].keyframes} keyframes in the window at the "
+          f"end; Sim(3) ATE {_nm(ate15, '.5f', ' m')} (< {ATE15}); trajectory file "
+          f"{n_tum15} lines; {N15 / wall15:.2f} frames/s synchronised over the whole script "
+          f"({wall15:.3f} s, rendering and files included), add_frame median "
+          f"{statistics.median(r.ms for r in recs15):.2f} ms (GOOD frames "
+          f"{statistics.median(r.ms for r in recs15 if r.status == 'GOOD'):.2f} ms); "
+          f"{sum(launches15.values()) / N15:.2f} launches per frame, "
+          f"{sum(launches15.values()) / max(n_tr15, 1):.2f} per tracked frame ({n_tr15}); "
+          f"launches {launches15} (expected {want15}; recorded {recorded15}): "
+          f"{'pass' if ok15 else 'FAIL'}", flush=True)
+    if not ok15:
+        raise AssertionError("main path 15a failed its gates")
+    # Where the script's time goes: add_frame per kind of frame (the init
+    # frame and the keyframe frames count the VO's keyframes up), the rest
+    # rendering, printing and the files.
+    kinds = {}
+    for r, n_kf, n_before in zip(recs15, kf15, [0] + kf15[:-1]):
+        kind = "keyframe" if n_kf != n_before else r.status
+        kinds.setdefault(kind, []).append(r.ms)
+    spent = sum(r.ms for r in recs15)
+    print("main path 15a, add_frame ms by frame: " + "; ".join(
+        f"{k} {len(v)} frames, sum {sum(v):.1f}, median {statistics.median(v):.2f}, max "
+        f"{max(v):.2f}" for k, v in kinds.items())
+        + f"; outside add_frame {1e3 * wall15 - spent:.1f} ms of {1e3 * wall15:.1f}", flush=True)
+    # Every recorded launch against its plain version (the phase-2 checks);
+    # their per-launch lines go to a buffer, printed if a check fails.
+    buf15, errs15 = io.StringIO(), {}
+    H15, W15 = rsm.SHAPE
+    try:
+        with contextlib.redirect_stdout(buf15):
+            for i, (fn, args) in enumerate(rec15):
+                tag, name = f"main path 15a, launch {i}", fn.__name__
+                if name == "gather_windows_levels":
+                    e = checks["K1"]([args], tag, with_library=False)
+                elif name == "mega_gn":
+                    e = checks["K3"](args, tag)[0]
+                elif name == "gather_windows_multi":
+                    e = checks["K2"](args, tag)
+                elif name == "a2d_gn":
+                    xy0 = args[7]
+                    inb0 = (xy0 != k1.PATCH + 2.0).any(dim=1)
+                    e = checks["K4"]((args, xy0, inb0, H15, W15), tag)
+                elif name == "pose_ba_gn":
+                    e = checks["K5"](args, tag)[0]
+                elif name == "distance_matrix":
+                    e = checks["exact"]("K10 hamming distance_matrix",
+                                        [k10.distance_matrix(*args)],
+                                        [k10.distance_matrix_plain(*args)], tag)
+                elif name == "pose_ba_batch_gn":        # a relocalization or archive attempt
+                    e = checks["K8"](args, tag, flat=True)[0]
+                else:
+                    raise AssertionError(f"{tag}: {name} launched")
+                n_e, e_max = errs15.get(name, (0, 0.0))
+                errs15[name] = (n_e + 1, max(e_max, e))
+    except Exception:
+        print(buf15.getvalue(), flush=True)
+        raise
+    print(f"main path 15a: {len(rec15)} launches replayed against their plain versions, "
+          f"(launches, largest max |kernel - plain|) per kernel: {errs15}", flush=True)
+    shutil.rmtree(tmp15, ignore_errors=True)
+    return launches15
+
+
+def _path15b(torch, dev):
+    """Main path 15b: each helper that no other path calls, once on the card
+    and once on the CPU on the same seeded inputs (tests/test_torch_helpers.py's
+    cases), held at that file's tolerances; image_gradients and
+    popcount_u32 exactly.  Returns {helper: (error, tolerance)}."""
+    import numpy as np
+
+    from ygz_slam_tpu_torch.geometry import jacobians, se3, so3
+    from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
+    from ygz_slam_tpu_torch.geometry.se3 import SE3
+    from ygz_slam_tpu_torch.ops import hamming, interp, warp
+    from ygz_slam_tpu_torch.system import trajectory
+    from ygz_slam_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(15)
+    cam = PinholeCamera.create(517.3, 516.5, 325.1, 249.7, 0.2624, -0.9531, -0.0054, 0.0026)
+    w = rng.normal(size=(64, 3)).astype(np.float32)
+    Rn = np.asarray(so3.exp(torch.from_numpy(w * 0.8))) + rng.normal(size=(64, 3, 3)).astype(
+        np.float32) * 1e-2
+    xi = (rng.normal(size=(16, 6)) * [2.0, 2.0, 2.0, 0.6, 0.6, 0.6]).astype(np.float32)
+    pw = rng.uniform(-1.0, 1.0, size=(256, 3)).astype(np.float32)
+    px = (np.asarray([cam.cx, cam.cy]) + rng.uniform(-0.35, 0.35, size=(256, 2))
+          * np.asarray([cam.fx, cam.fy])).astype(np.float32)
+    pc = np.concatenate([pw[:, :2], np.abs(pw[:, 2:]) + 0.5], axis=1)
+    frame_px = rng.uniform(-20, 660, size=(256, 2)).astype(np.float32)
+    words = rng.integers(0, 2 ** 32, size=(256, 8), dtype=np.uint64).astype(np.uint32)
+    words[0, :4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+    n = 27
+    wpx = rng.uniform([40.0, 40.0], [280.0, 200.0], size=(n, 2)).astype(np.float32)
+    A = (np.eye(2) * rng.uniform(0.5, 2.5, size=(n, 1, 1))
+         + rng.normal(size=(n, 2, 2)) * 0.05).astype(np.float32)
+    lv_ref = np.repeat(np.arange(3, dtype=np.int32), n // 3)
+    lv_search = np.tile(np.arange(3, dtype=np.int32), n // 3)
+    noise = rng.normal(size=(40, 6)).astype(np.float32) * 1e-2
+    # One rendered image for both devices (renders on the two differ by ulps).
+    image = synthetic.PlaneScene(PinholeCamera.create(320.0, 320.0, 160.0, 120.0), seed=0,
+                                 device="cpu").render(SE3.identity(device="cpu"), (240, 320))
+
+    def on(d):
+        """Every helper's output on device d, as CPU tensors."""
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(d)
+        T = se3.exp(t(xi))
+        img = image.to(d)
+        gt = synthetic.loop_trajectory(40, device=d)
+        est = [se3.exp(t(e)).compose(g) for e, g in zip(noise, gt)]
+        out = {
+            "so3.vee": so3.vee(so3.hat(t(w))),
+            "so3.normalize": so3.normalize(t(Rn)),
+            "SE3.matrix": T.matrix(),
+            "SE3.normalize": SE3(T.R * 1.003, T.t).normalize().R,
+            "PinholeCamera.K": cam.K(d),
+            "PinholeCamera.distort_px": cam.distort_px(t(px)),
+            "PinholeCamera.world_to_camera": cam.world_to_camera(t(pw), SE3(T.R[0], T.t[0])),
+            "PinholeCamera.camera_to_world": cam.camera_to_world(t(pw), SE3(T.R[0], T.t[0])),
+            "PinholeCamera.in_frame": cam.in_frame(t(frame_px), 640, 480, boundary=3),
+            "jacobians.dnorm_dxi": jacobians.dnorm_dxi(t(pc)),
+            "interp.image_gradients": torch.stack(interp.image_gradients(img)),
+            "trajectory.rpe_rmse": torch.tensor(trajectory.rpe_rmse(est, gt, delta=1)),
+            "warp.warp_patches": warp.warp_patches(img, t(wpx), t(lv_ref), t(A), t(lv_search)),
+            "hamming.popcount_u32": hamming.popcount_u32(t(words.view(np.int32))),
+        }
+        if d != "cpu":
+            torch.cuda.synchronize()
+        return {k: v.cpu() for k, v in out.items()}
+
+    card, cpu = on(dev), on("cpu")
+    tols = {"so3.vee": 0.0, "so3.normalize": TOL15_SVD, "SE3.matrix": TOL15_GEOM,
+            "SE3.normalize": TOL15_SVD, "PinholeCamera.K": 0.0,
+            "PinholeCamera.distort_px": TOL15_PX, "PinholeCamera.world_to_camera": TOL15_GEOM,
+            "PinholeCamera.camera_to_world": TOL15_GEOM, "PinholeCamera.in_frame": 0.0,
+            "jacobians.dnorm_dxi": TOL15_GEOM, "interp.image_gradients": 0.0,
+            "trajectory.rpe_rmse": TOL15_RPE, "warp.warp_patches": TOL15_PATCH,
+            "hamming.popcount_u32": 0.0}
+    errs, bad = {}, []
+    for k, tol in tols.items():
+        a, b = card[k], cpu[k]
+        if a.dtype == torch.bool:
+            e = float((a != b).sum())
+        elif k == "trajectory.rpe_rmse":
+            e = float(((a - b).abs() / b.abs()).max())
+        else:
+            e = float((a.double() - b.double()).abs().max())
+        errs[k] = (e, tol)
+        if not (e <= tol and a.shape == b.shape):
+            bad.append(k)
+    mean = float((card["warp.warp_patches"] - cpu["warp.warp_patches"]).abs().mean())
+    if mean > TOL15_PATCH_MEAN:
+        bad.append("warp.warp_patches (mean)")
+    print(f"main path 15b, each helper on the card against the CPU (error, tolerance; exact "
+          f"where 0): {errs}; warp_patches mean {mean:.2e} ({TOL15_PATCH_MEAN}); PinholeCamera."
+          f"scaled(0.5) {cam.scaled(0.5)}: {'pass' if not bad else 'FAIL ' + str(bad)}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"main path 15b: {bad} disagree between the card and the CPU")
+    return errs
 
 
 def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
@@ -4114,6 +4359,15 @@ def main() -> int:
                          bstate, frames_b, T7_1)
     print(f"main path 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # -- 5m. main path 15: run_synthetic_mono, and the helpers no path calls ----
+    print(f"clock: path 15 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    t15 = time.perf_counter()
+    launches15 = _path15(torch, dev, dict(K1=check_k1, K2=check_k2, K3=check_k3, K4=check_k4,
+                                          K5=check_k5, K8=check_k8, exact=check_exact),
+                         instrumented, want_loops)
+    _path15b(torch, dev)
+    print(f"main path 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
     # -- 6. profile windows ----------------------------------------------------
     print(f"clock: phase 6 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     prof = {}
@@ -4274,7 +4528,7 @@ def main() -> int:
                 + launches11b[name] + sum(l_[name] for l_ in launches11c_all)
                 + launches11d[name] + launches12a[name] + launches12d[name] + launches12b[name]
                 + launches12c[name] + launches13a[name] + launches13b[name] + launches13c[name]
-                + launches14.get(name, 0))
+                + launches14.get(name, 0) + launches15.get(name, 0))
 
     gw = "ygz_slam_tpu_torch/csrc/gather_windows.cu"
     pk = "ygz_slam_tpu/ops/pallas/"

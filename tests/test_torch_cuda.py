@@ -26,7 +26,7 @@ and second launches of K3, K4, K5, K8, K9 and K11 (the same bits); five frames o
 the fused step, three of the batch step, twelve of the VO slice (with one
 keyframe cycle) and forty of the monocular System from raw frames on the
 card against the CPU, and that System run twice on the card (the same
-bits); the chunk step of `VisualOdometry.add_frames` replayed as a CUDA
+bits); twelve frames of `run_synthetic_mono` on the card against the CPU; the chunk step of `VisualOdometry.add_frames` replayed as a CUDA
 graph against the eager step under each FUSED_VARIANT (bit for bit), its
 warm-up, capture and replay under torch.cuda.set_sync_debug_mode("error"),
 both also for the step with the depth filter's seed update, forty frames
@@ -761,6 +761,45 @@ def test_mono_system_card_matches_cpu(cuda_device, monkeypatch):
     assert float(d.max()) <= TOL_MAPPED
     assert mw.mono_gate(card[0], card[1].numpy(), T_gt7.cpu())[2]
 
+
+
+def test_run_synthetic_mono_card_matches_cpu(cuda_device, monkeypatch, tmp_path):
+    """`python -m ygz_slam_tpu_torch.run_synthetic_mono`'s `main` over 12
+    frames on the card against the CPU (each renders SyntheticDataset on
+    its own device; the CPU run is handed the card run's RANSAC draws): the
+    same statuses and window keyframes per frame, the GOOD frames' camera
+    centres within TOL_SLICE up to the first keyframe after the init pair
+    and within TOL_MAPPED after its mapping pass (the mono System's card
+    tolerances above), both trajectory files written."""
+    from ygz_slam_tpu_torch import run_synthetic_mono as rsm
+    from ygz_slam_tpu_torch.solvers import initializer as tin
+
+    draws = {}
+    real_sample = tin.sample_hypotheses
+
+    def card_sample(mask, n, gen):
+        draws[gen.initial_seed()] = idx = real_sample(mask, n, gen)
+        return idx
+
+    def run(dev, sample):
+        monkeypatch.setattr(tin, "sample_hypotheses", sample)
+        return rsm.main(["--frames", "12", "--device", dev, "--out", str(tmp_path / dev)])
+
+    card = run("cuda", card_sample)
+    cpu = run("cpu", lambda mask, n, gen: draws[gen.initial_seed()].cpu())
+    assert draws and [(r.status, r.keyframes) for r in card] == [(r.status, r.keyframes)
+                                                                for r in cpu]
+    good = [k for k, r in enumerate(card) if r.center is not None]
+    first_kf = next(k for k, r in enumerate(card) if r.keyframes > 2)
+    d = np.array([np.linalg.norm(card[k].center - cpu[k].center) for k in good])
+    early = np.array([k <= first_kf for k in good])
+    print(f"run_synthetic_mono over 12 frames, card against CPU: GOOD frames {good}, first "
+          f"keyframe after the init pair at {first_kf}; camera centres {d.max():.3e} at most "
+          f"({d[early].max():.3e} up to that keyframe); ATE card {rsm.ate(card):.5f}, CPU "
+          f"{rsm.ate(cpu):.5f} m")
+    assert len(good) >= 6 and d[early].max() <= TOL_SLICE and d.max() <= TOL_MAPPED
+    for dev in ("cuda", "cpu"):
+        assert (tmp_path / dev / "trajectory_tum.txt").stat().st_size > 0
 
 # -- the Hopper redesign of K3 and of the pose-BA body (K5, K8, K11) ------
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .se3 import SE3
 
 
@@ -32,6 +33,21 @@ class PinholeCamera(NamedTuple):
     @staticmethod
     def create(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0) -> "PinholeCamera":
         return PinholeCamera(*(_f32(v) for v in (fx, fy, cx, cy, k1, k2, p1, p2)))
+
+    def K(self, device=None) -> torch.Tensor:
+        """3x3 float32 intrinsic matrix on `device` (the card unless named).
+        The JAX package's `K` is a property of its array-valued camera; this
+        camera holds host numbers, so the device is an argument."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=torch.float32, device=resolve_device(device))
+
+    def scaled(self, factor: float) -> "PinholeCamera":
+        """The camera of a pyramid level scaled by `factor` (e.g. 0.5 per
+        level): fx, fy, cx, cy times factor, rounded as the float32 product
+        is."""
+        f = _f32(factor)
+        return self._replace(fx=_f32(self.fx * f), fy=_f32(self.fy * f),
+                             cx=_f32(self.cx * f), cy=_f32(self.cy * f))
 
     @property
     def has_distortion(self) -> bool:
@@ -65,15 +81,29 @@ class PinholeCamera(NamedTuple):
                               (xd[..., 1] - dy) / radial], dim=-1)
         return xn
 
+    def _to_plane(self, px: torch.Tensor) -> torch.Tensor:
+        """Pixel [..., 2] -> normalized-plane [..., 2] (no distortion)."""
+        return torch.stack([(px[..., 0] - self.cx) / self.fx,
+                            (px[..., 1] - self.cy) / self.fy], dim=-1)
+
+    def _to_pixel(self, xn: torch.Tensor) -> torch.Tensor:
+        """Normalized-plane [..., 2] -> pixel [..., 2] (no distortion)."""
+        return torch.stack([self.fx * xn[..., 0] + self.cx,
+                            self.fy * xn[..., 1] + self.cy], dim=-1)
+
     def undistort_px(self, px: torch.Tensor) -> torch.Tensor:
         """Raw (distorted-image) pixel -> ideal-pinhole pixel."""
         if not self.has_distortion:
             return px
-        xn = torch.stack([(px[..., 0] - self.cx) / self.fx,
-                          (px[..., 1] - self.cy) / self.fy], dim=-1)
-        xn = self.undistort(xn)
-        return torch.stack([self.fx * xn[..., 0] + self.cx,
-                            self.fy * xn[..., 1] + self.cy], dim=-1)
+        return self._to_pixel(self.undistort(self._to_plane(px)))
+
+    def distort_px(self, px: torch.Tensor) -> torch.Tensor:
+        """Ideal-pinhole pixel -> raw (distorted-image) pixel: where an ideal
+        projection lands on the sensor (`distort`, which `undistort_px`
+        inverts)."""
+        if not self.has_distortion:
+            return px
+        return self._to_pixel(self.distort(self._to_plane(px)))
 
     # -- camera <-> pixel ------------------------------------------------
     def camera_to_pixel(self, pc: torch.Tensor, distorted: bool = True) -> torch.Tensor:
@@ -81,13 +111,11 @@ class PinholeCamera(NamedTuple):
         xn = pc[..., :2] / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
         if distorted:
             xn = self.distort(xn)
-        return torch.stack([self.fx * xn[..., 0] + self.cx,
-                            self.fy * xn[..., 1] + self.cy], dim=-1)
+        return self._to_pixel(xn)
 
     def pixel_to_camera(self, px: torch.Tensor, depth=1.0,
                         distorted: bool = True) -> torch.Tensor:
-        xn = torch.stack([(px[..., 0] - self.cx) / self.fx,
-                          (px[..., 1] - self.cy) / self.fy], dim=-1)
+        xn = self._to_plane(px)
         if distorted:
             xn = self.undistort(xn)
         if isinstance(depth, (int, float)):
@@ -103,7 +131,13 @@ class PinholeCamera(NamedTuple):
         pc = self.pixel_to_camera(px, 1.0, distorted)
         return pc / torch.linalg.norm(pc, dim=-1, keepdim=True)
 
-    # -- world <-> pixel -------------------------------------------------
+    # -- world <-> camera/pixel ------------------------------------------
+    def world_to_camera(self, pw: torch.Tensor, T_cw: SE3) -> torch.Tensor:
+        return T_cw.apply(pw)
+
+    def camera_to_world(self, pc: torch.Tensor, T_cw: SE3) -> torch.Tensor:
+        return T_cw.inverse().apply(pc)
+
     def world_to_pixel(self, pw: torch.Tensor, T_cw: SE3,
                        distorted: bool = True) -> torch.Tensor:
         return self.camera_to_pixel(T_cw.apply(pw), distorted)
@@ -111,3 +145,9 @@ class PinholeCamera(NamedTuple):
     def pixel_to_world(self, px: torch.Tensor, T_cw: SE3, depth=1.0,
                        distorted: bool = True) -> torch.Tensor:
         return T_cw.inverse().apply(self.pixel_to_camera(px, depth, distorted))
+
+    def in_frame(self, px: torch.Tensor, width, height, boundary: int = 0) -> torch.Tensor:
+        """Bool mask [...]: the pixel inside the image with a safety
+        boundary (the reference's Frame::InFrame, Basic/Frame.h:54-71)."""
+        u, v = px[..., 0], px[..., 1]
+        return (u >= boundary) & (v >= boundary) & (u < width - boundary) & (v < height - boundary)

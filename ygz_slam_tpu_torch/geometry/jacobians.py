@@ -30,6 +30,12 @@ def duv_dxi(pc: torch.Tensor, fx, fy) -> torch.Tensor:
     return duv_dxyz(pc, fx, fy) @ dxyz_dxi(pc)
 
 
+def dnorm_dxi(pc: torch.Tensor) -> torch.Tensor:
+    """d(normalized x/z, y/z)/d(pose tangent): [..., 2, 6], `duv_dxi` at
+    fx = fy = 1 (JacobXYZ2Cam, CVUtils.h:77-100)."""
+    return duv_dxi(pc, 1.0, 1.0)
+
+
 def duv_dpoint(pc: torch.Tensor, R_cw: torch.Tensor, fx, fy) -> torch.Tensor:
     """d(pixel)/d(world point): [..., 2, 3] = duv_dxyz @ R_cw."""
     return duv_dxyz(pc, fx, fy) @ R_cw

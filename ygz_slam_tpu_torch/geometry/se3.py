@@ -39,6 +39,13 @@ class SE3(NamedTuple):
         Rt = self.R.transpose(-1, -2)
         return SE3(Rt, -torch.einsum("...ij,...j->...i", Rt, self.t))
 
+    def matrix(self) -> torch.Tensor:
+        """Homogeneous [..., 4, 4], the batch shape kept."""
+        bottom = torch.zeros(self.t.shape[:-1] + (1, 4), dtype=self.t.dtype,
+                             device=self.t.device)
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([torch.cat([self.R, self.t[..., :, None]], dim=-1), bottom], dim=-2)
+
     def params7(self) -> torch.Tensor:
         """[..., 7]: quaternion (wxyz) + translation."""
         return torch.cat([so3.to_quaternion(self.R), self.t], dim=-1)
@@ -46,6 +53,10 @@ class SE3(NamedTuple):
     @staticmethod
     def from_params7(p: torch.Tensor) -> "SE3":
         return SE3(so3.from_quaternion(p[..., :4]), p[..., 4:7])
+
+    def normalize(self) -> "SE3":
+        """The rotation projected back onto SO(3) (`so3.normalize`)."""
+        return SE3(so3.normalize(self.R), self.t)
 
 
 def _left_jacobian_so3(phi: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of `hat`: [..., 3, 3] -> [..., 3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
@@ -67,6 +72,17 @@ def log(R: torch.Tensor) -> torch.Tensor:
     norm = torch.linalg.norm(col, dim=-1, keepdim=True)
     w_pi = col / torch.clamp(norm, min=_EPS) * theta[..., None]
     return torch.where(near_pi[..., None], w_pi, w)
+
+
+def normalize(R: torch.Tensor) -> torch.Tensor:
+    """Projection onto SO(3), u diag(1, 1, det(u vt)) vt from the SVD of R,
+    in R's dtype.  The polar factor of a full-rank R is unique, so the SVD's
+    sign conventions do not reach the result."""
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    d = torch.ones(R.shape[:-2] + (3,), dtype=R.dtype, device=R.device)
+    d[..., 2] = det
+    return u @ (d[..., :, None] * vt)
 
 
 def to_quaternion(R: torch.Tensor) -> torch.Tensor:

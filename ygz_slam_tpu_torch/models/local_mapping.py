@@ -6,6 +6,8 @@ All steps are pure functions over MapState with fixed shapes.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..geometry import so3
@@ -96,6 +98,14 @@ def search_in_neighbors(m: ms.MapState, cam, slot, max_dist: int = 50,
     new_fd = torch.where(link, z[best], ms.row(m.feat_depth, slot))
     return m._replace(feat_point=ms.set_row(m.feat_point, slot, new_fp),
                       feat_depth=ms.set_row(m.feat_depth, slot, new_fd))
+
+
+class MappingResult(NamedTuple):
+    """A mapping pass's outcome: the map, the landmarks culled and local
+    BA's final chi2."""
+    map: ms.MapState
+    n_culled: torch.Tensor
+    ba_chi2: torch.Tensor
 
 
 def map_point_culling(m: ms.MapState, min_found_ratio: float = 0.25, min_obs: int = 2,

@@ -1239,8 +1239,7 @@ class VisualOdometry:
         disp = torch.linalg.norm(klt.xy - feats.px, dim=-1)
         if float(torch.where(tracked, disp, 0.0).sum() / n_tracked) < o.init_min_disparity:
             return TrackResult(Status.INITING, self._identity())
-        K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
-                         dtype=torch.float32, device=self.device)
+        K = cam.K(self.device)
         gen = torch.Generator(device=self.device).manual_seed(self.frame_id)
         out = init_mod.initialize_two_view(cam.undistort_px(feats.px), cam.undistort_px(klt.xy),
                                            tracked, K, gen, min_good=o.init_min_inliers)

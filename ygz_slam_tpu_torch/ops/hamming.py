@@ -13,6 +13,9 @@ import math
 import torch
 
 from .kernels.hamming_kernel import distance_matrix, popcount_i32
+# The JAX package's uint32 SWAR popcount, here on the int32 words that hold
+# the same bits (torch has no uint32 shifts).
+from .kernels.hamming_kernel import popcount_i32 as popcount_u32  # noqa: F401
 from .select import top_k
 
 BIG = 1 << 14       # distance of a masked-out pair

@@ -56,3 +56,13 @@ def sample_patches(img: torch.Tensor, centers: torch.Tensor, size: int) -> torch
     gx = (centers[:, None, None, 0] + d[None, None, :]).expand(n, size, size)
     gy = (centers[:, None, None, 1] + d[None, :, None]).expand(n, size, size)
     return bilinear(img, torch.stack([gx, gy], dim=-1))
+
+
+def image_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradients (dx, dy) of `img [H, W]`, the same
+    shape, zero on the border rows and columns they cannot reach."""
+    gx = torch.zeros_like(img)
+    gy = torch.zeros_like(img)
+    gx[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
+    gy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    return gx, gy

@@ -1,5 +1,6 @@
 """Affine patch warping between views, batched (counterpart of
-`warp_affine_matrix` and `best_search_level` in ygz_slam_tpu/ops/warp.py).
+ygz_slam_tpu/ops/warp.py; the reference's Matcher::GetWarpAffineMatrix,
+WarpAffine and GetBestSearchLevel, Matcher.cpp:420-466, Matcher.h:123-134).
 The 2x2 determinant and inverse are closed forms."""
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import math
 import torch
 
 from ..geometry.se3 import SE3
+from .interp import bilinear
 
 WARP_HALF = 4  # WarpHalfPatchSize (Basic/Common.h:90-91: 8x8 patches)
 
@@ -59,3 +61,24 @@ def best_search_level(A_cur_ref: torch.Tensor, max_level: int) -> torch.Tensor:
     D = torch.abs(det2(A_cur_ref))
     lvl = torch.ceil(torch.log(torch.clamp(D / 3.0, min=1e-9)) / math.log(4.0))
     return torch.clamp(lvl, 0, max_level).to(torch.int32)
+
+
+def warp_patches(img_ref: torch.Tensor, px_ref: torch.Tensor, level_ref: torch.Tensor,
+                 A_cur_ref: torch.Tensor, search_level: torch.Tensor,
+                 half_patch: int = WARP_HALF + 1) -> torch.Tensor:
+    """Reference patches warped into the current frame's geometry
+    (WarpAffine, the inverse map): output pixel (x, y) reads `img_ref` at
+    (A_cur_ref + 1e-6 I)^-1 (x, y) 2^search_level + px_ref / 2^level_ref,
+    bilinearly.  img_ref [H, W] is the image of level `level_ref`, px_ref
+    [N, 2] level-0 pixels, level_ref and search_level [N] int, A_cur_ref
+    [N, 2, 2].  Returns [N, 2 half_patch, 2 half_patch] (by default 10x10:
+    an 8x8 patch and the 1-pixel border align2d's gradients read)."""
+    size = 2 * half_patch
+    Ainv = inv2(A_cur_ref + 1e-6 * torch.eye(2, dtype=A_cur_ref.dtype, device=A_cur_ref.device))
+    d = torch.arange(size, dtype=torch.float32, device=px_ref.device) - (size - 1) / 2.0
+    gy, gx = torch.meshgrid(d, d, indexing="ij")
+    offs = torch.stack([gx, gy], dim=-1)                                   # [s, s, 2]
+    offs = offs[None] * (2.0 ** search_level.to(torch.float32))[:, None, None, None]
+    src = torch.einsum("nab,nijb->nija", Ainv, offs)
+    center = (px_ref / (2.0 ** level_ref.to(torch.float32))[:, None])[:, None, None, :]
+    return bilinear(img_ref, src + center)

@@ -1,15 +1,18 @@
-"""Trajectory save/load in the TUM format and the Sim(3)-aligned ATE
-(counterpart of ygz_slam_tpu/system/trajectory.py).
+"""Trajectory save/load in the TUM format, the Sim(3)-aligned ATE and the
+relative pose error (counterpart of ygz_slam_tpu/system/trajectory.py).
 
-Everything here runs on the host in numpy: poses are params7 arrays
-(wxyz quaternion + t of T_cw) or port SE3s, which are fetched once.
+Poses are params7 arrays (wxyz quaternion + t of T_cw) or port SE3s.
+Everything but `rpe_rmse` runs on the host in numpy; `rpe_rmse` composes
+the poses as one batch on their device and fetches the errors once.
 Trajectories are written as the TUM RGB-D benchmark writes them
 (`timestamp tx ty tz qx qy qz qw`, camera-to-world).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..geometry import so3
 from ..geometry.se3 import SE3
 from ..utils import np_se3
 
@@ -77,6 +80,35 @@ def ate_rmse(est_centers, gt_centers, with_scale: bool = True) -> float:
     s, R, t = umeyama_align(est, gt, with_scale)
     aligned = (s * (R @ est.T)).T + t
     return float(np.sqrt(((aligned - gt) ** 2).sum(axis=1).mean()))
+
+
+def _stacked(poses) -> SE3:
+    """One batched SE3 [n] of a list of SE3s, of params7 tensors (on their
+    device) or of params7 arrays (on the CPU)."""
+    if isinstance(poses[0], SE3):
+        return SE3(torch.stack([p.R for p in poses]), torch.stack([p.t for p in poses]))
+    if isinstance(poses[0], torch.Tensor):
+        return SE3.from_params7(torch.stack(list(poses)))
+    return SE3.from_params7(torch.as_tensor(np.asarray(poses, np.float32)))
+
+
+def rpe_rmse(est_poses, gt_poses, delta: int = 1):
+    """Relative pose error over `delta`-frame intervals: est_poses /
+    gt_poses are lists of T_cw (SE3s or params7).  Returns (trans_rmse,
+    rot_rmse_rad) as floats, NaN when no interval fits."""
+    n = min(len(est_poses), len(gt_poses))
+    if n <= delta:
+        return float("nan"), float("nan")
+    E, G = _stacked(est_poses[:n]), _stacked(gt_poses[:n])
+    G = SE3(G.R.to(E.R.device), G.t.to(E.t.device))
+
+    def step(T: SE3) -> SE3:
+        return SE3(T.R[delta:], T.t[delta:]).compose(SE3(T.R[:-delta], T.t[:-delta]).inverse())
+
+    err = step(G).inverse().compose(step(E))
+    et_er = torch.stack([torch.linalg.norm(err.t, dim=-1),
+                         torch.linalg.norm(so3.log(err.R), dim=-1)]).cpu().numpy()
+    return tuple(float(np.sqrt(np.mean(np.square(v.astype(np.float64))))) for v in et_er)
 
 
 def camera_centers(poses_cw) -> np.ndarray:
