@@ -25,6 +25,7 @@ from ..ops.interp import sample_patches
 from ..ops.kernels.align2d_fused import Align2DPrep, align2d_prepare
 from ..ops.sparse_align import prepare_reference
 from ..parallel import batched_track_step
+from ..utils import profiling
 from ..utils.synthetic import PlaneScene
 from .tracking import H, N, N_LEVELS, NOISE, W, _pose
 
@@ -96,11 +97,13 @@ def make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches) -> BatchSta
 def track_batch_step(state: BatchState, T_init7: torch.Tensor, imgs: torch.Tensor):
     """One frame of every sequence, imgs [S, H, W], from poses T_init7
     [S, 7].  Returns (poses params7 [S, 7], inlier counts [S])."""
-    cur_pyrs = pyramid.build_pyramid(imgs, N_LEVELS)
-    T, n_inl = batched_track_step(state.ref_pyrs, cur_pyrs, state.cam, state.px, state.depth,
-                                  state.mask, state.pts_w, SE3.from_params7(T_init7),
-                                  state.ref_preps, state.a2d_prep)
-    return T.params7(), n_inl
+    with profiling.span("batch_step"):
+        with profiling.span("batch_pyramid"):
+            cur_pyrs = pyramid.build_pyramid(imgs, N_LEVELS)
+        T, n_inl = batched_track_step(state.ref_pyrs, cur_pyrs, state.cam, state.px, state.depth,
+                                      state.mask, state.pts_w, SE3.from_params7(T_init7),
+                                      state.ref_preps, state.a2d_prep)
+        return T.params7(), n_inl
 
 
 def track_batch_frames(state: BatchState, frames: torch.Tensor, T_init7: torch.Tensor):

@@ -97,7 +97,7 @@ from ..ops.select import top_k
 from ..ops.stereo import match_stereo
 from ..solvers import ba as bam
 from ..solvers import initializer as init_mod
-from ..utils import np_se3
+from ..utils import np_se3, profiling
 from . import frontend as fe
 from . import local_mapping as lm
 from . import orb_tracking as orbt
@@ -292,27 +292,31 @@ def track(cam, o: VOOptions, prev_pyr, cur_pyr, prev_T_cw7, T_pred7, mstate: ms.
     L = o.map_L
     dev = mstate.pt_pos.device
     # (a) Sparse-direct alignment against the previous frame.
-    sel, z_sel, mask_sel = tracked_selection(o, mstate, prev_T_cw, prev_found)
-    tr = fe.track_ref_frame(prev_pyr, cur_pyr, cam, prev_T_cw, prev_obs_px[sel], z_sel, mask_sel,
-                            SE3.from_params7(T_pred7), max_motion=o.max_alignment_motion)
+    with profiling.span("sparse_align"):
+        sel, z_sel, mask_sel = tracked_selection(o, mstate, prev_T_cw, prev_found)
+        tr = fe.track_ref_frame(prev_pyr, cur_pyr, cam, prev_T_cw, prev_obs_px[sel], z_sel,
+                                mask_sel, SE3.from_params7(T_pred7),
+                                max_motion=o.max_alignment_motion)
     stage_done("sparse_align")
     # (b) The visible subset and its affine-warped reference patches.
-    sel2, sel_ok = visible_selection(cam, o, mstate, tr.T_cw, cur_pyr[0].shape)
-    patches, patch_ok, search_lvl = visible_patches(cam, o, mstate, kf_images, sel2, sel_ok,
-                                                    tr.T_cw)
+    with profiling.span("visible_patches"):
+        sel2, sel_ok = visible_selection(cam, o, mstate, tr.T_cw, cur_pyr[0].shape)
+        patches, patch_ok, search_lvl = visible_patches(cam, o, mstate, kf_images, sel2, sel_ok,
+                                                        tr.T_cw)
     stage_done("visible_patches")
     # (c) Map tracking + pose-only BA on the subset.
-    tm_s = fe.track_local_map(cur_pyr, cam, tr.T_cw, mstate.pt_pos[sel2], sel_ok, patches,
-                              patch_ok, search_lvl, max_step_motion=o.max_step_motion)
-    # Scatter the subset's results back to map-capacity rows.
-    tm = fe.TrackMapResult(
-        T_cw=tm_s.T_cw, n_inliers=tm_s.n_inliers,
-        candidate=torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
-            0, sel2, tm_s.candidate & sel_ok),
-        found=torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
-            0, sel2, tm_s.found & sel_ok),
-        obs_px=torch.zeros((L, 2), dtype=torch.float32, device=dev).index_copy(
-            0, sel2, tm_s.obs_px))
+    with profiling.span("local_map"):
+        tm_s = fe.track_local_map(cur_pyr, cam, tr.T_cw, mstate.pt_pos[sel2], sel_ok, patches,
+                                  patch_ok, search_lvl, max_step_motion=o.max_step_motion)
+        # Scatter the subset's results back to map-capacity rows.
+        tm = fe.TrackMapResult(
+            T_cw=tm_s.T_cw, n_inliers=tm_s.n_inliers,
+            candidate=torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
+                0, sel2, tm_s.candidate & sel_ok),
+            found=torch.zeros(L, dtype=torch.bool, device=dev).index_copy(
+                0, sel2, tm_s.found & sel_ok),
+            obs_px=torch.zeros((L, 2), dtype=torch.float32, device=dev).index_copy(
+                0, sel2, tm_s.obs_px))
     stage_done("local_map")
     # (d) Landmark statistics (MapPoint _cnt_visible / _cnt_found).
     return tm, count_landmarks(mstate, tm), tr.ok
@@ -696,19 +700,21 @@ def mapping_pass(cam, o: VOOptions, mstate: ms.MapState, fixed: torch.Tensor, lo
     found = torch.zeros((), dtype=torch.bool, device=mstate.pt_pos.device)
     if loop is not None:
         vocab, slot, kf_bow, kf_nodes = loop
-        lp = reloc.detect_loop(
-            vocab, cam, slot, kf_bow, mstate.kf_valid, mstate.kf_pose7, mstate.cov_weight,
-            mstate.feat_desc.reshape(-1, 8), kf_nodes.reshape(-1), mstate.feat_px.reshape(-1, 2),
-            mstate.feat_point.reshape(-1), mstate.feat_valid.reshape(-1), mstate.pt_pos,
-            mstate.pt_valid, min_inliers=o.loop_min_inliers,
-            feat_angle_flat=mstate.feat_angle.reshape(-1))
-        pose7, pts, _ = reloc.close_loop(
-            mstate.kf_pose7, mstate.kf_valid, mstate.cov_weight, mstate.pt_pos, mstate.pt_valid,
-            mstate.pt_first_kf, slot, lp, feat_point=mstate.feat_point,
-            feat_valid=mstate.feat_valid)
+        with profiling.span("loop_block"):
+            lp = reloc.detect_loop(
+                vocab, cam, slot, kf_bow, mstate.kf_valid, mstate.kf_pose7, mstate.cov_weight,
+                mstate.feat_desc.reshape(-1, 8), kf_nodes.reshape(-1),
+                mstate.feat_px.reshape(-1, 2), mstate.feat_point.reshape(-1),
+                mstate.feat_valid.reshape(-1), mstate.pt_pos, mstate.pt_valid,
+                min_inliers=o.loop_min_inliers, feat_angle_flat=mstate.feat_angle.reshape(-1))
+            pose7, pts, _ = reloc.close_loop(
+                mstate.kf_pose7, mstate.kf_valid, mstate.cov_weight, mstate.pt_pos,
+                mstate.pt_valid, mstate.pt_first_kf, slot, lp, feat_point=mstate.feat_point,
+                feat_valid=mstate.feat_valid)
         mstate = mstate._replace(kf_pose7=pose7, pt_pos=pts)
         found = lp.found
-    mstate, _ = mapping(cam, o, mstate, fixed)
+    with profiling.span("local_ba"):
+        mstate, _ = mapping(cam, o, mstate, fixed)
     return mstate, kf_redundancy(mstate), found
 
 
@@ -982,12 +988,17 @@ class VisualOdometry:
         (STEREO) if given: the map then starts from the first frame with
         depth-initialized landmarks (no two-view bootstrap), and keyframes
         take new features' depths from the sensor."""
+        with profiling.span("frame", frame=self.frame_id + 1):
+            return self._add_frame(img, timestamp, depth, right)
+
+    def _add_frame(self, img, timestamp, depth, right) -> TrackResult:
         self._join_mapping()
         self.frame_id += 1
         if self.status is not Status.GOOD:
             self._low_streak = 0       # hysteresis counts GOOD frames only
-        pyr = fe.preprocess(torch.as_tensor(img, dtype=torch.float32, device=self.device),
-                            self.o.n_levels)
+        with profiling.span("preprocess"):
+            pyr = fe.preprocess(torch.as_tensor(img, dtype=torch.float32, device=self.device),
+                                self.o.n_levels)
         self.cur_depth = (None if depth is None else
                           torch.as_tensor(depth, dtype=torch.float32, device=self.device))
         self.cur_right = (None if right is None else
@@ -1015,7 +1026,8 @@ class VisualOdometry:
             self.stats["inliers_total"] += res.n_inliers
         elif res.status is Status.LOST:
             self.stats["frames_lost"] += 1
-        abs7 = res.T_cw.params7().cpu().numpy()
+        with profiling.span("pose_fetch"):
+            abs7 = res.T_cw.params7().cpu().numpy()
         self.trajectory.append((timestamp, abs7))
         if res.status is Status.GOOD and self._last_kf_fid >= 0:
             self.traj_rel.append((timestamp, self._last_kf_fid,
@@ -1327,9 +1339,10 @@ class VisualOdometry:
                 self.cam, o, self.sd, ms.row(self.kf_images, self.sd.kf_slot), pyr,
                 T_pred.params7(), self.server.state, self.kf_images)
             return tm, new_state, ok
-        return track(self.cam, o, self.prev_pyr, pyr, self.prev_T_cw.params7(),
-                     T_pred.params7(), self.server.state, self.kf_images, self.prev_found,
-                     self.prev_obs_px)
+        with profiling.span("track"):
+            return track(self.cam, o, self.prev_pyr, pyr, self.prev_T_cw.params7(),
+                         T_pred.params7(), self.server.state, self.kf_images, self.prev_found,
+                         self.prev_obs_px)
 
     def _hard_inlier_floor(self) -> int:
         """Below this a frame goes LOST at once, hysteresis or not."""
@@ -1376,9 +1389,10 @@ class VisualOdometry:
         T_cw = tm.T_cw
         if self.seeds is not None:
             # The depth filter at the refined pose; a LOST frame keeps the seeds.
-            self.seeds = update_seeds(self.cam, self.seeds, new_state.kf_pose7, self.kf_images,
-                                      self.seed_kf_slot, pyr[0], T_cw,
-                                      via_params7=o.vo_type is not VOType.SPARSE_DIRECT)
+            with profiling.span("update_seeds"):
+                self.seeds = update_seeds(self.cam, self.seeds, new_state.kf_pose7,
+                                          self.kf_images, self.seed_kf_slot, pyr[0], T_cw,
+                                          via_params7=o.vo_type is not VOType.SPARSE_DIRECT)
         self.velocity = T_cw.compose(self.prev_T_cw.inverse())
         self.prev_pyr = pyr
         self.prev_T_cw = T_cw
@@ -1388,11 +1402,13 @@ class VisualOdometry:
         self.frames_since_kf += 1
         # A frame tracked through on hysteresis never becomes a keyframe.
         if not marginal and self._need_keyframe(T_cw):
-            self._insert_keyframe(pyr, T_cw, tm)
+            with profiling.span("insert_keyframe"):
+                self._insert_keyframe(pyr, T_cw, tm)
         return TrackResult(Status.GOOD, T_cw, n_inl)
 
     def _need_keyframe(self, T_cw: SE3) -> bool:
-        return self._keyframe_due(self.frames_since_kf, T_cw.params7().cpu().numpy())
+        with profiling.span("keyframe_due"):
+            return self._keyframe_due(self.frames_since_kf, T_cw.params7().cpu().numpy())
 
     def _keyframe_due(self, frames_since_kf: int, abs7: np.ndarray) -> bool:
         """NeedNewKeyFrame (:304-321): at least kf_min_frames since the last
@@ -1421,20 +1437,22 @@ class VisualOdometry:
         used = srv.kf_used
         nbr2 = used[-4] if len(used) >= 4 else used[0]
         with_seeds = self.seeds is not None
-        srv.state, self.kf_images, new_seeds, host_block = kf_cycle(
-            self.cam, o, srv.state, pyr, tm.found, tm.obs_px, T_cw.params7(),
-            self.last_kf_slot, nbr2, self.frame_id, self.kf_images,
-            seeds=self.seeds, seed_slot=self.seed_kf_slot if with_seeds else 0,
-            seed_feat_idx=self.seed_feat_idx)
+        with profiling.span("kf_cycle"):
+            srv.state, self.kf_images, new_seeds, host_block = kf_cycle(
+                self.cam, o, srv.state, pyr, tm.found, tm.obs_px, T_cw.params7(),
+                self.last_kf_slot, nbr2, self.frame_id, self.kf_images,
+                seeds=self.seeds, seed_slot=self.seed_kf_slot if with_seeds else 0,
+                seed_feat_idx=self.seed_feat_idx)
         snap_bow = None
         if self.archive is not None and self.vocab is not None:
             # The victim's BoW row, before the new keyframe's overwrites it.
             snap_bow = (ms.row(self.kf_bow, host_block[0]), ms.row(self.kf_nodes, host_block[0]))
         self._store_bow(host_block[0])
-        host = torch.cat([torch.stack([host_block[0].long(), host_block[1].long(),
-                                       host_block[2].long(), host_block[3].long(),
-                                       host_block[-1]]).double(),
-                          host_block[4].double()]).tolist()
+        with profiling.span("kf_fetch"):
+            host = torch.cat([torch.stack([host_block[0].long(), host_block[1].long(),
+                                           host_block[2].long(), host_block[3].long(),
+                                           host_block[-1]]).double(),
+                              host_block[4].double()]).tolist()
         slot, evicted, efid, d_any, n_promoted = map(int, host[:5])
         if evicted:
             self.stats["evictions"] += 1
@@ -1631,8 +1649,15 @@ class VisualOdometry:
         self.last_kf_slot = slot
         self.frames_since_kf = 0
         kf_fid = self.frame_id
+        cause = profiling.current_span()
+
+        def run_pass():
+            # On the worker the span names its cause, the keyframe's insertion.
+            with profiling.span("mapping_pass", frame=kf_fid, parent=cause):
+                return self._keyframe_mapping_pass(slot, kf_fid)
+
         if not self.o.async_mapping:
-            self._finish_keyframe(self._keyframe_mapping_pass(slot, kf_fid))
+            self._finish_keyframe(run_pass())
             return
         self._last_kf_fid = kf_fid
         self._last_kf_pose7 = T_cw.params7().cpu().numpy()
@@ -1643,7 +1668,7 @@ class VisualOdometry:
             try:
                 with (torch.cuda.stream(stream) if stream is not None
                       else contextlib.nullcontext()):
-                    self._map_pending_pose7 = self._keyframe_mapping_pass(slot, kf_fid)
+                    self._map_pending_pose7 = run_pass()
             except BaseException as e:            # re-raised at the join
                 self._map_exc = e
 
@@ -1665,7 +1690,8 @@ class VisualOdometry:
         th = self._map_thread
         if th is None:
             return
-        th.join()
+        with profiling.span("join_mapping"):
+            th.join()
         self._map_thread = None
         exc, self._map_exc = self._map_exc, None
         if exc is not None:
@@ -1705,11 +1731,13 @@ class VisualOdometry:
         parts = [scores.double(), srv.state.kf_pose7.reshape(-1).double(),
                  srv.state.kf_id.double(), found.double().reshape(1)]
         if arc_loop:
-            lpa = self._detect_loop_archive(slot, kf_fid, self.archive.device_view())
+            with profiling.span("archive_loop"):
+                lpa = self._detect_loop_archive(slot, kf_fid, self.archive.device_view())
             parts += [torch.stack([lpa.found.double(), lpa.loop_kf.double(),
                                    lpa.n_inl.double(), lpa.scale.double()]),
                       lpa.T_loop7.double()]
-        host = torch.cat(parts).cpu().numpy()
+        with profiling.span("mapping_fetch"):
+            host = torch.cat(parts).cpu().numpy()
         scores = host[:K].astype(np.float32)
         pose7 = host[K:8 * K].reshape(K, 7).astype(np.float32)
         ids = host[8 * K:9 * K].astype(np.int64)
@@ -1725,7 +1753,8 @@ class VisualOdometry:
                 # The correction rewrote the window's poses after the fetch.
                 pose7 = srv.state.kf_pose7.cpu().numpy()
                 ids = srv.state.kf_id.cpu().numpy().astype(np.int64)
-        self._cull_keyframes(protect={slot, oldest}, scores=scores)
+        with profiling.span("cull_keyframes"):
+            self._cull_keyframes(protect={slot, oldest}, scores=scores)
         for s in srv.kf_used:
             fid_s = int(ids[s])
             self.kf_pose_log[fid_s] = pose7[s].copy()

@@ -27,6 +27,7 @@ from ..ops.align import accepted, substitute_inits
 from ..ops.kernels.align2d_fused import A2DWindows, a2d_window_origins, align2d_fused
 from ..ops.kernels.align2d_kernel import CACHE_WIN, gather_windows_multi
 from ..ops.kernels.pose_ba_fused_batch import pose_only_ba_fused_batch
+from ..utils import profiling
 from .mesh import Mesh
 
 DISTORTED = True        # the JAX batch path projects through the distortion model
@@ -131,9 +132,12 @@ def batched_track_step(ref_pyrs, cur_pyrs, cam, px_ref: torch.Tensor,
     pts_w [S, N, 3] landmarks; other arguments as for
     `batched_sparse_align` and `batched_align2d`.  Returns (poses, SE3
     batched [S]; inlier counts [S])."""
-    T = batched_sparse_align(ref_pyrs, cur_pyrs, cam, px_ref, depth_ref, mask, T_init,
-                             ref_preps)
-    xy, conv, _ = batched_align2d(cur_pyrs[0], project_landmarks(cam, pts_w, T), a2d_prep)
-    T_out, inlier, _ = pose_only_ba_fused_batch(*batched_pose_ba_inputs(T, pts_w, xy, conv,
-                                                                        mask, cam))
-    return T_out, torch.sum(inlier, dim=-1)
+    with profiling.span("batch_sparse_align"):
+        T = batched_sparse_align(ref_pyrs, cur_pyrs, cam, px_ref, depth_ref, mask, T_init,
+                                 ref_preps)
+    with profiling.span("batch_align2d"):
+        xy, conv, _ = batched_align2d(cur_pyrs[0], project_landmarks(cam, pts_w, T), a2d_prep)
+    with profiling.span("batch_pose_ba"):
+        T_out, inlier, _ = pose_only_ba_fused_batch(*batched_pose_ba_inputs(T, pts_w, xy, conv,
+                                                                            mask, cam))
+        return T_out, torch.sum(inlier, dim=-1)
