@@ -22,12 +22,16 @@ Phases, each raising (and so exiting non-zero) on failure:
       the step: the pyramid's three levels in one launch, then K4's
       windows); K3-K5 again at 512 landmarks; K1 with origins off the
       image, per image and for the pyramid.
-   b. The batch path's kernels (K6 gather_windows_grouped, K3 on K6's
-      windows, K2 gather_windows_multi, K4 over all S*N rows, K8
-      pose_ba_fused_batch) on that path's frame-1 inputs at S=8 (K6's and
-      K3's recorded from `batched_sparse_align`: every sequence's levels
-      in one K6 launch); K2, K6 and K8 again at S=16 (K6: 48 requests in
-      one launch); K2 and K6 with origins off the image, K6 with a request
+   b. The batch path's kernels (K6 gather_windows_stacked and
+      gather_windows_grouped, the batched K3 on K6's windows, K2
+      gather_windows_multi, K4 over all S*N rows, K8 pose_ba_fused_batch)
+      on that path's frame-1 inputs at S=8 (K6's and K3's recorded from
+      `batched_sparse_align`: every sequence's levels in one stacked K6
+      launch, held exactly to its plain version on the path's own
+      arguments; every sequence's alignment in one K3 launch, held to the
+      batched plain version, each sequence within TOL_POSE); K2, K6 and K8
+      again at S=16 (K6: 48 requests in one launch); K2 and K6 (stacked
+      and grouped) with origins off the image, K6 with a request
       list that names one image twice; K6 timed per batched frame beside
       the S launches of one sequence's levels that it replaced; K2's
       CUDA-event ms, profiler µs per launch, plain and library ms and
@@ -315,11 +319,14 @@ Phases, each raising (and so exiting non-zero) on failure:
    profiler window.  (b) `sharded_batch_align` on path 2's frame-1 inputs
    (S=8) over 8 shards: equal bit for bit to `batched_sparse_align` on the
    same keyframe preps, launching K1 8 times (each sequence's
-   ReferencePrep), K6 once and K3 8 times.  (c) `sharded_batch_align` on
-   the same inputs with n_iter=3 (K3 below its cap of 12: at least one
+   ReferencePrep), the stacked K6 once and the batched K3 once, each
+   launch recorded and held to its plain version as in (c).  (c)
+   `sharded_batch_align` on the same inputs with n_iter=3 (K3 below its
+   cap of 12: at least one
    level stopped by the cap) and `dryrun_multichip()` on the card, every
    K1, K6 and K3 launch of both recorded and held to its plain version on
-   the same inputs (K1 and K6 exact, K3 within TOL_POSE); then
+   the same inputs (K1 and the stacked K6 exact, the batched K3 against
+   its batched plain version, every sequence within TOL_POSE); then
    `point_only_ba`, `optimize_current`, `gauss_newton` and
    `levenberg_marquardt` on tests/test_solvers.py's problems
    (`models/ba_workload.py`), card against CPU.  The launches of (b) and
@@ -912,9 +919,9 @@ def _path15b(torch, dev):
 
 def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
     """Main path 14: scale-out on an NCCL process group (a world of one
-    rank, the card).  `checks` holds phase 2's checks of K1, K3 and K6
-    against their plain versions.  Returns the launch counts of 14b's and
-    14c's calls."""
+    rank, the card).  `checks` holds phase 2's checks of K1, the batched
+    K3 and exact copies against their plain versions.  Returns the launch
+    counts of 14b's and 14c's calls."""
     import torch.distributed as dist
 
     from ygz_slam_tpu_torch.entry import dryrun_multichip
@@ -923,6 +930,7 @@ def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
     from ygz_slam_tpu_torch.models import ba_workload as bw
     from ygz_slam_tpu_torch.ops import kernels, pyramid, sparse_align
     from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as k1
+    from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as k3
     from ygz_slam_tpu_torch.parallel import batch_tracking as bt
     from ygz_slam_tpu_torch.parallel import mesh as pmesh
     from ygz_slam_tpu_torch.parallel import sharded_ba as sba
@@ -1004,18 +1012,44 @@ def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
     ref = bt.batched_sparse_align(bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
                                   bstate.depth, bstate.mask, T0, preps).params7()
     reset()
-    T = bt.sharded_batch_align(mesh8, bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
-                               bstate.depth, bstate.mask, T0)
-    torch.cuda.synchronize()
+    with kernels.record_launches() as rec:
+        T = bt.sharded_batch_align(mesh8, bstate.ref_pyrs, cur_pyrs, bstate.cam, bstate.px,
+                                   bstate.depth, bstate.mask, T0)
+        torch.cuda.synchronize()
     launches14b = {c.__name__: c.launches for c in counters}
     want = {c.__name__: 0 for c in counters}
-    want.update(gather_windows_levels=S, gather_windows_grouped=1, mega_gn=S)
+    want.update(gather_windows_levels=S, gather_windows_grouped=1, mega_gn_batch=1)
     same = torch.equal(T.params7(), ref)
     print(f"main path 14b (sharded_batch_align, {S} sequences on {mesh8.local} shards of 1 NCCL "
           f"rank): equal to batched_sparse_align bit for bit: {same}; launches {launches14b} "
           f"(expected {want})", flush=True)
     if not same or launches14b != want:
         raise AssertionError("main path 14b failed")
+
+    def replay(rec, tag_of, n_iter):
+        """Every launch of `rec` against its plain version: K1 and K6 (the
+        stacked wrapper, on the path's own arguments) exact, the batched K3
+        every sequence within TOL_POSE.  Returns each K3 launch's passes per
+        level of every sequence (the plain version's), by launch index."""
+        passes = {}
+        for i, (fn, args) in enumerate(rec):
+            tag = tag_of(i)
+            if fn.__name__ == "mega_gn_batch":
+                if args[12] != n_iter:
+                    raise AssertionError(f"{tag}: K3 launched with n_iter {args[12]}, not {n_iter}")
+                passes[i] = [st["passes"] for st in checks["K3b"](args, tag)[1]]
+            elif fn.__name__ == "gather_windows_stacked":
+                checks["exact"]("K6 gather_windows_stacked", [k1.gather_windows_stacked(*args)],
+                                [k1.gather_windows_stacked_plain(*args)], tag)
+            elif fn.__name__ == "gather_windows_levels":
+                checks["K1"]([args], tag, with_library=False)
+            else:
+                raise AssertionError(f"{tag}: {fn.__name__} launched")
+        return passes
+
+    replay(rec, lambda i: f"main path 14b, launch {i}", k3.MAX_ITER)
+    print(f"main path 14b: {len(rec)} launches replayed against their plain versions",
+          flush=True)
 
     # 14c. sharded_batch_align below K3's iteration cap and dryrun_multichip,
     # every launch recorded and replayed against its plain version; then the
@@ -1030,29 +1064,17 @@ def _path14(torch, dev, reset, counters, checks, bstate, frames_b, T7_1):
     launches14c = {c.__name__: c.launches for c in counters}
     want = {c.__name__: 0 for c in counters}
     want.update(gather_windows_levels=S + dT.R.shape[0], gather_windows_grouped=2,
-                mega_gn=S + dT.R.shape[0])
+                mega_gn_batch=2)
     print(f"main path 14c: sharded_batch_align with n_iter=3 ({S} sequences) and "
           f"dryrun_multichip() on the card ({dx.shape[0]} landmark rows, chi2 {float(dc):.3e}, "
           f"{dT.R.shape[0]} sequence(s)); launches {launches14c} (expected {want})", flush=True)
     if (launches14c != want or not bool(torch.isfinite(T3.params7()).all())
             or torch.equal(T3.params7(), T.params7())):
         raise AssertionError("main path 14c: the n_iter=3 call or dryrun_multichip failed")
-    capped = 0
-    for i, (fn, args) in enumerate(rec):
-        tag = (f"main path 14c, {'n_iter=3 call' if i < n3 else 'dryrun_multichip'}, "
-               f"launch {i}")
-        if fn.__name__ == "mega_gn":
-            if args[12] != 3:
-                raise AssertionError(f"{tag}: K3 launched with n_iter {args[12]}, not 3")
-            _, st = checks["K3"](args, tag)
-            capped += i < n3 and max(st["passes"]) == 4
-        elif fn.__name__ == "gather_windows_grouped":
-            checks["exact"]("K6 gather_windows_grouped", k1.gather_windows_grouped(*args),
-                            k1.gather_windows_grouped_plain(*args), tag)
-        elif fn.__name__ == "gather_windows_levels":
-            checks["K1"]([args], tag, with_library=False)
-        else:
-            raise AssertionError(f"{tag}: {fn.__name__} launched")
+    passes = replay(rec, lambda i: (f"main path 14c, "
+                                    f"{'n_iter=3 call' if i < n3 else 'dryrun_multichip'}, "
+                                    f"launch {i}"), 3)
+    capped = sum(max(p) == 4 for i, ps in passes.items() if i < n3 for p in ps)
     print(f"main path 14c: {len(rec)} launches replayed against their plain versions; K3 "
           f"levels stopped by the cap of 3 in {capped} of {S} sequences", flush=True)
     if not capped:
@@ -1278,6 +1300,26 @@ def main() -> int:
             raise AssertionError("K3 disagrees with its plain version")
         return err, stats
 
+    def check_k3b(a3, tag):
+        """The batched K3 (one launch, a CTA per sequence) against its plain
+        version on the same arguments: every sequence's pose within
+        TOL_POSE.  Returns (max |R,t diff|, each sequence's plain stats)."""
+        out = k3.mega_gn_batch(*a3)
+        same_launch("K3 batch", [out], [k3.mega_gn_batch(*a3)], tag)
+        stats = []
+        ref = k3.mega_gn_batch_plain(*a3, stats=stats)
+        S = out.shape[0]
+        d = se3.distance(SE3(out[:, :9].reshape(S, 3, 3), out[:, 9:12]),
+                         SE3(ref[:, :9].reshape(S, 3, 3), ref[:, 9:12]))
+        err = float((out[:, :12] - ref[:, :12]).abs().max())
+        print(f"K3 sparse_align_mega, batched, {tag} ({S} sequences in one launch): max pose "
+              f"distance {float(d.max()):.3e} (tolerance {TOL_POSE}), max |R,t diff| {err:.3e}, "
+              f"max chi2 difference {float((out[:, 12] - ref[:, 12]).abs().max()):.3e}, passes "
+              f"per level {[st['passes'] for st in stats]}")
+        if not float(d.max()) <= TOL_POSE:
+            raise AssertionError("the batched K3 disagrees with its plain version")
+        return err, stats
+
     def check_k4(k4_in, tag):
         a4, proj, inb0, H, W = k4_in
         out = k4.a2d_gn(*a4)
@@ -1404,21 +1446,22 @@ def main() -> int:
     print(f"clock: phase 2b starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     def batch_frame_inputs(bst, imgs, T7):
         """Each batch kernel's inputs on one frame of the batch path, from
-        that path's own stages: (K6's request list, recorded from
-        `batched_sparse_align`: every sequence's levels in one launch; K3
-        args per sequence, recorded after it; K2 args, K4 inputs, K8
-        args)."""
+        that path's own stages: (the stacked K6's arguments, recorded from
+        `batched_sparse_align`: every sequence's levels in one launch; the
+        same requests as a `gather_windows_grouped` list; the batched K3's
+        arguments, recorded after it; K2 args, K4 inputs, K8 args)."""
         cur_pyrs = pyramid.build_pyramid(imgs, L)
         H, W = imgs.shape[1:]
         S = imgs.shape[0]
         with kernels.record_launches() as rec:
             T = bt.batched_sparse_align(bst.ref_pyrs, cur_pyrs, bst.cam, bst.px, bst.depth,
-                                        bst.mask, SE3.from_params7(T7), bst.ref_preps)
+                                        bst.mask, SE3.from_params7(T7), bst.batch_ref)
         names = [f.__name__ for f, _ in rec]
-        if names != ["gather_windows_grouped"] + ["mega_gn"] * S:
+        if names != ["gather_windows_stacked", "mega_gn_batch"]:
             raise AssertionError(f"batched_sparse_align launched {names}")
-        g6 = rec[0][1][0]
-        a3s = [a for f, a in rec[1:]]
+        a6, a3b = rec[0][1], rec[1][1]
+        stacks, xi, yi, win = a6
+        g6 = [(stacks[li][s], xi[s, li], yi[s, li], win) for s in range(S) for li in range(L)]
         proj = bt.project_landmarks(bst.cam, bst.pts_w, T)
         a2, xy0, xy0s, inb0 = bt.batched_align2d_inputs(cur_pyrs[0], proj)
         a4b = k4.a2d_args(cur_pyrs[0][0], bst.a2d_prep, xy0s,
@@ -1426,7 +1469,23 @@ def main() -> int:
         xy, conv, _ = bt.batched_align2d(cur_pyrs[0], proj, bst.a2d_prep)
         a8 = k8.pose_ba_batch_args(*bt.batched_pose_ba_inputs(T, bst.pts_w, xy, conv, bst.mask,
                                                               bst.cam))
-        return g6, a3s, a2, (a4b, xy0, inb0, H, W), a8
+        return a6, g6, a3b, a2, (a4b, xy0, inb0, H, W), a8
+
+    def check_k6s(a6, tag):
+        """The stacked K6 on the path's own arguments against its plain
+        version, then with every level's origins partly off the image."""
+        stacks, xi, yi, win = a6
+        e = check_exact("K6 gather_windows_stacked", [k1.gather_windows_stacked(*a6)],
+                        [k1.gather_windows_stacked_plain(*a6)],
+                        f"{tag}, {xi.shape[0]} x {xi.shape[1]} requests")
+        xo, yo = xi.clone(), yi.clone()
+        for s in range(xi.shape[0]):
+            for li, lv in enumerate(stacks):
+                xo[s, li], yo[s, li] = off_image(xi[s, li], yi[s, li], *lv.shape[1:], win)
+        off = (stacks, xo, yo, win)
+        check_exact("K6 gather_windows_stacked", [k1.gather_windows_stacked(*off)],
+                    [k1.gather_windows_stacked_plain(*off)], f"{tag}, origins off the image")
+        return e
 
     def check_exact(name, out, ref, tag):
         err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(out, ref))
@@ -1546,11 +1605,10 @@ def main() -> int:
     cam_b, px_b, depth_b, mask_b, ptsw_b, patches_b, ref_pyrs_b, frames_b, T_gt7_b = wl_b
     bstate = bm.make_batch_state(cam_b, ref_pyrs_b, px_b, depth_b, mask_b, ptsw_b, patches_b)
     T7_1 = T_gt7_b[0][None].repeat(S_BATCH, 1)
-    g6, a3s, a2, a4b, a8 = batch_frame_inputs(bstate, frames_b[1], T7_1)
+    a6, g6, a3b, a2, a4b, a8 = batch_frame_inputs(bstate, frames_b[1], T7_1)
     tag = f"S={S_BATCH}"
-    e6 = check_k6(g6, a2, tag)
-    for s, a in enumerate(a3s):
-        check_k3(a, f"{tag} sequence {s}, K6's windows")
+    e6 = max(check_k6s(a6, tag), check_k6(g6, a2, tag))
+    check_k3b(a3b, f"{tag}, K6's windows")
     e2 = check_k2(a2, tag)
     check_k4(a4b, f"{tag}, {S_BATCH * N} rows on K2's windows")
     e8, st8 = check_k8(a8, tag)
@@ -1583,7 +1641,7 @@ def main() -> int:
     report["K8"] = dict(ms=k8_ms, plain=k8_plain, lib=None, err=e8,
                         bound=_bound(k8_bytes, k8_flops))
     k4b_ms = _time_kernel(torch, lambda: k4.a2d_gn(*a4b[0]))
-    k3b_ms = statistics.median(_time_kernel(torch, lambda a=a: k3.mega_gn(*a)) for a in a3s)
+    k3b_ms = _time_kernel(torch, lambda: k3.mega_gn_batch(*a3b))
     for k in ("K2", "K6", "K8"):
         r = report[k]
         lib = "null" if r["lib"] is None else f"{r['lib']:.4f}"
@@ -1592,15 +1650,16 @@ def main() -> int:
     print(f"K8 is bound by its chain of {_k5_links(max(st8['normal_eqs']))} dependent block "
           f"reductions per sequence, not by bytes or operations; K4 over {Nb} rows "
           f"{k4b_ms:.4f} ms; K3 on K6's windows "
-          f"{k3b_ms:.4f} ms (median over the {S_BATCH} sequences)", flush=True)
+          f"{k3b_ms:.4f} ms (one launch of {S_BATCH} sequences)", flush=True)
 
     # The same kernels at 16 sequences.
     cam16, px16, depth16, mask16, ptsw16, patches16, ref_pyrs16, frames16, T_gt16 = \
         bm.make_batch_workload(S_BIG, 2, dev)
     bst16 = bm.make_batch_state(cam16, ref_pyrs16, px16, depth16, mask16, ptsw16, patches16)
-    g6_16, _, a2_16, _, a8_16 = batch_frame_inputs(bst16, frames16[1],
-                                                   T_gt16[0][None].repeat(S_BIG, 1))
+    a6_16, g6_16, _, a2_16, _, a8_16 = batch_frame_inputs(bst16, frames16[1],
+                                                          T_gt16[0][None].repeat(S_BIG, 1))
     tag16 = f"S={S_BIG}"
+    check_k6s(a6_16, tag16)
     check_k6(g6_16, a2_16, tag16)
     k6_times(g6_16, S_BIG)
     check_k2(a2_16, tag16)
@@ -1608,7 +1667,7 @@ def main() -> int:
     k2_times(a2_16, tag16)
     print(f"S={S_BIG}: K8 {_time_kernel(torch, lambda: k8.pose_ba_batch_gn(*a8_16)):.4f} ms",
           flush=True)
-    del frames16, bst16, g6_16, a8_16
+    del frames16, bst16, a6_16, g6_16, a8_16
 
     # -- 2c. K10 versus its plain version ------------------------------------
     print(f"clock: phase 2c starts at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2155,7 +2214,7 @@ def main() -> int:
     # -- 3. main path 1: single-sequence tracking ----------------------------
     print(f"clock: phase 3 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     counters = (k1.gather_windows_levels, k1.gather_windows, k1.gather_windows_grouped,
-                k1.gather_windows_multi, k3.mega_gn, k4.a2d_gn, k5.pose_ba_gn,
+                k1.gather_windows_multi, k3.mega_gn, k3.mega_gn_batch, k4.a2d_gn, k5.pose_ba_gn,
                 k8.pose_ba_batch_gn, k10.distance_matrix, k11.track_gn)
 
     def reset():
@@ -2178,7 +2237,7 @@ def main() -> int:
     if not ok:
         raise AssertionError("main path 1 failed the per-frame accuracy gate")
     want1 = {"gather_windows_levels": N_FRAMES, "gather_windows": N_FRAMES,
-             "gather_windows_grouped": 0,
+             "gather_windows_grouped": 0, "mega_gn_batch": 0,
              "gather_windows_multi": 0, "mega_gn": N_FRAMES, "a2d_gn": N_FRAMES,
              "pose_ba_gn": N_FRAMES, "pose_ba_batch_gn": 0, "distance_matrix": 0,
              "track_gn": 0}
@@ -2212,7 +2271,7 @@ def main() -> int:
         raise AssertionError("main path 2 failed the per-frame accuracy gate")
     want2 = {"gather_windows_levels": 0, "gather_windows": 0,
              "gather_windows_grouped": F_BATCH,
-             "gather_windows_multi": F_BATCH, "mega_gn": S_BATCH * F_BATCH,
+             "gather_windows_multi": F_BATCH, "mega_gn": 0, "mega_gn_batch": F_BATCH,
              "a2d_gn": F_BATCH, "pose_ba_gn": 0, "pose_ba_batch_gn": F_BATCH,
              "distance_matrix": 0, "track_gn": 0}
     if launches2 != want2:
@@ -2240,7 +2299,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         T = bt.batched_sparse_align(bstate.ref_pyrs, cur_pyrs, cam_b, bstate.px, bstate.depth,
-                                    bstate.mask, SE3.from_params7(T7s), bstate.ref_preps)
+                                    bstate.mask, SE3.from_params7(T7s), bstate.batch_ref)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         xy, conv, _ = bt.batched_align2d(cur_pyrs[0], bt.project_landmarks(cam_b, bstate.pts_w, T),
@@ -2283,7 +2342,7 @@ def main() -> int:
     if n_kf != n_f // vo_opts.kf_min_frames or not any(c["evicted"] for c in kf_log):
         raise AssertionError(f"main path 3 inserted {n_kf} keyframes, none into an evicted slot?")
     want3 = {"gather_windows_levels": 2 * n_f, "gather_windows": 0,
-             "gather_windows_grouped": 0,
+             "gather_windows_grouped": 0, "mega_gn_batch": 0,
              "gather_windows_multi": n_f, "mega_gn": n_f, "a2d_gn": n_f, "pose_ba_gn": n_f,
              "pose_ba_batch_gn": 0, "distance_matrix": 2 * n_kf, "track_gn": 0}
     if launches3 != want3:
@@ -4355,7 +4414,7 @@ def main() -> int:
     print(f"clock: path 14 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     t14 = time.perf_counter()
     launches14 = _path14(torch, dev, reset, counters,
-                         dict(K1=check_k1, K3=check_k3, exact=check_exact),
+                         dict(K1=check_k1, K3b=check_k3b, exact=check_exact),
                          bstate, frames_b, T7_1)
     print(f"main path 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
@@ -4538,7 +4597,7 @@ def main() -> int:
         "K2": ("gather_windows_multi", gw, pk + "align2d_kernel.py:298",
                launches("gather_windows_multi")),
         "K3": ("sparse_align_mega", "ygz_slam_tpu_torch/csrc/sparse_align_mega.cu",
-               pk + "sparse_align_mega.py:338", launches("mega_gn")),
+               pk + "sparse_align_mega.py:338", launches("mega_gn") + launches("mega_gn_batch")),
         "K4": ("align2d_fused", "ygz_slam_tpu_torch/csrc/align2d_fused.cu",
                pk + "align2d_fused.py:317", launches("a2d_gn")),
         "K5": ("pose_ba_fused", "ygz_slam_tpu_torch/csrc/pose_ba_fused.cu",

@@ -21,11 +21,13 @@ from ygz_slam_tpu.ops.pallas.align2d_fused import align2d_prepare as jalign2d_pr
 from ygz_slam_tpu.parallel import batch_tracking as jbt
 
 from ygz_slam_tpu_torch import convert
+from ygz_slam_tpu_torch.geometry.camera import PinholeCamera
 from ygz_slam_tpu_torch.geometry import se3 as tse3
 from ygz_slam_tpu_torch.geometry.se3 import SE3 as TSE3
 from ygz_slam_tpu_torch.models import batch as tbm
 from ygz_slam_tpu_torch.ops import pyramid as tpyr
 from ygz_slam_tpu_torch.ops import sparse_align as tsa
+from ygz_slam_tpu_torch.ops.kernels import align2d_kernel as tk1
 from ygz_slam_tpu_torch.ops.kernels import sparse_align_mega as tk3
 from ygz_slam_tpu_torch.ops.kernels.align2d_fused import align2d_prepare
 from ygz_slam_tpu_torch.parallel import batch_tracking as tbt
@@ -259,6 +261,109 @@ def test_batched_sparse_align_same_bits(problem):
         assert torch.equal(T.params7()[s], one.T_cur_ref.params7())
     assert float(_dist(np32(T.params7()), np.broadcast_to(p["T_gt7"], (p["S"], 7))).max()) \
         < TOL_TRUTH
+
+
+def _k3_batch_args(b, S, T0s):
+    """The batched K3's arguments for the first S sequences of `batch8`
+    from the init poses T0s (a list of S SE3): the route's own origins and
+    K6 windows."""
+    ref = tbt.stack_preps(b["state"].ref_preps[:S])
+    cur = tuple(torch.stack([cp[li] for cp in b["cps"][:S]]) for li in range(len(b["cps"][0])))
+    T0 = TSE3(torch.stack([T.R for T in T0s]), torch.stack([T.t for T in T0s]))
+    ox, oy = tbt.batch_window_origins(cur, ref.p_ref, T0, b["cam"])
+    wins = tk1.gather_windows_stacked(cur, ox, oy, tk3.CWIN)
+    pose0 = torch.cat([T0.R.reshape(S, 9), T0.t], dim=1)
+    H0, W0 = cur[0].shape[1:]
+    return [wins, ref.refp, ref.jac, ref.p_ref, ref.lvis, ox, oy, pose0, b["cam"],
+            tbt.DISTORTED, H0, W0]
+
+
+def test_batched_k3_plain_equals_per_sequence(batch8):
+    """The batched K3's plain version at S=3 equals `mega_gn_plain` run on
+    each sequence alone, bit for bit, where the second sequence has every
+    point masked or outside its windows and the third diverges (its
+    Jacobians negated, so every step goes uphill and the first trial of
+    every level is rolled back).  The first sequence's result does not
+    change with its neighbours."""
+    b = batch8
+    S = 3
+    args = _k3_batch_args(b, S, b["T0s"][:S])
+    clean = tk3.mega_gn_batch(*args)
+    wins, refp, jac, p_ref, lvis, ox, oy, pose0 = (a.clone() for a in args[:8])
+    N = lvis.shape[2]
+    lvis[1, :, :N // 2] = 0.0                     # half masked, half outside its windows
+    ox[1, :, N // 2:] += 100
+    jac[2] *= -1.0
+    args[:8] = wins, refp, jac, p_ref, lvis, ox, oy, pose0
+    n0 = tk3.mega_gn_batch.launches
+    out = tk3.mega_gn_batch(*args)
+    assert out.shape == (S, 13) and tk3.mega_gn_batch.launches == n0
+    stats = []
+    for s in range(S):
+        st = {}
+        one = tk3.mega_gn_plain(*(a[s] for a in args[:8]), *args[8:], stats=st)
+        stats.append(st["passes"])
+        assert torch.equal(out[s], one), s
+    print(f"measured: batched K3 plain, passes per level {stats}")
+    assert torch.equal(out[0], clean[0])
+    assert torch.equal(out[1, :12], pose0[1]) and float(out[1, 12]) == 0.0
+    assert stats[2] == [2, 2, 2] and torch.equal(out[2, :12], pose0[2])
+    assert not torch.equal(out[0, :12], pose0[0]) and max(stats[0]) > 2
+
+
+def test_batch_window_origins_equal_per_sequence(batch8):
+    """The batched window origins [S, L, N] equal `mega_window_origins` run
+    on each sequence alone, bit for bit, through a distorted copy of the
+    camera (the batch path projects through the distortion model), at
+    batch8's init poses and at poses that push the points off the image (5
+    m along x), behind the camera (turned about y by pi) and onto the
+    camera plane 100 m off the axis, where the distortion polynomial
+    overflows, the projection is NaN and the clamp sets it."""
+    b = batch8
+    S = b["S"]
+    c = b["cam"]
+    cam = PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, k1=0.1, k2=-0.05, p1=1e-3, p2=-1e-3)
+    ref = tbt.stack_preps(b["state"].ref_preps)
+    T0s = list(b["T0s"])
+    T0s[1] = TSE3(T0s[1].R, T0s[1].t + torch.tensor([5.0, 0.0, 0.0]))
+    T0s[2] = tse3.exp(torch.tensor([0.0, 0.0, 0.0, 0.0, np.pi, 0.0]))
+    p0 = ref.p_ref[3, 0]
+    T0s[3] = TSE3(torch.eye(3), torch.stack([-p0[0], torch.tensor(100.0), -p0[2]]))
+    cur = tuple(torch.stack([cp[li] for cp in b["cps"]]) for li in range(len(b["cps"][0])))
+    T0 = TSE3(torch.stack([T.R for T in T0s]), torch.stack([T.t for T in T0s]))
+    ox, oy = tbt.batch_window_origins(cur, ref.p_ref, T0, cam)
+    assert ox.shape == oy.shape == (S, len(cur), ref.p_ref.shape[1])
+    assert ox.dtype == oy.dtype == torch.int32
+    for s in range(S):
+        _, _, ox_s, oy_s = tk3.mega_window_origins(b["cps"][s], ref.p_ref[s], T0s[s].R, T0s[s].t,
+                                                   cam, tbt.DISTORTED, len(cur))
+        assert torch.equal(ox[s], ox_s) and torch.equal(oy[s], oy_s), s
+    pc = ref.p_ref @ T0.R.transpose(-1, -2) + T0.t[:, None]
+    assert bool(torch.isnan(cam.camera_to_pixel(pc[3], distorted=tbt.DISTORTED)).any())
+    assert bool((pc[2, :, 2] < 0).all())
+    u1 = cam.camera_to_pixel(pc[1], distorted=tbt.DISTORTED)[:, 0]
+    off = u1 > cur[0].shape[2]
+    print(f"measured: {int(off.sum())} of {off.numel()} points off the image at 5 m along x")
+    assert float(off.float().mean()) > 0.9
+    assert bool((ox[1, :, off] == ox[1, :, off].amax(dim=-1, keepdim=True)).all())
+
+
+def test_stacked_windows_equal_per_sequence(batch8):
+    """The batch route's windows (`batch_window_origins`, then
+    `gather_windows_stacked` into one [S, L, N, 16, 16] buffer) equal each
+    sequence's windows gathered on its own (`gather_frame_windows`), bit for
+    bit."""
+    b = batch8
+    S = b["S"]
+    cur = tuple(torch.stack([cp[li] for cp in b["cps"]]) for li in range(len(b["cps"][0])))
+    T0 = TSE3(torch.stack([T.R for T in b["T0s"]]), torch.stack([T.t for T in b["T0s"]]))
+    ox, oy = tbt.batch_window_origins(cur, b["state"].batch_ref.p_ref, T0, b["cam"])
+    wins = tk1.gather_windows_stacked(cur, ox, oy, tk3.CWIN)
+    assert wins.shape == (S, len(cur), ox.shape[2], tk3.CWIN, tk3.CWIN)
+    for s, fw in enumerate(_per_sequence_windows(b["cps"], b["cam"], b["state"].ref_preps,
+                                                 b["T0s"])):
+        assert torch.equal(wins[s], fw.mega_wins.wins), s
+        assert torch.equal(ox[s], fw.mega_wins.ox) and torch.equal(oy[s], fw.mega_wins.oy), s
 
 
 def test_batched_align2d_matches_jax(problem):

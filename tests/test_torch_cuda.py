@@ -8,7 +8,10 @@ pyramid whose level 2 is smaller than the window; the table equal to the
 levels' zero-padded stack; nine images refused) and with an image index
 past its stack or its table, K5 with planted outliers
 and masked points, K6 with 8, 24 and 48 requests and on a batched frame's
-windows at 8, 16 and 22 sequences (one launch, one, two), K8 with one
+windows at 8, 16 and 22 sequences (one launch, one, two), the batched K3
+at 8, 16 and 22 sequences (one launch a step, each sequence's pose equal
+to its own single-sequence launch) and the monocular K3 against its
+recorded bits, K8 with one
 sequence fully masked beside normal ones, K10 with an empty side, with one
 row and from 1 x 1 to 2560 x 3072 with all-ones, sign-bit-only and zero
 words, K9 v1
@@ -326,6 +329,77 @@ def test_gather_frames_windows_launches(cuda_device, S, launches):
     assert tk1.gather_windows_grouped.launches == n0 + launches
 
 
+@pytest.mark.parametrize("S,k6", [(8, 1), (16, 1), (22, 2)])
+def test_batched_k3_one_launch(cuda_device, S, k6):
+    """One `track_batch_step` of S sequences launches the batched K3 once
+    (its `sequences` count up by S, no single-sequence K3) and K6 once up
+    to 21 sequences, twice at 22 (`gather_windows_stacked`, counted as
+    K6 in `gather_windows_grouped`), its windows equal to its plain
+    version's;
+    the sparse-align stage's poses, from init poses ~0.01 off the truth,
+    equal S single-sequence K3 launches on the same windows, bit for
+    bit."""
+    from ygz_slam_tpu_torch.ops import pyramid
+    from ygz_slam_tpu_torch.parallel import batch_tracking as bt
+
+    cam, px, depth, mask, pts_w, patches, ref_pyrs, frames, T_gt7 = \
+        bm.make_batch_workload(S, 2, cuda_device)
+    state = bm.make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches)
+    rng = np.random.default_rng(40 + S)
+    T0 = TSE3.from_params7(T_gt7[0][None].repeat(S, 1)).compose(tse3.exp(torch.tensor(
+        rng.uniform(-0.01, 0.01, (S, 6)), dtype=torch.float32, device=cuda_device)))
+    T7 = T0.params7()
+    n3, q3 = tk3.mega_gn_batch.launches, tk3.mega_gn_batch.sequences
+    n1, n6 = tk3.mega_gn.launches, tk1.gather_windows_grouped.launches
+    with kernels.record_launches() as rec:
+        bm.track_batch_step(state, T7, frames[1])
+    assert (tk3.mega_gn_batch.launches, tk3.mega_gn_batch.sequences) == (n3 + 1, q3 + S)
+    assert tk3.mega_gn.launches == n1 and tk1.gather_windows_grouped.launches == n6 + k6
+    assert [f.__name__ for f, _ in rec].count("gather_windows_stacked") == k6
+    cur = pyramid.build_pyramid(frames[1], len(ref_pyrs))
+    ref = state.batch_ref
+    T = bt.batched_sparse_align(state.ref_pyrs, cur, cam, state.px, state.depth, state.mask, T0,
+                                ref)
+    ox, oy = bt.batch_window_origins(cur, ref.p_ref, T0, cam)
+    n6 = tk1.gather_windows_grouped.launches
+    wins = tk1.gather_windows_stacked(cur, ox, oy, tk3.CWIN)
+    assert tk1.gather_windows_grouped.launches == n6 + k6
+    assert torch.equal(wins.cpu(), tk1.gather_windows_stacked_plain(
+        [lv.cpu() for lv in cur], ox.cpu(), oy.cpu(), tk3.CWIN))
+    H0, W0 = frames.shape[-2:]
+    for s in range(S):
+        one = tk3.mega_gn(wins[s], ref.refp[s], ref.jac[s], ref.p_ref[s], ref.lvis[s], ox[s],
+                          oy[s], torch.cat([T0.R[s].reshape(9), T0.t[s]]), cam, bt.DISTORTED,
+                          H0, W0)
+        assert torch.equal(T.R[s], one[:9].reshape(3, 3)) and torch.equal(T.t[s], one[9:12]), s
+    d = tse3.distance(T, TSE3.from_params7(T_gt7[1][None].repeat(S, 1)))
+    assert float(d.max()) < 5e-3, d
+
+
+# The monocular route's K3 result on the card workload's frame 1 from frame
+# 0's pose (`sparse_image_align`, 200 points): R, t and the finest level's
+# chi2 as float32 bits, as the kernel gave them before its launch had a
+# sequence axis (NVIDIA H100 80GB HBM3).
+K3_MONO_BITS = (1065353094, -1150915330, -1161765905, 996531776, 1065352837, -1145289253,
+                985890987, 1002183222, 1065352921, 1028050577, 1008681308, 1008623743,
+                1116647791)
+
+
+def test_sparse_align_mono_keeps_its_bits(card_workload):
+    """The monocular route's K3, now the launch at S = 1 of the batched
+    grid, gives the bits it gave as a one-CTA launch of its own."""
+    from ygz_slam_tpu_torch.ops import pyramid, sparse_align
+
+    (cam, *_, frames, T_gt7), st = card_workload["out"], card_workload["state"]
+    n0 = tk3.mega_gn.launches
+    a = sparse_align.sparse_image_align(st.ref_pyr, pyramid.build_pyramid(frames[1], 3), cam,
+                                        st.px, st.depth, st.mask, TSE3.from_params7(T_gt7[0]),
+                                        distorted=False, ref_prep=st.ref_prep)
+    assert tk3.mega_gn.launches == n0 + 1
+    got = torch.cat([a.T_cur_ref.R.reshape(9), a.T_cur_ref.t, a.chi2.reshape(1)])
+    assert got.cpu().view(torch.int32).tolist() == list(K3_MONO_BITS)
+
+
 def test_gather_windows_multi_bad_index_stops(cuda_device):
     """K2 given an image index past its stack stops on its device-side
     assert instead of reading past the stack.  The assert leaves the CUDA
@@ -472,12 +546,12 @@ def test_batch_step_card_matches_cpu(cuda_device):
     out = bm.make_batch_workload(S, F, cuda_device)
     cam, px, depth, mask, pts_w, patches, ref_pyrs, frames, T_gt7 = out
     state = bm.make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches)
-    counters = (tk1.gather_windows, tk1.gather_windows_grouped, tk3.mega_gn,
+    counters = (tk1.gather_windows, tk1.gather_windows_grouped, tk3.mega_gn, tk3.mega_gn_batch,
                 tk1.gather_windows_multi, tk4.a2d_gn, tk8.pose_ba_batch_gn)
     before = [c.launches for c in counters]
     T7, inl = bm.track_batch_frames(state, frames, TSE3.identity((S,), device=cuda_device)
                                     .params7())
-    assert [c.launches - b for c, b in zip(counters, before)] == [0, F, S * F, F, F, F]
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, F, 0, F, F, F, F]
     assert bm.batch_gate(T7, inl, T_gt7)[2]
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in out]
     state_c = bm.make_batch_state(cam, [lv.cpu() for lv in ref_pyrs], *cpu[1:6])

@@ -24,6 +24,7 @@ from .models.tracking import KeyframeState
 from .ops.kernels.align2d_fused import Align2DPrep
 from .ops.kernels.align2d_kernel import CACHE_WIN, PATCH
 from .ops.sparse_align import LevelRef, ReferencePrep
+from .parallel.batch_tracking import stack_preps
 from .solvers.initializer import InitResult
 
 
@@ -91,7 +92,7 @@ def batch_state_from_numpy(cam: PinholeCamera, ref_pyrs, px, depth, mask, pts_w,
         cam=cam, ref_pyrs=tuple(_t(lv, device) for lv in ref_pyrs), px=_t(px, device),
         depth=_t(depth, device), mask=_t(mask, device, torch.bool),
         pts_w=_t(pts_w, device), patches=_t(patches, device),
-        ref_preps=tuple(ref_preps), a2d_prep=a2d_prep)
+        ref_preps=tuple(ref_preps), a2d_prep=a2d_prep, batch_ref=stack_preps(ref_preps))
 
 
 def map_state_from_numpy(fields: dict, device=None) -> MapState:

@@ -279,23 +279,26 @@ __device__ __forceinline__ void level_loop(float R[9], float t[3], float& chi2, 
 // to fine (0), by the whole CTA (K3, and the first stage of K11).  (R, t)
 // is refined in place, identical in every thread; chi2 is the finest
 // level's.  wins [L, N, 16, 16], refp [L, N, 16], jac [L, N, 16, 6], lvis
-// / ox / oy [L, N]; every block reduction goes through `red`.
+// / ox / oy [L, N], or sequence `seq`'s levels of such arrays stacked over
+// sequences ([S, L, N, ...], K3's batched launch); every block reduction
+// goes through `red`.
 __device__ __forceinline__ void mega_levels(
     float R[9], float t[3], float& chi2, const float* __restrict__ wins,
     const float* __restrict__ refp, const float* __restrict__ jac, const float* __restrict__ pref,
     const float* __restrict__ lvis, const int* __restrict__ ox, const int* __restrict__ oy, int N,
-    int L, int H0, int W0, const Cam& cam, int n_iter, float eps, Reducer& red) {
+    int L, int H0, int W0, const Cam& cam, int n_iter, float eps, Reducer& red, int seq = 0) {
   chi2 = 0.f;
   for (int li = L - 1; li >= 0; --li) {
     int Hl = H0, Wl = W0;
     for (int k = 0; k < li; ++k) { Hl = (Hl + 1) / 2; Wl = (Wl + 1) / 2; }
     Level lv;
-    lv.wins = wins + (size_t)li * N * kCwin * kCwin;
-    lv.refp = refp + (size_t)li * N * kNpix;
-    lv.jac = jac + (size_t)li * N * kNpix * 6;
-    lv.vis = lvis + (size_t)li * N;
-    lv.ox = ox + (size_t)li * N;
-    lv.oy = oy + (size_t)li * N;
+    const size_t lvl = (size_t)seq * L + li;
+    lv.wins = wins + lvl * N * kCwin * kCwin;
+    lv.refp = refp + lvl * N * kNpix;
+    lv.jac = jac + lvl * N * kNpix * 6;
+    lv.vis = lvis + lvl * N;
+    lv.ox = ox + lvl * N;
+    lv.oy = oy + lvl * N;
     lv.scale = 1.f / (float)(1 << li);
     lv.Hl = (float)Hl;
     lv.Wl = (float)Wl;

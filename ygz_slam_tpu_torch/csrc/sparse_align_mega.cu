@@ -31,6 +31,14 @@
 //     40, one barrier, one pass over the warps' partials;
 // then every thread solves the 6x6 system redundantly in registers, so
 // the pose never leaves registers.
+//
+// One launch aligns S sequences (the batch path's whole frame): a CTA per
+// sequence, blockIdx.x its index, every array read at that sequence's
+// offset ([S, L, N, ...] inputs, pose0 [S, 12], out [S, 13]).  The CTAs share
+// nothing, so each runs its own per-level early exits and rollbacks and
+// gives the bits its own launch would; the grid of S CTAs spreads over S
+// of the 132 SMs and the S serial chains run side by side.  A single
+// sequence (the monocular path) is the launch at S = 1.
 #include "sparse_align.cuh"
 
 using namespace ygz;
@@ -49,20 +57,25 @@ sparse_align_mega_kernel(const float* __restrict__ wins, const float* __restrict
                          int n_iter, float eps) {
   __shared__ float smem[kRedFloats];
   Reducer red(smem);
+  // The sequence's offsets are taken where each pointer is used, not added
+  // to the pointers up front: that kept nine more pointers in registers and
+  // spilled at the 128-register budget.
+  const int seq = blockIdx.x;
   float R[9], t[3];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = pose0[k];
+  for (int k = 0; k < 9; ++k) R[k] = pose0[12 * seq + k];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) t[k] = pose0[9 + k];
+  for (int k = 0; k < 3; ++k) t[k] = pose0[12 * seq + 9 + k];
   float chi2;
-  mega_levels(R, t, chi2, wins, refp, jac, pref, lvis, ox, oy, N, L, H0, W0, cam, n_iter,
-              eps, red);
+  mega_levels(R, t, chi2, wins, refp, jac, pref + (size_t)seq * N * 3, lvis, ox, oy, N, L, H0,
+              W0, cam, n_iter, eps, red, seq);
   if (threadIdx.x == 0) {
+    float* o = out + 13 * (size_t)blockIdx.x;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) out[k] = R[k];
+    for (int k = 0; k < 9; ++k) o[k] = R[k];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) out[9 + k] = t[k];
-    out[12] = chi2;
+    for (int k = 0; k < 3; ++k) o[9 + k] = t[k];
+    o[12] = chi2;
   }
 }
 
@@ -71,12 +84,12 @@ sparse_align_mega_kernel(const float* __restrict__ wins, const float* __restrict
 extern "C" int sparse_align_mega_launch(const float* wins, const float* refp,
                                         const float* jac, const float* pref,
                                         const float* lvis, const int* ox, const int* oy,
-                                        const float* pose0, float* out, int N, int L,
-                                        int H0, int W0, float fx, float fy, float cx,
+                                        const float* pose0, float* out, int S, int N,
+                                        int L, int H0, int W0, float fx, float fy, float cx,
                                         float cy, float k1, float k2, float p1, float p2,
                                         int n_iter, float eps, cudaStream_t stream) {
   const Cam cam{fx, fy, cx, cy, k1, k2, p1, p2};
-  sparse_align_mega_kernel<<<1, kThreads, 0, stream>>>(wins, refp, jac, pref, lvis, ox, oy,
+  sparse_align_mega_kernel<<<S, kThreads, 0, stream>>>(wins, refp, jac, pref, lvis, ox, oy,
                                                       pose0, out, N, L, H0, W0, cam,
                                                       n_iter, eps);
   return (int)cudaGetLastError();

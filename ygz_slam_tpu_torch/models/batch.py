@@ -6,8 +6,8 @@ S sequences, each its own textured-plane scene seen at 640x480 through a
 `tracking._pose` with 0.5% sensor noise.  Every frame advances all S
 sequences one step (`parallel.batched_track_step`), each warm-started
 from its last pose.  The keyframe side (one ReferencePrep per sequence,
-one Align2DPrep over the flattened patches) is computed once in
-`make_batch_state`.
+K3's constants stacked from them, one Align2DPrep over the flattened
+patches) is computed once in `make_batch_state`.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from ..ops.interp import sample_patches
 from ..ops.kernels.align2d_fused import Align2DPrep, align2d_prepare
 from ..ops.sparse_align import prepare_reference
 from ..parallel import batched_track_step
+from ..parallel.batch_tracking import BatchRef, stack_preps
 from ..utils import profiling
 from ..utils.synthetic import PlaneScene
 from .tracking import H, N, N_LEVELS, NOISE, W, _pose
@@ -43,6 +44,7 @@ class BatchState(NamedTuple):
     patches: torch.Tensor     # [S, N, 10, 10] bordered reference patches
     ref_preps: tuple          # S ReferencePreps
     a2d_prep: Align2DPrep     # of the S*N flattened patches
+    batch_ref: BatchRef       # K3's constants of the S ReferencePreps, stacked
 
 
 def make_batch_workload(S: int = S_DEFAULT, n_frames: int = 60, device=None):
@@ -91,7 +93,7 @@ def make_batch_state(cam, ref_pyrs, px, depth, mask, pts_w, patches) -> BatchSta
                                         mask[s], distorted=False) for s in range(S))
     a2d_prep = align2d_prepare(patches.reshape(S * patches.shape[1], *patches.shape[2:]))
     return BatchState(cam, tuple(ref_pyrs), px, depth, mask, pts_w, patches, ref_preps,
-                      a2d_prep)
+                      a2d_prep, stack_preps(ref_preps))
 
 
 def track_batch_step(state: BatchState, T_init7: torch.Tensor, imgs: torch.Tensor):
@@ -102,7 +104,7 @@ def track_batch_step(state: BatchState, T_init7: torch.Tensor, imgs: torch.Tenso
             cur_pyrs = pyramid.build_pyramid(imgs, N_LEVELS)
         T, n_inl = batched_track_step(state.ref_pyrs, cur_pyrs, state.cam, state.px, state.depth,
                                       state.mask, state.pts_w, SE3.from_params7(T_init7),
-                                      state.ref_preps, state.a2d_prep)
+                                      state.batch_ref, state.a2d_prep)
         return T.params7(), n_inl
 
 

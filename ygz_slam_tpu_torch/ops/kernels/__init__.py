@@ -74,16 +74,19 @@ _recording = None       # the open `record_launches` list, if any
 _capturing = None       # the open `capture_launches` list, if any
 
 
-def launched(wrapper, *args) -> None:
+def launched(wrapper, *args, counted_in=None) -> None:
     """A wrapper calls this where it has launched its kernel, with the
-    arguments it was given: one more in `wrapper.launches`, and a
-    (wrapper, args) entry in the open recording.  Under `capture_launches`
-    (a CUDA-graph capture, which runs nothing) the wrapper is noted there
-    instead, and counted by `replayed` each time the graph runs."""
+    arguments it was given: one more in `wrapper.launches` (in
+    `counted_in.launches` instead where another wrapper keeps the kernel's
+    count), and a (wrapper, args) entry in the open recording.  Under
+    `capture_launches` (a CUDA-graph capture, which runs nothing) the
+    counting wrapper is noted there instead, and counted by `replayed` each
+    time the graph runs."""
+    counter = wrapper if counted_in is None else counted_in
     if _capturing is not None:
-        _capturing.append(wrapper)
+        _capturing.append(counter)
         return
-    wrapper.launches += 1
+    counter.launches += 1
     if _recording is not None:
         _recording.append((wrapper, args))
 

@@ -12,7 +12,8 @@ image are 0.  K1 also takes every level of a pyramid in one launch
 `bilinear_patches` the one-level case of `bilinear_patches_levels`.  K1,
 K2 and K6 copy a window with one warp (the body they share); K6 takes up
 to MAX_GROUPS requests per launch, enough for every level of 21
-sequences of three levels (the batch path's whole frame at S <= 21).  K2
+sequences of three levels (the batch path's whole frame at S <= 21,
+through `gather_windows_stacked`, which writes them into one buffer).  K2
 names its images either as one [S, H, W] stack (the batch path's
 sequences; `bilinear_patches_multi`) or as a table of up to MAX_LEVELS
 images of their own shapes (the VO's pyramid levels, read in place).  The
@@ -273,6 +274,57 @@ def gather_windows_grouped(groups) -> list:
 
 
 gather_windows_grouped.launches = 0
+
+
+def gather_windows_stacked_plain(stacks, xi: torch.Tensor, yi: torch.Tensor,
+                                 win: int) -> torch.Tensor:
+    """Plain version of `gather_windows_stacked`: K1's plain version for
+    each sequence's level, stacked into [S, L, N, win, win]."""
+    S, L, _ = xi.shape
+    return torch.stack([torch.stack([gather_windows_plain(stacks[li][s], xi[s, li], yi[s, li],
+                                                          win) for li in range(L)])
+                        for s in range(S)])
+
+
+def gather_windows_stacked(stacks, xi: torch.Tensor, yi: torch.Tensor, win: int) -> torch.Tensor:
+    """K6 over S stacked pyramids: the win x win windows at origins xi / yi
+    [S, L, N] int32 on level l of sequence s, `stacks` holding the L levels
+    as float32 stacks [S, H_l, W_l]; returns one [S, L, N, win, win] buffer,
+    which K6 writes in place.  The S * L requests go sequence by sequence
+    in launches of up to MAX_GROUPS, each counted as a K6 launch (in
+    `gather_windows_grouped.launches`) and recorded with this call's
+    arguments; their descriptors are taken from
+    the tensors' base pointers, not from a view per request.  The plain
+    version on the CPU."""
+    S, L, N = xi.shape
+    if len(stacks) != L:
+        raise ValueError(f"{len(stacks)} levels, origins for {L}")
+    for lv in stacks:
+        _check_window(win, *lv.shape[1:])
+    if not on_card(xi):
+        return gather_windows_stacked_plain(stacks, xi, yi, win)
+    dev = xi.device
+    for li, lv in enumerate(stacks):
+        require(lv, f"stacks[{li}]", torch.float32, (S, *lv.shape[1:]), dev)
+    require(xi, "xi", torch.int32, (S, L, N), dev)
+    require(yi, "yi", torch.int32, (S, L, N), dev)
+    out = torch.empty((S, L, N, win, win), dtype=torch.float32, device=dev)
+    shapes = [tuple(lv.shape[1:]) for lv in stacks]
+    bases = [lv.data_ptr() for lv in stacks]
+    xp, yp, op = xi.data_ptr(), yi.data_ptr(), out.data_ptr()
+    for first in range(0, S * L, MAX_GROUPS):
+        n = min(MAX_GROUPS, S * L - first)
+        descs = (_GatherGroup * n)()
+        for j in range(n):
+            k = first + j
+            s, li = divmod(k, L)
+            H, W = shapes[li]
+            descs[j] = _GatherGroup(bases[li] + 4 * s * H * W, xp + 4 * k * N, yp + 4 * k * N,
+                                    op + 4 * k * N * win * win, H, W, N, win)
+        launch("gather_windows", "gather_windows_grouped_launch", [P, I, P],
+               ctypes.addressof(descs), n, stream(dev))
+        launched(gather_windows_stacked, stacks, xi, yi, win, counted_in=gather_windows_grouped)
+    return out
 
 
 def level_consts(shapes, device, sub: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,7 +5,9 @@ kernel (csrc/sparse_align_mega.cu) replaces `_mega_kernel`; `mega_gn` is
 its wrapper and `mega_gn_plain` its plain version.  Windows are gathered
 at the frame-init pose, SLACK px at each level's own scale: every level in
 one launch of K1 here, or beforehand by the caller (K6 through
-`sparse_align.gather_frame_windows`).
+`sparse_align.gather_frame_windows`).  `mega_gn_batch` aligns S sequences
+in one launch, a CTA per sequence (the batch path); `mega_gn` is the launch
+at S = 1.
 """
 from __future__ import annotations
 
@@ -50,13 +52,20 @@ def mega_window_origins(cur_pyr, p_ref, R0, t0, cam, distorted: bool, n_levels: 
     (pc0 [N, 3], px0_l0 [N, 2], ox [L, N], oy [L, N] int32)."""
     pc0 = p_ref @ R0.T + t0
     px0_l0 = torch.nan_to_num(cam.camera_to_pixel(pc0, distorted=distorted))
-    scale, hi = level_consts([img.shape for img in cur_pyr[:n_levels]], px0_l0.device, CWIN)
-    # [L, N, 2]: (x, y) at each level's scale (x 2^-l is exact), floored,
-    # then clamped into [0, W_l - CWIN] x [0, H_l - CWIN].
-    o = torch.floor(px0_l0 * scale[:, :, None] - _HALF) - SLACK
+    return (pc0, px0_l0,
+            *level_window_origins(px0_l0, [img.shape for img in cur_pyr[:n_levels]]))
+
+
+def level_window_origins(px0_l0: torch.Tensor, shapes):
+    """Every level's 16x16 window origins around the level-0 pixels px0_l0
+    [..., N, 2] (NaN-free), on a pyramid of these [H_l, W_l] shapes: each
+    (x, y) at the level's scale (x 2^-l is exact), floored, then clamped into
+    [0, W_l - CWIN] x [0, H_l - CWIN].  Returns (ox, oy) [..., L, N] int32."""
+    scale, hi = level_consts(shapes, px0_l0.device, CWIN)
+    o = torch.floor(px0_l0[..., None, :, :] * scale[:, :, None] - _HALF) - SLACK
     o = torch.minimum(torch.clamp(o, min=0), hi[:, None, :]).to(torch.int32)
-    o = o.permute(2, 0, 1).contiguous()
-    return pc0, px0_l0, o[0], o[1]
+    o = o.movedim(-1, 0).contiguous()
+    return o[0], o[1]
 
 
 def _distortion(cam, distorted: bool) -> tuple[float, float, float, float]:
@@ -217,18 +226,78 @@ def mega_gn(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0,
     require(oy, "oy", torch.int32, (L, N), dev)
     require(pose0, "pose0", torch.float32, (12,), dev)
     out = torch.empty(13, dtype=torch.float32, device=dev)
-    k1, k2, p1, p2 = _distortion(cam, distorted)
-    launch("sparse_align_mega", "sparse_align_mega_launch",
-           [P] * 9 + [I] * 4 + [Fl] * 8 + [I, Fl, P],
-           wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(),
-           lvis.data_ptr(), ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(),
-           N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, n_iter, STOP_STEP,
-           stream(dev))
+    _launch(wins, refp, jac, p_ref, lvis, ox, oy, pose0, out, 1, N, L, cam, distorted, H0, W0,
+            n_iter)
     launched(mega_gn, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0, n_iter)
     return out
 
 
 mega_gn.launches = 0
+
+
+def _launch(wins, refp, jac, p_ref, lvis, ox, oy, pose0, out, S, N, L, cam, distorted, H0, W0,
+            n_iter):
+    k1, k2, p1, p2 = _distortion(cam, distorted)
+    launch("sparse_align_mega", "sparse_align_mega_launch",
+           [P] * 9 + [I] * 5 + [Fl] * 8 + [I, Fl, P],
+           wins.data_ptr(), refp.data_ptr(), jac.data_ptr(), p_ref.data_ptr(),
+           lvis.data_ptr(), ox.data_ptr(), oy.data_ptr(), pose0.data_ptr(), out.data_ptr(),
+           S, N, L, H0, W0, cam.fx, cam.fy, cam.cx, cam.cy, k1, k2, p1, p2, n_iter, STOP_STEP,
+           stream(wins.device))
+
+
+def mega_gn_batch_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted,
+                        H0, W0, n_iter: int = MAX_ITER, stats: list | None = None) -> torch.Tensor:
+    """Plain version of the batched K3: `mega_gn_plain` on each sequence in
+    turn.  Arguments as for `mega_gn_batch`; returns [S, 13].  With `stats`
+    (a list), each sequence's `mega_gn_plain` stats are appended to it."""
+    outs = []
+    for s in range(pose0.shape[0]):
+        args = (wins[s], refp[s], jac[s], p_ref[s], lvis[s], ox[s], oy[s], pose0[s], cam,
+                distorted, H0, W0, n_iter)
+        if stats is None:
+            outs.append(mega_gn_plain(*args))
+        else:
+            stats.append({})
+            outs.append(mega_gn_plain(*args, stats=stats[-1]))
+    return torch.stack(outs)
+
+
+def mega_gn_batch(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0,
+                  n_iter: int = MAX_ITER) -> torch.Tensor:
+    """K3 for S sequences in one launch, a CTA per sequence, on the card
+    (the plain version on the CPU).  wins [S, L, N, 16, 16], refp [S, L,
+    N, 16], jac [S, L, N, 16, 6], p_ref [S, N, 3], lvis [S, L, N], ox / oy
+    [S, L, N] int32, pose0 [S, 12]; the rest as for `mega_gn_plain`.  Each
+    sequence gets the bits `mega_gn` gives it alone.  Returns [S, 13]: each
+    sequence's R, t and finest-level chi2.  Counts `launches` and
+    `sequences` (summed over launches)."""
+    if not 0 <= n_iter <= MAX_ITER:
+        raise ValueError(f"n_iter must lie in 0..{MAX_ITER}, not {n_iter}")
+    if not on_card(wins):
+        return mega_gn_batch_plain(wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam,
+                                   distorted, H0, W0, n_iter)
+    S, L, N = lvis.shape
+    dev = wins.device
+    require(wins, "wins", torch.float32, (S, L, N, CWIN, CWIN), dev)
+    require(refp, "refp", torch.float32, (S, L, N, PATCH * PATCH), dev)
+    require(jac, "jac", torch.float32, (S, L, N, PATCH * PATCH, 6), dev)
+    require(p_ref, "p_ref", torch.float32, (S, N, 3), dev)
+    require(lvis, "lvis", torch.float32, (S, L, N), dev)
+    require(ox, "ox", torch.int32, (S, L, N), dev)
+    require(oy, "oy", torch.int32, (S, L, N), dev)
+    require(pose0, "pose0", torch.float32, (S, 12), dev)
+    out = torch.empty((S, 13), dtype=torch.float32, device=dev)
+    _launch(wins, refp, jac, p_ref, lvis, ox, oy, pose0, out, S, N, L, cam, distorted, H0, W0,
+            n_iter)
+    launched(mega_gn_batch, wins, refp, jac, p_ref, lvis, ox, oy, pose0, cam, distorted, H0, W0,
+             n_iter)
+    mega_gn_batch.sequences += S
+    return out
+
+
+mega_gn_batch.launches = 0
+mega_gn_batch.sequences = 0
 
 
 def mega_args(cur_pyr, level_refs, p_ref, R0, t0, cam, distorted: bool, n_levels: int,

@@ -12,9 +12,11 @@ constant FUSED_VARIANT says when the call is made:
   1 the same with K9 v1 (the Hessian recomputed every iteration).
 `gather_frames_windows` fetches several sequences' frame windows (every
 level's, and optionally align2d's cache windows) in one launch of K6, for
-callers that hand them to `sparse_image_align(frame_windows=)`, as the
-batch path does (`gather_frame_windows` is its one-sequence case); variants 1
-and 2 ignore them, as the JAX package does.  The JAX package's
+callers that hand them to `sparse_image_align(frame_windows=)`
+(`gather_frame_windows` is its one-sequence case); variants 1 and 2 ignore
+them, as the JAX package does.  The batch path has a route of its own
+(`parallel.batch_tracking.batched_sparse_align`: every sequence's windows in
+one buffer, one K3 launch for all).  The JAX package's
 `gauss_newton` fallback (`USE_FUSED_LEVEL`) is not ported: off the card
 the port runs the kernels' plain versions.
 """
